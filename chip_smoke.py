@@ -7,8 +7,8 @@ Phases, each printed on its own line; any failure raises and exits
 non-zero:
 
   1. device  — the card's name and power limit (nvidia-smi), torch/CUDA.
-  2. build   — compile every CUDA kernel from ``src/repro_torch/csrc``
-               (one nvcc per source, in parallel).
+  2. build   — compile the CUDA kernels from ``src/repro_torch/csrc`` into
+               one library (one nvcc per source, in parallel, then a link).
   3. kernels — each kernel against its plain PyTorch version at the main
                path's shapes (qwen3-4b pages: block 256, W 2048, k 5;
                4 slots of 300..2000 tokens), including pages with escapes
@@ -21,8 +21,11 @@ non-zero:
                seed): 6 mixed requests over 4 slots, pages filled at
                prefill and by ring flushes in replay and decode.  Every
                request must get its budget and every kernel must have
-               launched; the pages of four fresh prefills must decode back
-               to the K/V the model produced, bit for bit.
+               launched.  In the last layer, every page a ring flush wrote
+               during the run must decode back, bit for bit, to its ring,
+               whose rows appended in the run must be the K/V the decode
+               and replay steps produced; so must the pages of four fresh
+               prefills, against the K/V of the model's forward pass.
   6. profile — 8 decode steps of those 4 slots under torch.profiler:
                device busy share and the top kernels (full table in
                ``chiprun_out/profile_decode.txt``).
@@ -85,15 +88,15 @@ def build_phase():
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
     times = ops.build()
-    log("build", f"{len(times)} sources in {time.perf_counter() - t0:.1f}s "
-                 f"(parallel nvcc: " + ", ".join(
+    log("build", f"{ops.LIBRARY.name} from {len(ops.SOURCES)} sources in "
+                 f"{time.perf_counter() - t0:.1f}s (one nvcc per source in "
+                 f"parallel, then one link: " + ", ".join(
                      f"{k} {v:.1f}s" for k, v in times.items()) + ")")
     for name in ops.KERNELS:
         for line in (ops.build_log(name) or "").splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
-    for name in ops.KERNELS:
-        ops.library(name)
+    ops.library()
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +301,69 @@ def small_phase():
 # phase 5: serve full-width qwen3-4b
 # ---------------------------------------------------------------------------
 
-def serve_phase(cfg, smi, device="cuda", blk=256):
-    """Serve the mix on ``cfg``; page block ``blk`` scales the prompt
-    lengths (the card uses 256; a CPU rehearsal of this phase can pass a
-    tiny model, ``device="cpu"`` and a small block)."""
+class FlushCheck:
+    """Holds the ring flushes of one layer during a serve run against what
+    the model produced.  While installed, ``cache.append_token_paged``
+    records every K/V row the decode and replay steps append to that
+    layer's rings; when a ring fills, the page ``plan_append`` mapped for
+    it must decompress bit for bit to the ring, whose rows appended in this
+    run must be the recorded ones (the rest came from the prefill, which
+    the serve phase checks on its own).  Costs one host sync per step."""
+
+    def __init__(self, layer: int, run):
+        from repro_torch.models import cache as cache_mod
+        self.layer, self.run, self.cache = layer, run, cache_mod
+        self.rows = {}              # slot -> {ring index: appended row}
+        self.checked = 0            # flushed pages held against the model
+        self.rows_checked = 0       # of their rows, appended in this run
+
+    def __enter__(self):
+        self._append = self.cache.append_token_paged
+        self._release = self.cache.release_pages
+        self.cache.append_token_paged = self.append
+        self.cache.release_pages = self.release
+        return self
+
+    def __exit__(self, *exc):
+        self.cache.append_token_paged = self._append
+        self.cache.release_pages = self._release
+
+    def release(self, pkv, slots_mask):
+        for slot in range(len(slots_mask)):
+            if slots_mask[slot]:
+                self.rows.pop(slot, None)
+        self._release(pkv, slots_mask)
+
+    def append(self, cfg, run, pkv, layer, new_vals, plan):
+        self._append(cfg, run, pkv, layer, new_vals, plan)
+        if layer != self.layer:
+            return
+        import torch
+        from repro_torch.core import fixed
+        for slot, r in zip(plan.write_slots.tolist(), plan.ring_idx.tolist()):
+            self.rows.setdefault(slot, {})[r] = \
+                new_vals[slot].to(torch.bfloat16).view(torch.int16).clone()
+        blk = self.run.codec.cache_block
+        for slot, pid in zip(plan.flush_slots.tolist(),
+                             plan.flush_pages.tolist()):
+            ring = pkv.ring[layer][slot].view(torch.int16)
+            rows = self.rows.pop(slot)
+            for r, row in rows.items():
+                assert torch.equal(ring[r], row), (slot, r)
+            ct = fixed.Compressed(
+                *(f[layer][pid] for f in (pkv.signman, pkv.planes,
+                                          pkv.dict_syms, pkv.esc_pos,
+                                          pkv.esc_raw)),
+                n_escapes=torch.zeros((), dtype=torch.int32),
+                shape=(blk, ring.shape[-1]), k=self.run.codec.k)
+            back = fixed.decompress(ct).view(torch.int16)
+            assert torch.equal(back, ring), (slot, pid)
+            self.checked += 1
+            self.rows_checked += len(rows)
+
+
+def serve_phase(cfg, smi):
+    """Serve a mixed request stream on ``cfg`` at page block 256."""
     import numpy as np
     import torch
     from repro_torch.configs.base import RunConfig
@@ -312,51 +374,56 @@ def serve_phase(cfg, smi, device="cuda", blk=256):
     from repro_torch.serve import engine
     from repro_torch.serve.scheduler import Request, ServeEngine, format_stats
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    blk = 256
     run = RunConfig(codec=CodecConfig(cache_block=blk, decode_backend="auto"))
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, run, n_slots=4, max_len=8 * blk, seed=0,
-                      device=device)
-    sync()
+                      device="cuda")
+    torch.cuda.synchronize()
     log("serve", f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
                  f"{cfg.vocab_size}, block {blk}; random init in "
                  f"{time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(0)
-    # (prompt, budget) at block 256: 1100 -> 4 prefilled pages; 500 -> 1
-    # page, its replay crosses 512 (flush in replay); 250 and 760 ->
-    # decode crosses 256 / 768 (flush in decode); 6 requests over 4
-    # slots -> eviction and page reuse
+    # (prompt, budget): 1100 -> 4 prefilled pages; 500 -> 1 page, its
+    # replay crosses 512 (flush in replay); 250 and 760 -> decode crosses
+    # 256 / 768 (flush in decode); 6 requests over 4 slots -> eviction and
+    # page reuse
     specs = [(1100, 24), (500, 16), (250, 16), (760, 16), (300, 8),
              (640, 12)]
-    reqs = [Request(uid=i, prompt=rng.integers(
-                0, cfg.vocab_size, (s * blk // 256,)).astype(np.int32),
-                max_new_tokens=b)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, (s,))
+                    .astype(np.int32), max_new_tokens=b)
             for i, (s, b) in enumerate(specs)]
+    last = cfg.n_layers - 1
     ops.reset_launch_counts()
-    results, st = eng.run(reqs)
-    sync()
+    with FlushCheck(last, run) as flush:
+        results, st = eng.run(reqs)
+    torch.cuda.synchronize()
     launches = ops.launch_counts()
     for req, res in zip(reqs, results):
         assert len(res.tokens) == req.max_new_tokens, (req.uid, res)
         assert all(0 <= t < cfg.vocab_size for t in res.tokens), res.tokens
-    if device == "cuda":
-        assert all(v > 0 for v in launches.values()), launches
+    assert all(v > 0 for v in launches.values()), launches
+    assert flush.checked >= 3, flush.checked
     log("serve", format_stats(st).replace("\n", " | "))
     log("serve", f"{st.tokens_per_s:.2f} tok/s, {st.requests_per_s:.3f} "
-                 f"req/s, wall {st.wall_s:.2f}s, peak cache "
+                 f"req/s, wall {st.wall_s:.2f}s (one host sync per step "
+                 f"for the flush check), peak cache "
                  f"{st.peak_cache_bytes} B stored / {st.peak_cache_raw_bytes}"
                  f" B raw ({st.cache_ratio:.3f}x), pool "
                  f"{engine.paged_state_nbytes(eng.state)} B, launches "
                  f"{launches} | {smi}")
+    log("serve", f"{flush.checked} ring flushes of layer {last} in the run "
+                 f"(replay and decode) decode back bit for bit to their "
+                 f"rings; their {flush.rows_checked} rows appended in the "
+                 f"run equal the model's K/V of those steps")
 
     # freshly prefilled pool pages decode back to the model's K/V: four
     # 4-page prompts admitted through the engine's own functions
     n_tok = 4 * blk
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, n_tok)),
-                              dtype=torch.int32, device=device)
+                              dtype=torch.int32, device="cuda")
     raw = {}
-    last = cfg.n_layers - 1
 
     def keep(i, kv):
         if i in (0, last):
@@ -384,11 +451,11 @@ def serve_phase(cfg, smi, device="cuda", blk=256):
                 assert torch.equal(back, want.view(torch.int16))
     log("serve", f"pages of 4 fresh {n_tok}-token prefills (layers 0 and "
                  f"{last}) decode back to the model's K/V bit for bit")
-    profile_decode(cfg, run, eng, engine.greedy_token(logits), device)
+    profile_decode(cfg, run, eng, engine.greedy_token(logits))
     return launches, st
 
 
-def profile_decode(cfg, run, eng, tok, device="cuda", steps: int = 8):
+def profile_decode(cfg, run, eng, tok, steps: int = 8):
     """Where a decode step's device time goes: ``steps`` decode steps of
     4 slots under torch.profiler, kernels summed by name.  The full table
     goes to chiprun_out/profile_decode.txt."""
@@ -406,9 +473,8 @@ def profile_decode(cfg, run, eng, tok, device="cuda", steps: int = 8):
     t0 = time.perf_counter()
     window()                                        # ends in a host read
     wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         window()
     # device-side rows only (the kernels themselves), so ops that launch

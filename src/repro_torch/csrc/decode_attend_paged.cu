@@ -299,7 +299,3 @@ extern "C" int decode_attend_paged_launch(
       softcap, tr, codec_on);
   return (int)cudaGetLastError();
 }
-
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

@@ -59,7 +59,3 @@ extern "C" int exp_histogram_launch(const void* x, void* hist, int rows,
       (const uint16_t*)x, (int*)hist, n);
   return (int)cudaGetLastError();
 }
-
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

@@ -63,7 +63,3 @@ extern "C" int lexi_pack_launch(const void* x, const void* lut,
       (uint32_t*)planes, n, npad / 32, k);
   return (int)cudaGetLastError();
 }
-
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

@@ -92,8 +92,7 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
     if n_s == 0:
         return out, m, l
     ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
-    lib = library("decode_attend_paged")
-    rc = lib.decode_attend_paged_launch(
+    rc = library().decode_attend_paged_launch(
         ptr(q), *(ptr(t) for t in pool), ptr(ring), ptr(page_ids),
         ptr(lengths), ptr(out), ptr(m), ptr(l), ctypes.c_int(n_s),
         ctypes.c_int(h), ctypes.c_int(hkv), ctypes.c_int(hd),
@@ -102,6 +101,6 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
         ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
         ctypes.c_int(int(codec_on)),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
-    raise_on_error(lib, rc, "decode_attend_paged")
+    raise_on_error(rc, "decode_attend_paged")
     launches += 1
     return out, m, l

@@ -30,11 +30,10 @@ def exp_histogram(x: torch.Tensor) -> torch.Tensor:
     hist = torch.zeros((g, 256), dtype=torch.int32, device=x.device)
     if g == 0 or n == 0:
         return hist
-    lib = library("exp_histogram")
-    rc = lib.exp_histogram_launch(
+    rc = library().exp_histogram_launch(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(hist.data_ptr()),
         ctypes.c_int(g), ctypes.c_longlong(n),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    raise_on_error(lib, rc, "exp_histogram")
+    raise_on_error(rc, "exp_histogram")
     launches += 1
     return hist

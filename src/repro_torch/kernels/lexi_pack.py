@@ -40,13 +40,12 @@ def lexi_pack(x: torch.Tensor, enc_lut: torch.Tensor, k: int):
     planes = torch.empty((g, k, nw), dtype=torch.int32, device=x.device)
     if g == 0 or n == 0:
         return signman, planes
-    lib = library("lexi_pack")
-    rc = lib.lexi_pack_launch(
+    rc = library().lexi_pack_launch(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(enc_lut.data_ptr()),
         ctypes.c_void_p(signman.data_ptr()),
         ctypes.c_void_p(planes.data_ptr()), ctypes.c_int(g),
         ctypes.c_longlong(n), ctypes.c_int(k),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    raise_on_error(lib, rc, "lexi_pack")
+    raise_on_error(rc, "lexi_pack")
     launches += 1
     return signman, planes

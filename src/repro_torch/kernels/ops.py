@@ -7,11 +7,12 @@ and launches the kernel for a CUDA tensor; it never falls back from one to
 the other.  Each kernel module keeps a plain ``launches`` count that its
 launcher bumps after a successful launch.
 
-Build: each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library under
-``<repo>/build/repro_torch/`` (git-ignored) at first use, then loaded with
-``ctypes``.  ``build()`` compiles every stale source at once, one ``nvcc``
-process each.
+Build: the ``csrc/*.cu`` sources have a plain C interface; ``build()``
+compiles each in its own ``nvcc`` process for ``sm_90a`` (all started
+together) and links them into ONE shared library under
+``<repo>/build/repro_torch/`` (git-ignored).  It happens at first use,
+and again only when a source is newer than the library, which is then
+loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -35,26 +36,30 @@ from . import ref
 # decode-attention backend
 #
 #   auto  -- the CUDA kernel for CUDA tensors, the plain version for CPU ones
-#   cuda  -- the CUDA kernel; a CPU tensor raises
-#   torch -- the plain version on either device (kernel-vs-plain checks)
+#   cuda  -- the CUDA kernel; CPU tensors raise
+#   torch -- the plain version; CUDA tensors raise (chip_smoke.py compares
+#            kernel and plain version by calling both directly)
 # ---------------------------------------------------------------------------
 
 DECODE_BACKENDS = ("auto", "cuda", "torch")
 
 
 def resolve_decode_backend(codec, device: torch.device) -> str:
-    """Resolve ``codec.decode_backend`` for tensors on ``device``."""
+    """Check ``codec.decode_backend`` against ``device`` and return what
+    runs there: ``"cuda"`` (the kernel) or ``"torch"`` (the plain
+    version).  The wrappers pick the same by the tensors' device."""
     be = getattr(codec, "decode_backend", "auto") if codec is not None \
         else "auto"
     if be not in DECODE_BACKENDS:
         raise ValueError(f"decode_backend must be one of {DECODE_BACKENDS}, "
                          f"got {be!r}")
     on_cuda = torch.device(device).type == "cuda"
-    if be == "auto":
-        return "cuda" if on_cuda else "torch"
     if be == "cuda" and not on_cuda:
         raise ValueError("decode_backend='cuda' needs CUDA tensors")
-    return be
+    if be == "torch" and on_cuda:
+        raise ValueError("decode_backend='torch' is for CPU tensors: on "
+                         "CUDA tensors attention runs the kernel")
+    return "cuda" if on_cuda else "torch"
 
 
 # ---------------------------------------------------------------------------
@@ -111,9 +116,9 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def raise_on_error(lib, rc: int, what: str) -> None:
+def raise_on_error(rc: int, what: str) -> None:
     if rc:
-        msg = lib.repro_cuda_error_string(rc).decode()
+        msg = library().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
@@ -122,21 +127,22 @@ def raise_on_error(lib, rc: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 KERNELS = ("exp_histogram", "lexi_pack", "decode_attend_paged")
+SOURCES = KERNELS + ("cuda_error",)
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIBRARY = BUILD_DIR / "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _SIGNATURES = {
-    "exp_histogram": ("exp_histogram_launch", [_P, _P, _I, _LL, _P]),
-    "lexi_pack": ("lexi_pack_launch", [_P, _P, _P, _P, _I, _LL, _I, _P]),
-    "decode_attend_paged": ("decode_attend_paged_launch",
-                            [_P] * 13 + [_I] * 10 + [_F, _F, _I, _P]),
+    "exp_histogram_launch": [_P, _P, _I, _LL, _P],
+    "lexi_pack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
+    "decode_attend_paged_launch": [_P] * 13 + [_I] * 10 + [_F, _F, _I, _P],
 }
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_lib: Optional[ctypes.CDLL] = None
 
 
 def nvcc_path() -> str:
@@ -151,57 +157,66 @@ def nvcc_path() -> str:
     return str(path)
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def build() -> Dict[str, float]:
+    """Rebuild the kernel library if any source is newer than it.
 
-
-def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile every stale kernel source in parallel (one ``nvcc`` each).
-
-    Returns {name: seconds} for the sources compiled; the compiler's
-    ``-Xptxas -v`` report (registers, shared memory, spills) is kept in
-    ``BUILD_DIR/<name>.log``.  Raises with the compiler output on failure.
-    """
+    Returns {source: seconds, "link": seconds} for a rebuild, {} when the
+    library is current.  The compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills) of each source is kept in
+    ``BUILD_DIR/<source>.log``.  Raises with the compiler output on
+    failure."""
+    srcs = [CSRC / f"{name}.cu" for name in SOURCES]
+    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= max(
+            src.stat().st_mtime for src in srcs):
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
+    nvcc, tag = nvcc_path(), os.getpid()
     procs = {}
-    for name in names:
-        src, so = CSRC / f"{name}.cu", library_path(name)
-        if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
-            continue
-        nvcc = nvcc or nvcc_path()
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    for name, src in zip(SOURCES, srcs):
+        obj = BUILD_DIR / f"{name}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, so, time.perf_counter())
+                       obj, time.perf_counter())
     times, failed = {}, []
-    for name, (proc, tmp, so, t0) in procs.items():
+    for name, (proc, obj, t0) in procs.items():
         log = proc.communicate()[0]
         times[name] = time.perf_counter() - t0
         (BUILD_DIR / f"{name}.log").write_text(log)
         if proc.returncode:
             failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    objs = [str(obj) for _, obj, _ in procs.values()]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp = LIBRARY.with_name(f"{LIBRARY.name}.{tag}.tmp")
+        t0 = time.perf_counter()
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        times["link"] = time.perf_counter() - t0
+        os.replace(tmp, LIBRARY)
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     return times
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if stale."""
-    lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if stale."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(LIBRARY))
+        for fn_name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return lib
+        _lib = lib
+    return _lib
 
 
 def build_log(name: str) -> Optional[str]:

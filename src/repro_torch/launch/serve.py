@@ -38,8 +38,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slots", type=int, default=4, help="decode slots")
     ap.add_argument("--decode-backend", default="auto",
                     choices=list(DECODE_BACKENDS),
-                    help="decode attention: the CUDA kernel or its plain "
-                         "PyTorch version (auto: by device)")
+                    help="decode attention: auto (by device), cuda (the "
+                         "kernel; needs --device cuda) or torch (the plain "
+                         "version; needs --device cpu)")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="evict a slot when it emits this token id")
     ap.add_argument("--stop-seq", type=str, default=None,

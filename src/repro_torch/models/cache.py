@@ -326,18 +326,16 @@ def attend_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV, layer: int,
     ``lengths`` (S,) int32 post-append token counts on q's device.
     Returns (S,Hq,1,hd) bf16.
 
-    The backend comes from ``run.codec.decode_backend`` (``kernels.ops.
-    resolve_decode_backend``): the CUDA kernel, or its plain version."""
+    ``kernels.ops.decode_attend_paged`` launches the CUDA kernel on CUDA
+    tensors and runs its plain version on CPU ones (``ServeEngine`` checks
+    ``run.codec.decode_backend`` against the device once)."""
     hd = q.shape[-1]
-    fn = (kops.decode_attend_paged
-          if kops.resolve_decode_backend(run.codec, q.device) == "cuda"
-          else kops.ref.paged_decode_attend_plain)
-    out, _, l = fn(q[:, :, 0].contiguous(), *pkv.layer_fields(layer),
-                   pkv.ring[layer], pkv.page_ids(), lengths,
-                   effective_window(spec, window), k=run.codec.k,
-                   kv_idx=gqa_head_table(cfg, q.shape[1]),
-                   scale=spec.scale if spec.scale is not None else hd ** -0.5,
-                   softcap=spec.softcap)
+    out, _, l = kops.decode_attend_paged(
+        q[:, :, 0].contiguous(), *pkv.layer_fields(layer), pkv.ring[layer],
+        pkv.page_ids(), lengths, effective_window(spec, window),
+        k=run.codec.k, kv_idx=gqa_head_table(cfg, q.shape[1]),
+        scale=spec.scale if spec.scale is not None else hd ** -0.5,
+        softcap=spec.softcap)
     return layers.merge_partials(out, l)[:, :, None]
 
 

@@ -185,7 +185,9 @@ def test_backend_resolution():
     assert ops.resolve_decode_backend(TCodec(), cpu) == "torch"
     assert ops.resolve_decode_backend(TCodec(), cuda) == "cuda"
     torch_be = dataclasses.replace(TCodec(), decode_backend="torch")
-    assert ops.resolve_decode_backend(torch_be, cuda) == "torch"
+    assert ops.resolve_decode_backend(torch_be, cpu) == "torch"
+    with pytest.raises(ValueError, match="CPU tensors"):
+        ops.resolve_decode_backend(torch_be, cuda)
     with pytest.raises(ValueError):
         ops.resolve_decode_backend(
             dataclasses.replace(TCodec(), decode_backend="cuda"), cpu)

@@ -53,10 +53,15 @@ CFGS = {
 }
 
 
-def shm(f, *args):
-    """Run ``f`` under shard_map on the 1x1 mesh (the reference's
+def shm_jit(f, n_args):
+    """``f`` jitted under shard_map on the 1x1 mesh (the reference's
     functions read axis indices / collectives)."""
-    return jax.jit(jcl.shmap(f, MESH, tuple(P() for _ in args), P()))(*args)
+    return jax.jit(jcl.shmap(f, MESH, tuple(P() for _ in range(n_args)),
+                             P()))
+
+
+def shm(f, *args):
+    return shm_jit(f, len(args))(*args)
 
 
 def close_bf16(got, want, rtol=BF16_RTOL, atol=1e-6, steps=None):
@@ -309,12 +314,16 @@ def test_pages_byte_identical(codec_on):
         lengths[slots] = s
         active[slots] = True
 
+    jstep = shm_jit(lambda p, v, ln, a: jcache.append_token_paged(
+        jcfg, jrun, p, v, ln, a, 1), 4)           # compiled once
+
     def step(act):
         nonlocal jpkv
         vals = bf16_np(rng, (n_slots, w), spread=6)
-        jpkv = shm(lambda p, v, ln, a: jcache.append_token_paged(
-            jcfg, jrun, p, v, ln, a, 1), jpkv, jnp.asarray(vals),
-            jnp.asarray(lengths), jnp.asarray(act))
+        # a copy: JAX on the CPU may alias a numpy buffer, and ``lengths``
+        # changes in place below while the step may still be running
+        jpkv = jstep(jpkv, jnp.asarray(vals), jnp.asarray(lengths.copy()),
+                     jnp.asarray(act))
         plan = tcache.plan_append(trun, tpkv, lengths, act)
         tcache.append_token_paged(tcfg, trun, tpkv, 0, to_torch(vals), plan)
         lengths[:] += act.astype(np.int32)
