@@ -13,10 +13,20 @@ non-zero:
                path's shapes (qwen3-4b pages: block 256, W 2048, k 5;
                4 slots of 300..2000 tokens), including pages with escapes
                and with escape overflow; exact equality for the histogram
-               and the pack, rtol = atol = 1e-4 for paged attention.  Times
-               each (CUDA events, median, L2 flushed between launches).
+               and the pack, rtol = atol = 1e-4 for paged attention.
+               The weight plane's kernels at qwen3-4b's weight shapes:
+               ``lexi_unpack`` exact on one packed stacked leaf (36, 2560 x
+               9728) and on the pool pages (``ops.unpack`` equal to
+               ``fixed.decompress`` with escapes and overflow);
+               ``decompress_matmul`` at the six (K, N) weight shapes with
+               M = 4 (decode) and 1024 (prefill), elementwise within
+               1e-4 * (|x| @ |W|) + 1e-6.  Times each (CUDA events, median,
+               L2 flushed between launches); the two weight kernels' JSON
+               rows are one decode step's 253 weight matmuls (7 per layer
+               and the LM head) at M = 4, summed.
   4. small   — a tiny dense model decoded on the card and on the CPU from
-               the same weights and tokens: logits agree within 1e-2.
+               the same weights and tokens, raw and packed weights: logits
+               agree within 1e-2.
   5. serve   — ServeEngine on full-width qwen3-4b (random weights from a
                seed): 6 mixed requests over 4 slots, pages filled at
                prefill and by ring flushes in replay and decode.  Every
@@ -29,7 +39,20 @@ non-zero:
   6. profile — 8 decode steps of those 4 slots under torch.profiler:
                device busy share and the top kernels (full table in
                ``chiprun_out/profile_decode.txt``).
-  7. the card's line, the ``kernels`` JSON line, then the result line.
+  7. weights — the serve phase's full-width weights packed on the card
+               (time, each packed leaf's k, ``weight_plane_bytes``); the
+               packed fields of ``blocks.mlp.w_gate`` and ``lm_head``
+               byte-identical to the same leaves packed on the CPU; then
+               the launcher's tail-free demo mix (6 requests over 4 slots,
+               prompts 1024/512, budgets 32/16) served three ways: raw
+               weights, ``weight_backend="unpack"`` (streams must equal the
+               raw ones) and ``"cuda"`` (its share of tokens equal to the
+               raw run and its first divergence are printed).  Every
+               request gets its budget; both weight kernels launch.
+               Last, the serve phase's 4 slots decode 8 steps from the
+               packed store under the profiler, as in phase 6
+               (``chiprun_out/profile_decode_packed.txt``).
+  8. the card's line, the ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -46,6 +69,13 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
+REPLACES = {"decode_attend_paged": "src/repro/kernels/decode_attend.py:421",
+            "exp_histogram": "src/repro/kernels/exp_histogram.py:47",
+            "lexi_pack": "src/repro/kernels/lexi_pack.py:56",
+            "decompress_matmul": "src/repro/kernels/decompress_matmul.py:86",
+            "lexi_unpack": "src/repro/kernels/lexi_unpack.py:51"}
+SERVE_KERNELS = ("decode_attend_paged", "exp_histogram", "lexi_pack")
 
 
 def log(phase: str, msg: str) -> None:
@@ -251,6 +281,126 @@ def kernels_phase(cfg):
                    f"lengths {lengths}, {n_live} live pages) within 1e-4 "
                    f"(full + window 700 + codec off): "
                    f"{rec['decode_attend_paged']}")
+    rec.update(weight_kernels(cfg, ct, gen))
+    return rec
+
+
+def weight_shapes(cfg):
+    """[((K, N), matmuls per decode step)] of the dense model's weights:
+    wq, wk and wv, wo, w_gate and w_up, w_down per layer, and the LM
+    head."""
+    d, hd, layers = cfg.d_model, cfg.head_dim, cfg.n_layers
+    q, kv, f = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff
+    return [((d, q), layers), ((d, kv), 2 * layers), ((q, d), layers),
+            ((d, f), 2 * layers), ((f, d), layers),
+            ((d, cfg.padded_vocab(1)), 1)]
+
+
+def weight_kernels(cfg, ct, gen):
+    """lexi_unpack and decompress_matmul against their plain versions at
+    qwen3-4b's weight shapes; ``ct`` are the pool pages of the codec
+    checks above (with escapes and overflow)."""
+    import torch
+    from repro_torch.core import fixed, weights
+    from repro_torch.kernels import decompress_matmul, lexi_unpack, ops, ref
+
+    i16 = lambda t: t.view(torch.int16)
+    bf16 = torch.bfloat16
+    # lexi_unpack on the pool pages, and the kernel-backed decompress
+    pages = (ct.signman, ct.planes, ct.dict_syms)
+    assert torch.equal(i16(lexi_unpack.lexi_unpack(*pages, ct.k)),
+                       i16(ref.unpack_ref(*pages, ct.k)))
+    assert torch.equal(i16(ops.unpack(ct)), i16(fixed.decompress(ct)))
+    log("kernels", f"lexi_unpack on {ct.signman.shape[0]} pool pages == "
+                   f"plain; ops.unpack == fixed.decompress bit for bit "
+                   f"(escapes per page {ct.n_escapes.tolist()[:3]}..., "
+                   f"capacity {ct.esc_pos.shape[-1]})")
+
+    # one stacked leaf packed on the card: unpacks to its bits, and to the
+    # plain version's (row by row: the plain version's int64 temporaries)
+    nl, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    w = (torch.randn((nl, d, f), generator=gen, device="cuda") * 0.02
+         ).to(bf16)
+    pw = weights.pack_serving_params({"blocks": {"w": w}},
+                                     backend="cuda")["blocks"]["w"]
+    assert isinstance(pw, weights.PackedWeight), "stacked leaf not packed"
+    back = weights.unpack_weight(pw)
+    assert torch.equal(i16(back), i16(w))
+    for i in range(nl):
+        row = ref.unpack_ref(pw.signman[i].reshape(1, -1),
+                             pw.planes[i].reshape(1, pw.k, -1),
+                             pw.dict_syms[i].reshape(1, -1), pw.k)
+        assert torch.equal(i16(row), i16(back[i].reshape(1, -1)))
+    log("kernels", f"lexi_unpack on a packed stacked leaf {tuple(w.shape)} "
+                   f"(k={pw.k}, one launch of {nl} rows): exact, and equal "
+                   f"to the plain version row by row")
+    del w, back, pw
+
+    dm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, b_bytes=0.0,
+              b_ops=0.0, max_abs_err=0.0)
+    un = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for (kk, n), count in weight_shapes(cfg):
+        w = (torch.randn((kk, n), generator=gen, device="cuda") * 0.02
+             ).to(bf16)
+        pw = weights.pack_serving_params({"w": w}, backend="cuda")["w"]
+        fields = (pw.signman, pw.planes, pw.dict_syms)
+        for m in (4, 1024):
+            x = torch.randn((m, kk), generator=gen, device="cuda").to(bf16)
+            got = decompress_matmul.decompress_matmul(x, *fields, pw.k)
+            want = ref.decompress_matmul_ref(x, *fields, pw.k)
+            tol = 1e-4 * (x.float().abs() @ w.float().abs()) + 1e-6
+            err = (got - want).abs()
+            assert bool((err <= tol).all()), (kk, n, m, float(err.max()))
+            t = cuda_ms(lambda: decompress_matmul.decompress_matmul(
+                x, *fields, pw.k))
+            t_plain = cuda_ms(lambda: ref.decompress_matmul_ref(
+                x, *fields, pw.k), reps=3)
+            t_lib = cuda_ms(lambda: torch.mm(x, w, out_dtype=torch.float32))
+            t_bytes = (m * kk * 2 + pw.nbytes() + m * n * 4) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * m * n * kk / BF16_FLOPS * 1e3
+            log("kernels", f"decompress_matmul M={m} K={kk} N={n} k={pw.k}: "
+                           f"max |err| {float(err.max()):.3e} within "
+                           f"1e-4*(|x|@|W|)+1e-6; {t:.4f} ms, plain "
+                           f"{t_plain:.4f} ms, torch.mm on the unpacked W "
+                           f"{t_lib:.4f} ms, bound {max(t_bytes, t_ops):.5f}"
+                           f" ms ({'bytes' if t_bytes >= t_ops else 'ops'})")
+            if m == 4:                       # one decode step's share
+                dm["ms"] += count * t
+                dm["plain_ms"] += count * t_plain
+                dm["library_ms"] += count * t_lib
+                dm["b_bytes"] += count * t_bytes
+                dm["b_ops"] += count * t_ops
+                dm["max_abs_err"] = max(dm["max_abs_err"], float(err.max()))
+            del got, want, tol, err
+        rows = (pw.signman.reshape(1, -1), pw.planes.reshape(1, pw.k, -1),
+                pw.dict_syms.reshape(1, -1))
+        assert torch.equal(i16(lexi_unpack.lexi_unpack(*rows, pw.k)),
+                           i16(w.reshape(1, -1)))
+        t = cuda_ms(lambda: lexi_unpack.lexi_unpack(*rows, pw.k))
+        t_plain = cuda_ms(lambda: ref.unpack_ref(*rows, pw.k), reps=3)
+        t_bound = (pw.nbytes() + 2 * kk * n) / HBM_BYTES_PER_S * 1e3
+        log("kernels", f"lexi_unpack K={kk} N={n} k={pw.k}: exact; {t:.4f} "
+                       f"ms, plain {t_plain:.4f} ms, bound {t_bound:.5f} ms")
+        un["ms"] += count * t
+        un["plain_ms"] += count * t_plain
+        un["bound_ms"] += count * t_bound
+        del w, pw, fields, rows
+        torch.cuda.empty_cache()
+    n_mm = sum(c for _, c in weight_shapes(cfg))
+    rec = {
+        "decompress_matmul": dict(
+            max_abs_err=dm["max_abs_err"], ms=dm["ms"],
+            plain_ms=dm["plain_ms"],
+            bound_ms=max(dm["b_bytes"], dm["b_ops"]),
+            bound_by="bytes" if dm["b_bytes"] >= dm["b_ops"]
+            else "operations", library_ms=dm["library_ms"]),
+        "lexi_unpack": dict(max_abs_err=0, ms=un["ms"],
+                            plain_ms=un["plain_ms"], bound_ms=un["bound_ms"],
+                            bound_by="bytes", library_ms=None)}
+    for name in ("decompress_matmul", "lexi_unpack"):
+        log("kernels", f"{name}, one decode step's {n_mm} weight matmuls "
+                       f"at M=4, summed: {rec[name]}")
     return rec
 
 
@@ -259,9 +409,25 @@ def kernels_phase(cfg):
 # ---------------------------------------------------------------------------
 
 def small_phase():
+    from repro_torch.kernels import ops
+
+    for packed in (False, True):
+        ops.reset_launch_counts()
+        worst = small_model_diff(packed)
+        launched = ops.launch_counts()
+        assert (launched["decompress_matmul"] > 0) == packed, launched
+        log("small", f"tiny dense model, {'packed' if packed else 'raw'} "
+                     f"weights, prefill + 10 teacher-forced steps: card vs "
+                     f"CPU logits max |diff| {worst:.2e} (<= 1e-2); "
+                     f"decompress_matmul launches "
+                     f"{launched['decompress_matmul']}")
+
+
+def small_model_diff(packed: bool) -> float:
     import numpy as np
     import torch
     from repro_torch.configs.base import ModelConfig, RunConfig
+    from repro_torch.core import weights
     from repro_torch.core.collectives import CodecConfig
     from repro_torch.models import lm, params as PM
     from repro_torch.serve import engine
@@ -272,6 +438,10 @@ def small_phase():
     run = RunConfig(codec=CodecConfig(cache_block=4))
     params = PM.init_params(lm.lm_table(cfg),
                             torch.Generator().manual_seed(3))
+    if packed:                    # CPU: torch backend; on the card: cuda
+        params = weights.pack_serving_params(params)
+        assert isinstance(params["blocks"]["attn"]["wq"],
+                          weights.PackedWeight)
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(rng.integers(0, 512, (2, 9)), dtype=torch.int32)
     worst = 0.0
@@ -293,8 +463,7 @@ def small_phase():
         assert torch.isfinite(b).all()
         worst = max(worst, float((a - b).abs().max()))
     assert worst <= 1e-2, worst
-    log("small", f"tiny dense model, prefill + 10 teacher-forced steps: "
-                 f"card vs CPU logits max |diff| {worst:.2e} (<= 1e-2)")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +572,10 @@ def serve_phase(cfg, smi):
     for req, res in zip(reqs, results):
         assert len(res.tokens) == req.max_new_tokens, (req.uid, res)
         assert all(0 <= t < cfg.vocab_size for t in res.tokens), res.tokens
-    assert all(v > 0 for v in launches.values()), launches
+    # the raw-weight path: attention and the page codec; the weight
+    # plane's kernels run in the weights phase
+    assert all(launches[name] > 0 for name in SERVE_KERNELS), launches
+    assert launches["decompress_matmul"] == launches["lexi_unpack"] == 0
     assert flush.checked >= 3, flush.checked
     log("serve", format_stats(st).replace("\n", " | "))
     log("serve", f"{st.tokens_per_s:.2f} tok/s, {st.requests_per_s:.3f} "
@@ -451,14 +623,16 @@ def serve_phase(cfg, smi):
                 assert torch.equal(back, want.view(torch.int16))
     log("serve", f"pages of 4 fresh {n_tok}-token prefills (layers 0 and "
                  f"{last}) decode back to the model's K/V bit for bit")
-    profile_decode(cfg, run, eng, engine.greedy_token(logits))
-    return launches, st
+    tok = engine.greedy_token(logits)
+    profile_decode(cfg, run, eng, tok, "decode")
+    return launches, eng, tok
 
 
-def profile_decode(cfg, run, eng, tok, steps: int = 8):
+def profile_decode(cfg, run, eng, tok, name: str, steps: int = 8):
     """Where a decode step's device time goes: ``steps`` decode steps of
     4 slots under torch.profiler, kernels summed by name.  The full table
-    goes to chiprun_out/profile_decode.txt."""
+    goes to chiprun_out/profile_<name>.txt.  Each window starts from
+    ``tok``; the slots' caches grow by ``steps`` tokens a window."""
     import torch
     from repro_torch.serve import engine
 
@@ -484,10 +658,11 @@ def profile_decode(cfg, run, eng, tok, steps: int = 8):
     dev_total = sum(e.self_device_time_total for e in rows) / 1e3   # ms
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_decode.txt").write_text(prof.key_averages().table(
+    (out / f"profile_{name}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    log("profile", f"{steps} decode steps, 4 slots: wall {wall * 1e3:.1f} ms"
+    log("profile", f"{name}: {steps} decode steps, 4 slots: wall "
+                   f"{wall * 1e3:.1f} ms"
                    f" ({wall * 1e3 / steps:.2f} ms/step, profiler off); "
                    f"device busy {dev_total:.1f} ms in the profiled run "
                    f"({100 * dev_total / (wall * 1e3):.0f}% of the "
@@ -497,6 +672,124 @@ def profile_decode(cfg, run, eng, tok, steps: int = 8):
     for e in top:
         log("profile", f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.2f}"
                        f" ms over {e.count} calls")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serve from the packed weight plane
+# ---------------------------------------------------------------------------
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _nest(path, leaf):
+    return leaf if not path else {path[0]: _nest(path[1:], leaf)}
+
+
+def weights_phase(cfg, serve_eng, tok, smi):
+    """Pack the serve phase's weights (raw, on the card), serve the
+    launcher's demo mix from raw weights and from the packed store on
+    both backends, then profile the serve phase's 4 slots decoding from
+    the packed store (``cuda`` backend)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import weights
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import (ServeEngine, demo_serving_setup,
+                                             format_stats)
+
+    params = serve_eng.params
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    packed = weights.pack_serving_params(params, backend="cuda")
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    pack_launches = ops.launch_counts()
+    stored, raw = weights.weight_plane_bytes(packed)
+
+    def named(tree, path=()):
+        if isinstance(tree, dict):
+            for key, v in tree.items():
+                yield from named(v, path + (key,))
+        else:
+            yield path, tree
+
+    ks = {".".join(p): leaf.k for p, leaf in named(packed)
+          if isinstance(leaf, weights.PackedWeight)}
+    log("weights", f"packed on the card in {t_pack:.2f}s "
+                   f"(exp_histogram {pack_launches['exp_histogram']}, "
+                   f"lexi_pack {pack_launches['lexi_pack']} launches): k per "
+                   f"packed leaf {ks}; weight_plane_bytes {stored} B stored / "
+                   f"{raw} B raw ({stored / raw:.4f})")
+    for path in (("blocks", "mlp", "w_gate"), ("lm_head",)):
+        t0 = time.perf_counter()
+        cpu = _at(weights.pack_serving_params(
+            _nest(path, _at(params, path).cpu())), path)
+        card = _at(packed, path)
+        assert isinstance(cpu, weights.PackedWeight) and cpu.k == card.k
+        for f in ("signman", "planes", "dict_syms"):
+            assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
+        log("weights", f"{'.'.join(path)} {card.shape}: packed on the card "
+                       f"== packed on the CPU byte for byte, k={card.k} "
+                       f"(CPU pack {time.perf_counter() - t0:.1f}s)")
+
+    streams, counts, stats = {}, {}, {}
+    for name in ("raw", "unpack", "cuda"):
+        run = RunConfig(codec=dataclasses.replace(
+            CodecConfig(), weight_backend="auto" if name == "raw" else name))
+        run, max_len, reqs = demo_serving_setup(run, cfg.vocab_size, 1024,
+                                                16, 6)
+        eng = ServeEngine(cfg, run, n_slots=4, max_len=max_len,
+                          params=params if name == "raw" else packed,
+                          compress_weights=name != "raw", device="cuda")
+        ops.reset_launch_counts()
+        results, st = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts[name], stats[name] = ops.launch_counts(), st
+        for req, res in zip(reqs, results):
+            assert len(res.tokens) == req.max_new_tokens, (name, req.uid)
+        streams[name] = [res.tokens for res in results]
+        log("weights", f"{name}: " + format_stats(st).replace("\n", " | "))
+        log("weights", f"{name}: {st.tokens_per_s:.2f} tok/s, "
+                       f"{st.requests_per_s:.3f} req/s, wall {st.wall_s:.2f}s,"
+                       f" {st.decode_steps} decode steps, "
+                       f"{st.n_admit_dispatches} prefills, launches "
+                       f"{counts[name]} | {smi}")
+        del eng
+        torch.cuda.empty_cache()
+    assert streams["unpack"] == streams["raw"], "unpack streams != raw"
+    pairs = [(uid, i, a, b) for uid, (ra, rb) in
+             enumerate(zip(streams["raw"], streams["cuda"]))
+             for i, (a, b) in enumerate(zip(ra, rb))]
+    same = sum(a == b for _, _, a, b in pairs)
+    first = next(((uid, i) for uid, i, a, b in pairs if a != b), None)
+    log("weights", f"cuda backend: {same}/{len(pairs)} tokens equal to the "
+                   f"raw run ({same / len(pairs):.4f}); first divergence "
+                   f"(request, position): {first}; unpack backend: "
+                   f"identical to raw")
+    n_mm = sum(c for _, c in weight_shapes(cfg))
+    for name, kernel, idle in (("cuda", "decompress_matmul", "lexi_unpack"),
+                               ("unpack", "lexi_unpack", "decompress_matmul")):
+        st, c = stats[name], counts[name]
+        assert st.n_replay_dispatches == 0         # the mix has no tails
+        passes = st.decode_steps + st.n_admit_dispatches
+        assert c[kernel] > 0 and c[idle] == 0, (name, c)
+        assert c[kernel] == n_mm * passes, (name, c[kernel], passes)
+        assert st.weight_ratio < 0.95, st.weight_ratio
+    assert counts["raw"]["decompress_matmul"] == 0
+    assert counts["raw"]["lexi_unpack"] == 0
+    log("weights", f"{n_mm} packed matmuls per forward pass (decode step or "
+                   f"batched prefill) on both backends; weight ratio "
+                   f"{stats['cuda'].weight_ratio:.4f}")
+    serve_eng.params = packed
+    profile_decode(cfg, serve_eng.run_cfg, serve_eng, tok, "decode_packed")
+    return {"decompress_matmul": counts["cuda"]["decompress_matmul"],
+            "lexi_unpack": counts["unpack"]["lexi_unpack"]}
 
 
 def main() -> int:
@@ -519,16 +812,14 @@ def main() -> int:
     cfg = get_config("qwen3-4b")
     rec = kernels_phase(cfg)
     small_phase()
-    launches, _ = serve_phase(cfg, smi)
-    sources = {"decode_attend_paged": "src/repro/kernels/decode_attend.py:421",
-               "exp_histogram": "src/repro/kernels/exp_histogram.py:47",
-               "lexi_pack": "src/repro/kernels/lexi_pack.py:56"}
+    launches, serve_eng, tok = serve_phase(cfg, smi)
+    launches.update(weights_phase(cfg, serve_eng, tok, smi))
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=sources[name], launches=launches[name],
+            replaces=REPLACES[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

@@ -33,8 +33,11 @@ class CodecConfig:
     # repro_torch.kernels.ops.resolve_decode_backend).  auto = the CUDA
     # kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
     decode_backend: str = "auto"
-    # serving weight-matmul backend; only "auto" exists until the packed
-    # weight plane is ported
+    # serving weight-matmul backend: auto | cuda | unpack | torch (see
+    # repro_torch.kernels.ops.resolve_weight_backend).  How PackedWeight
+    # leaves are multiplied: auto = the fused decompress_matmul kernel for
+    # CUDA tensors, the plain version for CPU tensors; unpack = the
+    # lexi_unpack kernel, then the raw weights' product.
     weight_backend: str = "auto"
 
     def esc_capacity(self, n: int) -> int:

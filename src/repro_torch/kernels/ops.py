@@ -1,5 +1,5 @@
-"""Public wrappers around the port's CUDA kernels, the decode backend
-resolution, and the kernels' build and loader (ports
+"""Public wrappers around the port's CUDA kernels, the decode and weight
+backend resolution, and the kernels' build and loader (ports
 ``repro/kernels/ops.py``).
 
 Every wrapper takes the kernel's plain PyTorch version for a CPU tensor
@@ -18,6 +18,7 @@ loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import shutil
 import subprocess
@@ -27,9 +28,13 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.core import entropy as E
+from repro_torch.core import fixed
 from . import decode_attend as _attend
+from . import decompress_matmul as _dm
 from . import exp_histogram as _hist
 from . import lexi_pack as _pack
+from . import lexi_unpack as _unpack
 from . import ref
 
 # ---------------------------------------------------------------------------
@@ -63,6 +68,47 @@ def resolve_decode_backend(codec, device: torch.device) -> str:
 
 
 # ---------------------------------------------------------------------------
+# serving weight-matmul backend (matmuls against core.weights.PackedWeight)
+#
+#   auto   -- cuda for CUDA tensors, torch for CPU ones
+#   cuda   -- the fused decompress_matmul kernel; CPU tensors raise
+#   unpack -- the lexi_unpack kernel, then the product on the exact bf16
+#             weight (the same torch.mm as raw weights, so the streams equal
+#             the raw weights' streams); CPU tensors raise
+#   torch  -- the plain version (exact unpack, f32 product); CUDA tensors
+#             raise
+# ---------------------------------------------------------------------------
+
+WEIGHT_BACKENDS = ("auto", "cuda", "unpack", "torch")
+
+
+def check_weight_backend(be: str, device) -> None:
+    """Raise unless the concrete backend ``be`` runs on ``device``."""
+    if be not in WEIGHT_BACKENDS[1:]:
+        raise ValueError(f"not a concrete weight backend: {be!r}")
+    on_cuda = torch.device(device).type == "cuda"
+    if be in ("cuda", "unpack") and not on_cuda:
+        raise ValueError(f"weight_backend={be!r} needs CUDA tensors")
+    if be == "torch" and on_cuda:
+        raise ValueError("weight_backend='torch' is for CPU tensors: on "
+                         "CUDA tensors packed weights run a kernel")
+
+
+def resolve_weight_backend(codec, device: torch.device) -> str:
+    """Check ``codec.weight_backend`` against ``device`` and return what
+    runs there: ``"cuda"``, ``"unpack"`` or ``"torch"``."""
+    be = getattr(codec, "weight_backend", "auto") if codec is not None \
+        else "auto"
+    if be not in WEIGHT_BACKENDS:
+        raise ValueError(f"weight_backend must be one of {WEIGHT_BACKENDS}, "
+                         f"got {be!r}")
+    if be == "auto":
+        be = "cuda" if torch.device(device).type == "cuda" else "torch"
+    check_weight_backend(be, device)
+    return be
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -78,6 +124,83 @@ def pack(x: torch.Tensor, enc_lut: torch.Tensor, k: int):
     if x.device.type == "cpu":
         return _pack.plain(x, enc_lut, k)
     return _pack.lexi_pack(x, enc_lut, k)
+
+
+def unpack_rows(signman: torch.Tensor, planes: torch.Tensor,
+                dicts: torch.Tensor, k: int) -> torch.Tensor:
+    """(G, n) uint8, (G, k, pad32(n)/32) int32, (G, 2^k) uint8 per-row
+    dictionaries -> (G, n) bf16, escape-free."""
+    if signman.device.type == "cpu":
+        return _unpack.plain(signman, planes, dicts, k)
+    return _unpack.lexi_unpack(signman, planes, dicts, k)
+
+
+def unpack(ct: fixed.Compressed) -> torch.Tensor:
+    """Kernel-backed ``fixed.decompress`` (any leading batch axes): the
+    escape-free unpack, then the escape side channel patched by position
+    (the r-th escape takes ``esc_raw[r]``; escapes past the capacity keep
+    the dictionary's ESCAPE slot, exponent 0, as ``fixed.decompress``)."""
+    n, k = ct.n, ct.k
+    lead = tuple(ct.signman.shape[:-1])
+    g = math.prod(lead)
+    sm = ct.signman.reshape(g, n)
+    out = unpack_rows(sm, ct.planes.reshape(g, k, -1),
+                      ct.dict_syms.reshape(g, -1), k)
+    pos = ct.esc_pos.reshape(g, -1).to(torch.int64)
+    fix = E.from_u16(E.combine(sm.gather(1, pos.clamp(max=n - 1)),
+                               ct.esc_raw.reshape(g, -1)))
+    # unused slots hold a position >= n: they land in a scratch column
+    out = torch.cat([out, out.new_zeros((g, 1))], 1) \
+        .scatter_(1, pos.clamp(max=n), fix)[:, :n]
+    return out.reshape(lead + tuple(ct.shape))
+
+
+def matmul_compressed(x: torch.Tensor, signman: torch.Tensor,
+                      planes: torch.Tensor, dict_syms: torch.Tensor, *,
+                      k: int = 6) -> torch.Tensor:
+    """Fused just-in-time decompress + matmul: x (M, K) bf16 @ packed W
+    (K, N) -> (M, N) f32."""
+    if x.device.type == "cpu":
+        return _dm.plain(x, signman, planes, dict_syms, k)
+    return _dm.decompress_matmul(x, signman, planes, dict_syms, k)
+
+
+def compress_weight(w: torch.Tensor, *, k: int = 6):
+    """(K, N) bf16 -> (signman, planes, dict, n_escapes) for
+    ``matmul_compressed``, on the tensor's device (the kernel-backed
+    ``ref.compress_weight_2d``)."""
+    kk, n = w.shape
+    if n % 32:
+        raise ValueError(f"N must be a multiple of 32, got {n}")
+    row = w.to(torch.bfloat16).reshape(1, kk * n).contiguous()
+    hist = histogram(row)
+    dict_syms, enc_lut = fixed.build_dictionary(hist, k)
+    n_escapes = (hist * (enc_lut == fixed.esc_index(k))).sum()
+    signman, planes = pack(row, enc_lut, k)
+    return (signman.reshape(kk, n), planes.reshape(k, kk, n // 32),
+            dict_syms[0], n_escapes.to(torch.int32))
+
+
+def matmul_packed(x: torch.Tensor, pw) -> torch.Tensor:
+    """``x (..., K) @ W`` in f32 for a 2-D ``core.weights.PackedWeight``,
+    on the backend baked into the leaf at pack time; a backend that does
+    not run on x's device raises."""
+    if pw.ndim != 2:
+        raise ValueError(f"matmul needs a 2-D packed weight, got shape "
+                         f"{tuple(pw.shape)}: slice stacked leaves first")
+    check_weight_backend(pw.backend, x.device)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+    if pw.backend == "unpack":
+        kk, n = pw.shape
+        w = unpack_rows(pw.signman.reshape(1, kk * n),
+                        pw.planes.reshape(1, pw.k, -1),
+                        pw.dict_syms.reshape(1, -1), pw.k).reshape(kk, n)
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = matmul_compressed(x2, pw.signman, pw.planes, pw.dict_syms,
+                                k=pw.k)
+    return out.reshape(lead + (out.shape[-1],))
 
 
 def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
@@ -96,11 +219,14 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
 def launch_counts() -> Dict[str, int]:
     return {"decode_attend_paged": _attend.launches,
             "exp_histogram": _hist.launches,
-            "lexi_pack": _pack.launches}
+            "lexi_pack": _pack.launches,
+            "decompress_matmul": _dm.launches,
+            "lexi_unpack": _unpack.launches}
 
 
 def reset_launch_counts() -> None:
     _attend.launches = _hist.launches = _pack.launches = 0
+    _dm.launches = _unpack.launches = 0
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -126,7 +252,8 @@ def raise_on_error(rc: int, what: str) -> None:
 # build + loader
 # ---------------------------------------------------------------------------
 
-KERNELS = ("exp_histogram", "lexi_pack", "decode_attend_paged")
+KERNELS = ("exp_histogram", "lexi_pack", "decode_attend_paged",
+           "lexi_unpack", "decompress_matmul")
 SOURCES = KERNELS + ("cuda_error",)
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -140,6 +267,8 @@ _SIGNATURES = {
     "exp_histogram_launch": [_P, _P, _I, _LL, _P],
     "lexi_pack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
     "decode_attend_paged_launch": [_P] * 13 + [_I] * 10 + [_F, _F, _I, _P],
+    "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
+    "decompress_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -56,6 +56,44 @@ def unpack_ref(signman: torch.Tensor, planes: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# packed weights: the (K, N) matmul layout of the serving weight plane
+# ---------------------------------------------------------------------------
+
+def compress_weight_2d(w: torch.Tensor, k: int = 6):
+    """Plain packer for a matmul weight (ports the reference's
+    ``compress_weight_2d``): (K, N) bf16, N % 32 == 0 -> (signman (K, N)
+    uint8, planes (k, K, N/32) int32-held words, dict (2^k,) uint8,
+    n_escapes).  The planes are one ``pack_ref`` row of K*N elements:
+    with N % 32 == 0 every 32-element word lies inside one row of W, so
+    word (b, r, c) holds bit b of W[r, 32c .. 32c + 31]."""
+    from repro_torch.core import fixed
+
+    kk, n = w.shape
+    if n % packing.LANES:
+        raise ValueError(f"N must be a multiple of 32, got {n}")
+    row = w.reshape(1, kk * n).to(torch.bfloat16)
+    hist = histogram_ref(row)[0]
+    dict_syms, enc_lut = fixed.build_dictionary(hist, k)
+    n_escapes = (hist * (enc_lut == fixed.esc_index(k))).sum()
+    signman, planes = pack_ref(row, enc_lut[None], k)
+    return (signman.reshape(kk, n), planes.reshape(k, kk, n // packing.LANES),
+            dict_syms, n_escapes.to(torch.int32))
+
+
+def decompress_matmul_ref(x: torch.Tensor, signman: torch.Tensor,
+                          planes: torch.Tensor, dict_syms: torch.Tensor,
+                          k: int) -> torch.Tensor:
+    """Plain ``decompress_matmul``: x (M, K) bf16 @ packed W (K, N) ->
+    (M, N) f32.  W is decoded exactly (escape-free layout), then both
+    operands are widened to f32: bf16 products are exact in f32, so only
+    the summation order can differ from the kernel."""
+    kk, n = signman.shape
+    w = unpack_ref(signman.reshape(1, kk * n), planes.reshape(1, k, -1),
+                   dict_syms.reshape(1, -1), k).reshape(kk, n)
+    return torch.mm(x.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
 # paged decode attention
 # ---------------------------------------------------------------------------
 

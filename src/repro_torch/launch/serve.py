@@ -3,7 +3,7 @@ path of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --no-reduced --continuous --requests 6 --slots 4 --prompt-len 1024 \
-        --new-tokens 16
+        --new-tokens 16 [--compress-weights [--weight-backend unpack]]
 
 Weights are a seeded random init (no checkpoint ships with the repo).
 ``--reduced`` (the default) serves ``make_reduced(cfg)``; ``--no-reduced``
@@ -19,7 +19,7 @@ import dataclasses
 from repro_torch.configs import get_config, make_reduced
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.collectives import CodecConfig
-from repro_torch.kernels.ops import DECODE_BACKENDS
+from repro_torch.kernels.ops import DECODE_BACKENDS, WEIGHT_BACKENDS
 
 
 def main(argv=None) -> int:
@@ -41,6 +41,16 @@ def main(argv=None) -> int:
                     help="decode attention: auto (by device), cuda (the "
                          "kernel; needs --device cuda) or torch (the plain "
                          "version; needs --device cpu)")
+    ap.add_argument("--compress-weights", action="store_true",
+                    help="serve from the LEXI-packed weight store (weights "
+                         "decompressed just in time at every matmul)")
+    ap.add_argument("--weight-backend", default="auto",
+                    choices=list(WEIGHT_BACKENDS),
+                    help="packed-weight matmuls: auto (by device), cuda "
+                         "(the fused decompress_matmul kernel), unpack (the "
+                         "lexi_unpack kernel, then the raw product; both "
+                         "need --device cuda) or torch (the plain version; "
+                         "needs --device cpu)")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="evict a slot when it emits this token id")
     ap.add_argument("--stop-seq", type=str, default=None,
@@ -54,7 +64,8 @@ def main(argv=None) -> int:
                                              format_stats)
     codec = (CodecConfig() if args.codec == "full" else CodecConfig.off())
     run = RunConfig(codec=dataclasses.replace(
-        codec, decode_backend=args.decode_backend))
+        codec, decode_backend=args.decode_backend,
+        weight_backend=args.weight_backend))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
@@ -64,6 +75,7 @@ def main(argv=None) -> int:
              if args.stop_seq else None)
     eng = ServeEngine(cfg, run, n_slots=args.slots, max_len=max_len,
                       seed=run.seed, eos_id=args.eos_id, stop_seqs=stops,
+                      compress_weights=args.compress_weights,
                       device=args.device)
     results, st = eng.run(reqs)
     print("[serve] continuous:", format_stats(st))

@@ -15,17 +15,26 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.weights import PackedWeight, unpack_weight
+from repro_torch.kernels import ops as kops
+
 NEG_INF = -2.0e38
 
 
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` of bf16 operands as the f32 product (not rounded to bf16).
+def matmul_f32(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` of bf16 operands as the f32 product (not rounded to bf16),
+    the single weight-consuming matmul primitive.
 
-    On CUDA this is cuBLAS through ``torch.mm(..., out_dtype=float32)``
-    (``aten::mm.dtype``: bf16 inputs, f32 accumulate and output); TF32 is
-    irrelevant there and is left off for f32 products.  On the CPU, where
-    ``aten::mm.dtype`` does not exist, both operands are upcast to f32,
-    which gives the same exact products."""
+    ``w`` is a raw tensor or a ``PackedWeight`` leaf of the packed serving
+    store; packed leaves go to ``kernels.ops.matmul_packed`` on the backend
+    baked in at pack time.  A raw ``w`` on CUDA is cuBLAS through
+    ``torch.mm(..., out_dtype=float32)`` (``aten::mm.dtype``: bf16 inputs,
+    f32 accumulate and output); TF32 is irrelevant there and is left off
+    for f32 products.  On the CPU, where ``aten::mm.dtype`` does not
+    exist, both operands are upcast to f32, which gives the same exact
+    products."""
+    if isinstance(w, PackedWeight):
+        return kops.matmul_packed(x, w)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda":
@@ -35,7 +44,13 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead + (w.shape[-1],))
 
 
-def pdot(x: torch.Tensor, w: torch.Tensor,
+def raw_weight(w):
+    """A weight for non-matmul consumers: the exact bf16 decode of a
+    ``PackedWeight``, a raw tensor as it is."""
+    return unpack_weight(w) if isinstance(w, PackedWeight) else w
+
+
+def pdot(x: torch.Tensor, w,
          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w with f32 accumulation, bf16 result."""
     out = matmul_f32(x, w)

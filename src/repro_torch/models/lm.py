@@ -32,7 +32,8 @@ def lm_table(cfg: ModelConfig) -> Dict:
 
 
 def layer_params(params, i: int):
-    """Layer ``i``'s leaves (views) of the stacked block tree."""
+    """Layer ``i``'s leaves (views) of the stacked block tree; a
+    ``PackedWeight`` leaf slices all its packed fields."""
     def take(t):
         return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[i]
@@ -50,7 +51,8 @@ def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
 
 
 def logits_for(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """x (B,1,D) -> (B,1,Vp) f32 logits, padded columns masked."""
+    """x (B,1,D) -> (B,1,Vp) f32 logits, padded columns masked.  A packed
+    ``lm_head`` goes through ``layers.matmul_f32`` like every weight."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = layers.softcap(layers.matmul_f32(x, head), cfg.final_softcap)
     col_ok = torch.arange(head.shape[1], device=x.device) < cfg.vocab_size

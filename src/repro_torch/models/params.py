@@ -16,6 +16,8 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.weights import PackedWeight
+
 
 @dataclasses.dataclass(frozen=True)
 class PDef:
@@ -68,14 +70,28 @@ def _to_tensor(a) -> torch.Tensor:
 
 def from_jax_params(tree, device="cpu") -> Any:
     """The reference's parameter tree (``models/params.py:init_params``
-    output; any array-like leaves) as torch tensors, bit for bit."""
+    output, or ``core/weights.py:pack_serving_params`` output; any
+    array-like leaves) as torch tensors, bit for bit.  A reference
+    ``PackedWeight`` (recognised by its fields) becomes the port's, its
+    uint32 plane words held as int32, with ``device``'s default weight
+    backend."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
+    if all(hasattr(tree, f) for f in ("signman", "planes", "dict_syms", "k")):
+        planes = np.asarray(tree.planes)
+        if planes.dtype != np.uint32:
+            raise ValueError(f"packed planes must be uint32, got "
+                             f"{planes.dtype}")
+        return PackedWeight(_to_tensor(tree.signman),
+                            _to_tensor(planes.view(np.int32)),
+                            _to_tensor(tree.dict_syms), int(tree.k)
+                            ).to(device)
     return _to_tensor(tree).to(device)
 
 
 def to_device(params, device) -> Any:
-    """A copy of a tensor tree on ``device``."""
+    """A copy of a parameter tree on ``device`` (``PackedWeight.to`` for
+    packed leaves)."""
     if isinstance(params, dict):
         return {k: to_device(v, device) for k, v in params.items()}
     return params.to(device)

@@ -24,6 +24,11 @@ they are a plain loop of K eager steps whose tokens stay on the device
 until the window ends (CUDA graphs are a later change).  Streams are the
 same as stepping one token at a time.
 
+``compress_weights=True`` serves from the packed weight plane
+(``core.weights``): bulk weights are packed once at construction, on the
+parameters' device, and every matmul against them runs the backend
+``CodecConfig.weight_backend`` resolves to.
+
 Left out of this slice: prefix sharing and the tiered PageCache (the port
 runs ``prefix_sharing=False``; the reference's streams are unchanged by
 sharing), request tracing, and disaggregated replicas.  Dropped with the
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import weights as weights_mod
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import lm, params as PM
@@ -95,10 +101,22 @@ class ServeStats:
     admit_window_mean_s: float = 0.0   # batched prefill / replay windows
     decode_window_mean_s: float = 0.0  # decode windows
     inter_token_mean_s: float = 0.0    # decode-window time per step
+    # serving weight plane (core.weights): device bytes of the weight
+    # store, the reference's per-decode-step weight meter (analytic)
+    weights_compressed: bool = False
+    weight_backend: str = "torch"      # resolved cuda | unpack | torch
+    weight_bytes_per_step: int = 0     # stored (packed + raw-leaf) bytes
+    weight_raw_bytes_per_step: int = 0   # same store, all bf16
 
     @property
     def cache_ratio(self) -> float:
         return self.peak_cache_raw_bytes / max(self.peak_cache_bytes, 1)
+
+    @property
+    def weight_ratio(self) -> float:
+        """Packed/raw weight bytes per decode step (<= 1; 1.0 = raw)."""
+        return self.weight_bytes_per_step / max(self.weight_raw_bytes_per_step,
+                                                1)
 
 
 def summarize_latencies(values: Sequence[float]) -> Dict[str, float]:
@@ -198,7 +216,7 @@ class ServeEngine:
                  seed: int = 0, eos_id: Optional[int] = None,
                  stop_seqs: Optional[Sequence[Sequence[int]]] = None,
                  max_fuse_steps: int = 32, prefix_sharing: bool = False,
-                 device="cuda"):
+                 compress_weights: bool = False, device="cuda"):
         if prefix_sharing:
             raise NotImplementedError(
                 "prefix sharing is not ported yet (streams are the same "
@@ -221,6 +239,15 @@ class ServeEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = PM.init_params(self.table, gen, device=self.device)
         self.params = params
+        # serving weight plane: pack bulk 2-D leaves into the escape-free
+        # LEXI-FW layout (idempotent on packed leaves)
+        self.compress_weights = bool(compress_weights)
+        self.weight_backend = kernel_ops.resolve_weight_backend(
+            run.codec, self.device)
+        if self.compress_weights:
+            self.params = weights_mod.pack_serving_params(
+                self.params, backend=self.weight_backend)
+        self._weight_bytes = weights_mod.weight_plane_bytes(self.params)
         self.scheduler = RequestScheduler(max_len)
         self.state = engine.empty_paged_state(cfg, run, n_slots, max_len,
                                               device=self.device)
@@ -468,7 +495,11 @@ class ServeEngine:
             decode_window_mean_s=summarize_latencies(
                 ls.decode_window_s)["mean"],
             inter_token_mean_s=(sum(ls.decode_window_s) / ls.steps
-                                if ls.steps else 0.0))
+                                if ls.steps else 0.0),
+            weights_compressed=self.compress_weights,
+            weight_backend=self.weight_backend,
+            weight_bytes_per_step=self._weight_bytes[0],
+            weight_raw_bytes_per_step=self._weight_bytes[1])
 
     def run(self, requests: List[Request]
             ) -> Tuple[List[RequestResult], ServeStats]:
@@ -517,7 +548,7 @@ def demo_serving_setup(run: RunConfig, vocab_size: int, prompt_len: int,
 
 
 def format_stats(st: ServeStats) -> str:
-    """Three-line human summary of a serving run."""
+    """Four-line human summary of a serving run."""
     return (f"{st.n_requests} reqs, {st.decode_steps} decode steps in "
             f"{st.n_dispatches} windows ({st.decode_backend} backend), "
             f"{st.requests_per_s:.2f} req/s, {st.tokens_per_s:.1f} tok/s\n"
@@ -527,4 +558,10 @@ def format_stats(st: ServeStats) -> str:
             f"{st.peak_cache_bytes / 1e3:.1f} kB stored / "
             f"{st.peak_cache_raw_bytes / 1e3:.1f} kB raw "
             f"({st.cache_ratio:.2f}x); mean request latency "
-            f"{st.mean_latency_s * 1e3:.0f} ms")
+            f"{st.mean_latency_s * 1e3:.0f} ms\n"
+            f"weights: "
+            f"{'packed' if st.weights_compressed else 'raw bf16'} "
+            f"({st.weight_backend} backend), "
+            f"{st.weight_bytes_per_step / 1e3:.1f} kB HBM per decode step / "
+            f"{st.weight_raw_bytes_per_step / 1e3:.1f} kB raw "
+            f"({st.weight_ratio:.2f}x)")
