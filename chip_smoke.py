@@ -20,10 +20,15 @@ non-zero:
                ``fixed.decompress`` with escapes and overflow);
                ``decompress_matmul`` at the six (K, N) weight shapes with
                M = 4 (decode) and 1024 (prefill), elementwise within
-               1e-4 * (|x| @ |W|) + 1e-6.  Times each (CUDA events, median,
-               L2 flushed between launches); the two weight kernels' JSON
-               rows are one decode step's 253 weight matmuls (7 per layer
-               and the LM head) at M = 4, summed.
+               1e-4 * (|x| @ |W|) + 1e-6.  The fixed-batch
+               ``decode_attend`` at qwen3-4b's attention shapes (4
+               sequences of 1100 tokens, block 256, k 5; full, window 700,
+               softcap, codec off, a block whose escapes overflow inside
+               sequence 2) and at gemma2-9b's (H 16/8, hd 256, 4400
+               tokens, window 4096, softcap 50), within 1e-4.  Times each
+               (CUDA events, median, L2 flushed between launches); the two
+               weight kernels' JSON rows are one decode step's 253 weight
+               matmuls (7 per layer and the LM head) at M = 4, summed.
   4. small   — a tiny dense model decoded on the card and on the CPU from
                the same weights and tokens, raw and packed weights: logits
                agree within 1e-2.
@@ -39,7 +44,19 @@ non-zero:
   6. profile — 8 decode steps of those 4 slots under torch.profiler:
                device busy share and the top kernels (full table in
                ``chiprun_out/profile_decode.txt``).
-  7. weights — the serve phase's full-width weights packed on the card
+  7. fixed   — the fixed-batch loop (``engine.prefill`` +
+               ``engine.decode_step``, the launcher's default mode) on the
+               serve phase's weights: 4 prompts of 1000 tokens, 40 greedy
+               steps at block 256, so the rings flush at 1024.  Each
+               layer's ``decode_attend`` launches once per step; the
+               flushed block of layers 0 and 35 decodes bit for bit to its
+               ring; the codec off (raw blocks) gives the same tokens.
+               Prints tokens/s and ms per decode step, then 8 steps under
+               the profiler (``chiprun_out/profile_decode_fixed.txt``),
+               how many tokens equal ``ServeEngine``'s on the same prompts,
+               and the host time per step of the fixed and the paged loop
+               in turns on the same sequences.
+  8. weights — the serve phase's full-width weights packed on the card
                (time, each packed leaf's k, ``weight_plane_bytes``); the
                packed fields of ``blocks.mlp.w_gate`` and ``lm_head``
                byte-identical to the same leaves packed on the CPU; then
@@ -52,7 +69,7 @@ non-zero:
                Last, the serve phase's 4 slots decode 8 steps from the
                packed store under the profiler, as in phase 6
                (``chiprun_out/profile_decode_packed.txt``).
-  8. the card's line, the ``kernels`` JSON line, then the result line.
+  9. the card's line, the ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -74,7 +91,8 @@ REPLACES = {"decode_attend_paged": "src/repro/kernels/decode_attend.py:421",
             "exp_histogram": "src/repro/kernels/exp_histogram.py:47",
             "lexi_pack": "src/repro/kernels/lexi_pack.py:56",
             "decompress_matmul": "src/repro/kernels/decompress_matmul.py:86",
-            "lexi_unpack": "src/repro/kernels/lexi_unpack.py:51"}
+            "lexi_unpack": "src/repro/kernels/lexi_unpack.py:51",
+            "decode_attend": "src/repro/kernels/decode_attend.py:305"}
 SERVE_KERNELS = ("decode_attend_paged", "exp_histogram", "lexi_pack")
 
 
@@ -149,6 +167,7 @@ def _pages(gen, n_pages, blk, w):
 
 def kernels_phase(cfg):
     import torch
+    from repro_torch.core import entropy as E
     from repro_torch.core import fixed
     from repro_torch.kernels import decode_attend, exp_histogram, lexi_pack
     from repro_torch.kernels import ops, ref
@@ -173,12 +192,19 @@ def kernels_phase(cfg):
     torch.cuda.synchronize()
     assert torch.equal(got, want), "exp_histogram != plain"
     g = n_pages
+    # yardstick: one torch.bincount over (row, exponent) keys; the exponent
+    # field is extracted into the keys beforehand, outside the timing
+    keys = (torch.arange(g, device="cuda")[:, None] * 256
+            + E.exponent(E.to_u16(rows))).reshape(-1)
+    assert torch.equal(torch.bincount(keys, minlength=g * 256)
+                       .reshape(g, 256).to(torch.int32), want)
     rec["exp_histogram"] = dict(
         max_abs_err=int((got - want).abs().max()),
         ms=cuda_ms(lambda: exp_histogram.exp_histogram(rows)),
         plain_ms=cuda_ms(lambda: ref.histogram_ref(rows), reps=5),
         bound_ms=2 * n * g / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None)
+        library_ms=cuda_ms(lambda: torch.bincount(keys, minlength=g * 256)))
+    del keys
     log("kernels", f"exp_histogram ({g} x {n}) exact: "
                    f"{rec['exp_histogram']}")
 
@@ -282,7 +308,130 @@ def kernels_phase(cfg):
                    f"(full + window 700 + codec off): "
                    f"{rec['decode_attend_paged']}")
     rec.update(weight_kernels(cfg, ct, gen))
+    rec["decode_attend"] = fixed_attend_kernel(cfg, gen)
     return rec
+
+
+def _fixed_blocks(gen, nblk, b, blk, w):
+    """(nblk, B, blk, W) K/V-like bf16 blocks; block 1 has a few escapes
+    in sequence 0 and more distinct exponents than the block's side
+    channel holds in sequence 2 (small values, so that the attention
+    outputs stay O(1) and an absolute error means something)."""
+    import torch
+    x = torch.randn((nblk, b, blk, w), generator=gen, device="cuda")
+    rare = torch.rand((blk, w), generator=gen, device="cuda") < 0.004
+    x[1, 0] = torch.where(rare, x[1, 0] * 2.0 ** -40, x[1, 0])
+    x[1, 2] = x[1, 2] * torch.exp2(torch.randint(
+        -90, 1, (blk, w), generator=gen, device="cuda").float())
+    return x.to(torch.bfloat16)
+
+
+def _fixed_case(gen, b, h, hkv, hd, blk, length, k=5):
+    """The kernel's arguments at one attention shape: a store of
+    length // blk + 1 blocks (the last one dead), its ring and q."""
+    import torch
+    from repro_torch.core import fixed
+
+    w = 2 * hkv * hd
+    nblk = length // blk + 1
+    blocks = _fixed_blocks(gen, nblk, b, blk, w)
+    n = b * blk * w
+    ct = fixed.compress_many(blocks.reshape(nblk, n), k=k,
+                             esc_capacity=max(n // 128, 8))
+    ring = torch.randn((b, blk, w), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    return blocks, ct, ring, q
+
+
+def _fixed_check(args_codec, args_raw, kw_cases):
+    """Kernel against plain version, normalised, within 1e-4, for every
+    (args, kwargs) case; returns the largest |error|."""
+    import torch
+    from repro_torch.kernels import decode_attend, ref
+
+    worst = 0.0
+    for codec_on, kw, window in kw_cases:
+        args = (args_codec if codec_on else args_raw) + (window,)
+        o_k, _, l_k = decode_attend.decode_attend(*args, **kw)
+        o_p, _, l_p = ref.decode_attend_plain(*args, **kw)
+        a = o_k / l_k.clamp(min=1e-30)[..., None]
+        b = o_p / l_p.clamp(min=1e-30)[..., None]
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def fixed_attend_kernel(cfg, gen):
+    """decode_attend against its plain version at qwen3-4b's and
+    gemma2-9b's attention shapes, timed at qwen3-4b's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attend, ref
+
+    b, blk, k = 4, 256, 5
+    errs = []
+    for arch, length, window, softcap in (("qwen3-4b", 1100, 700, 50.0),
+                                          ("gemma2-9b", 4400, 4096, 50.0)):
+        c_ = cfg if arch == cfg.name else get_config(arch)
+        h, hkv, hd = c_.n_heads, c_.n_kv_heads, c_.head_dim
+        blocks, ct, ring, q = _fixed_case(gen, b, h, hkv, hd, blk, length)
+        cap = ct.esc_pos.shape[-1]
+        n_esc = ct.n_escapes.tolist()
+        assert n_esc[1] > cap, n_esc                          # overflow
+        assert bool((ct.esc_pos[1] < blk * 2 * hkv * hd).any())
+        g = h // hkv
+        kw = dict(k=k, kv_idx=tuple(min(i // g, hkv - 1) for i in range(h)),
+                  scale=hd ** -0.5)
+        store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos,
+                 ct.esc_raw, None)
+        args = (q, *store, ring, length)
+        args_raw = (q, *(None,) * 5, blocks, ring, length)
+        full, win = ref.WINDOW_NONE, window
+        cases = [(True, kw, full), (True, kw, win),
+                 (True, dict(kw, softcap=softcap), full),
+                 (True, dict(kw, softcap=softcap), win),
+                 (False, kw, full), (False, dict(kw, softcap=softcap), win)]
+        errs.append(_fixed_check(args, args_raw, cases))
+        log("kernels", f"decode_attend at {arch}'s shapes (B={b}, H={h}/"
+                       f"{hkv}, hd={hd}, block {blk}, length {length}, "
+                       f"{length // blk} live blocks, escapes per block "
+                       f"{n_esc[:3]}..., capacity {cap}) within 1e-4: full, "
+                       f"window {window}, softcap {softcap}, codec off; "
+                       f"max |err| {errs[-1]:.3e}")
+        if arch != cfg.name:
+            del blocks, ct, ring, q, store, args, args_raw
+            torch.cuda.empty_cache()
+            continue
+        timed = (args + (full,), kw)
+        live = length // blk
+        dec = blocks[:live].transpose(0, 1).reshape(b, live * blk, -1)
+        kv_t = torch.cat([dec, ring[:, :length - live * blk]], 1) \
+            .reshape(b, length, hkv, 2, hd)
+        kk = kv_t[..., 0, :].transpose(1, 2)
+        vv = kv_t[..., 1, :].transpose(1, 2)
+        lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, enable_gqa=True)
+        n = b * blk * 2 * hkv * hd
+        by = (live * (n * (1 + k / 8) + (1 << k) + 5 * cap)
+              + b * (length - live * blk) * 2 * hkv * hd * 2
+              + q.numel() * 2 + b * h * (hd + 2) * 4)
+        flops = 4 * b * h * hd * length
+        t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOPS
+        row = dict(
+            max_abs_err=None,
+            ms=cuda_ms(lambda: decode_attend.decode_attend(*timed[0],
+                                                           **timed[1])),
+            plain_ms=cuda_ms(lambda: ref.decode_attend_plain(
+                *timed[0], **timed[1]), reps=5),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=cuda_ms(lib_fn))
+    row["max_abs_err"] = max(errs)
+    log("kernels", f"decode_attend at qwen3-4b's shapes, full window, "
+                   f"codec on: {row}")
+    return row
 
 
 def weight_shapes(cfg):
@@ -449,7 +598,7 @@ def small_model_diff(packed: bool) -> float:
     for dev in ("cpu", "cuda"):
         p = PM.to_device(params, dev)
         st = engine.empty_paged_state(cfg, run, 2, 64, device=dev)
-        logits, d = engine.prefill(cfg, run, p, prompt.to(dev))
+        logits, d = engine.prefill_sequences(cfg, run, p, prompt.to(dev))
         engine.insert_sequences(cfg, run, st, d, [0, 1])
         states[dev], toks[dev] = (st, p), [logits.float().cpu()]
     feed = engine.greedy_token(toks["cpu"][0])
@@ -604,7 +753,7 @@ def serve_phase(cfg, smi):
 
     lm.lm_forward(cfg, run, eng.params, prompts, want_cache=True,
                   cache_fn=keep)
-    logits, d = engine.prefill(cfg, run, eng.params, prompts)
+    logits, d = engine.prefill_sequences(cfg, run, eng.params, prompts)
     assert torch.isfinite(logits).all()
     engine.insert_sequences(cfg, run, eng.state, d, [0, 1, 2, 3])
     pkv = eng.state.kv
@@ -629,11 +778,9 @@ def serve_phase(cfg, smi):
 
 
 def profile_decode(cfg, run, eng, tok, name: str, steps: int = 8):
-    """Where a decode step's device time goes: ``steps`` decode steps of
-    4 slots under torch.profiler, kernels summed by name.  The full table
-    goes to chiprun_out/profile_<name>.txt.  Each window starts from
-    ``tok``; the slots' caches grow by ``steps`` tokens a window."""
-    import torch
+    """Where a decode step of the paged engine's 4 slots goes: windows of
+    ``steps`` decode steps from ``tok`` (see ``profile_window``); the
+    slots' caches grow by ``steps`` tokens a window."""
     from repro_torch.serve import engine
 
     def window():
@@ -642,6 +789,16 @@ def profile_decode(cfg, run, eng, tok, name: str, steps: int = 8):
             t = engine.greedy_token(engine.paged_decode_step(
                 cfg, run, eng.params, eng.state, t))
         return t.cpu()
+
+    profile_window(name, window, steps)
+
+
+def profile_window(name: str, window, steps: int):
+    """``window()`` (``steps`` decode steps of 4 sequences, ending in a
+    host read) warm, then timed, then under torch.profiler: device busy
+    share and the top kernels summed by name.  The full table goes to
+    chiprun_out/profile_<name>.txt."""
+    import torch
 
     window()                                        # warm
     t0 = time.perf_counter()
@@ -661,7 +818,7 @@ def profile_decode(cfg, run, eng, tok, name: str, steps: int = 8):
     (out / f"profile_{name}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    log("profile", f"{name}: {steps} decode steps, 4 slots: wall "
+    log("profile", f"{name}: {steps} decode steps, 4 sequences: wall "
                    f"{wall * 1e3:.1f} ms"
                    f" ({wall * 1e3 / steps:.2f} ms/step, profiler off); "
                    f"device busy {dev_total:.1f} ms in the profiled run "
@@ -675,7 +832,145 @@ def profile_decode(cfg, run, eng, tok, name: str, steps: int = 8):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serve from the packed weight plane
+# phase 7: the fixed-batch loop
+# ---------------------------------------------------------------------------
+
+def fixed_phase(cfg, params, smi):
+    """prefill + decode_step on 4 x 1000-token prompts, 40 steps at block
+    256 (flush at 1024), raw weights; returns decode_attend's launches in
+    the timed run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    b, s, n, blk, prof_steps = 4, 1000, 40, 256, 8
+    run = RunConfig(codec=CodecConfig(cache_block=blk))
+    max_len = s + n + 4 * prof_steps        # + three profile windows, A/B
+    last = cfg.n_layers - 1
+    rng = np.random.default_rng(7)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                              dtype=torch.int32, device="cuda")
+
+    def check_flush(run_, st):
+        """The block the ring just filled decodes to the ring bit for bit."""
+        idx = st.length // blk - 1
+        for layer in (0, last):
+            kv = st.kv[layer]
+            back = cache_mod.load_block(kv, idx, run_.codec)
+            assert torch.equal(back.view(torch.int16),
+                               kv.ring.view(torch.int16)), (layer, idx)
+        return idx
+
+    def serve(run_, check: bool):
+        t0 = time.perf_counter()
+        logits, st = engine.prefill(cfg, run_, params, prompts, max_len)
+        assert torch.isfinite(logits).all()
+        tok = engine.greedy_token(logits)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, flushed, t_check = [tok], [], 0.0
+        for _ in range(n):
+            tok = engine.greedy_token(engine.decode_step(cfg, run_, params,
+                                                         st, tok))
+            toks.append(tok)
+            if check and st.length % blk == 0:
+                c0 = time.perf_counter()
+                flushed.append(check_flush(run_, st))
+                t_check += time.perf_counter() - c0
+        out = torch.cat(toks, 1).cpu()
+        t2 = time.perf_counter()
+        return out, st, t1 - t0, t2 - t1 - t_check, flushed
+
+    out0, _, _, _, flushed = serve(run, check=True)     # warm + flush check
+    assert flushed == [s // blk], flushed
+    # lossless: the raw store gives the same tokens (the kernel's shared
+    # memory tile holds the same bits either way)
+    raw = RunConfig(codec=dataclasses.replace(CodecConfig.off(),
+                                              cache_block=blk))
+    out_raw = serve(raw, check=True)[0]
+    assert torch.equal(out_raw, out0), "codec off changed the tokens"
+    ops.reset_launch_counts()
+    out, st, t_prefill, t_decode, _ = serve(run, check=False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert torch.equal(out, out0), "fixed-batch loop is not deterministic"
+    assert out.shape == (b, n + 1) and int(out.min()) >= 0 \
+        and int(out.max()) < cfg.vocab_size
+    assert launches["decode_attend"] == cfg.n_layers * n, launches
+    assert launches["decode_attend_paged"] == 0, launches
+    assert launches["exp_histogram"] > 0 and launches["lexi_pack"] > 0
+    log("fixed", f"{cfg.name}, {b} x ({s} prompt + {n} new), block {blk}: "
+                 f"prefill {t_prefill * 1e3:.1f} ms, {n} decode steps "
+                 f"{t_decode * 1e3:.1f} ms = {t_decode * 1e3 / n:.2f} ms/step"
+                 f" ({b * n / t_decode:.2f} decode tok/s; "
+                 f"{b * n / (t_prefill + t_decode):.2f} tok/s with the "
+                 f"prefill, as the launcher counts), launches {launches} | "
+                 f"{smi}")
+    log("fixed", f"ring flush at {(flushed[0] + 1) * blk} tokens: block "
+                 f"{flushed[0]} of layers 0 and {last} decodes bit for bit "
+                 f"to its ring; codec off (raw blocks through the same "
+                 f"kernel) gives the same {b * (n + 1)} tokens")
+    tok = out[:, -1:].to("cuda")
+
+    def window():
+        t = tok
+        for _ in range(prof_steps):
+            t = engine.greedy_token(engine.decode_step(cfg, run, params, st,
+                                                       t))
+        return t.cpu()
+
+    profile_window("decode_fixed", window, prof_steps)
+
+    eng = ServeEngine(cfg, run, n_slots=b, max_len=max_len, params=params,
+                      device="cuda")
+    reqs = [Request(uid=i, prompt=prompts[i].cpu().numpy(),
+                    max_new_tokens=n + 1) for i in range(b)]
+    t0 = time.perf_counter()
+    results, _ = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    same = sum(int(a == c) for r, row in zip(results, out.tolist())
+               for a, c in zip(r.tokens, row))
+    first = [next((i for i, (a, c) in enumerate(zip(r.tokens, row))
+                   if a != c), None) for r, row in zip(results, out.tolist())]
+    trunk = 1 << (s.bit_length() - 1)       # the scheduler's bucket
+    log("fixed", f"ServeEngine on the same prompts ({s} = {trunk}-token "
+                 f"trunk + {s - trunk} replayed tokens, wall {wall:.1f} s): "
+                 f"{same}/{b * (n + 1)} tokens equal to the fixed-batch "
+                 f"loop's; first divergence per sequence {first}")
+
+    # host time per step, the two decode loops in turns on the same
+    # sequences: the fixed state above and the same prompts in the pool
+    _, d = engine.prefill_sequences(cfg, run, params, prompts)
+    engine.insert_sequences(cfg, run, eng.state, d, list(range(b)))
+    for _ in range(st.length - s):                # to the fixed length
+        engine.paged_decode_step(cfg, run, params, eng.state, tok)
+    loops = {"fixed": lambda t: engine.decode_step(cfg, run, params, st, t),
+             "paged": lambda t: engine.paged_decode_step(cfg, run, params,
+                                                         eng.state, t)}
+    times = {"fixed": [], "paged": []}
+    for name in ("paged", "fixed", "fixed", "paged"):
+        t, t0 = tok, time.perf_counter()
+        for _ in range(prof_steps // 2):
+            t = engine.greedy_token(loops[name](t))
+        t.cpu()
+        times[name].append((time.perf_counter() - t0) * 1e3
+                           / (prof_steps // 2))
+    log("fixed", f"host ms per decode step in turns (paged, fixed, fixed, "
+                 f"paged) on the same 4 sequences at ~{st.length} tokens: "
+                 f"fixed {times['fixed']}, paged {times['paged']}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches["decode_attend"]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serve from the packed weight plane
 # ---------------------------------------------------------------------------
 
 def _at(tree, path):
@@ -813,6 +1108,7 @@ def main() -> int:
     rec = kernels_phase(cfg)
     small_phase()
     launches, serve_eng, tok = serve_phase(cfg, smi)
+    launches["decode_attend"] = fixed_phase(cfg, serve_eng.params, smi)
     launches.update(weights_phase(cfg, serve_eng, tok, smi))
     kernels = []
     for name, r in rec.items():

@@ -1,23 +1,33 @@
-"""Fused page decompress + decode attention: the CUDA kernel
-``csrc/decode_attend_paged.cu`` (replaces the Pallas kernel
-``repro/kernels/decode_attend.py:decode_attend_paged``) and its plain
-PyTorch twin.
+"""Fused block decompress + decode attention: the CUDA kernels
+``csrc/decode_attend.cu`` (replaces the Pallas kernel
+``repro/kernels/decode_attend.py:decode_attend``, the fixed-batch store)
+and ``csrc/decode_attend_paged.cu`` (replaces ``decode_attend_paged``, the
+paged pool), both built on ``csrc/decode_attend_body.cuh``, and their plain
+PyTorch twins.
 
-Only the paged entry point is ported; the fixed-batch ``decode_attend``
-waits for the fixed-batch store.  The port runs at tp = 1, so the
-reference's shard arguments (``tp``, ``ti``) are gone: every slot owns all
-its positions.  MLA latent payloads are not covered yet (the dense family
-is this slice's path).
+The port runs at tp = 1, so the reference's shard arguments (``tp``,
+``ti``) are gone: every sequence owns all its positions.  MLA latent
+payloads are not covered yet (the dense family is the ported path).
 
-Calling convention (as the reference's): q (S, H, hd) bf16; the page
-pool's fields with leading n_pages — signman (P, n) uint8, planes
-(P, k, n/32) int32-held words, dicts (P, 2^k) uint8, esc_pos (P, C) int32,
-esc_raw (P, C) uint8 — or raw_pages (P, blk, W) bf16 when the codec is
-off; ring (S, blk, W) bf16; page_ids (S, maxp) int32 with unmapped entries
-already clipped to a valid id (they are dead by length); lengths (S,)
-post-append token counts; window the layer's window (``ref.WINDOW_NONE`` for
-global layers).  Returns unnormalised (out (S, H, hd) f32, m (S, H),
-l (S, H)).
+Shared calling convention (as the reference's): q (S, H, hd) bf16 with
+hd % 16 == 0; ring (S, blk, W) bf16 with W = Hkv * 2 * hd (K‖V per kv
+head); window the layer's window (``ref.WINDOW_NONE`` for global layers);
+``kv_idx`` the GQA/MQA/MHA head map min(h // (Hq // Hkv), Hkv - 1)
+(``cache.gqa_head_table``; any other map is refused).  Both return
+unnormalised (out (S, H, hd) f32, m (S, H), l (S, H)).
+
+``decode_attend`` (fixed-batch store; S = B sequences at one length):
+signman (nblk, B·blk·W) uint8, planes (nblk, k, B·blk·W/32) int32-held
+words, dicts (nblk, 2^k) uint8, esc_pos / esc_raw (nblk, C) int32 / uint8
+— one record per block for all B sequences — or raw_blocks
+(nblk, B, blk, W) bf16 when the codec is off; ``length`` the host-side
+post-append token count shared by every sequence.
+
+``decode_attend_paged``: the page pool's fields with leading n_pages —
+signman (P, n), planes (P, k, n/32), dicts (P, 2^k), esc_pos / esc_raw
+(P, C), or raw_pages (P, blk, W); page_ids (S, maxp) int32 with unmapped
+entries already clipped to a valid id (they are dead by length); lengths
+(S,) int32 post-append token counts.
 """
 
 from __future__ import annotations
@@ -29,30 +39,21 @@ import torch
 
 from . import ref
 
-plain = ref.paged_decode_attend_plain
+plain = ref.decode_attend_plain
+plain_paged = ref.paged_decode_attend_plain
 
-launches = 0          # kernel launches since the last reset
+# kernel launches since the last reset, by kernel
+launches = {"decode_attend": 0, "decode_attend_paged": 0}
 
 
-def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
-                        raw_pages, ring, page_ids, lengths, window: int, *,
-                        k: int, kv_idx: Sequence[int], scale: float,
-                        softcap: Optional[float] = None):
-    """Launch the kernel (CUDA tensors only).  ``kv_idx`` maps each query
-    head to its kv head; the kernel takes the GQA/MQA/MHA map
-    min(h // (Hq // Hkv), Hkv - 1) (``cache.gqa_head_table``) and refuses
-    any other."""
-    global launches
-    from .ops import check_cuda, library, raise_on_error
+def _check_attend(q, ring, kv_idx, n_seqs_name: str):
+    """Validate the operands both kernels share; (S, H, hd, blk, W, Hkv)."""
+    from .ops import check_cuda
 
-    codec_on = signman is not None
     check_cuda(q, torch.bfloat16, 3, "q")
     check_cuda(ring, torch.bfloat16, 3, "ring")
-    check_cuda(page_ids, torch.int32, 2, "page_ids")
-    check_cuda(lengths, torch.int32, 1, "lengths")
     n_s, h, hd = q.shape
     _, blk, w = ring.shape
-    maxp = page_ids.shape[1]
     if hd % 16:
         raise ValueError(f"head_dim must be a multiple of 16, got {hd}")
     if w % (2 * hd):
@@ -63,44 +64,122 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
                                        for i in range(h)):
         raise ValueError(f"unsupported head map {tuple(kv_idx)} for {h} "
                          f"query heads over {hkv} kv heads")
-    if ring.shape[0] != n_s or page_ids.shape[0] != n_s \
-            or lengths.shape[0] != n_s:
-        raise ValueError("q, ring, page_ids and lengths disagree on slots")
-    n = blk * w
+    if ring.shape[0] != n_s:
+        raise ValueError(f"q and ring disagree on {n_seqs_name}")
+    return n_s, h, hd, blk, w, hkv
+
+
+def _check_codec(signman, planes, dicts, esc_pos, esc_raw, n: int, k: int,
+                 what: str) -> int:
+    """Validate a store's compressed fields (records of n elements);
+    returns the escape capacity C."""
+    from .ops import check_cuda
+
+    check_cuda(signman, torch.uint8, 2, "signman")
+    check_cuda(planes, torch.int32, 3, "planes")
+    check_cuda(dicts, torch.uint8, 2, "dicts")
+    check_cuda(esc_pos, torch.int32, 2, "esc_pos")
+    check_cuda(esc_raw, torch.uint8, 2, "esc_raw")
+    recs = signman.shape[0]
+    if signman.shape[1] != n or planes.shape != (recs, k, n // 32) \
+            or dicts.shape != (recs, 1 << k) or not 1 <= k <= 8 \
+            or esc_pos.shape[0] != recs or esc_raw.shape != esc_pos.shape:
+        raise ValueError(f"{what} fields do not match the geometry "
+                         f"(n={n}, k={k})")
+    return esc_pos.shape[1]
+
+
+def _outputs(q):
+    n_s, h, hd = q.shape
+    return (torch.empty((n_s, h, hd), dtype=torch.float32, device=q.device),
+            torch.empty((n_s, h), dtype=torch.float32, device=q.device),
+            torch.empty((n_s, h), dtype=torch.float32, device=q.device))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _stream(q):
+    return ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
+                  ring, length: int, window: int, *, k: int,
+                  kv_idx: Sequence[int], scale: float,
+                  softcap: Optional[float] = None):
+    """Launch the fixed-batch kernel (CUDA tensors only)."""
+    from .ops import check_cuda, library, raise_on_error
+
+    b, h, hd, blk, w, hkv = _check_attend(q, ring, kv_idx, "sequences")
+    codec_on = signman is not None
+    n = b * blk * w
     if codec_on:
-        check_cuda(signman, torch.uint8, 2, "signman")
-        check_cuda(planes, torch.int32, 3, "planes")
-        check_cuda(dicts, torch.uint8, 2, "dicts")
-        check_cuda(esc_pos, torch.int32, 2, "esc_pos")
-        check_cuda(esc_raw, torch.uint8, 2, "esc_raw")
-        if signman.shape[1] != n or planes.shape[1:] != (k, n // 32) \
-                or dicts.shape[1] != 1 << k or not 1 <= k <= 8 \
-                or esc_raw.shape != esc_pos.shape:
-            raise ValueError("page pool fields do not match the page "
-                             f"geometry (blk={blk}, W={w}, k={k})")
-        c = esc_pos.shape[1]
+        c = _check_codec(signman, planes, dicts, esc_pos, esc_raw, n, k,
+                         "block store")
+        nblk = signman.shape[0]
+        store = (signman, planes, dicts, esc_pos, esc_raw, None)
+    else:
+        check_cuda(raw_blocks, torch.bfloat16, 4, "raw_blocks")
+        if raw_blocks.shape[1:] != (b, blk, w):
+            raise ValueError("raw blocks do not match the ring geometry")
+        c, nblk = 0, raw_blocks.shape[0]
+        store = (None,) * 5 + (raw_blocks,)
+    length = int(length)
+    if length < 0 or length // blk > nblk:
+        raise ValueError(f"length {length} does not fit {nblk} blocks of "
+                         f"{blk} and the ring")
+    out, m, l = _outputs(q)
+    if b == 0:
+        return out, m, l
+    rc = library().decode_attend_launch(
+        _ptr(q), *(_ptr(t) for t in store), _ptr(ring), _ptr(out), _ptr(m),
+        _ptr(l), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(hkv),
+        ctypes.c_int(hd), ctypes.c_int(blk), ctypes.c_int(w),
+        ctypes.c_int(k), ctypes.c_int(c), ctypes.c_int(length),
+        ctypes.c_int(int(window)), ctypes.c_longlong(n // 32),
+        ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
+        ctypes.c_int(int(codec_on)), _stream(q))
+    raise_on_error(rc, "decode_attend")
+    launches["decode_attend"] += 1
+    return out, m, l
+
+
+def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
+                        raw_pages, ring, page_ids, lengths, window: int, *,
+                        k: int, kv_idx: Sequence[int], scale: float,
+                        softcap: Optional[float] = None):
+    """Launch the paged kernel (CUDA tensors only)."""
+    from .ops import check_cuda, library, raise_on_error
+
+    n_s, h, hd, blk, w, hkv = _check_attend(q, ring, kv_idx, "slots")
+    check_cuda(page_ids, torch.int32, 2, "page_ids")
+    check_cuda(lengths, torch.int32, 1, "lengths")
+    maxp = page_ids.shape[1]
+    if page_ids.shape[0] != n_s or lengths.shape[0] != n_s:
+        raise ValueError("q, page_ids and lengths disagree on slots")
+    codec_on = signman is not None
+    if codec_on:
+        c = _check_codec(signman, planes, dicts, esc_pos, esc_raw, blk * w,
+                         k, "page pool")
         pool = (signman, planes, dicts, esc_pos, esc_raw, None)
     else:
         check_cuda(raw_pages, torch.bfloat16, 3, "raw_pages")
         if raw_pages.shape[1:] != (blk, w):
             raise ValueError("raw pages do not match the ring geometry")
         c = 0
-        pool = (None, None, None, None, None, raw_pages)
-    out = torch.empty((n_s, h, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((n_s, h), dtype=torch.float32, device=q.device)
-    l = torch.empty((n_s, h), dtype=torch.float32, device=q.device)
+        pool = (None,) * 5 + (raw_pages,)
+    out, m, l = _outputs(q)
     if n_s == 0:
         return out, m, l
-    ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
     rc = library().decode_attend_paged_launch(
-        ptr(q), *(ptr(t) for t in pool), ptr(ring), ptr(page_ids),
-        ptr(lengths), ptr(out), ptr(m), ptr(l), ctypes.c_int(n_s),
+        _ptr(q), *(_ptr(t) for t in pool), _ptr(ring), _ptr(page_ids),
+        _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), ctypes.c_int(n_s),
         ctypes.c_int(h), ctypes.c_int(hkv), ctypes.c_int(hd),
         ctypes.c_int(blk), ctypes.c_int(w), ctypes.c_int(maxp),
         ctypes.c_int(k), ctypes.c_int(c), ctypes.c_int(int(window)),
         ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
-        ctypes.c_int(int(codec_on)),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        ctypes.c_int(int(codec_on)), _stream(q))
     raise_on_error(rc, "decode_attend_paged")
-    launches += 1
+    launches["decode_attend_paged"] += 1
     return out, m, l

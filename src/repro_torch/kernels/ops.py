@@ -4,15 +4,16 @@ backend resolution, and the kernels' build and loader (ports
 
 Every wrapper takes the kernel's plain PyTorch version for a CPU tensor
 and launches the kernel for a CUDA tensor; it never falls back from one to
-the other.  Each kernel module keeps a plain ``launches`` count that its
-launcher bumps after a successful launch.
+the other.  Each kernel module keeps a plain ``launches`` count (a dict by
+kernel in ``decode_attend``, which holds two) that its launcher bumps
+after a successful launch.
 
 Build: the ``csrc/*.cu`` sources have a plain C interface; ``build()``
 compiles each in its own ``nvcc`` process for ``sm_90a`` (all started
 together) and links them into ONE shared library under
 ``<repo>/build/repro_torch/`` (git-ignored).  It happens at first use,
-and again only when a source is newer than the library, which is then
-loaded with ``ctypes``.
+and again only when a source or a shared ``csrc/*.cuh`` header is newer
+than the library, which is then loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -203,13 +204,25 @@ def matmul_packed(x: torch.Tensor, pw) -> torch.Tensor:
     return out.reshape(lead + (out.shape[-1],))
 
 
+def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
+                  ring, length: int, window: int, *, k: int,
+                  kv_idx: Sequence[int], scale: float,
+                  softcap: Optional[float] = None):
+    """Fixed-batch decompress + attend -> unnormalised (out, m, l); see
+    ``kernels.decode_attend`` for the calling convention."""
+    fn = _attend.plain if q.device.type == "cpu" else _attend.decode_attend
+    return fn(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks, ring,
+              length, window, k=k, kv_idx=kv_idx, scale=scale,
+              softcap=softcap)
+
+
 def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
                         raw_pages, ring, page_ids, lengths, window: int, *,
                         k: int, kv_idx: Sequence[int], scale: float,
                         softcap: Optional[float] = None):
     """Paged decompress + attend -> unnormalised (out, m, l); see
     ``kernels.decode_attend`` for the calling convention."""
-    fn = _attend.plain if q.device.type == "cpu" \
+    fn = _attend.plain_paged if q.device.type == "cpu" \
         else _attend.decode_attend_paged
     return fn(q, signman, planes, dicts, esc_pos, esc_raw, raw_pages, ring,
               page_ids, lengths, window, k=k, kv_idx=kv_idx, scale=scale,
@@ -217,7 +230,7 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"decode_attend_paged": _attend.launches,
+    return {**_attend.launches,
             "exp_histogram": _hist.launches,
             "lexi_pack": _pack.launches,
             "decompress_matmul": _dm.launches,
@@ -225,7 +238,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    _attend.launches = _hist.launches = _pack.launches = 0
+    _attend.launches.update(dict.fromkeys(_attend.launches, 0))
+    _hist.launches = _pack.launches = 0
     _dm.launches = _unpack.launches = 0
 
 
@@ -253,7 +267,7 @@ def raise_on_error(rc: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 KERNELS = ("exp_histogram", "lexi_pack", "decode_attend_paged",
-           "lexi_unpack", "decompress_matmul")
+           "lexi_unpack", "decompress_matmul", "decode_attend")
 SOURCES = KERNELS + ("cuda_error",)
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -269,6 +283,7 @@ _SIGNATURES = {
     "decode_attend_paged_launch": [_P] * 13 + [_I] * 10 + [_F, _F, _I, _P],
     "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
     "decompress_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "decode_attend_launch": [_P] * 11 + [_I] * 10 + [_LL, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -287,7 +302,8 @@ def nvcc_path() -> str:
 
 
 def build() -> Dict[str, float]:
-    """Rebuild the kernel library if any source is newer than it.
+    """Rebuild the kernel library if any source or shared header
+    (``csrc/*.cuh``) is newer than it.
 
     Returns {source: seconds, "link": seconds} for a rebuild, {} when the
     library is current.  The compiler's ``-Xptxas -v`` report (registers,
@@ -296,7 +312,7 @@ def build() -> Dict[str, float]:
     failure."""
     srcs = [CSRC / f"{name}.cu" for name in SOURCES]
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= max(
-            src.stat().st_mtime for src in srcs):
+            src.stat().st_mtime for src in srcs + sorted(CSRC.glob("*.cuh"))):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = nvcc_path(), os.getpid()

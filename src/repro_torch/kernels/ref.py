@@ -94,7 +94,7 @@ def decompress_matmul_ref(x: torch.Tensor, signman: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# paged decode attention
+# decode attention: the fixed-batch store and the paged pool
 # ---------------------------------------------------------------------------
 
 def stream_mask(lengths: torch.Tensor, i: int, blk: int, window: int,
@@ -185,3 +185,53 @@ def paged_decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
     vals = torch.cat([pages.reshape(n_s, maxp * blk, w), ring], dim=1)
     ok = _stream_ok(lengths, maxp, blk, window)
     return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+
+
+def _fixed_partials(q, blocks_bf16, ring, length: int, window: int, kv_idx,
+                    scale, softcap):
+    """Partials over a fixed-batch stream: blocks (nb, B, blk, W) bf16
+    decompressed, then the ring (B, blk, W); every sequence at ``length``."""
+    nb, b, blk, w = blocks_bf16.shape
+    vals = torch.cat([blocks_bf16.transpose(0, 1).reshape(b, nb * blk, w),
+                      ring], dim=1)
+    lengths = torch.full((b,), int(length), dtype=torch.int32,
+                         device=q.device)
+    ok = _stream_ok(lengths, nb, blk, window)
+    return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+
+
+def decode_attend_ref(q, blocks_bf16, ring, length: int, *, kv_idx, scale,
+                      softcap=None, window=WINDOW_NONE):
+    """Oracle for ``decode_attend`` (fixed-batch store) on DEcompressed
+    blocks: q (B,H,hd); blocks (nblk,B,blk,W) bf16; ring (B,blk,W);
+    ``length`` tokens of every sequence.  Returns normalised (B,H,hd) f32."""
+    out, _, l = _fixed_partials(q, blocks_bf16, ring, length, window, kv_idx,
+                                scale, softcap)
+    return out / l.clamp(min=1e-30)[..., None]
+
+
+def decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
+                        raw_blocks, ring, length: int, window: int, *, k: int,
+                        kv_idx: Sequence[int], scale: float,
+                        softcap: Optional[float] = None):
+    """Plain ``decode_attend``: the kernel's arguments and its unnormalised
+    (out, m, l) partials, computed by decompressing the store's live blocks
+    (``core.fixed.decompress`` of each whole B-sequence block: one
+    dictionary, escapes by position across the batch) and one masked
+    softmax over [blocks ‖ ring]."""
+    from repro_torch.core import fixed
+
+    b, blk, w = ring.shape
+    nb = int(length) // blk                       # live full blocks
+    if nb == 0:
+        blocks = ring.new_zeros((0, b, blk, w))
+    elif signman is not None:
+        blocks = fixed.decompress(fixed.Compressed(
+            signman=signman[:nb], planes=planes[:nb], dict_syms=dicts[:nb],
+            esc_pos=esc_pos[:nb], esc_raw=esc_raw[:nb],
+            n_escapes=torch.zeros((nb,), dtype=torch.int32),
+            shape=(b, blk, w), k=k))
+    else:
+        blocks = raw_blocks[:nb]
+    return _fixed_partials(q, blocks, ring, length, window, kv_idx, scale,
+                           softcap)

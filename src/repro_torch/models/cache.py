@@ -2,14 +2,21 @@
 
 Two stores, as in the reference:
 
-* ``KVBlocks`` — the prefill side.  B independent single-sequence block
-  stores (each byte-identical to the reference's ``batch_loc=1`` store):
-  every full block of ``cache_block`` positions is one LEXI-FW
-  ``Compressed`` of its (block, W) payload, and a bf16 ring holds the
-  partial tail.  Each sequence compresses on its own, as the reference's
-  vmapped B=1 prefills do.
+* ``KVBlocks`` — a block store of B sequences.  Every full block of
+  ``cache_block`` positions is LEXI-FW-compressed, and a bf16 ring per
+  sequence holds the partial tail.  Sequences are compressed in groups of
+  ``group``:
+  - ``group = B`` is the reference's fixed-batch store (``batch_loc = B``):
+    one ``Compressed`` record per block for all B sequences' (B, block, W)
+    payload, under one dictionary and one escape side channel.  The
+    fixed-batch decode loop appends to it (``append_token``) and attends
+    over it (``attend_cache``);
+  - ``group = 1`` is B single-sequence stores, each byte-identical to the
+    reference's ``batch_loc = 1`` store (the reference's vmapped B = 1
+    prefills): the continuous-batching scheduler copies their blocks into
+    pages.
 * ``PagedKV`` — the continuous-batching pool: fixed-size pages, each one
-  compressed block of ONE sequence (byte-identical to a ``KVBlocks``
+  compressed block of ONE sequence (byte-identical to a ``group = 1``
   block, so prefilled blocks copy straight in), a per-slot page table and
   per-slot rings.
 
@@ -21,7 +28,9 @@ yet all layers allocate in lockstep (same flushes, same stable argsort of
 allocator run once per step with no device sync.  Page allocation takes
 the lowest free ids in slot order (``np.argsort(used, kind="stable")``,
 the reference's ``jnp.argsort``), so page ids and tables match the
-reference's exactly.
+reference's exactly.  Likewise the fixed-batch store's length is a host
+int kept by the caller, so ring writes and flushes are decided on the
+host.
 
 Collectives dropped at tp = 1: none remain in the cache (the interleaved
 per-shard ownership degenerates to "shard 0 owns every position").
@@ -52,10 +61,11 @@ def kv_width(cfg: ModelConfig) -> int:
     return 2 * cfg.n_kv_heads * cfg.head_dim
 
 
-def _page_geometry(cfg: ModelConfig, run: RunConfig):
-    """(blk, W, n, npad, C, k) of one page/block."""
+def _page_geometry(cfg: ModelConfig, run: RunConfig, group: int = 1):
+    """(blk, W, n, npad, C, k) of one compressed record: a page, or a
+    block of ``group`` sequences."""
     blk, w = run.codec.cache_block, kv_width(cfg)
-    n = blk * w
+    n = group * blk * w
     return blk, w, n, packing.pad_to_lanes(n), run.codec.esc_capacity(n), \
         run.codec.k
 
@@ -75,23 +85,52 @@ def _empty_fields(lead: Tuple[int, ...], n: int, npad: int, c: int, k: int,
         esc_raw=torch.zeros(lead + (c,), dtype=torch.uint8, device=device))
 
 
+def effective_window(spec: layers.AttnSpec, window) -> int:
+    """Window size with the huge-sentinel convention: masking is always
+    ``pos > L - 1 - window``."""
+    if spec.windowed and window is not None:
+        return int(window)
+    return WINDOW_NONE
+
+
+stream_mask = kops.ref.stream_mask     # the kernel's live/window mask
+
+
+def gqa_head_table(cfg: ModelConfig, hq: int) -> tuple:
+    """Static per-query-head kv index (pad heads clip onto the last kv
+    head)."""
+    g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
+    return tuple(int(x) for x in
+                 np.clip(np.arange(hq) // g, 0, cfg.n_kv_heads - 1))
+
+
 # ---------------------------------------------------------------------------
-# prefill side: per-sequence block stores
+# block store: fixed batch (group = B) and prefill side (group = 1)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class KVBlocks:
-    """B single-sequence block stores of one layer.
+    """Block store of B = G * g sequences of one layer, compressed in G
+    groups of g sequences (``group``).
 
-    Payload width W = kv_width(cfg); block value shape (block, W).
+    Payload width W = kv_width(cfg); a group's block value is (g, block, W),
+    flat in that order.  With g = B, ``field[0]`` is the reference's
+    fixed-batch field (nblk, ...).
     """
-    signman: Optional[torch.Tensor]    # (B, nblk, N) u8, N = block*W
-    planes: Optional[torch.Tensor]     # (B, nblk, k, Npad/32) int32
-    dict_syms: Optional[torch.Tensor]  # (B, nblk, 2^k) u8
-    esc_pos: Optional[torch.Tensor]    # (B, nblk, C) i32
-    esc_raw: Optional[torch.Tensor]    # (B, nblk, C) u8
-    raw_blocks: Optional[torch.Tensor] # (B, nblk, block, W) bf16, codec off
+    signman: Optional[torch.Tensor]    # (G, nblk, N) u8, N = g*block*W
+    planes: Optional[torch.Tensor]     # (G, nblk, k, Npad/32) int32
+    dict_syms: Optional[torch.Tensor]  # (G, nblk, 2^k) u8
+    esc_pos: Optional[torch.Tensor]    # (G, nblk, C) i32
+    esc_raw: Optional[torch.Tensor]    # (G, nblk, C) u8
+    raw_blocks: Optional[torch.Tensor] # (G, nblk, g, block, W) bf16, off
     ring: torch.Tensor                 # (B, block, W) bf16 in-flight block
+
+    @property
+    def group(self) -> int:
+        """Sequences per compressed record (g)."""
+        stored = self.signman if self.signman is not None \
+            else self.raw_blocks
+        return self.ring.shape[0] // stored.shape[0]
 
 
 def n_blocks(run: RunConfig, max_len: int) -> int:
@@ -100,17 +139,21 @@ def n_blocks(run: RunConfig, max_len: int) -> int:
 
 
 def empty_kv(cfg: ModelConfig, run: RunConfig, n_seqs: int, max_len: int,
-             device="cpu") -> KVBlocks:
-    blk, w, n, npad, c, k = _page_geometry(cfg, run)
+             group: int = 1, device="cpu") -> KVBlocks:
+    """Zeroed store of ``n_seqs`` sequences compressed in groups of
+    ``group`` (``n_seqs`` for the fixed-batch store)."""
+    if group < 1 or n_seqs % group:
+        raise ValueError(f"group {group} does not divide {n_seqs} sequences")
+    blk, w, n, npad, c, k = _page_geometry(cfg, run, group)
     nblk = n_blocks(run, max_len)
+    lead = (n_seqs // group, nblk)
     ring = torch.zeros((n_seqs, blk, w), dtype=torch.bfloat16, device=device)
     if run.codec.cache:
-        return KVBlocks(**_empty_fields((n_seqs, nblk), n, npad, c, k,
-                                        device),
+        return KVBlocks(**_empty_fields(lead, n, npad, c, k, device),
                         raw_blocks=None, ring=ring)
     return KVBlocks(signman=None, planes=None, dict_syms=None, esc_pos=None,
                     esc_raw=None,
-                    raw_blocks=torch.zeros((n_seqs, nblk, blk, w),
+                    raw_blocks=torch.zeros(lead + (group, blk, w),
                                            dtype=torch.bfloat16,
                                            device=device),
                     ring=ring)
@@ -118,25 +161,42 @@ def empty_kv(cfg: ModelConfig, run: RunConfig, n_seqs: int, max_len: int,
 
 def store_block(kv: KVBlocks, idx, vals: torch.Tensor,
                 codec: CodecConfig) -> KVBlocks:
-    """Write full blocks into block ``idx`` of every sequence's store (in
-    place): vals (B, blk, W) for an int ``idx``, (B, n, blk, W) for a
-    slice of n blocks.  Every block is compressed on its own, all in one
+    """Write full blocks into block ``idx`` of the store (in place): vals
+    (B, blk, W) for an int ``idx``, (B, n, blk, W) for a slice of n
+    blocks.  Each group's block is compressed on its own, all in one
     batched pass."""
+    g = kv.group
+    v = vals if vals.dim() == 4 else vals[:, None]
+    b, nb, blk, w = v.shape
+    grouped = v.reshape(b // g, g, nb, blk, w).transpose(1, 2)
     if codec.cache:
         ct = fixed.compress_many(
-            vals.reshape((-1,) + vals.shape[-2:]), k=codec.k,
-            esc_capacity=codec.esc_capacity(vals.shape[-2] * vals.shape[-1]))
+            grouped.reshape(b // g * nb, g * blk * w), k=codec.k,
+            esc_capacity=codec.esc_capacity(g * blk * w))
         for f in _FIELDS:
             dst = getattr(kv, f)
             dst[:, idx] = getattr(ct, f).reshape(dst[:, idx].shape)
     else:
-        kv.raw_blocks[:, idx] = vals.to(torch.bfloat16)
+        dst = kv.raw_blocks
+        dst[:, idx] = grouped.to(torch.bfloat16).reshape(dst[:, idx].shape)
     return kv
+
+
+def load_block(kv: KVBlocks, idx: int, codec: CodecConfig) -> torch.Tensor:
+    """Block ``idx`` of every sequence, decompressed: (B, blk, W) bf16."""
+    b, blk, w = kv.ring.shape
+    if codec.cache:
+        ct = fixed.Compressed(
+            *(getattr(kv, f)[:, idx] for f in _FIELDS),
+            n_escapes=torch.zeros((), dtype=torch.int32),
+            shape=(kv.group, blk, w), k=codec.k)
+        return fixed.decompress(ct).reshape(b, blk, w)
+    return kv.raw_blocks[:, idx].reshape(b, blk, w)
 
 
 def fill_from_prefill(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
                       vals: torch.Tensor) -> KVBlocks:
-    """Load B prefilled sequences, vals (B, S, W), into the block stores:
+    """Load B prefilled sequences, vals (B, S, W), into the block store:
     the full blocks through one ``store_block``, the partial tail into the
     ring (in place)."""
     b, s, w = vals.shape
@@ -150,6 +210,47 @@ def fill_from_prefill(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
         kv.ring[:, :s - nfull * blk] = vals[:, nfull * blk:] \
             .to(torch.bfloat16)
     return kv
+
+
+def append_token(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
+                 new_vals: torch.Tensor, length: int) -> None:
+    """Append one token's K/V (B, W) of every sequence at position
+    ``length`` (a host int): a ring write at ``length % blk``; when that
+    fills the ring, the ring is compressed into block ``length // blk``
+    (in place).  As in the reference the ring is not cleared after a
+    flush: rows past the length are dead by the live mask."""
+    blk = run.codec.cache_block
+    r = length % blk
+    kv.ring[:, r] = new_vals.to(torch.bfloat16)
+    if r == blk - 1:
+        store_block(kv, length // blk, kv.ring, run.codec)
+
+
+def attend_cache(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
+                 q: torch.Tensor, length: int, spec: layers.AttnSpec,
+                 window=None) -> torch.Tensor:
+    """Fixed-batch decode attention: q (B,Hq,1,hd) over the batch-shared
+    store (group = B) whose sequences hold ``length`` tokens (post-append).
+    Returns (B,Hq,1,hd) bf16.
+
+    ``kernels.ops.decode_attend`` launches the CUDA kernel on CUDA tensors
+    and runs its plain version on CPU ones; ``run.codec.decode_backend`` is
+    checked against q's device first."""
+    b, hq, _, hd = q.shape
+    if kv.group != b:
+        raise ValueError(f"attend_cache needs the batch-shared store "
+                         f"(group {b}), got group {kv.group}")
+    kops.resolve_decode_backend(run.codec, q.device)
+    fields = tuple(None if f is None else f[0] for f in
+                   (kv.signman, kv.planes, kv.dict_syms, kv.esc_pos,
+                    kv.esc_raw, kv.raw_blocks))
+    out, _, l = kops.decode_attend(
+        q[:, :, 0].contiguous(), *fields, kv.ring, length,
+        effective_window(spec, window), k=run.codec.k,
+        kv_idx=gqa_head_table(cfg, hq),
+        scale=spec.scale if spec.scale is not None else hd ** -0.5,
+        softcap=spec.softcap)
+    return layers.merge_partials(out, l)[:, :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -300,25 +401,6 @@ def append_token_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
             pkv.raw_pages[layer][plan.flush_pages] = full
 
 
-def effective_window(spec: layers.AttnSpec, window) -> int:
-    """Window size with the huge-sentinel convention: masking is always
-    ``pos > L - 1 - window``."""
-    if spec.windowed and window is not None:
-        return int(window)
-    return WINDOW_NONE
-
-
-stream_mask = kops.ref.stream_mask     # the kernel's live/window mask
-
-
-def gqa_head_table(cfg: ModelConfig, hq: int) -> tuple:
-    """Static per-query-head kv index (pad heads clip onto the last kv
-    head)."""
-    g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
-    return tuple(int(x) for x in
-                 np.clip(np.arange(hq) // g, 0, cfg.n_kv_heads - 1))
-
-
 def attend_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV, layer: int,
                  q: torch.Tensor, lengths: torch.Tensor,
                  spec: layers.AttnSpec, window=None) -> torch.Tensor:
@@ -342,10 +424,10 @@ def attend_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV, layer: int,
 def paged_insert_many(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
                       kvbs: List[KVBlocks], slots: np.ndarray,
                       seq_len: int) -> None:
-    """Copy B prefilled single-sequence stores (``kvbs[layer]``, leading
-    axis B) into slots ``slots``: each sequence's full blocks become fresh
-    pages byte for byte (the block layout IS the page layout), its partial
-    tail becomes the slot's ring row.  Pages are allocated once for all
+    """Copy B prefilled single-sequence stores (``kvbs[layer]``, group 1,
+    leading axis B) into slots ``slots``: each sequence's full blocks
+    become fresh pages byte for byte (the block layout IS the page
+    layout), its partial tail becomes the slot's ring row.  Pages are allocated once for all
     layers, sequence-major, lowest free ids first (in place)."""
     blk = run.codec.cache_block
     slots = np.asarray(slots, np.int64)
@@ -370,7 +452,7 @@ def paged_insert_many(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
                         (nb * nfull,) + src.shape[2:])
             else:
                 pkv.raw_pages[layer][tgt] = kvb.raw_blocks[:, :nfull] \
-                    .reshape((nb * nfull,) + kvb.raw_blocks.shape[2:])
+                    .reshape((nb * nfull,) + kvb.raw_blocks.shape[3:])
         pkv.ring[layer][slots_t] = kvb.ring
 
 

@@ -118,7 +118,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ascending positions, as prefill passes them) key chunks lying wholly
     after the query chunk are skipped: they add exactly nothing (p = 0,
     alpha = 1), which the reference's triangle-only pair schedule relies
-    on too.
+    on too.  A length that is not a multiple of the chunk ends in a
+    shorter chunk (the reference asserts whole chunks), so a fixed batch
+    prefills any prompt length.
     """
     b, hq, sq, hd = q.shape
     _, hkv, skv, _ = k.shape
@@ -126,17 +128,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = hq // hkv
     scale = spec.scale if spec.scale is not None else hd ** -0.5
     cq, ckv = min(chunk_q, sq), min(chunk_kv, skv)
-    assert sq % cq == 0 and skv % ckv == 0, (sq, cq, skv, ckv)
     qg = q.reshape(b, hkv, g, sq, hd).float()
     kf, vf = k.float(), v.float()
     outs = []
     for q0 in range(0, sq, cq):
         qb = qg[:, :, :, q0:q0 + cq]
         qp = q_pos[q0:q0 + cq]
-        out = torch.zeros((b, hkv, g, cq, hd_v), dtype=torch.float32,
+        rows = qp.shape[0]
+        out = torch.zeros((b, hkv, g, rows, hd_v), dtype=torch.float32,
                           device=q.device)
-        m = torch.full((b, hkv, g, cq), NEG_INF, device=q.device)
-        l = torch.zeros((b, hkv, g, cq), device=q.device)
+        m = torch.full((b, hkv, g, rows), NEG_INF, device=q.device)
+        l = torch.zeros((b, hkv, g, rows), device=q.device)
         for k0 in range(0, skv, ckv):
             if spec.causal and q_pos is kv_pos and k0 >= q0 + cq:
                 continue
@@ -144,7 +146,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             s = torch.einsum("bhgqd,bhkd->bhgqk", qb,
                              kf[:, :, k0:k0 + ckv]) * scale
             s = softcap(s, spec.softcap)
-            msk = torch.ones((cq, kp.shape[0]), dtype=torch.bool,
+            msk = torch.ones((rows, kp.shape[0]), dtype=torch.bool,
                              device=q.device)
             if spec.causal:
                 msk &= kp[None, :] <= qp[:, None]

@@ -1,23 +1,33 @@
-"""Serving engine: prefill, and slot-based decode over the paged
-LEXI-compressed cache (ports the continuous-batching half of
-``repro/serve/engine.py``) at tp = 1.
+"""Serving engine (ports ``repro/serve/engine.py``) at tp = 1: prefill,
+then greedy decode over a LEXI-compressed KV cache, in two dataflows that
+share the per-layer compute (``_attn_block``):
 
-Dataflow (driven by ``serve.scheduler.ServeEngine``):
+Fixed batch (the reference's original research loop; ``launch/serve.py``
+without ``--continuous``):
+  ``prefill`` runs the trunk over B same-length prompts and builds each
+  layer's batch-shared block store (group = B: one compressed record per
+  block for all B sequences) as it goes; ``decode_step`` advances all B
+  sequences in lockstep from one shared length — per layer the new token
+  goes into the ring (a full ring is compressed into the next block) and
+  ``cache.attend_cache`` attends [blocks ‖ ring] through the
+  ``decode_attend`` kernel.  ``generate`` is prefill + N greedy steps.
 
-  admit  — ``prefill`` runs the trunk over a batch of same-length prompts,
-           turning each layer's K/V into per-sequence compressed blocks as
-           it goes; ``insert_sequences`` copies them into fresh pages;
+Continuous batching (driven by ``serve.scheduler.ServeEngine``):
+  admit  — ``prefill_sequences`` runs the trunk over a batch of
+           same-length prompts, compressing each sequence's blocks on its
+           own; ``insert_sequences`` copies them into fresh pages;
   step   — ``paged_decode_step``: every active slot appends at its own
            length (the ring flushes into a fresh page when full) and
            attends through its page table; one greedy token per slot;
   evict  — ``release_slots`` frees a finished slot's pages.
 
-Port-specific: ``PagedState`` keeps slot lengths and occupancy on the host
-(numpy), next to the host-side page table (see ``models.cache``), so page
-allocation and ring-flush decisions cost no device sync; the device sees
-them as small per-step index tensors.  State updates happen in place.
-Collectives dropped at tp = 1: every psum/pmax/pmin of the decode block,
-the logits broadcast and ``greedy_token``'s cross-shard argmax.
+Port-specific: lengths live on the host — ``DecodeState.length`` as an
+int, ``PagedState``'s slot lengths and occupancy in numpy next to the
+host-side page table (see ``models.cache``) — so ring-flush decisions and
+page allocation cost no device sync; the device sees them as small
+per-step index tensors.  State updates happen in place.  Collectives
+dropped at tp = 1: every psum/pmax/pmin of the decode block, the logits
+broadcast and ``greedy_token``'s cross-shard argmax.
 """
 
 from __future__ import annotations
@@ -35,7 +45,16 @@ from repro_torch.models import lm
 
 @dataclasses.dataclass
 class DecodeState:
-    """Prefill output: per-layer single-sequence block stores."""
+    """Fixed-batch decode state: every layer's batch-shared block store
+    (group = B); all B sequences hold ``length`` tokens."""
+    kv: List[cache_mod.KVBlocks]       # one per layer
+    length: int
+
+
+@dataclasses.dataclass
+class PrefilledSequences:
+    """``prefill_sequences`` output: per-layer single-sequence block
+    stores (group = 1), ``length`` tokens each, for ``insert_sequences``."""
     kv: List[cache_mod.KVBlocks]       # one per layer, leading axis B
     length: int
 
@@ -62,23 +81,116 @@ def kv_payload(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         .reshape(b, s, hkv * 2 * hd)
 
 
-def prefill(cfg: ModelConfig, run: RunConfig, params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
-    """tokens (B, S) -> (last-position logits (B,1,Vp), DecodeState).
+def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
+             stores: List[cache_mod.KVBlocks]) -> torch.Tensor:
+    """tokens (B, S) -> last-position logits (B,1,Vp); layer i's K/V fills
+    the empty block store ``stores[i]`` in place.
 
-    Each layer's K/V is compressed into per-sequence blocks inside the
-    layer loop (``lm_forward``'s ``cache_fn``), so raw K/V of one layer
-    only is alive at a time."""
+    Each layer's K/V is compressed inside the layer loop (``lm_forward``'s
+    ``cache_fn``), so raw K/V of one layer only is alive at a time."""
+    def to_blocks(i, kv):
+        return cache_mod.fill_from_prefill(cfg, run, stores[i],
+                                           kv_payload(*kv))
+
+    x, _ = lm.lm_forward(cfg, run, params, tokens, want_cache=True,
+                         cache_fn=to_blocks)
+    return lm.logits_for(cfg, params, x[:, -1:])
+
+
+def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
+                device="cpu") -> DecodeState:
+    """Zeroed fixed-batch state: one batch-shared store per layer."""
+    return DecodeState(
+        kv=[cache_mod.empty_kv(cfg, run, batch, max_len, group=batch,
+                               device=device)
+            for _ in range(cfg.n_layers)],
+        length=0)
+
+
+def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
+            max_len: int) -> Tuple[torch.Tensor, DecodeState]:
+    """Fixed batch: tokens (B, S) -> (last-position logits (B,1,Vp),
+    DecodeState) with room for ``max_len`` tokens per sequence."""
     b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
+    state = empty_state(cfg, run, b, max_len, device=tokens.device)
+    logits = _prefill(cfg, run, params, tokens, state.kv)
+    state.length = s
+    return logits, state
 
-    def to_blocks(_, kv):
-        store = cache_mod.empty_kv(cfg, run, b, s, device=tokens.device)
-        return cache_mod.fill_from_prefill(cfg, run, store, kv_payload(*kv))
 
-    x, caches = lm.lm_forward(cfg, run, params, tokens, want_cache=True,
-                              cache_fn=to_blocks)
-    logits = lm.logits_for(cfg, params, x[:, -1:])
-    return logits, DecodeState(kv=caches, length=s)
+def prefill_sequences(cfg: ModelConfig, run: RunConfig, params,
+                      tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, PrefilledSequences]:
+    """Continuous batching: tokens (B, S) -> (last-position logits
+    (B,1,Vp), each sequence's blocks compressed on its own)."""
+    b, s = tokens.shape
+    stores = [cache_mod.empty_kv(cfg, run, b, s, device=tokens.device)
+              for _ in range(cfg.n_layers)]
+    logits = _prefill(cfg, run, params, tokens, stores)
+    return logits, PrefilledSequences(kv=stores, length=s)
+
+
+def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
+                attend) -> torch.Tensor:
+    """One layer's decode step around its cache: x (B,1,D), ``pos`` (B,)
+    rope positions; ``attend(q, new_vals)`` appends the new K/V and returns
+    the merged attention (B,Hq,1,hd) bf16."""
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos)
+    out = attention.decode_out(cfg, p["attn"], attend(q, new_vals)) \
+        .to(torch.bfloat16)
+    if cfg.post_norm:
+        out = layers.rms_norm(out, p["ln1b"], cfg.norm_eps)
+    return blocks.mlp(cfg, p, x + out)
+
+
+def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
+                 kv: cache_mod.KVBlocks, length: int, spec: layers.AttnSpec,
+                 window=None) -> torch.Tensor:
+    """One layer's fixed-batch decode step: the new token at position
+    ``length`` of every sequence; ``kv`` updated in place."""
+    pos = torch.full((x.shape[0],), length, dtype=torch.int32,
+                     device=x.device)
+
+    def attend(q, new_vals):
+        cache_mod.append_token(cfg, run, kv, new_vals, length)
+        return cache_mod.attend_cache(cfg, run, kv, q, length + 1, spec,
+                                      window=window)
+
+    return _attn_block(cfg, p, x, pos, attend)
+
+
+def decode_step(cfg: ModelConfig, run: RunConfig, params, state: DecodeState,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, 1) -> logits (B, 1, Vp); every sequence advances one
+    token (state updated in place)."""
+    x = lm.embed_tokens(cfg, params["embed"], tokens)      # (B,1,D)
+    spec = attention.base_attn_spec(cfg)
+    wins = attention.layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        x = decode_block(cfg, run, lm.layer_params(params, i), x,
+                         state.kv[i], state.length, spec,
+                         window=None if wins is None else int(wins[i]))
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    state.length += 1
+    return lm.logits_for(cfg, params, x)
+
+
+def generate(cfg: ModelConfig, run: RunConfig, params, prompts: torch.Tensor,
+             new_tokens: int, max_len: int) -> torch.Tensor:
+    """The reference launcher's fixed-batch loop: prefill, then
+    ``new_tokens`` greedy decode steps.  prompts (B, S) -> (B,
+    new_tokens + 1) int32: the greedy token after the prompt and after
+    each step."""
+    logits, state = prefill(cfg, run, params, prompts, max_len)
+    tok = greedy_token(logits)
+    outs = [tok]
+    for _ in range(new_tokens):
+        tok = greedy_token(decode_step(cfg, run, params, state, tok))
+        outs.append(tok)
+    return torch.cat(outs, dim=1)
 
 
 def empty_paged_state(cfg: ModelConfig, run: RunConfig, n_slots: int,
@@ -109,15 +221,12 @@ def paged_decode_block(cfg: ModelConfig, run: RunConfig, p, layer: int,
     (S,) rope positions, ``post`` (S,) int32 lengths including the new
     token.  Inactive slots leave their cache untouched (their outputs are
     garbage the scheduler drops)."""
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos)
-    cache_mod.append_token_paged(cfg, run, kv, layer, new_vals, plan)
-    merged = cache_mod.attend_paged(cfg, run, kv, layer, q, post, spec,
-                                    window=window)
-    out = attention.decode_out(cfg, p["attn"], merged).to(torch.bfloat16)
-    if cfg.post_norm:
-        out = layers.rms_norm(out, p["ln1b"], cfg.norm_eps)
-    return blocks.mlp(cfg, p, x + out)
+    def attend(q, new_vals):
+        cache_mod.append_token_paged(cfg, run, kv, layer, new_vals, plan)
+        return cache_mod.attend_paged(cfg, run, kv, layer, q, post, spec,
+                                      window=window)
+
+    return _attn_block(cfg, p, x, pos, attend)
 
 
 def paged_decode_step(cfg: ModelConfig, run: RunConfig, params,
@@ -143,8 +252,8 @@ def paged_decode_step(cfg: ModelConfig, run: RunConfig, params,
 
 
 def insert_sequences(cfg: ModelConfig, run: RunConfig, state: PagedState,
-                     d: DecodeState, slots) -> PagedState:
-    """Insert a prefilled batch (``prefill``'s DecodeState, B sequences
+                     d: PrefilledSequences, slots) -> PagedState:
+    """Insert a prefilled batch (``prefill_sequences``' output, B sequences
     of ``d.length`` tokens) into free slots ``slots`` (in place)."""
     slots = np.asarray(slots, np.int64)
     cache_mod.paged_insert_many(cfg, run, state.kv, d.kv, slots, d.length)

@@ -356,8 +356,8 @@ class ServeEngine:
             ls.admit_t.setdefault(r.uid, w0)
         prompts = torch.as_tensor(np.stack([r.prompt[:trunk] for r in batch]),
                                   dtype=torch.int32, device=self.device)
-        logits, d = engine.prefill(self.cfg, self.run_cfg, self.params,
-                                   prompts)
+        logits, d = engine.prefill_sequences(self.cfg, self.run_cfg,
+                                             self.params, prompts)
         engine.insert_sequences(self.cfg, self.run_cfg, self.state, d, slots)
         toks = engine.greedy_token(logits).cpu().numpy()
         ls.admit_dispatches += 1

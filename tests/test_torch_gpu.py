@@ -17,7 +17,10 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import fixed, weights
 from repro_torch.core.collectives import CodecConfig
-from repro_torch.kernels import decompress_matmul, lexi_unpack, ops, ref
+from repro_torch.kernels import decode_attend, decompress_matmul, lexi_unpack
+from repro_torch.kernels import ops, ref
+from repro_torch.models import lm, params as PM
+from repro_torch.serve import engine
 from repro_torch.serve.scheduler import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -110,6 +113,61 @@ def test_decode_attend_kernel_matches_plain(cuda, heads, hd, codec_on):
                                    atol=1e-5)
 
 
+HEAD_DIMS = [16, 128, 256]
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("heads", [(4, 2), (5, 1), (8, 8), (32, 8)],
+                         ids=["gqa", "mqa", "mha", "qwen3"])
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_fixed_decode_attend_kernel_matches_plain(cuda, heads, hd, codec_on):
+    """The fixed-batch store: 3 sequences share each block's dictionary
+    and escape side channel; block 1 has escapes in sequence 0 and
+    overflows the capacity inside sequence 2.  Lengths with a partial
+    ring, an empty ring, no full block and no token; full, windowed and
+    soft-capped; one launch per call."""
+    h, hkv = heads
+    b, blk, nblk = 3, 16, 4
+    w = 2 * hkv * hd
+    gen = torch.Generator(device=cuda).manual_seed(h * hd + codec_on)
+    blocks = _bf16(gen, (nblk, b, blk, w))
+    rare = torch.rand((blk, w), generator=gen, device=cuda) < 0.004
+    blocks[1, 0] = torch.where(rare, blocks[1, 0] * 2.0 ** 40, blocks[1, 0])
+    blocks[1, 2] = _bf16(gen, (blk, w), spread=40)           # overflow
+    ring = _bf16(gen, (b, blk, w))
+    q = _bf16(gen, (b, h, hd))
+    n = b * blk * w
+    if codec_on:
+        ct = fixed.compress_many(blocks.reshape(nblk, n), k=5,
+                                 esc_capacity=max(n // 128, 8))
+        c = ct.esc_pos.shape[-1]
+        assert int(ct.n_escapes[1]) > c
+        assert bool((ct.esc_pos[1] < blk * w).any())          # sequence 0
+        assert bool((ct.esc_pos[1] >= 2 * blk * w).any())     # sequence 2
+        store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+                 None)
+    else:
+        store = (None,) * 5 + (blocks,)
+    g = h // hkv
+    kv_idx = tuple(min(i // g, hkv - 1) for i in range(h))
+    for length in (2 * blk + 5, 3 * blk, 7, 0):
+        for window, softcap in ((ref.WINDOW_NONE, None), (21, None),
+                                (ref.WINDOW_NONE, 30.0)):
+            args = (q, *store, ring, length, window)
+            kw = dict(k=5, kv_idx=kv_idx, scale=hd ** -0.5, softcap=softcap)
+            before = decode_attend.launches["decode_attend"]
+            o_k, m_k, l_k = ops.decode_attend(*args, **kw)
+            assert decode_attend.launches["decode_attend"] == before + 1
+            o_p, m_p, l_p = ref.decode_attend_plain(*args, **kw)
+            torch.testing.assert_close(
+                o_k / l_k.clamp(min=1e-30)[..., None],
+                o_p / l_p.clamp(min=1e-30)[..., None], rtol=1e-4, atol=1e-4)
+            live = l_p > 0
+            assert bool((live == (l_k > 0)).all())
+            torch.testing.assert_close(m_k[live], m_p[live], rtol=1e-5,
+                                       atol=1e-5)
+
+
 TINY = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
                    n_heads=8, n_kv_heads=4, d_ff=128, vocab_size=512,
                    head_dim=16, qk_norm=True)
@@ -137,6 +195,46 @@ def test_engine_serves_on_card_with_every_kernel(cuda):
     assert all(counts[name] > 0 for name in ATTEND_PATH_KERNELS), counts
     assert counts["decompress_matmul"] == counts["lexi_unpack"] == 0
     assert st.peak_cache_bytes < st.peak_cache_raw_bytes
+
+
+def test_fixed_engine_on_card_matches_cpu(cuda):
+    """The fixed-batch loop on a tiny dense model, card against CPU from
+    the same weights: prefill, then 10 steps fed the CPU's greedy tokens
+    (block 4: flushes at 12, 16 and 20): logits within 1e-2 at every step
+    (f32 sums in another order); ``decode_attend`` launched once per layer
+    and step, the paged kernel never.  ``decode_backend="torch"`` is
+    refused on the card."""
+    run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
+    params = PM.init_params(lm.lm_table(TINY),
+                            torch.Generator().manual_seed(3))
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 512, (2, 9)), dtype=torch.int32)
+    steps, max_len = 10, 24
+    logits, states = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = PM.to_device(params, dev)
+        lg, st = engine.prefill(TINY, run, p, prompts.to(dev), max_len)
+        logits[dev], states[dev] = [lg.float().cpu()], (st, p)
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        feed = engine.greedy_token(logits["cpu"][-1])
+        for dev in ("cpu", "cuda"):
+            st, p = states[dev]
+            logits[dev].append(engine.decode_step(
+                TINY, run, p, st, feed.to(dev)).float().cpu())
+    counts = ops.launch_counts()
+    assert counts["decode_attend"] == TINY.n_layers * steps, counts
+    assert counts["decode_attend_paged"] == 0
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert torch.isfinite(b).all()
+        assert float((a - b).abs().max()) <= 1e-2
+    st, p = states["cuda"]
+    torch_run = RunConfig(codec=dataclasses.replace(
+        run.codec, decode_backend="torch"))
+    with pytest.raises(ValueError, match="CPU tensors"):
+        engine.decode_step(TINY, torch_run, p, st,
+                           torch.zeros((2, 1), dtype=torch.int32,
+                                       device="cuda"))
 
 
 # ---------------------------------------------------------------------------

@@ -229,7 +229,7 @@ def test_lm_forward_and_prefill(model):
 
     lj, dj = shm(lambda p, t: jengine.prefill(jcfg, jrun, p, dims, t, 64, 1),
                  jp, jnp.asarray(toks[:1]))
-    lt, dt = tengine.prefill(tcfg, trun, tp_, torch.as_tensor(toks[:1]))
+    lt, dt = tengine.prefill(tcfg, trun, tp_, torch.as_tensor(toks[:1]), 64)
     lj = np.asarray(lj)
     vocab_ok = np.arange(lj.shape[-1]) < jcfg.vocab_size
     # f32 logits of a trunk whose bf16 activations may differ by one

@@ -160,8 +160,8 @@ def test_teacher_forced_logits(served):
     jstep = jax.jit(jcl.shmap(step, mesh, (P(), P(), P()), P()))
     lj, jst = jadmit(jp, jnp.asarray(prompts))
     tst = tengine.empty_paged_state(tcfg, trun, 2, MAXLEN)
-    lt, d = tengine.prefill(tcfg, trun, served["params"],
-                            torch.as_tensor(prompts))
+    lt, d = tengine.prefill_sequences(tcfg, trun, served["params"],
+                                      torch.as_tensor(prompts))
     tengine.insert_sequences(tcfg, trun, tst, d, [0, 1])
     v = jcfg.vocab_size
     for t in range(13):
