@@ -25,10 +25,24 @@ non-zero:
                sequences of 1100 tokens, block 256, k 5; full, window 700,
                softcap, codec off, a block whose escapes overflow inside
                sequence 2) and at gemma2-9b's (H 16/8, hd 256, 4400
-               tokens, window 4096, softcap 50), within 1e-4.  Times each
-               (CUDA events, median, L2 flushed between launches); the two
-               weight kernels' JSON rows are one decode step's 253 weight
-               matmuls (7 per layer and the LM head) at M = 4, summed.
+               tokens, window 4096, softcap 50), within 1e-4.  Both
+               attention kernels split each stream into spans of P = 128
+               rows across CTAs and merge in the kernel: their split edge
+               cases (lengths 0, 1, P - 1, P, P + 1, blk, blk + 1, 2 blk;
+               a window leaving only the last span; escapes on both sides
+               of a span boundary in a page and in a fixed block's
+               sequence 2, with overflow; 1 and 64 slots) within 1e-4,
+               and two launches bit for bit; each kernel's grid (nsplit,
+               CTAs, threads), registers and spills (``ptxas -v``) and
+               shared memory per CTA.  Times each
+               (CUDA events, median, L2 flushed and the card held by a
+               spin before each launch, so the events bracket the kernel
+               alone); the two attention kernels and their SDPA
+               yardsticks also without the spin (the events then count the
+               host's time to launch too) and by the host's time per call.
+               The two weight kernels' JSON rows are one decode step's 253
+               weight matmuls (7 per layer and the LM head) at M = 4,
+               summed.
   4. small   — a tiny dense model decoded on the card and on the CPU from
                the same weights and tokens, raw and packed weights: logits
                agree within 1e-2.
@@ -42,8 +56,9 @@ non-zero:
                and replay steps produced; so must the pages of four fresh
                prefills, against the K/V of the model's forward pass.
   6. profile — 8 decode steps of those 4 slots under torch.profiler:
-               device busy share and the top kernels (full table in
-               ``chiprun_out/profile_decode.txt``).
+               host ms per step, device busy ms per step and share, the
+               attention kernel's share of device time, and the top
+               kernels (full table in ``chiprun_out/profile_decode.txt``).
   7. fixed   — the fixed-batch loop (``engine.prefill`` +
                ``engine.decode_step``, the launcher's default mode) on the
                serve phase's weights: 4 prompts of 1000 tokens, 40 greedy
@@ -94,15 +109,21 @@ REPLACES = {"decode_attend_paged": "src/repro/kernels/decode_attend.py:421",
             "lexi_unpack": "src/repro/kernels/lexi_unpack.py:51",
             "decode_attend": "src/repro/kernels/decode_attend.py:305"}
 SERVE_KERNELS = ("decode_attend_paged", "exp_histogram", "lexi_pack")
+ATTEND_KERNELS = ("decode_attend_paged", "decode_attend")
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, spin: bool = True
+            ) -> float:
     """Median device time of ``fn`` in ms; the 50 MB L2 is flushed before
-    every timed launch (the decode path meets its pages cold)."""
+    every timed launch (the decode path meets its pages cold).  With
+    ``spin``, a 1-million-cycle spin on the card after the flush lets the
+    host enqueue ``fn`` before the first event is reached, so the host's
+    own time to launch (the wrapper's checks, ctypes) is not counted;
+    without it, that time is counted wherever it exceeds the flush's."""
     import torch
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
@@ -110,6 +131,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     events = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -118,6 +141,37 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         events.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """The host's time per call of ``fn`` in microseconds (enqueue only:
+    the card is synchronised before and after, not between calls)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def attend_timing(name: str, fn, lib_fn):
+    """An attention kernel's and its SDPA yardstick's time, both ways (with
+    the spin: device time, the JSON line's; without: as the events read
+    when the host's launch is slower than the L2 flush), and the host's
+    time per call of each."""
+    t = dict(ms=cuda_ms(fn), library_ms=cuda_ms(lib_fn),
+             ms_no_spin=cuda_ms(fn, spin=False),
+             library_ms_no_spin=cuda_ms(lib_fn, spin=False),
+             host_us=host_us(fn), library_host_us=host_us(lib_fn))
+    log("kernels", f"{name} timing: with the spin {t['ms']:.4f} ms (SDPA "
+                   f"{t['library_ms']:.4f}); without it {t['ms_no_spin']:.4f}"
+                   f" ms (SDPA {t['library_ms_no_spin']:.4f}); host time per "
+                   f"call {t['host_us']:.1f} us (SDPA "
+                   f"{t['library_host_us']:.1f})")
+    return t
 
 
 def device_phase():
@@ -141,10 +195,41 @@ def build_phase():
                  f"parallel, then one link: " + ", ".join(
                      f"{k} {v:.1f}s" for k, v in times.items()) + ")")
     for name in ops.KERNELS:
+        if name in ATTEND_KERNELS:
+            log("build", f"{name}: " + ", ".join(
+                f"k={k} {r['registers']} registers, spills {r['spill_stores']}"
+                f"/{r['spill_loads']} B"
+                for k, r in sorted(ptxas_report(name).items())))
+            continue
         for line in (ops.build_log(name) or "").splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
     ops.library()
+
+
+def ptxas_report(name: str):
+    """{k: {registers, spill_stores, spill_loads}} of an attention
+    kernel's instantiations (k = 0: codec off) from its ``ptxas -v`` log."""
+    import re
+    from repro_torch.kernels import ops
+    out, k = {}, None
+    for line in (ops.build_log(name) or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            km = re.search(r"kernelILi(\d+)E", m.group(1))
+            k = int(km.group(1)) if km else None
+            continue
+        if k is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(k, {}).update(spill_stores=int(m.group(1)),
+                                         spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(k, {})["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +250,60 @@ def _pages(gen, n_pages, blk, w):
     return (x * scale).to(torch.bfloat16)
 
 
+def paged_case(gen, h, hd, n_pages, blk, w, lengths):
+    """The timed paged case's q, ring, page table (clipped) and lengths:
+    the slots walk a permutation of the pool's pages, except that the
+    longest (last) slot's first two pages are 1 and 2."""
+    import torch
+    s_ = len(lengths)
+    maxp = max(L // blk for L in lengths) + 1
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").cpu()
+    perm = [p for p in perm.tolist() if p not in (1, 2)]
+    table = torch.full((s_, maxp), -1, dtype=torch.int32)
+    nxt = 0
+    for si, L in enumerate(lengths):
+        for i in range(L // blk):
+            if si == s_ - 1 and i < 2:
+                table[si, i] = i + 1                # pages 1, 2
+            else:
+                table[si, i] = perm[nxt]
+                nxt += 1
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = (torch.randn((s_, h, hd), generator=gen, device="cuda")
+         ).to(torch.bfloat16)
+    ring = torch.randn((s_, blk, w), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    return q, ring, table.clamp(min=0).cuda(), lens
+
+
+def fixed_rows(blocks, ring, length):
+    """A fixed-batch store's K/V rows below ``length``, decompressed:
+    (B, length, W) from blocks (nblk, B, blk, W) and the ring."""
+    import torch
+    blk = ring.shape[1]
+    live = length // blk
+    dec = blocks[:live].transpose(0, 1).reshape(ring.shape[0], live * blk, -1)
+    return torch.cat([dec, ring[:, :length - live * blk]], 1)
+
+
+def sdpa_fn(q, rows):
+    """The yardstick the port never calls: one SDPA (``enable_gqa``) call
+    of q (S, H, hd) over K/V rows (S, T, Hkv * 2 * hd) already
+    decompressed."""
+    import torch
+    s_, t, w = rows.shape
+    hd = q.shape[-1]
+    kv = rows.reshape(s_, t, w // (2 * hd), 2, hd)
+    kk, vv = kv[..., 0, :].transpose(1, 2), kv[..., 1, :].transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kk, vv, enable_gqa=True)
+
+
 def kernels_phase(cfg):
     import torch
     from repro_torch.core import entropy as E
     from repro_torch.core import fixed
+    from repro_torch.kernels import attend_cases as AC
     from repro_torch.kernels import decode_attend, exp_histogram, lexi_pack
     from repro_torch.kernels import ops, ref
     from repro_torch.models import cache as cache_mod
@@ -237,24 +372,9 @@ def kernels_phase(cfg):
 
     # decode_attend_paged: slots walk permuted pages; the escape and
     # overflow pages are live in the longest slot
-    maxp = max(L // blk for L in lengths) + 1
-    perm = torch.randperm(n_pages, generator=gen, device="cuda").cpu()
-    perm = [p for p in perm.tolist() if p not in (1, 2)]
-    table = torch.full((s_, maxp), -1, dtype=torch.int32)
-    nxt = 0
-    for si, L in enumerate(lengths):
-        for i in range(L // blk):
-            if si == s_ - 1 and i < 2:
-                table[si, i] = i + 1                # pages 1, 2
-            else:
-                table[si, i] = perm[nxt]
-                nxt += 1
-    page_ids = table.clamp(min=0).cuda()
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    q = (torch.randn((s_, h, hd), generator=gen, device="cuda")
-         ).to(torch.bfloat16)
-    ring = torch.randn((s_, blk, w), generator=gen, device="cuda") \
-        .to(torch.bfloat16)
+    q, ring, page_ids, lens = paged_case(gen, h, hd, n_pages, blk, w,
+                                         lengths)
+    maxp = page_ids.shape[1]
     fields = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
               None)
     kv_idx = cache_mod.gqa_head_table(cfg, h)
@@ -281,13 +401,17 @@ def kernels_phase(cfg):
                                rtol=1e-4, atol=1e-4)
 
     args = (q, *fields, ring, page_ids, lens, ref.WINDOW_NONE)
+    kw = dict(k=k, kv_idx=kv_idx, scale=scale)
+    first = decode_attend.decode_attend_paged(*args, **kw)
+    assert AC.same_bits(first, decode_attend.decode_attend_paged(*args, **kw)), \
+        "decode_attend_paged: two launches differ"
+    grid_line("decode_attend_paged", h, hkv, hd, blk, s_,
+              decode_attend.paged_splits(maxp, blk), k)
+    errs.append(split_edges_paged(cfg, gen))
     # yardstick: one library call (SDPA, GQA) on already-decompressed
     # pages gathered per slot; the port never calls it
-    kv_t = torch.cat([raw[-1][page_ids.long()].reshape(s_, -1, w), ring],
-                     1).reshape(s_, -1, hkv, 2, hd)
-    kk, vv = kv_t[..., 0, :].transpose(1, 2), kv_t[..., 1, :].transpose(1, 2)
-    lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kk, vv, enable_gqa=True)
+    lib_fn = sdpa_fn(q, torch.cat(
+        [raw[-1][page_ids.long()].reshape(s_, -1, w), ring], 1))
     ring_rows = sum(L % blk for L in lengths)
     page_bytes = n * (1 + k / 8) + c
     by = (n_live * page_bytes + ring_rows * w * 2 + q.numel() * 2
@@ -296,20 +420,155 @@ def kernels_phase(cfg):
     t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOPS
     rec["decode_attend_paged"] = dict(
         max_abs_err=max(errs),
-        ms=cuda_ms(lambda: decode_attend.decode_attend_paged(
-            *args, k=k, kv_idx=kv_idx, scale=scale)),
         plain_ms=cuda_ms(lambda: ref.paged_decode_attend_plain(
             *args, k=k, kv_idx=kv_idx, scale=scale), reps=5),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=cuda_ms(lib_fn))
+        **attend_timing("decode_attend_paged",
+                        lambda: decode_attend.decode_attend_paged(*args, **kw),
+                        lib_fn))
     log("kernels", f"decode_attend_paged (S={s_}, H={h}/{hkv}, hd={hd}, "
                    f"lengths {lengths}, {n_live} live pages) within 1e-4 "
-                   f"(full + window 700 + codec off): "
-                   f"{rec['decode_attend_paged']}")
+                   f"(full + window 700 + codec off + split edges), two "
+                   f"launches bit for bit: {rec['decode_attend_paged']}")
     rec.update(weight_kernels(cfg, ct, gen))
     rec["decode_attend"] = fixed_attend_kernel(cfg, gen)
     return rec
+
+
+def grid_line(name, h, hkv, hd, blk, n_seq, nsplit, k):
+    """Log a kernel's launch: grid, threads, chunk rows, shared memory per
+    CTA, and registers and spills of its k instantiation (ptxas -v)."""
+    from repro_torch.kernels import decode_attend
+    span = decode_attend.span_rows(blk)
+    geo = decode_attend.geometry(hd, h - (hkv - 1) * (h // hkv), span)
+    regs = ptxas_report(name).get(k, {})
+    log("kernels", f"{name} launch at H={h}/{hkv}, hd={hd}: nsplit {nsplit} "
+                   f"(P={span} rows), grid {hkv} x {n_seq} x {nsplit} = "
+                   f"{hkv * n_seq * nsplit} CTAs of {geo['threads']} "
+                   f"threads, chunks of {geo['chunk_rows']} rows, "
+                   f"{geo['smem_bytes']} B shared memory per CTA, "
+                   f"{regs.get('registers')} registers, spills "
+                   f"{regs.get('spill_stores')}/{regs.get('spill_loads')} B "
+                   f"(k={k})")
+
+
+def split_edges_paged(cfg, gen):
+    """The paged kernel's split edge cases at qwen3-4b's heads, block 256
+    (P = 128): slot lengths at span and block edges, a window leaving only
+    the last span, a page with escapes on rows P - 1 and P and one past
+    its capacity; then 1 and 64 slots.  Every call within 1e-4 and
+    bit-identical on a second launch."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import attend_cases as AC
+    from repro_torch.kernels import decode_attend, ref
+
+    blk, k = 256, 5
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = 2 * hkv * hd
+    p = decode_attend.span_rows(blk)
+    kw = dict(k=k, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+    pages = (torch.randn((24, blk, w), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+    pages[0] = AC.overflowing(gen, (blk, w))
+    pages[1] = AC.with_escapes(AC.dict_filled(gen, (blk, w)), [p - 1, p])
+    ct = fixed.compress_many(pages, k=k)
+    rows = set((ct.esc_pos[1][:int(ct.n_escapes[1])] // w).tolist())
+    assert int(ct.n_escapes[0]) > ct.esc_pos.shape[-1] and \
+        {p - 1, p} <= rows, rows
+    pool = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+            None)
+    worst, n_calls = 0.0, 0
+    for lengths in (AC.edge_lengths(blk), [3 * blk - 1],
+                    [(i * 97 + 300) % (3 * blk) for i in range(64)]):
+        s_ = len(lengths)
+        maxp = max(lengths) // blk + 1
+        table = torch.randint(0, 24, (s_, maxp), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        longest = max(range(s_), key=lambda i: lengths[i])
+        table[longest, :2] = torch.tensor([0, 1], dtype=torch.int32)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q = torch.randn((s_, h, hd), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        ring = torch.randn((s_, blk, w), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+        for window, softcap in ((ref.WINDOW_NONE, None), (700, None),
+                                (5, None), (ref.WINDOW_NONE, 50.0)):
+            args = (q, *pool, ring, table, lens, window)
+            got = decode_attend.decode_attend_paged(*args, **kw,
+                                                    softcap=softcap)
+            worst = max(worst, AC.attend_close(
+                got, ref.paged_decode_attend_plain(*args, **kw,
+                                                   softcap=softcap)))
+            assert AC.same_bits(got, decode_attend.decode_attend_paged(
+                *args, **kw, softcap=softcap)), "paged: launches differ"
+            n_calls += 1
+    log("kernels", f"decode_attend_paged split edges (P={p}, block {blk}): "
+                   f"lengths {AC.edge_lengths(blk)}, 1 slot, 64 slots; full, "
+                   f"window 700, window 5 (last span only), softcap 50; "
+                   f"escapes on rows {p - 1} and {p} of a page and past the "
+                   f"capacity of another: {n_calls} calls within 1e-4, each "
+                   f"launched twice bit for bit; max |err| {worst:.3e}")
+    return worst
+
+
+def split_edges_fixed(cfg, gen):
+    """The fixed kernel's split edge cases at qwen3-4b's heads, block 256,
+    3 sequences: the lengths of ``attend_cases.edge_lengths``, full / window 5 /
+    window 700 / softcap; block 1 holds escapes in sequence 0 and, in
+    sequence 2, on rows P - 1 and P (within the capacity) followed by more
+    than the capacity holds.  Within 1e-4, bit-identical twice."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import attend_cases as AC
+    from repro_torch.kernels import decode_attend, ref
+
+    blk, k, b = 256, 5, 3
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = 2 * hkv * hd
+    p = decode_attend.span_rows(blk)
+    lengths = AC.edge_lengths(blk)
+    nblk = max(lengths) // blk + 1
+    blocks = torch.randn((nblk, b, blk, w), generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+    blocks[1] = AC.dict_filled(gen, (b, blk, w))
+    blocks[1, 0] = AC.with_escapes(blocks[1, 0], list(range(1, blk, 5)))
+    blocks[1, 2] = AC.with_escapes(blocks[1, 2], [p - 1, p])
+    over = list(range(p + 3, blk))
+    blocks[1, 2, over] = torch.exp2(torch.randint(
+        -90, -50, (len(over), w), generator=gen, device="cuda").float()
+    ).to(torch.bfloat16)
+    n = b * blk * w
+    ct = fixed.compress_many(blocks.reshape(nblk, n), k=k,
+                             esc_capacity=max(n // 128, 8))
+    seq2 = ((ct.esc_pos[1][ct.esc_pos[1] < n] - 2 * blk * w) // w).tolist()
+    assert int(ct.n_escapes[1]) > ct.esc_pos.shape[-1]
+    assert {p - 1, p} <= set(seq2), "no escapes around the span edge"
+    store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+             None)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    ring = torch.randn((b, blk, w), generator=gen, device="cuda"
+                       ).to(torch.bfloat16)
+    kw = dict(k=k, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+    worst, n_calls = 0.0, 0
+    for length in lengths:
+        for window, softcap in ((ref.WINDOW_NONE, None), (700, None),
+                                (5, None), (ref.WINDOW_NONE, 50.0)):
+            args = (q, *store, ring, length, window)
+            got = decode_attend.decode_attend(*args, **kw, softcap=softcap)
+            worst = max(worst, AC.attend_close(got, ref.decode_attend_plain(
+                *args, **kw, softcap=softcap)))
+            assert AC.same_bits(got, decode_attend.decode_attend(
+                *args, **kw, softcap=softcap)), "fixed: launches differ"
+            n_calls += 1
+    log("kernels", f"decode_attend split edges (P={p}, block {blk}, B={b}): "
+                   f"lengths {lengths}; full, window 700, window 5, softcap "
+                   f"50; sequence 2 escapes on rows {p - 1} and {p} and past "
+                   f"the capacity: {n_calls} calls within 1e-4, each "
+                   f"launched twice bit for bit; max |err| {worst:.3e}")
+    return worst
 
 
 def _fixed_blocks(gen, nblk, b, blk, w):
@@ -368,6 +627,7 @@ def fixed_attend_kernel(cfg, gen):
     gemma2-9b's attention shapes, timed at qwen3-4b's."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import attend_cases as AC
     from repro_torch.kernels import decode_attend, ref
 
     b, blk, k = 4, 256, 5
@@ -381,9 +641,7 @@ def fixed_attend_kernel(cfg, gen):
         n_esc = ct.n_escapes.tolist()
         assert n_esc[1] > cap, n_esc                          # overflow
         assert bool((ct.esc_pos[1] < blk * 2 * hkv * hd).any())
-        g = h // hkv
-        kw = dict(k=k, kv_idx=tuple(min(i // g, hkv - 1) for i in range(h)),
-                  scale=hd ** -0.5)
+        kw = dict(k=k, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
         store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos,
                  ct.esc_raw, None)
         args = (q, *store, ring, length)
@@ -405,14 +663,15 @@ def fixed_attend_kernel(cfg, gen):
             torch.cuda.empty_cache()
             continue
         timed = (args + (full,), kw)
+        first = decode_attend.decode_attend(*timed[0], **timed[1])
+        assert AC.same_bits(first, decode_attend.decode_attend(*timed[0],
+                                                              **timed[1])), \
+            "decode_attend: two launches differ"
+        grid_line("decode_attend", h, hkv, hd, blk, b,
+                  decode_attend.fixed_splits(length, full, blk)[1], k)
+        errs.append(split_edges_fixed(cfg, gen))
         live = length // blk
-        dec = blocks[:live].transpose(0, 1).reshape(b, live * blk, -1)
-        kv_t = torch.cat([dec, ring[:, :length - live * blk]], 1) \
-            .reshape(b, length, hkv, 2, hd)
-        kk = kv_t[..., 0, :].transpose(1, 2)
-        vv = kv_t[..., 1, :].transpose(1, 2)
-        lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], kk, vv, enable_gqa=True)
+        lib_fn = sdpa_fn(q, fixed_rows(blocks, ring, length))
         n = b * blk * 2 * hkv * hd
         by = (live * (n * (1 + k / 8) + (1 << k) + 5 * cap)
               + b * (length - live * blk) * 2 * hkv * hd * 2
@@ -421,13 +680,12 @@ def fixed_attend_kernel(cfg, gen):
         t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOPS
         row = dict(
             max_abs_err=None,
-            ms=cuda_ms(lambda: decode_attend.decode_attend(*timed[0],
-                                                           **timed[1])),
             plain_ms=cuda_ms(lambda: ref.decode_attend_plain(
                 *timed[0], **timed[1]), reps=5),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=cuda_ms(lib_fn))
+            **attend_timing("decode_attend", lambda: decode_attend
+                            .decode_attend(*timed[0], **timed[1]), lib_fn))
     row["max_abs_err"] = max(errs)
     log("kernels", f"decode_attend at qwen3-4b's shapes, full window, "
                    f"codec on: {row}")
@@ -818,6 +1076,8 @@ def profile_window(name: str, window, steps: int):
     (out / f"profile_{name}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    attend = sum(e.self_device_time_total for e in rows
+                 if "decode_attend" in e.key) / 1e3
     log("profile", f"{name}: {steps} decode steps, 4 sequences: wall "
                    f"{wall * 1e3:.1f} ms"
                    f" ({wall * 1e3 / steps:.2f} ms/step, profiler off); "
@@ -826,6 +1086,11 @@ def profile_window(name: str, window, steps: int):
                    f"unprofiled wall), "
                    f"{sum(e.count for e in rows) / steps:.0f} kernel "
                    f"launches per step")
+    log("profile", f"{name}: host {wall * 1e3 / steps:.3f} ms/step; device "
+                   f"busy {dev_total / steps:.3f} ms/step; attention "
+                   f"{attend / steps:.3f} ms/step = "
+                   f"{100 * attend / max(dev_total, 1e-9):.1f}% of device "
+                   f"time")
     for e in top:
         log("profile", f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.2f}"
                        f" ms over {e.count} calls")

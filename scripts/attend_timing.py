@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Time the port's two decode-attention kernels on one NVIDIA GPU, two
+ways, beside SDPA on the same K/V.
+
+    python3 scripts/attend_timing.py [--tree DIR] [--label NAME] [--breakdown]
+
+Imports ``repro_torch`` from DIR/src (default: this checkout), builds that
+tree's kernel library, and at chip_smoke.py's timed shapes (qwen3-4b's
+heads, block 256, k 5; ``decode_attend_paged``: 4 slots of 300, 700, 1100
+and 2000 tokens over pages with escapes and overflow; ``decode_attend``:
+4 sequences of 1100 tokens) checks each kernel against its plain version
+within 1e-4, then reads, with chip_smoke.py's ``cuda_ms`` and
+``host_us``:
+
+  ms          median CUDA-event time, L2 flushed, then a spin on the card
+              so that the host is ahead when the first event is reached:
+              the kernel alone;
+  ms_no_spin  the same without the spin: where the host's time to launch
+              (the wrapper's checks, ctypes) exceeds the L2 flush's, the
+              events count it too;
+  host_us     the host's time per call.
+
+The same for SDPA (``library_*``).  To compare two trees, run the script
+once per tree in turns (A, B, B, A) in one call of the card: only the
+tree's ``repro_torch`` differs between runs, the inputs come from the
+same seed.  ``--breakdown`` also times ``decode_attend_paged`` (with the
+spin) on escape-free pages at the timed lengths, the same pages raw (no
+decode), one span per slot (4 x 128 tokens) and 16 slots of 1056 tokens,
+each beside SDPA.
+
+Prints one JSON line and appends it to chiprun_out/attend_timing.jsonl.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def check(got, want):
+    import torch
+    o_k, _, l_k = got
+    o_p, _, l_p = want
+    torch.testing.assert_close(o_k / l_k.clamp(min=1e-30)[..., None],
+                               o_p / l_p.clamp(min=1e-30)[..., None],
+                               rtol=1e-4, atol=1e-4)
+
+
+def timings(cs, fn, lib_fn):
+    return dict(ms=cs.cuda_ms(fn), ms_no_spin=cs.cuda_ms(fn, spin=False),
+                host_us=cs.host_us(fn), library_ms=cs.cuda_ms(lib_fn),
+                library_ms_no_spin=cs.cuda_ms(lib_fn, spin=False),
+                library_host_us=cs.host_us(lib_fn))
+
+
+def paged(cs, h, hkv, hd, blk, k, gen):
+    """chip_smoke's timed decode_attend_paged case."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import decode_attend, ref
+
+    w, n = 2 * hkv * hd, blk * 2 * hkv * hd
+    lengths = [300, 700, 1100, 2000]
+    n_pages = sum(L // blk for L in lengths) + 2
+    pages = cs._pages(gen, n_pages, blk, w)
+    ct = fixed.compress_many(pages, k=k, esc_capacity=max(n // 128, 8))
+    q, ring, page_ids, lens = cs.paged_case(gen, h, hd, n_pages, blk, w,
+                                            lengths)
+    args = (q, ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+            None, ring, page_ids, lens, ref.WINDOW_NONE)
+    g = h // hkv
+    kw = dict(k=k, kv_idx=tuple(min(i // g, hkv - 1) for i in range(h)),
+              scale=hd ** -0.5)
+    fn = lambda: decode_attend.decode_attend_paged(*args, **kw)
+    check(fn(), ref.paged_decode_attend_plain(*args, **kw))
+    rows = torch.cat([pages[page_ids.long()].reshape(len(lengths), -1, w),
+                      ring], 1)
+    return timings(cs, fn, cs.sdpa_fn(q, rows))
+
+
+def fixed_batch(cs, h, hkv, hd, blk, k, gen):
+    """chip_smoke's timed decode_attend case."""
+    from repro_torch.kernels import decode_attend, ref
+
+    b, length = 4, 1100
+    blocks, ct, ring, q = cs._fixed_case(gen, b, h, hkv, hd, blk, length,
+                                         k)
+    args = (q, ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+            None, ring, length, ref.WINDOW_NONE)
+    g = h // hkv
+    kw = dict(k=k, kv_idx=tuple(min(i // g, hkv - 1) for i in range(h)),
+              scale=hd ** -0.5)
+    fn = lambda: decode_attend.decode_attend(*args, **kw)
+    check(fn(), ref.decode_attend_plain(*args, **kw))
+    return timings(cs, fn, cs.sdpa_fn(q, cs.fixed_rows(blocks, ring,
+                                                       length)))
+
+
+def breakdown(cs, h, hkv, hd, blk, k, gen):
+    """decode_attend_paged on variants, each beside SDPA (ms, with the
+    spin)."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import decode_attend, ref
+
+    w = 2 * hkv * hd
+    g = h // hkv
+    kw = dict(k=k, kv_idx=tuple(min(i // g, hkv - 1) for i in range(h)),
+              scale=hd ** -0.5)
+    pages = torch.randn((20, blk, w), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+    ct = fixed.compress_many(pages, k=k)
+    assert int(ct.n_escapes.sum()) == 0
+    codec = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+             None)
+    out = []
+    for name, lengths, pool in (
+            ("escape-free, lengths 300/700/1100/2000", [300, 700, 1100, 2000],
+             codec),
+            ("the same raw (codec off)", [300, 700, 1100, 2000],
+             (None,) * 5 + (pages,)),
+            ("one span per slot, 4 x 128", [128] * 4, codec),
+            ("16 x 1056", [1056] * 16, codec)):
+        s_ = len(lengths)
+        table = torch.randint(0, 20, (s_, 8), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        q = torch.randn((s_, h, hd), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        ring = torch.randn((s_, blk, w), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+        args = (q, *pool, ring, table,
+                torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+                ref.WINDOW_NONE)
+        fn = lambda: decode_attend.decode_attend_paged(*args, **kw)
+        check(fn(), ref.paged_decode_attend_plain(*args, **kw))
+        rows = torch.cat([pages[table.long()].reshape(s_, -1, w), ring], 1
+                         )[:, :max(lengths)]
+        out.append(dict(case=name, ms=cs.cuda_ms(fn),
+                        library_ms=cs.cuda_ms(cs.sdpa_fn(q, rows))))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="checkout whose src/repro_torch is timed")
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--breakdown", action="store_true")
+    opts = ap.parse_args()
+    tree = opts.tree.resolve()
+    if not (tree / "src" / "repro_torch").is_dir():
+        print(f"{tree}/src/repro_torch not found", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(1, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("attend_timing.py: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.kernels import ops
+
+    ops.build()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    h, hkv, hd, blk, k = 32, 8, 128, 256, 5           # qwen3-4b, block 256
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = dict(label=opts.label or str(tree), card=card,
+               decode_attend_paged=paged(cs, h, hkv, hd, blk, k, gen),
+               decode_attend=fixed_batch(cs, h, hkv, hd, blk, k, gen))
+    if opts.breakdown:
+        rec["breakdown"] = breakdown(cs, h, hkv, hd, blk, k, gen)
+    line = json.dumps(rec)
+    print(line)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    with open(out / "attend_timing.jsonl", "a") as f:
+        f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,13 +10,13 @@
 // dictionary and one escape side channel of capacity
 // C = esc_capacity(B * blk * W).  Decode the b-th slice of each block (the
 // rows at flat offset b * blk * W), then the sequence's raw bf16 ring
-// rows below L; mask by L and the layer's window; run an online softmax
-// for every query head.  Output: the unnormalised partials (out f32, m, l),
-// exactly what the TPU kernel returns.
+// rows below L; mask by L and the layer's window; softmax for every query
+// head.  Output: the unnormalised partials (out f32, m, l), exactly what
+// the TPU kernel returns.
 //
 // The escape rank of an element of sequence b counts the escapes of
-// sequences 0..b-1 too.  The side channel is position-ordered, so a binary
-// search of esc_pos for the chunk's first flat position gives the rank of
+// sequences 0..b-1 too.  The side channel is position-ordered, so a
+// search of esc_pos for a span's first flat position gives the rank of
 // its first escape directly; escapes past the capacity decode as exponent
 // 0 (the dictionary's ESCAPE slot), as fixed.decompress and the TPU kernel
 // do.
@@ -24,13 +24,15 @@
 // What bounds it on an H100: memory.  A decode step reads each live block
 // once (B * n (1 + k/8) bytes plus its escape slots, n = blk * W) and the
 // rings; ~4 flops per stored byte, far below the card's ~295 flops/byte
-// ridge.  Decoded values stay in shared memory.
+// ridge.  Decoded values stay in shared memory; at decode batch sizes
+// the time is set by the split's parallelism and each CTA's chain of
+// dependent steps, as in the paged kernel.
 //
-// Design: the paged kernel's (decode_attend_body.cuh), one CTA per
-// (kv head, sequence), 256 threads, the block loop inside; a sequence's
-// block i is record i of the store at offset b * blk * W.  The grid is
-// Hkv * B CTAs; splitting the block walk across CTAs is left to a later
-// change.
+// Design: the paged kernel's split-KV body (decode_attend_body.cuh); a
+// sequence's block i is record i of the store at offset b * blk * W.
+// Grid (Hkv, B, nsplit): the spans of P rows from span0 (the first span
+// with a position inside the window) to the last one below L, both from
+// the host-side length, so no span of the grid is dead except when L = 0.
 
 #include "decode_attend_body.cuh"
 
@@ -38,40 +40,48 @@ namespace {
 
 using namespace decode_attend_body;
 
-__global__ void __launch_bounds__(kThreads) decode_attend_kernel(
-    const uint16_t* __restrict__ q, const uint8_t* __restrict__ signman,
-    const uint32_t* __restrict__ planes, const uint8_t* __restrict__ dicts,
-    const int* __restrict__ esc_pos, const uint8_t* __restrict__ esc_raw,
-    const uint16_t* __restrict__ raw_blocks, const uint16_t* __restrict__ ring,
-    float* __restrict__ out, float* __restrict__ m_out,
-    float* __restrict__ l_out, int B, int length, long long nw, int H,
-    int hkv, int hd, int g, int gmax, int blk, int W, int k, int C,
-    int window, float scale, float softcap, int tr, int codec_on) {
-  const int b = blockIdx.y;
-  const long long n = (long long)blk * W;
-  attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks, ring,
-         nullptr, out, m_out, l_out, b, length, B * n, b * n, nw, H, hkv, hd,
-         g, gmax, blk, W, k, C, window, scale, softcap, tr, codec_on);
+template <int KB>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    decode_attend_kernel(Args a, int length, int span0) {
+  const int b = blockIdx.y, split = blockIdx.z;
+  attend<KB>(a, b, length, (long long)b * a.blk * a.W, nullptr,
+             span0 + split, split);
 }
+
+using Kernel = void (*)(Args, int, int);
 
 }  // namespace
 
 extern "C" int decode_attend_launch(
     const void* q, const void* signman, const void* planes, const void* dicts,
     const void* esc_pos, const void* esc_raw, const void* raw_blocks,
-    const void* ring, void* out, void* m, void* l, int B, int H, int hkv,
-    int hd, int blk, int W, int k, int C, int length, int window,
-    long long nw, float scale, float softcap, int codec_on, void* stream) {
-  const Launch ln(H, hkv, hd, blk);
-  cudaError_t e = ln.prepare(decode_attend_kernel);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)hkv, (unsigned)B);
-  decode_attend_kernel<<<grid, kThreads, ln.lay.total,
-                         (cudaStream_t)stream>>>(
-      (const uint16_t*)q, (const uint8_t*)signman, (const uint32_t*)planes,
-      (const uint8_t*)dicts, (const int*)esc_pos, (const uint8_t*)esc_raw,
-      (const uint16_t*)raw_blocks, (const uint16_t*)ring, (float*)out,
-      (float*)m, (float*)l, B, length, nw, H, hkv, hd, ln.g, ln.gmax, blk, W,
-      k, C, window, scale, softcap, ln.tr, codec_on);
+    const void* ring, void* out, void* m, void* l, void* ws, void* counters,
+    int B, int H, int hkv, int hd, int blk, int W, int k, int C, int length,
+    int window, int span, int span0, int nsplit, long long nw, float scale,
+    float softcap, int codec_on, void* stream) {
+  if (codec_on && (k < 1 || k > kMaxK)) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(q, signman, planes, dicts, esc_pos, esc_raw,
+                           raw_blocks, ring, out, m, l, ws, counters,
+                           (long long)B * blk * W, nw, H, hkv, hd, blk, W, C,
+                           window, span, nsplit, scale, softcap);
+  const Kernel kernel = kernel_for<Kernel>(codec_on ? k : 0, [](auto kb) {
+    return decode_attend_kernel<decltype(kb)::value>;
+  });
+  const int smem_bytes = prepare(kernel, a);
+  if (smem_bytes < 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)hkv, (unsigned)B, (unsigned)nsplit);
+  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(a, length,
+                                                               span0);
   return (int)cudaGetLastError();
+}
+
+// The launch geometry both kernels use for (hd, gmax, span): out[0] chunk
+// rows, out[1] threads per (head, row) dot, out[2] dynamic shared memory
+// per CTA in bytes, out[3] threads per CTA.
+extern "C" void decode_attend_geometry(int hd, int gmax, int span, int* out) {
+  const Geometry geo(hd, gmax, span);
+  out[0] = geo.tr;
+  out[1] = geo.nsub;
+  out[2] = geo.total;
+  out[3] = kThreads;
 }

@@ -28,12 +28,23 @@ signman (P, n), planes (P, k, n/32), dicts (P, 2^k), esc_pos / esc_raw
 (P, C), or raw_pages (P, blk, W); page_ids (S, maxp) int32 with unmapped
 entries already clipped to a valid id (they are dead by length); lengths
 (S,) int32 post-append token counts.
+
+Both kernels split each sequence's stream into spans of ``span_rows(blk)``
+rows, one CTA per (kv head, sequence, span), and merge the spans' partials
+in the kernel (``csrc/decode_attend_body.cuh``).  The grid comes from
+host-side values only (``paged_splits``, ``fixed_splits``); the partials
+and the per-(sequence, kv head) arrival counters live in a workspace
+cached per (device, stream) (``_workspace``), which the kernels leave
+zeroed.  Launches on one stream run in order and share it; a launch on
+another stream gets its own.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import functools
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +55,74 @@ plain_paged = ref.paged_decode_attend_plain
 
 # kernel launches since the last reset, by kernel
 launches = {"decode_attend": 0, "decode_attend_paged": 0}
+
+SPAN_ROWS = 128            # stream rows one CTA walks, at most
+
+
+def span_rows(blk: int) -> int:
+    """P, the rows of one split: the largest power of two that divides the
+    block and is at most SPAN_ROWS, so a span never straddles a record."""
+    return math.gcd(blk, SPAN_ROWS)
+
+
+def paged_splits(maxp: int, blk: int) -> int:
+    """Splits per (slot, kv head) of the paged kernel: every span the page
+    table's ``maxp`` columns and the ring could hold.  The slots' lengths
+    are device values, so the spans past a slot's length are in the grid
+    too (and load nothing)."""
+    return (maxp + 1) * blk // span_rows(blk)
+
+
+def fixed_splits(length: int, window: int, blk: int) -> Tuple[int, int]:
+    """(first span, splits) of the fixed-batch kernel at the host-side
+    ``length``: the spans from the first one holding a position inside the
+    window (positions > length - 1 - window) to the last one below length;
+    one dead split when nothing is live."""
+    p = span_rows(blk)
+    end = -(-length // p)
+    first = min(max(0, length - window) // p, end)
+    return first, max(1, end - first)
+
+
+def geometry(hd: int, gmax: int, span: int) -> Dict[str, int]:
+    """What both kernels launch for (hd, gmax, P): chunk rows, threads per
+    (head, row) dot, dynamic shared memory and threads per CTA."""
+    from .ops import library
+
+    out = (ctypes.c_int * 4)()
+    library().decode_attend_geometry(hd, gmax, span, out)
+    return dict(zip(("chunk_rows", "dot_threads", "smem_bytes", "threads"),
+                    out))
+
+
+# (device, stream handle) -> (partials, arrival counters), grown on demand
+_workspaces: Dict[Tuple[torch.device, int],
+                  Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device, stream: int, n_s: int, hkv: int, nsplit: int,
+               gmax: int, hd: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge workspace for one launch on ``stream``: (n_s, hkv,
+    nsplit, gmax, hd + 2) f32 partials and n_s * hkv int32 counters
+    (allocated zeroed; every launch leaves them zero).  The kernels of one
+    stream run one after another, so they can share it; two streams could
+    overlap, so each has its own."""
+    need = n_s * hkv * nsplit * gmax * (hd + 2)
+    ws, cnt = _workspaces.get((device, stream), (None, None))
+    if ws is None or ws.numel() < need:
+        ws = torch.empty(need, dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < n_s * hkv:
+        cnt = torch.zeros(n_s * hkv, dtype=torch.int32, device=device)
+    _workspaces[(device, stream)] = (ws, cnt)
+    return ws, cnt
+
+
+@functools.lru_cache(maxsize=None)
+def _head_map(h: int, hkv: int) -> Tuple[int, ...]:
+    """The head map the kernels take for h query heads over hkv kv heads:
+    min(i // (h // hkv), hkv - 1)."""
+    g = h // hkv
+    return tuple(min(i // g, hkv - 1) for i in range(h))
 
 
 def _check_attend(q, ring, kv_idx, n_seqs_name: str):
@@ -59,9 +138,7 @@ def _check_attend(q, ring, kv_idx, n_seqs_name: str):
     if w % (2 * hd):
         raise ValueError(f"payload width {w} is not Hkv * 2 * {hd}")
     hkv = w // (2 * hd)
-    g = h // max(hkv, 1)
-    if g < 1 or tuple(kv_idx) != tuple(min(i // g, hkv - 1)
-                                       for i in range(h)):
+    if not 1 <= hkv <= h or tuple(kv_idx) != _head_map(h, hkv):
         raise ValueError(f"unsupported head map {tuple(kv_idx)} for {h} "
                          f"query heads over {hkv} kv heads")
     if ring.shape[0] != n_s:
@@ -96,12 +173,12 @@ def _outputs(q):
             torch.empty((n_s, h), dtype=torch.float32, device=q.device))
 
 
-def _ptr(t):
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
-def _stream(q):
-    return ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+def _stream(q) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
@@ -132,14 +209,16 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
     out, m, l = _outputs(q)
     if b == 0:
         return out, m, l
+    window = int(window)
+    span0, nsplit = fixed_splits(length, window, blk)
+    stream = _stream(q)
+    ws, cnt = _workspace(q.device, stream, b, hkv, nsplit,
+                         h - (hkv - 1) * (h // hkv), hd)
     rc = library().decode_attend_launch(
         _ptr(q), *(_ptr(t) for t in store), _ptr(ring), _ptr(out), _ptr(m),
-        _ptr(l), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(hkv),
-        ctypes.c_int(hd), ctypes.c_int(blk), ctypes.c_int(w),
-        ctypes.c_int(k), ctypes.c_int(c), ctypes.c_int(length),
-        ctypes.c_int(int(window)), ctypes.c_longlong(n // 32),
-        ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
-        ctypes.c_int(int(codec_on)), _stream(q))
+        _ptr(l), _ptr(ws), _ptr(cnt), b, h, hkv, hd, blk, w, k, c, length,
+        window, span_rows(blk), span0, nsplit, n // 32, float(scale),
+        float(softcap or 0.0), int(codec_on), stream)
     raise_on_error(rc, "decode_attend")
     launches["decode_attend"] += 1
     return out, m, l
@@ -172,14 +251,15 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
     out, m, l = _outputs(q)
     if n_s == 0:
         return out, m, l
+    nsplit = paged_splits(maxp, blk)
+    stream = _stream(q)
+    ws, cnt = _workspace(q.device, stream, n_s, hkv, nsplit,
+                         h - (hkv - 1) * (h // hkv), hd)
     rc = library().decode_attend_paged_launch(
         _ptr(q), *(_ptr(t) for t in pool), _ptr(ring), _ptr(page_ids),
-        _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), ctypes.c_int(n_s),
-        ctypes.c_int(h), ctypes.c_int(hkv), ctypes.c_int(hd),
-        ctypes.c_int(blk), ctypes.c_int(w), ctypes.c_int(maxp),
-        ctypes.c_int(k), ctypes.c_int(c), ctypes.c_int(int(window)),
-        ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
-        ctypes.c_int(int(codec_on)), _stream(q))
+        _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), _ptr(ws), _ptr(cnt),
+        n_s, h, hkv, hd, blk, w, maxp, k, c, int(window), span_rows(blk),
+        nsplit, float(scale), float(softcap or 0.0), int(codec_on), stream)
     raise_on_error(rc, "decode_attend_paged")
     launches["decode_attend_paged"] += 1
     return out, m, l

@@ -280,10 +280,10 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "exp_histogram_launch": [_P, _P, _I, _LL, _P],
     "lexi_pack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
-    "decode_attend_paged_launch": [_P] * 13 + [_I] * 10 + [_F, _F, _I, _P],
+    "decode_attend_paged_launch": [_P] * 15 + [_I] * 12 + [_F, _F, _I, _P],
     "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
     "decompress_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
-    "decode_attend_launch": [_P] * 11 + [_I] * 10 + [_LL, _F, _F, _I, _P],
+    "decode_attend_launch": [_P] * 13 + [_I] * 13 + [_LL, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -358,6 +358,8 @@ def library() -> ctypes.CDLL:
         for fn_name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, fn_name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.decode_attend_geometry.argtypes = [_I, _I, _I, _P]
+        lib.decode_attend_geometry.restype = None
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -168,6 +168,16 @@ def paged_decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
     page the table names (``core.fixed.decompress``: dictionary LUT, then
     the escape side channel by position) and one masked softmax over
     [pages ‖ ring].  ``page_ids`` must already be clipped to valid ids."""
+    vals, ok = paged_stream(signman, planes, dicts, esc_pos, esc_raw,
+                            raw_pages, ring, page_ids, lengths, window, k=k)
+    return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+
+
+def paged_stream(signman, planes, dicts, esc_pos, esc_raw, raw_pages, ring,
+                 page_ids, lengths, window, *, k: int):
+    """The paged kernel's stream, gathered: (vals (S, maxp*blk + blk, W)
+    bf16, every page the table names decompressed, then the ring; ok
+    (S, maxp*blk + blk) live mask)."""
     from repro_torch.core import fixed
 
     n_s, maxp = page_ids.shape
@@ -183,20 +193,24 @@ def paged_decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
     else:
         pages = raw_pages[pid]
     vals = torch.cat([pages.reshape(n_s, maxp * blk, w), ring], dim=1)
-    ok = _stream_ok(lengths, maxp, blk, window)
-    return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+    return vals, _stream_ok(lengths, maxp, blk, window)
 
 
-def _fixed_partials(q, blocks_bf16, ring, length: int, window: int, kv_idx,
-                    scale, softcap):
-    """Partials over a fixed-batch stream: blocks (nb, B, blk, W) bf16
-    decompressed, then the ring (B, blk, W); every sequence at ``length``."""
+def fixed_stream(blocks_bf16, ring, length: int, window: int):
+    """A fixed-batch stream, gathered: blocks (nb, B, blk, W) bf16
+    decompressed, then the ring (B, blk, W); every sequence at ``length``.
+    Returns (vals (B, nb*blk + blk, W), ok (B, nb*blk + blk))."""
     nb, b, blk, w = blocks_bf16.shape
     vals = torch.cat([blocks_bf16.transpose(0, 1).reshape(b, nb * blk, w),
                       ring], dim=1)
     lengths = torch.full((b,), int(length), dtype=torch.int32,
-                         device=q.device)
-    ok = _stream_ok(lengths, nb, blk, window)
+                         device=ring.device)
+    return vals, _stream_ok(lengths, nb, blk, window)
+
+
+def _fixed_partials(q, blocks_bf16, ring, length: int, window: int, kv_idx,
+                    scale, softcap):
+    vals, ok = fixed_stream(blocks_bf16, ring, length, window)
     return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
 
 
@@ -219,6 +233,15 @@ def decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
     (``core.fixed.decompress`` of each whole B-sequence block: one
     dictionary, escapes by position across the batch) and one masked
     softmax over [blocks ‖ ring]."""
+    vals, ok = fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw,
+                                  raw_blocks, ring, length, window, k=k)
+    return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+
+
+def fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
+                       ring, length: int, window: int, *, k: int):
+    """The fixed-batch kernel's stream, gathered (``fixed_stream``) from
+    its arguments: the store's live blocks decompressed, then the ring."""
     from repro_torch.core import fixed
 
     b, blk, w = ring.shape
@@ -233,5 +256,47 @@ def decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
             shape=(b, blk, w), k=k))
     else:
         blocks = raw_blocks[:nb]
-    return _fixed_partials(q, blocks, ring, length, window, kv_idx, scale,
-                           softcap)
+    return fixed_stream(blocks, ring, length, window)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' split of the stream across CTAs, and their merge
+# ---------------------------------------------------------------------------
+
+def merge_split_partials(outs, ms, ls):
+    """The kernels' in-kernel merge of per-split partials (leading split
+    axis: outs (n, S, H, hd), ms and ls (n, S, H)), in split order:
+    m = max m_i, out = sum out_i e^(m_i - m), l = sum l_i e^(m_i - m).  A
+    split with m_i = NEG_INF is dead and adds nothing: its out_i is never
+    read (the kernel never writes it)."""
+    m = ms.max(0).values
+    out = torch.zeros_like(outs[0])
+    l = torch.zeros_like(ls[0])
+    for o_i, m_i, l_i in zip(outs, ms, ls):
+        live = m_i != NEG_INF
+        w = torch.where(live, torch.exp(m_i - m), 0.0)
+        out = out + torch.where(live[..., None], o_i * w[..., None], 0.0)
+        l = l + torch.where(live, l_i * w, 0.0)
+    return out, m, l
+
+
+def split_partials_plain(q, vals, ok, span: int, *, kv_idx, scale,
+                         softcap=None, first: int = 0,
+                         nsplit: Optional[int] = None):
+    """FlashDecoding on a gathered stream (``paged_stream``,
+    ``fixed_stream``): the plain partials of each span of ``span``
+    positions, spans first .. first + nsplit - 1 (default: every span of
+    the stream), merged by :func:`merge_split_partials`.  Returns
+    ((out, m, l), (outs, ms, ls)) with the splits' partials stacked."""
+    t = vals.shape[1]
+    if nsplit is None:
+        nsplit = -(-t // span) - first
+    pos = torch.arange(t, device=vals.device)
+    parts = []
+    for j in range(nsplit):
+        lo = (first + j) * span
+        in_span = (pos >= lo) & (pos < lo + span)
+        parts.append(_attend_partials(q, vals, ok & in_span[None], kv_idx,
+                                      scale, softcap))
+    outs, ms, ls = (torch.stack(x) for x in zip(*parts))
+    return merge_split_partials(outs, ms, ls), (outs, ms, ls)

@@ -186,3 +186,166 @@ def test_stream_mask_matches_reference():
                 got = tcache.stream_mask(torch.as_tensor(lens), i, 8, win,
                                          ring).numpy()
                 assert (want == got).all(), (i, ring, win)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' split of the stream across CTAs (FlashDecoding) and merge
+# ---------------------------------------------------------------------------
+
+SPLIT_BLK = 16      # blocks of 16 rows, so spans of 4 rows cut every page
+
+
+def _split_inputs(heads, seed):
+    """A pool of SPLIT_BLK-row pages with escapes and overflow, slot
+    lengths at and around span and block edges (incl. 0 and 1)."""
+    h, hkv = heads
+    w = 2 * hkv * HD
+    rng = np.random.default_rng(seed)
+    pages = bf16_np(rng, (N_PAGES, SPLIT_BLK, w), 0.5)
+    pages[0] = bf16_np(rng, (SPLIT_BLK, w), 0.5, spread=30)
+    lengths = np.asarray([0, 1, 3, 4, 5, 16, 17, 32, 47], np.int32)
+    maxp = int(lengths.max()) // SPLIT_BLK + 1
+    pt = rng.integers(0, N_PAGES, (len(lengths), maxp)).astype(np.int32)
+    ring = bf16_np(rng, (len(lengths), SPLIT_BLK, w), 0.5)
+    q = bf16_np(rng, (len(lengths), h, HD))
+    return q, pages, ring, pt, lengths
+
+
+@pytest.mark.parametrize("heads", sorted(HEADS))
+@pytest.mark.parametrize("span", [4, 16])
+@pytest.mark.parametrize("window", [None, 2, 9], ids=["full", "w2", "w9"])
+def test_split_partials_match_unsplit_and_reference_merge(heads, span,
+                                                          window):
+    """The paged kernel's split: the plain partials of every span of the
+    grid (``paged_splits``), merged in split order by the kernels' rule,
+    equal the unsplit plain version within 1e-5 (normalised; m too), and
+    the reference's ``merge_partials`` (run under ``jax.vmap`` with the
+    split axis as its named axis) gives the same attention within one
+    bf16 rounding (it returns bf16)."""
+    from repro_torch.kernels import decode_attend as tda
+
+    hh = HEADS[heads]
+    q, pages, ring, pt, lengths = _split_inputs(hh, seed=span)
+    win = tref.WINDOW_NONE if window is None else window
+    kv_idx, scale = _kv_idx(hh), HD ** -0.5
+    ct = tfixed.compress_many(to_torch(pages), k=K)
+    assert int(ct.n_escapes[0]) > ct.esc_pos.shape[-1]          # overflow
+    args = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+            None, to_torch(ring), torch.as_tensor(pt),
+            torch.as_tensor(lengths), win)
+    vals, ok = tref.paged_stream(*args, k=K)
+    nsplit = (pt.shape[1] + 1) * SPLIT_BLK // span
+    (out, m, l), (outs, ms, ls) = tref.split_partials_plain(
+        to_torch(q), vals, ok, span, kv_idx=kv_idx, scale=scale,
+        nsplit=nsplit)
+    assert outs.shape[0] == nsplit
+    if span == tda.span_rows(SPLIT_BLK):
+        assert nsplit == tda.paged_splits(pt.shape[1], SPLIT_BLK)
+    o1, m1, l1 = tref.paged_decode_attend_plain(
+        to_torch(q), *args, k=K, kv_idx=kv_idx, scale=scale)
+    got = out / l.clamp(min=1e-30)[..., None]
+    want = o1 / l1.clamp(min=1e-30)[..., None]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    live = (l1 > 0).numpy()
+    assert ((l > 0).numpy() == live).all()
+    np.testing.assert_allclose(m.numpy()[live], m1.numpy()[live], rtol=1e-5,
+                               atol=1e-5)
+    assert (m.numpy()[~live] == np.float32(tref.NEG_INF)).all()
+    assert (out.numpy()[~live] == 0).all()
+
+    merge = jax.vmap(lambda o, mm, ll: jlayers.merge_partials(o, mm, ll,
+                                                              "split"),
+                     axis_name="split")
+    res = np.asarray(merge(jnp.asarray(outs.numpy())[:, :, :, None],
+                           jnp.asarray(ms.numpy())[..., None],
+                           jnp.asarray(ls.numpy())[..., None]))
+    assert res.shape == (nsplit,) + tuple(outs.shape[1:3]) + (1, HD)
+    for j in range(nsplit):                  # every split gets the merge
+        np.testing.assert_array_equal(res[j], res[0])
+    np.testing.assert_allclose(res[0][:, :, 0].astype(np.float32),
+                               got.numpy(), rtol=2.0 ** -8, atol=1e-5)
+
+
+def test_merge_skips_dead_splits():
+    """A dead split (m = NEG_INF) adds nothing, whatever its out holds
+    (the kernel never writes it): no NaN, and all-dead gives out = 0,
+    m = NEG_INF, l = 0."""
+    rng = np.random.default_rng(5)
+    outs = torch.as_tensor(rng.normal(size=(3, 2, 4, HD)), dtype=torch.float32)
+    ms = torch.as_tensor(rng.normal(size=(3, 2, 4)), dtype=torch.float32)
+    ls = torch.as_tensor(rng.random((3, 2, 4)) + 0.5, dtype=torch.float32)
+    ms[1] = tref.NEG_INF
+    ls[1] = 0.0
+    outs[1] = float("nan")
+    ms[:, 1] = tref.NEG_INF
+    ls[:, 1] = 0.0
+    out, m, l = tref.merge_split_partials(outs, ms, ls)
+    assert torch.isfinite(out).all()
+    live = [0, 2]
+    mm = ms[live, 0].max(0).values
+    w = torch.exp(ms[live, 0] - mm)
+    torch.testing.assert_close(out[0], (outs[live, 0] * w[..., None]).sum(0),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(l[0], (ls[live, 0] * w).sum(0), rtol=1e-6,
+                               atol=1e-6)
+    assert (out[1] == 0).all() and (l[1] == 0).all()
+    assert (m[1] == np.float32(tref.NEG_INF)).all()
+
+
+@pytest.mark.parametrize("length", [0, 1, 7, 8, 9, 16, 17, 29])
+@pytest.mark.parametrize("window", [None, 1, 5, 12], ids=["full", "w1",
+                                                         "w5", "w12"])
+def test_fixed_split_grid_matches_unsplit(length, window):
+    """The fixed kernel's grid at the host-side length: only the spans
+    ``fixed_splits`` names (from the first one inside the window), merged,
+    equal the unsplit plain version within 1e-5."""
+    from repro_torch.kernels import decode_attend as tda
+
+    h, hkv = HEADS["gqa"]
+    blk, b, nblk = 8, 3, 4
+    w = 2 * hkv * HD
+    rng = np.random.default_rng(length)
+    blocks = to_torch(bf16_np(rng, (nblk, b, blk, w), 0.5))
+    ring = to_torch(bf16_np(rng, (b, blk, w), 0.5))
+    q = to_torch(bf16_np(rng, (b, h, HD)))
+    win = tref.WINDOW_NONE if window is None else window
+    kw = dict(kv_idx=_kv_idx((h, hkv)), scale=HD ** -0.5)
+    vals, ok = tref.fixed_stream(blocks[:length // blk], ring, length, win)
+    span = tda.span_rows(blk)
+    first, nsplit = tda.fixed_splits(length, win, blk)
+    (out, m, l), _ = tref.split_partials_plain(q, vals, ok, span,
+                                               first=first, nsplit=nsplit,
+                                               **kw)
+    o1, m1, l1 = tref.decode_attend_plain(q, *(None,) * 5, blocks, ring,
+                                          length, win, k=K, **kw)
+    np.testing.assert_allclose((out / l.clamp(min=1e-30)[..., None]).numpy(),
+                               (o1 / l1.clamp(min=1e-30)[..., None]).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(l > 0, l1 > 0)
+
+
+def test_split_grid_sizes():
+    """``span_rows``: the largest power of two dividing the block, at most
+    128.  ``paged_splits``: every span of maxp pages and the ring.
+    ``fixed_splits``: exactly the spans holding a live position (one dead
+    split when none is), checked against every position."""
+    from repro_torch.kernels import decode_attend as tda
+
+    assert [tda.span_rows(b) for b in (4, 16, 48, 128, 256, 1000, 1024)] \
+        == [4, 16, 16, 128, 128, 8, 128]
+    assert tda.paged_splits(8, 256) == 18          # 2000 tokens: 7 pages
+    assert tda.paged_splits(1, 16) == 2
+    assert tda.paged_splits(0, 4) == 1             # the ring alone
+    for blk in (8, 48, 256):
+        p = tda.span_rows(blk)
+        for length in list(range(0, 3 * blk + 2)) + [1100, 4400]:
+            for window in (tref.WINDOW_NONE, 1, 5, p, 300, 4096, 0):
+                first, n = tda.fixed_splits(length, window, blk)
+                live = {pos // p for pos in range(length)
+                        if pos > length - 1 - window}
+                if live:
+                    assert set(range(first, first + n)) == live, \
+                        (blk, length, window)
+                else:
+                    assert n == 1 and 0 <= first <= -(-length // p)
