@@ -19,8 +19,15 @@ non-zero:
                9728) and on the pool pages (``ops.unpack`` equal to
                ``fixed.decompress`` with escapes and overflow);
                ``decompress_matmul`` at the six (K, N) weight shapes with
-               M = 4 (decode) and 1024 (prefill), elementwise within
-               1e-4 * (|x| @ |W|) + 1e-6.  The fixed-batch
+               M = 4 (its split-K decode route) and 1024 (its prefill
+               route), elementwise within 1e-4 * (|x| @ |W|) + 1e-6 and
+               two launches bit for bit, each with its plan (route, column
+               tile, splits, CTAs) and the host's time per call of both
+               weight kernels; then the M sweep: both routes at M = 1 ..
+               256, one decode step's matmuls summed: the decode route
+               must be no slower at every slot count (M <= 64), and the
+               largest M where it is no slower is printed beside the
+               plan's threshold (DECODE_MAX_M).  The fixed-batch
                ``decode_attend`` at qwen3-4b's attention shapes (4
                sequences of 1100 tokens, block 256, k 5; full, window 700,
                softcap, codec off, a block whose escapes overflow inside
@@ -195,40 +202,49 @@ def build_phase():
                  f"parallel, then one link: " + ", ".join(
                      f"{k} {v:.1f}s" for k, v in times.items()) + ")")
     for name in ops.KERNELS:
-        if name in ATTEND_KERNELS:
-            log("build", f"{name}: " + ", ".join(
-                f"k={k} {r['registers']} registers, spills {r['spill_stores']}"
-                f"/{r['spill_loads']} B"
-                for k, r in sorted(ptxas_report(name).items())))
-            continue
-        for line in (ops.build_log(name) or "").splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+        log("build", f"{name}: " + ", ".join(
+            f"{kern}<{','.join(map(str, args))}> {r['registers']} registers, "
+            f"spills {r['spill_stores']}/{r['spill_loads']} B, "
+            f"{r['smem']} B static shared memory"
+            for (kern, args), r in sorted(ptxas_report(name).items())))
     ops.library()
 
 
 def ptxas_report(name: str):
-    """{k: {registers, spill_stores, spill_loads}} of an attention
-    kernel's instantiations (k = 0: codec off) from its ``ptxas -v`` log."""
+    """{(kernel, template arguments): {registers, spill_stores,
+    spill_loads, smem}} of a source's instantiations from its ``ptxas -v``
+    log; an attention kernel's argument is k (0: codec off), the weight
+    kernels' are k and, for decompress_matmul's decode route, the column
+    tile.  ``smem``: static shared memory (the decode routes' is dynamic,
+    printed per launch)."""
     import re
     from repro_torch.kernels import ops
-    out, k = {}, None
+    out, key = {}, None
     for line in (ops.build_log(name) or "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            km = re.search(r"kernelILi(\d+)E", m.group(1))
-            k = int(km.group(1)) if km else None
+        if m:                      # <length><name>kernel[I(Li<arg>E)+E]
+            key = None
+            for km in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?kernel))",
+                                  m.group(1)):
+                if int(km.group(1)) == len(km.group(2)):
+                    end = km.start() + len(km.group(1)) + len(km.group(2))
+                    args = re.match(r"I((?:Li\d+E)+)E", m.group(1)[end:])
+                    key = (km.group(2), tuple(
+                        int(v) for v in re.findall(r"Li(\d+)E", args.group(1))
+                    ) if args else ())
             continue
-        if k is None:
+        if key is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            out.setdefault(k, {}).update(spill_stores=int(m.group(1)),
-                                         spill_loads=int(m.group(2)))
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.setdefault(k, {})["registers"] = int(m.group(1))
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[key]["smem"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -442,7 +458,8 @@ def grid_line(name, h, hkv, hd, blk, n_seq, nsplit, k):
     from repro_torch.kernels import decode_attend
     span = decode_attend.span_rows(blk)
     geo = decode_attend.geometry(hd, h - (hkv - 1) * (h // hkv), span)
-    regs = ptxas_report(name).get(k, {})
+    regs = next((r for (_, args), r in ptxas_report(name).items()
+                 if args == (k,)), {})
     log("kernels", f"{name} launch at H={h}/{hkv}, hd={hd}: nsplit {nsplit} "
                    f"(P={span} rows), grid {hkv} x {n_seq} x {nsplit} = "
                    f"{hkv * n_seq * nsplit} CTAs of {geo['threads']} "
@@ -744,8 +761,9 @@ def weight_kernels(cfg, ct, gen):
     del w, back, pw
 
     dm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, b_bytes=0.0,
-              b_ops=0.0, max_abs_err=0.0)
-    un = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+              b_ops=0.0, max_abs_err=0.0, host_us=0.0)
+    un = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, host_us=0.0)
+    packed = []                              # (pw, count) for the M sweep
     for (kk, n), count in weight_shapes(cfg):
         w = (torch.randn((kk, n), generator=gen, device="cuda") * 0.02
              ).to(bf16)
@@ -753,47 +771,64 @@ def weight_kernels(cfg, ct, gen):
         fields = (pw.signman, pw.planes, pw.dict_syms)
         for m in (4, 1024):
             x = torch.randn((m, kk), generator=gen, device="cuda").to(bf16)
-            got = decompress_matmul.decompress_matmul(x, *fields, pw.k)
+            fn = lambda: decompress_matmul.decompress_matmul(x, *fields, pw.k)
+            got = fn()
+            again = fn()
+            assert torch.equal(got.view(torch.int32),
+                               again.view(torch.int32)), (kk, n, m)
             want = ref.decompress_matmul_ref(x, *fields, pw.k)
             tol = 1e-4 * (x.float().abs() @ w.float().abs()) + 1e-6
             err = (got - want).abs()
             assert bool((err <= tol).all()), (kk, n, m, float(err.max()))
-            t = cuda_ms(lambda: decompress_matmul.decompress_matmul(
-                x, *fields, pw.k))
+            t = cuda_ms(fn)
             t_plain = cuda_ms(lambda: ref.decompress_matmul_ref(
                 x, *fields, pw.k), reps=3)
             t_lib = cuda_ms(lambda: torch.mm(x, w, out_dtype=torch.float32))
+            t_host = host_us(fn)
             t_bytes = (m * kk * 2 + pw.nbytes() + m * n * 4) \
                 / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * m * n * kk / BF16_FLOPS * 1e3
+            p = decompress_matmul.plan(m, kk, n, pw.k)
+            smem = (f", {decompress_matmul.smem_bytes(p, pw.k)} B shared "
+                    f"memory per CTA" if p.route == "decode" else "")
             log("kernels", f"decompress_matmul M={m} K={kk} N={n} k={pw.k}: "
-                           f"max |err| {float(err.max()):.3e} within "
-                           f"1e-4*(|x|@|W|)+1e-6; {t:.4f} ms, plain "
-                           f"{t_plain:.4f} ms, torch.mm on the unpacked W "
-                           f"{t_lib:.4f} ms, bound {max(t_bytes, t_ops):.5f}"
-                           f" ms ({'bytes' if t_bytes >= t_ops else 'ops'})")
+                           f"{p.route} route, bn {p.bn}, {p.splits} splits "
+                           f"of {p.depth} rows, {p.ctas(m, n)} CTAs{smem}; max "
+                           f"|err| {float(err.max()):.3e} within "
+                           f"1e-4*(|x|@|W|)+1e-6, two launches bit for bit; "
+                           f"{t:.4f} ms, plain {t_plain:.4f} ms, torch.mm on "
+                           f"the unpacked W {t_lib:.4f} ms, bound "
+                           f"{max(t_bytes, t_ops):.5f} ms "
+                           f"({'bytes' if t_bytes >= t_ops else 'ops'}); "
+                           f"host {t_host:.1f} us per call")
             if m == 4:                       # one decode step's share
                 dm["ms"] += count * t
                 dm["plain_ms"] += count * t_plain
                 dm["library_ms"] += count * t_lib
                 dm["b_bytes"] += count * t_bytes
                 dm["b_ops"] += count * t_ops
+                dm["host_us"] += count * t_host
                 dm["max_abs_err"] = max(dm["max_abs_err"], float(err.max()))
-            del got, want, tol, err
+            del got, again, want, tol, err
         rows = (pw.signman.reshape(1, -1), pw.planes.reshape(1, pw.k, -1),
                 pw.dict_syms.reshape(1, -1))
-        assert torch.equal(i16(lexi_unpack.lexi_unpack(*rows, pw.k)),
-                           i16(w.reshape(1, -1)))
-        t = cuda_ms(lambda: lexi_unpack.lexi_unpack(*rows, pw.k))
+        fn = lambda: lexi_unpack.lexi_unpack(*rows, pw.k)
+        assert torch.equal(i16(fn()), i16(w.reshape(1, -1)))
+        t = cuda_ms(fn)
         t_plain = cuda_ms(lambda: ref.unpack_ref(*rows, pw.k), reps=3)
+        t_host = host_us(fn)
         t_bound = (pw.nbytes() + 2 * kk * n) / HBM_BYTES_PER_S * 1e3
         log("kernels", f"lexi_unpack K={kk} N={n} k={pw.k}: exact; {t:.4f} "
-                       f"ms, plain {t_plain:.4f} ms, bound {t_bound:.5f} ms")
+                       f"ms, plain {t_plain:.4f} ms, bound {t_bound:.5f} ms; "
+                       f"host {t_host:.1f} us per call")
         un["ms"] += count * t
         un["plain_ms"] += count * t_plain
         un["bound_ms"] += count * t_bound
-        del w, pw, fields, rows
+        un["host_us"] += count * t_host
+        packed.append((pw, count))
+        del w, fields, rows
         torch.cuda.empty_cache()
+    m_sweep(packed)
     n_mm = sum(c for _, c in weight_shapes(cfg))
     rec = {
         "decompress_matmul": dict(
@@ -809,6 +844,47 @@ def weight_kernels(cfg, ct, gen):
         log("kernels", f"{name}, one decode step's {n_mm} weight matmuls "
                        f"at M=4, summed: {rec[name]}")
     return rec
+
+
+SWEEP_M = (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 128, 256)
+
+
+def m_sweep(packed):
+    """decompress_matmul's two routes at each M of SWEEP_M, one decode
+    step's weight matmuls summed (``packed``: [(PackedWeight, count)]):
+    the largest M up to which the decode route is no slower is where the
+    plan's threshold (DECODE_MAX_M) belongs; the route must win at every
+    slot count (M <= 64)."""
+    import torch
+    from repro_torch.kernels import decompress_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sums = {}
+    for m in SWEEP_M:
+        sums[m] = {}
+        for route in ("decode", "prefill"):
+            total = 0.0
+            for pw, count in packed:
+                x = torch.randn((m, pw.shape[0]), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                total += count * cuda_ms(
+                    lambda: decompress_matmul.decompress_matmul(
+                        x, pw.signman, pw.planes, pw.dict_syms, pw.k,
+                        route=route), reps=10)
+            sums[m][route] = total
+    wins = [m for m in SWEEP_M if sums[m]["decode"] <= sums[m]["prefill"]]
+    crossover = max((m for m in wins if all(w in wins for w in SWEEP_M
+                                            if w <= m)), default=0)
+    log("kernels", "decompress_matmul M sweep, one decode step's matmuls "
+                   "summed, ms (decode / prefill route): " + ", ".join(
+                       f"M={m} {r['decode']:.3f}/{r['prefill']:.3f}"
+                       for m, r in sums.items()))
+    threshold = decompress_matmul.DECODE_MAX_M
+    log("kernels", f"the decode route is no slower up to M={crossover} of "
+                   f"the sweep; the plan's threshold DECODE_MAX_M="
+                   f"{threshold} ({'within' if threshold <= crossover else 'ABOVE'}"
+                   f" it)")
+    assert crossover >= 64 and threshold >= 64, sums
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,29 @@
 #!/usr/bin/env python3
-"""Time the port's two decode-attention kernels on one NVIDIA GPU, two
-ways, beside SDPA on the same K/V.
+"""Time the port's kernels on one NVIDIA GPU, two ways, beside the PyTorch
+call that computes the same function.
 
-    python3 scripts/attend_timing.py [--tree DIR] [--label NAME] [--breakdown]
+    python3 scripts/kernel_timing.py [--tree DIR] [--label NAME]
+        [--kernels attend,weights] [--breakdown]
 
 Imports ``repro_torch`` from DIR/src (default: this checkout), builds that
-tree's kernel library, and at chip_smoke.py's timed shapes (qwen3-4b's
-heads, block 256, k 5; ``decode_attend_paged``: 4 slots of 300, 700, 1100
-and 2000 tokens over pages with escapes and overflow; ``decode_attend``:
-4 sequences of 1100 tokens) checks each kernel against its plain version
-within 1e-4, then reads, with chip_smoke.py's ``cuda_ms`` and
+tree's kernel library, and times, with chip_smoke.py's ``cuda_ms`` and
 ``host_us``:
+
+  attend   both decode-attention kernels at chip_smoke.py's timed shapes
+           (qwen3-4b's heads, block 256, k 5; ``decode_attend_paged``: 4
+           slots of 300, 700, 1100 and 2000 tokens over pages with escapes
+           and overflow; ``decode_attend``: 4 sequences of 1100 tokens),
+           each checked against its plain version within 1e-4, beside SDPA
+           on the same K/V;
+  weights  ``decompress_matmul`` at each of qwen3-4b's six weight shapes
+           (K, N), packed from N(0, 0.02) at the smallest escape-free k, at
+           M = 4 (decode) and M = 1024 (prefill), checked against its plain
+           version within 1e-4 * (|x| @ |W|) + 1e-6, beside ``torch.mm``
+           on the unpacked W; ``lexi_unpack`` of each shape, checked bit for
+           bit; and one decode step's sums at M = 4 (7 matmuls per layer
+           and the LM head, as chip_smoke.py counts them).
+
+Each reading:
 
   ms          median CUDA-event time, L2 flushed, then a spin on the card
               so that the host is ahead when the first event is reached:
@@ -20,15 +33,16 @@ within 1e-4, then reads, with chip_smoke.py's ``cuda_ms`` and
               events count it too;
   host_us     the host's time per call.
 
-The same for SDPA (``library_*``).  To compare two trees, run the script
-once per tree in turns (A, B, B, A) in one call of the card: only the
-tree's ``repro_torch`` differs between runs, the inputs come from the
-same seed.  ``--breakdown`` also times ``decode_attend_paged`` (with the
-spin) on escape-free pages at the timed lengths, the same pages raw (no
-decode), one span per slot (4 x 128 tokens) and 16 slots of 1056 tokens,
-each beside SDPA.
+The PyTorch yardsticks are read with the spin (``library_ms``; SDPA also
+both ways and by host time).  To compare two trees, run the script once
+per tree in turns (A, B, B, A) in one call of the card: only the tree's
+``repro_torch`` differs between runs, the inputs come from the same seed.
+``--breakdown`` also times ``decode_attend_paged`` (with the spin) on
+escape-free pages at the timed lengths, the same pages raw (no decode),
+one span per slot (4 x 128 tokens) and 16 slots of 1056 tokens, each
+beside SDPA.
 
-Prints one JSON line and appends it to chiprun_out/attend_timing.jsonl.
+Prints one JSON line and appends it to chiprun_out/kernel_timing.jsonl.
 """
 
 from __future__ import annotations
@@ -145,11 +159,70 @@ def breakdown(cs, h, hkv, hd, blk, k, gen):
     return out
 
 
+def weight_kernels(cs, cfg, gen):
+    """decompress_matmul (M = 4 and 1024) and lexi_unpack at each of the
+    model's weight shapes, and one decode step's sums at M = 4."""
+    import torch
+    from repro_torch.core import weights
+    from repro_torch.kernels import decompress_matmul, lexi_unpack, ref
+
+    bf16 = torch.bfloat16
+    shapes, step = [], dict(ms=0.0, ms_no_spin=0.0, host_us=0.0,
+                            library_ms=0.0, bound_ms=0.0, unpack_ms=0.0,
+                            unpack_ms_no_spin=0.0, unpack_host_us=0.0,
+                            unpack_bound_ms=0.0)
+    for (kk, n), count in cs.weight_shapes(cfg):
+        w = (torch.randn((kk, n), generator=gen, device="cuda") * 0.02
+             ).to(bf16)
+        pw = weights.pack_serving_params({"w": w}, backend="cuda")["w"]
+        fields = (pw.signman, pw.planes, pw.dict_syms)
+        row = dict(K=kk, N=n, k=pw.k, matmuls_per_step=count)
+        for m in (4, 1024):
+            x = torch.randn((m, kk), generator=gen, device="cuda").to(bf16)
+            fn = lambda: decompress_matmul.decompress_matmul(x, *fields, pw.k)
+            got = fn()
+            tol = 1e-4 * (x.float().abs() @ w.float().abs()) + 1e-6
+            assert bool(((got - ref.decompress_matmul_ref(x, *fields, pw.k)
+                          ).abs() <= tol).all()), (kk, n, m)
+            del got, tol
+            t = dict(ms=cs.cuda_ms(fn), ms_no_spin=cs.cuda_ms(fn, spin=False),
+                     host_us=cs.host_us(fn),
+                     library_ms=cs.cuda_ms(lambda: torch.mm(
+                         x, w, out_dtype=torch.float32)),
+                     bound_ms=1e3 * max(
+                         (m * kk * 2 + pw.nbytes() + m * n * 4)
+                         / cs.HBM_BYTES_PER_S,
+                         2 * m * n * kk / cs.BF16_FLOPS))
+            row[f"M{m}"] = t
+            if m == 4:
+                for key in ("ms", "ms_no_spin", "host_us", "library_ms",
+                            "bound_ms"):
+                    step[key] += count * t[key]
+        rows = (pw.signman.reshape(1, -1), pw.planes.reshape(1, pw.k, -1),
+                pw.dict_syms.reshape(1, -1))
+        fn = lambda: lexi_unpack.lexi_unpack(*rows, pw.k)
+        assert torch.equal(fn().view(torch.int16),
+                           w.reshape(1, -1).view(torch.int16))
+        t = dict(ms=cs.cuda_ms(fn), ms_no_spin=cs.cuda_ms(fn, spin=False),
+                 host_us=cs.host_us(fn),
+                 bound_ms=(pw.nbytes() + 2 * kk * n) / cs.HBM_BYTES_PER_S
+                 * 1e3)
+        row["lexi_unpack"] = t
+        for key in ("ms", "ms_no_spin", "host_us", "bound_ms"):
+            step[f"unpack_{key}"] += count * t[key]
+        shapes.append(row)
+        del w, pw, fields, rows, x
+        torch.cuda.empty_cache()
+    return dict(shapes=shapes, step_m4=step)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--kernels", default="attend,weights",
+                    help="comma-separated: attend, weights")
     ap.add_argument("--breakdown", action="store_true")
     opts = ap.parse_args()
     tree = opts.tree.resolve()
@@ -160,7 +233,7 @@ def main() -> int:
     sys.path.insert(1, str(ROOT))
     import torch
     if not torch.cuda.is_available():
-        print("attend_timing.py: no CUDA device", file=sys.stderr)
+        print("kernel_timing.py: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
     from repro_torch.kernels import ops
@@ -172,16 +245,23 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     h, hkv, hd, blk, k = 32, 8, 128, 256, 5           # qwen3-4b, block 256
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rec = dict(label=opts.label or str(tree), card=card,
-               decode_attend_paged=paged(cs, h, hkv, hd, blk, k, gen),
-               decode_attend=fixed_batch(cs, h, hkv, hd, blk, k, gen))
+    kinds = set(opts.kernels.split(","))
+    if not kinds <= {"attend", "weights"}:
+        ap.error(f"unknown --kernels {opts.kernels!r}")
+    rec = dict(label=opts.label or str(tree), card=card)
+    if "attend" in kinds:
+        rec["decode_attend_paged"] = paged(cs, h, hkv, hd, blk, k, gen)
+        rec["decode_attend"] = fixed_batch(cs, h, hkv, hd, blk, k, gen)
     if opts.breakdown:
         rec["breakdown"] = breakdown(cs, h, hkv, hd, blk, k, gen)
+    if "weights" in kinds:
+        from repro_torch.configs import get_config
+        rec["weights"] = weight_kernels(cs, get_config("qwen3-4b"), gen)
     line = json.dumps(rec)
     print(line)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    with open(out / "attend_timing.jsonl", "a") as f:
+    with open(out / "kernel_timing.jsonl", "a") as f:
         f.write(line + "\n")
     return 0
 

@@ -28,8 +28,9 @@
 //      signman rows, 2 * hd bytes each at stride W; its k plane words) or
 //      raw bf16 rows into a 3-stage shared-memory ring: chunk i + 2 loads
 //      while chunk i is decoded and consumed;
-//   2. decode, templated on k: each thread takes 16 elements (one 16-byte
-//      signman load, k plane half-words), spreads four codes at a time
+//   2. decode, templated on k (lexi::decode16 of lexi_decode.cuh): each
+//      thread takes 16 elements (one 16-byte signman load, k plane
+//      half-words), spreads four codes at a time
 //      into bytes with one multiply per plane, looks them up in the
 //      record's dictionary (pre-shifted to the exponent field) and writes
 //      bf16 to a tile whose row pitch (2 * hd + 8) keeps the row-per-lane
@@ -71,6 +72,8 @@
 #include <type_traits>
 #include <utility>
 
+#include "lexi_decode.cuh"
+
 namespace decode_attend_body {
 
 constexpr int kThreads = 128;
@@ -106,7 +109,7 @@ struct Args {
 // Chunk rows, score split and shared-memory layout (bytes) of a launch.
 struct Geometry {
   int tr, pitch, gpad, nsub, stage_bytes;
-  int o_stage, o_tile, o_qs, o_acc, o_sc, o_part, o_pt, o_stat, o_lut,
+  int o_lut, o_stage, o_tile, o_qs, o_acc, o_sc, o_part, o_pt, o_stat,
       o_epos, o_eraw, o_wts, o_flag, total;
 
   __host__ __device__ static int take(int& off, int bytes) {
@@ -126,6 +129,7 @@ struct Geometry {
     // a raw chunk is tr rows of the padded pitch; a packed one fits in it
     stage_bytes = tr * pitch * 2;
     int off = 0;
+    o_lut = take(off, 256 * 2);            // first: a constant address
     o_stage = take(off, kStages * stage_bytes);
     o_tile = take(off, tr * pitch * 2);
     o_qs = take(off, gmax * hd * 4);
@@ -134,7 +138,6 @@ struct Geometry {
     o_part = take(off, kThreads * 4);
     o_pt = take(off, tr * gpad * 4);
     o_stat = take(off, 3 * gmax * 4);
-    o_lut = take(off, 256 * 4);
     o_epos = take(off, kEscWindow * 4);
     o_eraw = take(off, kEscWindow);
     o_wts = take(off, 2 * kMergeSplits * gmax * 4);
@@ -198,37 +201,6 @@ __device__ __forceinline__ int block_lower_bound(const int* __restrict__ pos,
   return lo;
 }
 
-// 16 elements from their signman bytes and the low 16 bits of each of the
-// KB plane words; lut[code] is the exponent already shifted to bit 7.
-template <int KB>
-__device__ __forceinline__ void decode16(const uint4 smv,
-                                         const uint32_t (&bits)[KB],
-                                         const uint32_t* __restrict__ lut,
-                                         uint4& h0, uint4& h1) {
-  uint32_t codes[4];                  // byte i of codes[j]: element 4j + i
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t c = 0;
-#pragma unroll
-    for (int b = 0; b < KB; ++b)    // 4 bits -> bit 0 of 4 bytes, one IMAD
-      c |= ((((bits[b] >> (4 * j)) & 0xFu) * 0x00204081u) & 0x01010101u)
-           << b;
-    codes[j] = c;
-  }
-  const uint32_t sw[4] = {smv.x, smv.y, smv.z, smv.w};
-  uint32_t o[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {       // output word j: elements 2j, 2j + 1
-    const uint32_t sp = __byte_perm(sw[j >> 1], 0u, (j & 1) ? 0x4342u
-                                                            : 0x4140u);
-    const uint32_t base = (sp & 0x007F007Fu) | ((sp & 0x00800080u) << 8);
-    const uint32_t cw = codes[j >> 1] >> (16 * (j & 1));
-    o[j] = base | lut[cw & 0xFFu] | (lut[(cw >> 8) & 0xFFu] << 16);
-  }
-  h0 = make_uint4(o[0], o[1], o[2], o[3]);
-  h1 = make_uint4(o[4], o[5], o[6], o[7]);
-}
-
 // The CTA's whole computation for stream span `sp` of sequence s (length
 // L), partial index `split`; see the comment at the top of the file.
 // KB = 0: the records are raw bf16 (codec off); KB = k otherwise.
@@ -259,7 +231,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
   float* mrun = (float*)(smem + geo.o_stat);
   float* lrun = mrun + a.gmax;
   float* alpha = lrun + a.gmax;
-  uint32_t* lut = (uint32_t*)(smem + geo.o_lut);
+  uint16_t* lut = (uint16_t*)smem;         // geo.o_lut == 0
   int* epos = (int*)(smem + geo.o_epos);
   uint8_t* eraw = smem + geo.o_eraw;
   float* wts = (float*)(smem + geo.o_wts);
@@ -347,7 +319,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
     int e_span = 0;
     if (decode) {
       for (int i = tid; i < (1 << KB); i += kThreads)
-        lut[i] = (uint32_t)a.dicts[rid * (1 << KB) + i] << 7;
+        lut[i] = (uint16_t)(a.dicts[rid * (1 << KB) + i] << 7);
       e_span = block_lower_bound(
           pos, 0, a.C, (int)(off + (long long)row_of(0) * a.W));
       const int e = e_span + tid;
@@ -383,7 +355,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
             for (int b = 0; b < KB; ++b)
               bits[b] = pw[b * tr * wpr] >> ((x & 1) * 16);
             uint4 h0, h1;
-            decode16<KB>(smv, bits, lut, h0, h1);
+            lexi::decode16<KB>(smv, bits, lut, h0, h1);
             uint4* dst = (uint4*)(tile + r * pitch + x * 16);
             dst[first] = first ? h1 : h0;
             dst[first ^ 1] = first ? h0 : h1;

@@ -8,6 +8,21 @@ is the same function in torch ops (``ref.decompress_matmul_ref``: exact
 unpack, then an f32 product).  Callers go through
 ``kernels.ops.matmul_compressed`` / ``kernels.ops.matmul_packed``.
 
+The kernel has two routes, and ``plan`` picks one from (M, K, N, k) on
+the host:
+
+* ``decode`` (M <= ``DECODE_MAX_M``, the engine's slot counts): split-K.
+  The grid is (N / bn, splits, M-groups): each CTA reads one bn-column
+  tile of ``depth`` rows of the packed W and up to 32 rows of x, and the
+  last CTA of each column tile to arrive sums the splits' partials in
+  split order, in the same launch.  ``plan`` sizes the grid so that it
+  reaches ``TARGET_CTAS`` (two CTAs per SM) where it can, keeping each
+  split at least ``MIN_SPLIT_ROWS`` deep and the f32 partials at most
+  1/``WS_SHARE`` of the packed W bytes.  The partials and the arrival
+  counters live in a workspace kept per (device, stream) (``_workspace``),
+  which the kernel leaves zeroed.
+* ``prefill`` (larger M): 64 x 128 output tiles, the K loop in the CTA.
+
 Unlike the reference's wrapper, nothing is padded on the host: the kernel
 masks the ragged M, K and N edges itself.  N must be a multiple of 32
 (the packed format's word).
@@ -16,6 +31,8 @@ masks the ragged M, K and N edges itself.  N must be a multiple of 32
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -26,14 +43,162 @@ plain = ref.decompress_matmul_ref
 
 launches = 0          # kernel launches since the last reset
 
-MAX_M_TILES = 65535   # grid.y, in 64-row tiles
+DECODE_MAX_M = 128    # the decode route's largest M (chip_smoke.py's M sweep)
+TARGET_CTAS = 264     # two CTAs on each of an H100's 132 SMs
+MIN_SPLIT_ROWS = 256  # the shallowest split worth its partial
+WS_SHARE = 8          # partials at most 1/8 of the packed W bytes
+CHUNK_BYTES = 8192    # signman bytes of one decode-route ring stage
+MAX_CTA_ROWS = 32     # rows of x one decode-route CTA holds (4 m8 tiles)
+PREFILL_TILE = (64, 128, 64)   # the prefill route's (BM, BN, BK)
+MAX_GRID_YZ = 65535
+
+
+class Plan(NamedTuple):
+    """One launch's route and shape.  ``decode``: column tile ``bn``,
+    ``splits`` splits of ``depth`` rows (a multiple of the ring's
+    ``rows``-row chunk), ``mrows`` rows of x per CTA.  ``prefill``: the
+    fixed 64 x 128 tiles (``bn`` 128, ``rows`` = BK, ``mrows`` = BM, one
+    split of all K)."""
+    route: str
+    bn: int
+    splits: int
+    depth: int
+    rows: int
+    mrows: int
+
+    def grid(self, m: int, n: int) -> Tuple[int, int, int]:
+        return (-(-n // self.bn), self.splits, -(-m // self.mrows))
+
+    def ctas(self, m: int, n: int) -> int:
+        x, y, z = self.grid(m, n)
+        return x * y * z
+
+    def workspace_floats(self, m: int, n: int) -> int:
+        """f32 partials of splits 1.. (split 0 writes ``out`` itself)."""
+        return (self.splits - 1) * m * n if self.route == "decode" else 0
+
+    def counters(self, m: int, n: int) -> int:
+        x, _, z = self.grid(m, n)
+        return x * z if self.route == "decode" and self.splits > 1 else 0
+
+
+def chunk_rows(bn: int) -> int:
+    """Rows of W in one decode-route ring stage: CHUNK_BYTES of signman,
+    at most 128 rows (finer split depths for narrow tiles)."""
+    return min(CHUNK_BYTES // bn, 128)
+
+
+def packed_bytes(kk: int, n: int, k: int) -> int:
+    """Bytes of a packed (K, N) weight at code width k: signman and
+    planes (the dictionary aside)."""
+    return kk * n + k * kk * n // 8
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, kk: int, n: int, k: int, route: str = "auto") -> Plan:
+    """The launch for x (m, kk) @ packed W (kk, n) at code width k.
+    ``route`` forces ``"decode"`` or ``"prefill"`` (chip_smoke.py's M
+    sweep, which checks ``DECODE_MAX_M``, times both); ``"auto"`` takes
+    decode up to ``DECODE_MAX_M``.
+
+    Decode: in order of preference, the fewest M-groups (each decodes
+    the whole W again) and then the widest column tile; for each, the
+    fewest splits that reach ``TARGET_CTAS``, each split a whole number
+    of chunks, at least ``MIN_SPLIT_ROWS`` deep (or all of K) and the
+    partials within 1/``WS_SHARE`` of the packed W.  When no choice
+    reaches the target (a small W), the one with the most CTAs."""
+    if route not in ("auto", "decode", "prefill"):
+        raise ValueError(f"route must be auto, decode or prefill: {route!r}")
+    if route == "prefill" or (route == "auto" and m > DECODE_MAX_M):
+        bm, bn, bk = PREFILL_TILE
+        return Plan("prefill", bn, 1, kk, bk, bm)
+    cap_splits = 1 + packed_bytes(kk, n, k) // WS_SHARE // (4 * max(m, 1) * n)
+    best = None
+    for mrows in (32, 16, 8):
+        if mrows < MAX_CTA_ROWS and m <= mrows:
+            continue                    # no more M-groups than 32 rows give
+        groups = max(1, -(-m // mrows))
+        for bn in (128, 64, 32):
+            rows = chunk_rows(bn)
+            tiles = max(1, -(-n // bn) * groups)
+            most = max(1, min(kk // max(MIN_SPLIT_ROWS, rows), cap_splits))
+            s = min(-(-TARGET_CTAS // tiles), most)
+            while True:
+                depth = -(-max(1, -(-kk // s)) // rows) * rows
+                splits = max(1, -(-kk // depth))
+                p = Plan("decode", bn, splits, depth, rows,
+                         min(mrows, max(8, -(-m // 8) * 8)))
+                if tiles * splits >= TARGET_CTAS or s >= most:
+                    break
+                s += 1
+            if tiles * splits >= TARGET_CTAS:
+                return p
+            if best is None or tiles * splits > best[0]:
+                best = (tiles * splits, p)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _launch(m: int, kk: int, n: int, k: int, route: str, vec_x: bool,
+            planes16: bool, planes8: bool):
+    """Everything a launch needs from its shape, computed once per shape:
+    (plan, workspace floats, counters, the kernel's 12 shape ints as one C
+    array).  ``planes16``/``planes8``: the plane words' alignment, which
+    picks the widest plane copy the column tile allows."""
+    p = plan(m, kk, n, k, route)
+    _, gy, gz = p.grid(m, n)
+    if max(gy, gz, -(-m // PREFILL_TILE[0])) > MAX_GRID_YZ \
+            or max(m, kk, n) >= 1 << 31:
+        raise ValueError(f"shape {(m, kk, n)} is too large for one launch")
+    nw = n // packing.LANES
+    if p.bn >= 128 and nw % 4 == 0 and planes16:
+        pl_copy = 16
+    elif p.bn >= 64 and nw % 2 == 0 and planes8:
+        pl_copy = 8
+    else:
+        pl_copy = 4
+    shape = (ctypes.c_int * 12)(
+        m, kk, n, k, int(vec_x), int(p.route == "decode"), p.bn, p.rows,
+        p.depth, p.splits, p.mrows, pl_copy)
+    return p, p.workspace_floats(m, n), p.counters(m, n), shape
+
+
+# (device, stream handle) -> (partials, arrival counters, their sizes and
+# data pointers), grown on demand
+_workspaces: Dict[Tuple[torch.device, int], tuple] = {}
+
+
+def _workspace(device, stream: int, floats: int, counters: int
+               ) -> Tuple[int, int]:
+    """Data pointers of the split workspace for one launch on ``stream``:
+    ``floats`` f32 partials and ``counters`` int32 arrival counters
+    (allocated zeroed; every launch leaves them zero).  Launches on one
+    stream run one after another and share it; two streams could overlap,
+    so each has its own."""
+    entry = _workspaces.get((device, stream))
+    if entry is None or entry[2] < floats or entry[3] < counters:
+        ws, cnt = entry[:2] if entry is not None else (None, None)
+        if ws is None or ws.numel() < floats:
+            ws = torch.empty(floats, dtype=torch.float32, device=device)
+        if cnt is None or cnt.numel() < counters:
+            cnt = torch.zeros(counters, dtype=torch.int32, device=device)
+        entry = _workspaces[(device, stream)] = (
+            ws, cnt, ws.numel(), cnt.numel(), ws.data_ptr(), cnt.data_ptr())
+    return entry[4], entry[5]
+
+
+def smem_bytes(p: Plan, k: int) -> int:
+    """Dynamic shared memory per CTA of a decode-route launch."""
+    from .ops import library
+    return library().decompress_matmul_smem(p.bn, p.rows, k, p.mrows)
 
 
 def decompress_matmul(x: torch.Tensor, signman: torch.Tensor,
                       planes: torch.Tensor, dict_syms: torch.Tensor,
-                      k: int) -> torch.Tensor:
+                      k: int, *, route: str = "auto") -> torch.Tensor:
     """x (M, K) bf16 @ packed W (K, N) -> (M, N) f32.  W: signman (K, N)
-    uint8, planes (k, K, N/32) int32-held words, dict_syms (2^k,) uint8."""
+    uint8, planes (k, K, N/32) int32-held words, dict_syms (2^k,) uint8.
+    ``route`` as in :func:`plan`."""
     global launches
     from .ops import check_cuda, library, raise_on_error
 
@@ -54,21 +219,22 @@ def decompress_matmul(x: torch.Tensor, signman: torch.Tensor,
         raise ValueError(f"planes {tuple(planes.shape)} / dict "
                          f"{tuple(dict_syms.shape)} do not match W {(kk, n)} "
                          f"at k={k}")
-    if signman.data_ptr() % 16:
+    xp, sp, pp = x.data_ptr(), signman.data_ptr(), planes.data_ptr()
+    if sp % 16:
         raise ValueError("signman must be 16-byte aligned")
-    if -(-m // 64) > MAX_M_TILES or max(m, kk, n) >= 1 << 31:
-        raise ValueError(f"shape {(m, kk, n)} is too large for one launch")
+    p, floats, counters, shape = _launch(
+        m, kk, n, k, route, kk % 8 == 0 and xp % 16 == 0, pp % 16 == 0,
+        pp % 8 == 0)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    vec_x = kk % 8 == 0 and x.data_ptr() % 16 == 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = cnt = None
+    if p.splits > 1:
+        ws, cnt = _workspace(x.device, stream, floats, counters)
     rc = library().decompress_matmul_launch(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(signman.data_ptr()),
-        ctypes.c_void_p(planes.data_ptr()),
-        ctypes.c_void_p(dict_syms.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_int(m), ctypes.c_int(kk),
-        ctypes.c_int(n), ctypes.c_int(k), ctypes.c_int(int(vec_x)),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        xp, sp, pp, dict_syms.data_ptr(), out.data_ptr(), ws, cnt, shape,
+        stream)
     raise_on_error(rc, "decompress_matmul")
     launches += 1
     return out

@@ -11,8 +11,6 @@ device.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core import packing
@@ -23,6 +21,17 @@ plain = ref.unpack_ref
 launches = 0          # kernel launches since the last reset
 
 MAX_ROWS = 65535      # grid.y
+THREADS = 256         # per CTA, one 32-element word each
+FILL_CTAS = 264       # two CTAs of 256 threads on each of 132 SMs
+
+
+def ctas_per_row(g: int, n: int) -> int:
+    """CTAs per row: one per 256 words, at most FILL_CTAS in all; the CTAs
+    then stream their row's words with a grid stride.  Measured on the
+    H100: a full wave of resident CTAs (1056) streams slower than 132-264,
+    whose accesses stay in one dense window of the rows."""
+    nw = -(-n // packing.LANES)
+    return max(1, min(-(-nw // THREADS), -(-FILL_CTAS // max(g, 1))))
 
 
 def lexi_unpack(signman: torch.Tensor, planes: torch.Tensor,
@@ -48,13 +57,12 @@ def lexi_unpack(signman: torch.Tensor, planes: torch.Tensor,
     out = torch.empty((g, n), dtype=torch.bfloat16, device=signman.device)
     if g == 0 or n == 0:
         return out
+    sp, op = signman.data_ptr(), out.data_ptr()
     rc = library().lexi_unpack_launch(
-        ctypes.c_void_p(signman.data_ptr()),
-        ctypes.c_void_p(planes.data_ptr()), ctypes.c_void_p(dicts.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_int(g),
-        ctypes.c_longlong(n), ctypes.c_int(k),
-        ctypes.c_void_p(torch.cuda.current_stream(signman.device)
-                        .cuda_stream))
+        sp, planes.data_ptr(), dicts.data_ptr(), op, g, n, k,
+        ctas_per_row(g, n), int(n % 16 == 0 and sp % 16 == 0
+                                    and op % 16 == 0),
+        torch.cuda.current_stream(signman.device).cuda_stream)
     raise_on_error(rc, "lexi_unpack")
     launches += 1
     return out

@@ -281,8 +281,9 @@ _SIGNATURES = {
     "exp_histogram_launch": [_P, _P, _I, _LL, _P],
     "lexi_pack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
     "decode_attend_paged_launch": [_P] * 15 + [_I] * 12 + [_F, _F, _I, _P],
-    "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
-    "decompress_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    "decompress_matmul_launch": [_P] * 7 + [ctypes.POINTER(_I), _P],
+    "decompress_matmul_smem": [_I] * 4,
     "decode_attend_launch": [_P] * 13 + [_I] * 13 + [_LL, _F, _F, _I, _P],
 }
 

@@ -521,8 +521,8 @@ def test_ops_unpack_matches_decompress(cuda, spread):
     assert torch.equal(_i16(ops.unpack(ct)), _i16(fixed.decompress(ct)))
 
 
-def _dm_check(gen, m, kk, n, k):
-    w = _weight(gen, (kk, n), k)
+def _dm_check(gen, m, kk, n, k, make=_weight):
+    w = make(gen, (kk, n), k)
     sm, pl, d, n_esc = ops.compress_weight(w, k=k)
     assert int(n_esc) == 0
     x = _bf16(gen, (m, kk))
@@ -553,6 +553,130 @@ def test_decompress_matmul_kernel_matches_plain(cuda, m, kk, n, k):
 def test_decompress_matmul_kernel_qwen3_shapes(cuda, kk, n, m):
     _dm_check(torch.Generator(device=cuda).manual_seed(kk + n + m),
               m, kk, n, 5)
+
+
+# the M values the decode route's plan distinguishes (the slot counts up
+# to 64, in M-groups of 8, 16 or 32 rows, and up to its threshold, 128),
+# then the prefill route
+SWEEP_M = [1, 2, 3, 4, 5, 8, 15, 16, 17, 33, 64, 65, 128, 129, 1024]
+
+
+def _weight_any_k(gen, shape, k):
+    """As ``_weight`` for any k in 1..8, the exponents kept within 2^±60
+    so that products and sums stay finite in f32."""
+    e = torch.randint(-8, min((1 << k) - 9, 60), shape, generator=gen,
+                      device="cuda")
+    m = 1 + torch.randint(0, 128, shape, generator=gen, device="cuda") / 128
+    s = torch.randint(0, 2, shape, generator=gen, device="cuda") * 2 - 1
+    return (s * m * torch.exp2(e.float())).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("m", SWEEP_M)
+@pytest.mark.parametrize("kk,n", [(1000, 32 * 33), (777, 96)],
+                         ids=["ragged", "odd-k"])
+def test_decompress_matmul_sweep_matches_plain(cuda, kk, n, m, k):
+    """Both routes at every M the plan distinguishes and every code
+    width: ragged N (33 plane words: 4-byte plane copies), K not a
+    multiple of the chunk, odd K (element-wise x loads)."""
+    _dm_check(torch.Generator(device=cuda).manual_seed(m * 100 + k), m, kk,
+              n, k, make=_weight_any_k)
+
+
+@pytest.mark.parametrize("m", [m for m in SWEEP_M if m not in (4, 1024)])
+@pytest.mark.parametrize("kk,n", QWEN3_4B_WEIGHTS,
+                         ids=[f"{a}x{b}" for a, b in QWEN3_4B_WEIGHTS])
+def test_decompress_matmul_qwen3_shapes_every_m(cuda, kk, n, m):
+    _dm_check(torch.Generator(device=cuda).manual_seed(kk + n + m),
+              m, kk, n, 5)
+
+
+def _dm_operands(seed, m, kk, n, k=5):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = _weight(gen, (kk, n), k)
+    x = _bf16(gen, (m, kk))
+    return (x, *ops.compress_weight(w, k=k)[:3])
+
+
+@pytest.mark.parametrize("m,kk,n", [(1, 2560, 1024), (4, 9728, 2560),
+                                    (17, 2560, 1024), (64, 4096, 2560),
+                                    (1024, 2560, 1024)])
+def test_decompress_matmul_two_launches_same_bits(cuda, m, kk, n):
+    """The split merge sums in split order, not arrival order: two
+    launches give the same bits (here with 3 to 16 splits)."""
+    x, sm, pl, d = _dm_operands(m + kk, m, kk, n)
+    p = decompress_matmul.plan(m, kk, n, 5)
+    assert p.route == "prefill" or p.splits >= 3
+    a = ops.matmul_compressed(x, sm, pl, d, k=5)
+    for _ in range(3):
+        assert torch.equal(ops.matmul_compressed(x, sm, pl, d, k=5)
+                           .view(torch.int32), a.view(torch.int32))
+
+
+def test_decompress_matmul_streams_have_own_workspace(cuda):
+    """Launches on two streams that may overlap: each stream gets its own
+    split workspace and arrival counters, so every result equals the same
+    call made alone."""
+    x, sm, pl, d = _dm_operands(5, 4, 9728, 2560)
+    assert decompress_matmul.plan(4, 9728, 2560, 5).splits > 1
+    want = ops.matmul_compressed(x, sm, pl, d, k=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        got.append(ops.matmul_compressed(x, sm, pl, d, k=5))
+        with torch.cuda.stream(side):
+            got.append(ops.matmul_compressed(x, sm, pl, d, k=5))
+    torch.cuda.current_stream().wait_stream(side)
+    for res in got:
+        assert torch.equal(res.view(torch.int32), want.view(torch.int32))
+    here = torch.cuda.current_stream().cuda_stream
+    assert {here, side.cuda_stream} <= \
+        {s for _, s in decompress_matmul._workspaces}
+
+
+def test_decompress_matmul_cuda_graph(cuda):
+    """One CUDA-graph capture of the split-K launch, replayed twice: both
+    replays equal the eager result bit for bit (the kernel leaves its
+    arrival counters zeroed, and reads no host value)."""
+    x, sm, pl, d = _dm_operands(6, 4, 4096, 2560)
+    assert decompress_matmul.plan(4, 4096, 2560, 5).splits > 1
+    want = ops.matmul_compressed(x, sm, pl, d, k=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # the capture stream's workspace
+        ops.matmul_compressed(x, sm, pl, d, k=5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = decompress_matmul.launches
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.matmul_compressed(x, sm, pl, d, k=5)
+    assert decompress_matmul.launches == before + 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("n", [7, 48, 1000, 1001, 32 * 37],
+                         ids=["n<32", "n%32", "n%16", "odd", "words"])
+def test_lexi_unpack_kernel_ragged_every_k(cuda, n, k):
+    """Arbitrary bits at every code width, over three rows with distinct
+    dictionaries: bit for bit, at n below one word, n not a multiple of
+    32 (a scalar last word) and of 16 (every word scalar)."""
+    gen = torch.Generator(device=cuda).manual_seed(n * 10 + k)
+    g = 3
+    sm = torch.randint(0, 256, (g, n), generator=gen, device=cuda,
+                       dtype=torch.uint8)
+    planes = torch.randint(-(1 << 31), 1 << 31, (g, k, -(-n // 32)),
+                           generator=gen, device=cuda, dtype=torch.int32)
+    dicts = torch.stack([torch.randperm(256, generator=gen, device=cuda)
+                         [:1 << k] for _ in range(g)]).to(torch.uint8)
+    assert len({tuple(r) for r in dicts.tolist()}) == g
+    got = ops.unpack_rows(sm, planes, dicts, k)
+    assert torch.equal(_i16(got), _i16(ref.unpack_ref(sm, planes, dicts, k)))
 
 
 def test_engine_serves_packed_weights_on_card(cuda):
