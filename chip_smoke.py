@@ -8,7 +8,11 @@ non-zero:
 
   1. device  — the card's name and power limit (nvidia-smi), torch/CUDA.
   2. build   — compile the CUDA kernels from ``src/repro_torch/csrc`` into
-               one library (one nvcc per source, in parallel, then a link).
+               one library (one nvcc per source, in parallel, then a link);
+               print each kernel's registers, spills and static shared
+               memory (ptxas -v), and check that every instantiation of
+               ``decompress_matmul``'s prefill route has HGMMA (wgmma) in
+               its SASS (cuobjdump -sass).
   3. kernels — each kernel against its plain PyTorch version at the main
                path's shapes (qwen3-4b pages: block 256, W 2048, k 5;
                4 slots of 300..2000 tokens), including pages with escapes
@@ -21,13 +25,15 @@ non-zero:
                ``decompress_matmul`` at the six (K, N) weight shapes with
                M = 4 (its split-K decode route) and 1024 (its prefill
                route), elementwise within 1e-4 * (|x| @ |W|) + 1e-6 and
-               two launches bit for bit, each with its plan (route, column
-               tile, splits, CTAs) and the host's time per call of both
-               weight kernels; then the M sweep: both routes at M = 1 ..
-               256, one decode step's matmuls summed: the decode route
-               must be no slower at every slot count (M <= 64), and the
-               largest M where it is no slower is printed beside the
-               plan's threshold (DECODE_MAX_M).  The fixed-batch
+               two launches bit for bit, each with its plan (route, tile,
+               splits, CTAs, shared memory) and the host's time per call
+               of both weight kernels; one 1024-token prefill's 252 block
+               matmuls summed beside torch.mm's and the bound; then the M
+               sweep: both routes at M = 1 .. 256, one decode step's
+               matmuls summed: the decode route must be no slower at
+               every slot count (M <= 64), and the largest M where it is
+               no slower is printed beside the plan's threshold
+               (DECODE_MAX_M).  The fixed-batch
                ``decode_attend`` at qwen3-4b's attention shapes (4
                sequences of 1100 tokens, block 256, k 5; full, window 700,
                softcap, codec off, a block whose escapes overflow inside
@@ -75,9 +81,12 @@ non-zero:
                ring; the codec off (raw blocks) gives the same tokens.
                Prints tokens/s and ms per decode step, then 8 steps under
                the profiler (``chiprun_out/profile_decode_fixed.txt``),
-               how many tokens equal ``ServeEngine``'s on the same prompts,
-               and the host time per step of the fixed and the paged loop
-               in turns on the same sequences.
+               how many tokens equal ``ServeEngine``'s on the same prompts
+               and, at each sequence's first divergence, the top-2 logit
+               margin of both paths and the largest gap between their
+               logits (the ServeEngine path teacher-forced with the fixed
+               loop's tokens), and the host time per step of the fixed and
+               the paged loop in turns on the same sequences.
   8. weights — the serve phase's full-width weights packed on the card
                (time, each packed leaf's k, ``weight_plane_bytes``); the
                packed fields of ``blocks.mlp.w_gate`` and ``lm_head``
@@ -86,8 +95,13 @@ non-zero:
                prompts 1024/512, budgets 32/16) served three ways: raw
                weights, ``weight_backend="unpack"`` (streams must equal the
                raw ones) and ``"cuda"`` (its share of tokens equal to the
-               raw run and its first divergence are printed).  Every
-               request gets its budget; both weight kernels launch.
+               raw run and its first divergence are printed, with the
+               top-2 logit margin and the largest logit gap of the two
+               weight stores there, the raw run's tokens teacher-forced
+               through both); tok/s and TTFT mean/p50/p95 of each.  Every
+               request gets its budget; both weight kernels launch; the
+               ``cuda`` run's admissions make 252 prefill-route launches
+               each (``decompress_matmul.launches_by_route``).
                Last, the serve phase's 4 slots decode 8 steps from the
                packed store under the profiler, as in phase 6
                (``chiprun_out/profile_decode_packed.txt``).
@@ -201,13 +215,39 @@ def build_phase():
                  f"{time.perf_counter() - t0:.1f}s (one nvcc per source in "
                  f"parallel, then one link: " + ", ".join(
                      f"{k} {v:.1f}s" for k, v in times.items()) + ")")
-    for name in ops.KERNELS:
+    for name in ops.KERNELS + ("decompress_matmul_prefill",):
         log("build", f"{name}: " + ", ".join(
             f"{kern}<{','.join(map(str, args))}> {r['registers']} registers, "
             f"spills {r['spill_stores']}/{r['spill_loads']} B, "
             f"{r['smem']} B static shared memory"
             for (kern, args), r in sorted(ptxas_report(name).items())))
+    hgmma = sass_count("prefill_kernel", "HGMMA")
+    assert hgmma and min(hgmma.values()) > 0, hgmma
+    log("build", f"decompress_matmul's prefill route: HGMMA (wgmma) in the "
+                 f"SASS of all {len(hgmma)} prefill_kernel instantiations "
+                 f"({min(hgmma.values())}-{max(hgmma.values())} each; "
+                 f"cuobjdump -sass {ops.LIBRARY.name})")
     ops.library()
+
+
+def sass_count(kernel: str, opcode: str):
+    """{function: instructions of ``opcode``} over the functions of the
+    built library whose name contains ``kernel`` (cuobjdump -sass)."""
+    import re
+    from repro_torch.kernels import ops
+    tool = Path(ops.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(ops.LIBRARY)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def ptxas_report(name: str):
@@ -215,8 +255,9 @@ def ptxas_report(name: str):
     spill_loads, smem}} of a source's instantiations from its ``ptxas -v``
     log; an attention kernel's argument is k (0: codec off), the weight
     kernels' are k and, for decompress_matmul's decode route, the column
-    tile.  ``smem``: static shared memory (the decode routes' is dynamic,
-    printed per launch)."""
+    tile (its prefill route: k and the m64 tiles per consumer
+    warpgroup).  ``smem``: static shared memory (the decode and prefill
+    routes' is dynamic, printed per launch)."""
     import re
     from repro_torch.kernels import ops
     out, key = {}, None
@@ -762,6 +803,9 @@ def weight_kernels(cfg, ct, gen):
 
     dm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, b_bytes=0.0,
               b_ops=0.0, max_abs_err=0.0, host_us=0.0)
+    # one 1024-token prefill's 252 block matmuls (the LM head runs on the
+    # last positions only, through the decode route)
+    pre = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     un = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, host_us=0.0)
     packed = []                              # (pw, count) for the M sweep
     for (kk, n), count in weight_shapes(cfg):
@@ -789,11 +833,16 @@ def weight_kernels(cfg, ct, gen):
                 / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * m * n * kk / BF16_FLOPS * 1e3
             p = decompress_matmul.plan(m, kk, n, pw.k)
-            smem = (f", {decompress_matmul.smem_bytes(p, pw.k)} B shared "
-                    f"memory per CTA" if p.route == "decode" else "")
+            smem_b = decompress_matmul.smem_bytes(p, pw.k)
+            if p.route == "prefill":        # the plan's mirror of the layout
+                assert smem_b == decompress_matmul.prefill_smem_bytes(
+                    p.mrows, p.bn, pw.k), smem_b
+            smem = f", {smem_b} B shared memory per CTA"
+            tile = (f"bn {p.bn}, {p.splits} splits of {p.depth} rows"
+                    if p.route == "decode" else f"{p.mrows} x {p.bn} tiles")
             log("kernels", f"decompress_matmul M={m} K={kk} N={n} k={pw.k}: "
-                           f"{p.route} route, bn {p.bn}, {p.splits} splits "
-                           f"of {p.depth} rows, {p.ctas(m, n)} CTAs{smem}; max "
+                           f"{p.route} route, {tile}, {p.ctas(m, n)} CTAs"
+                           f"{smem}; max "
                            f"|err| {float(err.max()):.3e} within "
                            f"1e-4*(|x|@|W|)+1e-6, two launches bit for bit; "
                            f"{t:.4f} ms, plain {t_plain:.4f} ms, torch.mm on "
@@ -801,6 +850,11 @@ def weight_kernels(cfg, ct, gen):
                            f"{max(t_bytes, t_ops):.5f} ms "
                            f"({'bytes' if t_bytes >= t_ops else 'ops'}); "
                            f"host {t_host:.1f} us per call")
+            if m == 1024 and count > 1:      # a 1024-token prefill's share
+                pre["ms"] += count * t
+                pre["plain_ms"] += count * t_plain
+                pre["library_ms"] += count * t_lib
+                pre["bound_ms"] += count * max(t_bytes, t_ops)
             if m == 4:                       # one decode step's share
                 dm["ms"] += count * t
                 dm["plain_ms"] += count * t_plain
@@ -828,6 +882,13 @@ def weight_kernels(cfg, ct, gen):
         packed.append((pw, count))
         del w, fields, rows
         torch.cuda.empty_cache()
+    n_pre = sum(c for _, c in weight_shapes(cfg) if c > 1)
+    log("kernels", f"decompress_matmul's prefill route, one 1024-token "
+                   f"prefill's {n_pre} block matmuls (M=1024) summed: "
+                   f"{pre['ms']:.3f} ms; plain {pre['plain_ms']:.3f} ms; "
+                   f"torch.mm on the unpacked W "
+                   f"{pre['library_ms']:.3f} ms; bound {pre['bound_ms']:.3f} "
+                   f"ms ({pre['bound_ms'] / pre['ms']:.1%} of it reached)")
     m_sweep(packed)
     n_mm = sum(c for _, c in weight_shapes(cfg))
     rec = {
@@ -1208,7 +1269,7 @@ def fixed_phase(cfg, params, smi):
                                kv.ring.view(torch.int16)), (layer, idx)
         return idx
 
-    def serve(run_, check: bool):
+    def serve(run_, check: bool, keep=None):
         t0 = time.perf_counter()
         logits, st = engine.prefill(cfg, run_, params, prompts, max_len)
         assert torch.isfinite(logits).all()
@@ -1217,8 +1278,10 @@ def fixed_phase(cfg, params, smi):
         t1 = time.perf_counter()
         toks, flushed, t_check = [tok], [], 0.0
         for _ in range(n):
-            tok = engine.greedy_token(engine.decode_step(cfg, run_, params,
-                                                         st, tok))
+            if keep is not None:              # the logits of toks[-1]
+                keep.append(logits[:, -1].float())
+            logits = engine.decode_step(cfg, run_, params, st, tok)
+            tok = engine.greedy_token(logits)
             toks.append(tok)
             if check and st.length % blk == 0:
                 c0 = time.perf_counter()
@@ -1228,7 +1291,8 @@ def fixed_phase(cfg, params, smi):
         t2 = time.perf_counter()
         return out, st, t1 - t0, t2 - t1 - t_check, flushed
 
-    out0, _, _, _, flushed = serve(run, check=True)     # warm + flush check
+    kept = []                          # logits of each token of out0
+    out0, _, _, _, flushed = serve(run, check=True, keep=kept)
     assert flushed == [s // blk], flushed
     # lossless: the raw store gives the same tokens (the kernel's shared
     # memory tile holds the same bits either way)
@@ -1284,6 +1348,28 @@ def fixed_phase(cfg, params, smi):
                  f"trunk + {s - trunk} replayed tokens, wall {wall:.1f} s): "
                  f"{same}/{b * (n + 1)} tokens equal to the fixed-batch "
                  f"loop's; first divergence per sequence {first}")
+    # at each first divergence: the fixed loop's own logits against the
+    # ServeEngine path's (its trunk prefilled, the prompt tails replayed,
+    # the fixed loop's tokens fed, all 4 slots in step)
+    last = max((i for i in first if i is not None), default=None)
+    if last is not None and last < len(kept):
+        served = teacher_forced(cfg, run, params, prompts, trunk,
+                                out0[:, :last].to("cuda"), max_len)
+        for seq_i, i in enumerate(first):
+            if i is None:
+                continue
+            m_fixed, m_serve, gap = logit_margins(kept[i][seq_i],
+                                                  served[i][seq_i])
+            log("fixed", f"fixed loop vs ServeEngine, sequence {seq_i} "
+                         f"position {i} (fixed token {int(out0[seq_i, i])},"
+                         f" ServeEngine {results[seq_i].tokens[i]}, its "
+                         f"path teacher-forced: "
+                         f"{int(served[i][seq_i].argmax())}): top-2 margin "
+                         f"fixed {m_fixed:.4g} / ServeEngine path "
+                         f"{m_serve:.4g}, largest logit gap {gap:.4g}: "
+                         f"{'near-tie' if min(m_fixed, m_serve) <= gap else 'MARGIN ABOVE THE GAP'}")
+        del served
+    del kept
 
     # host time per step, the two decode loops in turns on the same
     # sequences: the fixed state above and the same prompts in the pool
@@ -1310,6 +1396,38 @@ def fixed_phase(cfg, params, smi):
     return launches["decode_attend"]
 
 
+def logit_margins(a, b):
+    """(top-2 margin of a, top-2 margin of b, largest |a - b|) of two
+    logit rows: a margin within the gap is a near-tie, a flip the two
+    computations may both rightly give."""
+    ta, tb = a.float().topk(2).values, b.float().topk(2).values
+    return (float(ta[0] - ta[1]), float(tb[0] - tb[1]),
+            float((a.float() - b.float()).abs().max()))
+
+
+def teacher_forced(cfg, run, params, prompts, trunk, forced, max_len):
+    """Teacher-force greedy streams through the continuous engine's path:
+    ``prompts`` (B, S) prefilled to ``trunk`` tokens in one batch
+    (``engine.prefill_sequences``), the rest of each prompt and then
+    ``forced`` (B, T) fed one paged decode step at a time, all B slots in
+    step, as ``ServeEngine`` runs them.  Returns [T + 1] logits (B, Vp):
+    entry i is what predicts stream position i."""
+    import torch
+    from repro_torch.serve import engine
+    b, s = prompts.shape
+    st = engine.empty_paged_state(cfg, run, b, max_len, device="cuda")
+    logits, d = engine.prefill_sequences(cfg, run, params, prompts[:, :trunk])
+    engine.insert_sequences(cfg, run, st, d, list(range(b)))
+    feed = torch.cat([prompts[:, trunk:], forced], 1)
+    out = [logits[:, -1]] if trunk == s else []
+    for j in range(feed.shape[1]):
+        logits = engine.paged_decode_step(cfg, run, params, st,
+                                          feed[:, j:j + 1])
+        if j >= s - trunk - 1:
+            out.append(logits[:, -1])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 8: serve from the packed weight plane
 # ---------------------------------------------------------------------------
@@ -1334,7 +1452,7 @@ def weights_phase(cfg, serve_eng, tok, smi):
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import weights
     from repro_torch.core.collectives import CodecConfig
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import decompress_matmul, ops
     from repro_torch.serve.scheduler import (ServeEngine, demo_serving_setup,
                                              format_stats)
 
@@ -1374,7 +1492,7 @@ def weights_phase(cfg, serve_eng, tok, smi):
                        f"== packed on the CPU byte for byte, k={card.k} "
                        f"(CPU pack {time.perf_counter() - t0:.1f}s)")
 
-    streams, counts, stats = {}, {}, {}
+    streams, counts, stats, routes = {}, {}, {}, {}
     for name in ("raw", "unpack", "cuda"):
         run = RunConfig(codec=dataclasses.replace(
             CodecConfig(), weight_backend="auto" if name == "raw" else name))
@@ -1387,15 +1505,20 @@ def weights_phase(cfg, serve_eng, tok, smi):
         results, st = eng.run(reqs)
         torch.cuda.synchronize()
         counts[name], stats[name] = ops.launch_counts(), st
+        routes[name] = dict(decompress_matmul.launches_by_route)
         for req, res in zip(reqs, results):
             assert len(res.tokens) == req.max_new_tokens, (name, req.uid)
         streams[name] = [res.tokens for res in results]
         log("weights", f"{name}: " + format_stats(st).replace("\n", " | "))
-        log("weights", f"{name}: {st.tokens_per_s:.2f} tok/s, "
-                       f"{st.requests_per_s:.3f} req/s, wall {st.wall_s:.2f}s,"
-                       f" {st.decode_steps} decode steps, "
+        log("weights", f"{name}: {st.tokens_per_s:.2f} tok/s, TTFT mean "
+                       f"{st.ttft_mean_s * 1e3:.1f} / p50 "
+                       f"{st.ttft_p50_s * 1e3:.1f} / p95 "
+                       f"{st.ttft_p95_s * 1e3:.1f} ms ({len(results)} "
+                       f"requests), {st.requests_per_s:.3f} req/s, wall "
+                       f"{st.wall_s:.2f}s, {st.decode_steps} decode steps, "
                        f"{st.n_admit_dispatches} prefills, launches "
-                       f"{counts[name]} | {smi}")
+                       f"{counts[name]}, decompress_matmul by route "
+                       f"{routes[name]} | {smi}")
         del eng
         torch.cuda.empty_cache()
     assert streams["unpack"] == streams["raw"], "unpack streams != raw"
@@ -1408,6 +1531,28 @@ def weights_phase(cfg, serve_eng, tok, smi):
                    f"raw run ({same / len(pairs):.4f}); first divergence "
                    f"(request, position): {first}; unpack backend: "
                    f"identical to raw")
+    # each first divergence (once per distinct prompt and prefix), the raw
+    # run's tokens teacher-forced through both weight stores: the prompt
+    # prefilled, the tokens before the divergence fed one decode step each
+    seen = set()
+    for uid, (ra, rb) in enumerate(zip(streams["raw"], streams["cuda"])):
+        i = next((j for j, (a, b) in enumerate(zip(ra, rb)) if a != b), None)
+        key = (reqs[uid].prompt.tobytes(), tuple(ra[:i or 0]))
+        if i is None or key in seen:
+            continue
+        seen.add(key)
+        prompt = torch.as_tensor(reqs[uid].prompt, dtype=torch.int32,
+                                 device="cuda")[None]
+        forced = torch.as_tensor([ra[:i]], dtype=torch.int32, device="cuda")
+        side = [teacher_forced(cfg, run, w, prompt, prompt.shape[1], forced,
+                               max_len)[i][0] for w in (params, packed)]
+        m_raw, m_cuda, gap = logit_margins(*side)
+        log("weights", f"raw vs cuda, request {uid} position {i} (raw token "
+                       f"{ra[i]}, cuda {rb[i]}; teacher-forced argmax "
+                       f"{int(side[0].argmax())} / {int(side[1].argmax())}):"
+                       f" top-2 margin raw {m_raw:.4g} / cuda {m_cuda:.4g}, "
+                       f"largest logit gap {gap:.4g}: "
+                       f"{'near-tie' if min(m_raw, m_cuda) <= gap else 'MARGIN ABOVE THE GAP'}")
     n_mm = sum(c for _, c in weight_shapes(cfg))
     for name, kernel, idle in (("cuda", "decompress_matmul", "lexi_unpack"),
                                ("unpack", "lexi_unpack", "decompress_matmul")):
@@ -1417,11 +1562,20 @@ def weights_phase(cfg, serve_eng, tok, smi):
         assert c[kernel] > 0 and c[idle] == 0, (name, c)
         assert c[kernel] == n_mm * passes, (name, c[kernel], passes)
         assert st.weight_ratio < 0.95, st.weight_ratio
+    # the cuda backend's admissions go through the prefill route (every
+    # block matmul of a batched prefill; the LM head, on the last
+    # positions only, and the decode steps through the decode route)
+    st, r = stats["cuda"], routes["cuda"]
+    assert r["prefill"] == (n_mm - 1) * st.n_admit_dispatches, r
+    assert r["decode"] == n_mm * st.decode_steps + st.n_admit_dispatches, r
     assert counts["raw"]["decompress_matmul"] == 0
     assert counts["raw"]["lexi_unpack"] == 0
     log("weights", f"{n_mm} packed matmuls per forward pass (decode step or "
                    f"batched prefill) on both backends; weight ratio "
-                   f"{stats['cuda'].weight_ratio:.4f}")
+                   f"{stats['cuda'].weight_ratio:.4f}; cuda backend: "
+                   f"{routes['cuda']['prefill']} prefill-route launches = "
+                   f"{n_mm - 1} x {stats['cuda'].n_admit_dispatches} "
+                   f"admissions")
     serve_eng.params = packed
     profile_decode(cfg, serve_eng.run_cfg, serve_eng, tok, "decode_packed")
     return {"decompress_matmul": counts["cuda"]["decompress_matmul"],

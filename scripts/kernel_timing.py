@@ -17,11 +17,13 @@ tree's kernel library, and times, with chip_smoke.py's ``cuda_ms`` and
            on the same K/V;
   weights  ``decompress_matmul`` at each of qwen3-4b's six weight shapes
            (K, N), packed from N(0, 0.02) at the smallest escape-free k, at
-           M = 4 (decode) and M = 1024 (prefill), checked against its plain
-           version within 1e-4 * (|x| @ |W|) + 1e-6, beside ``torch.mm``
-           on the unpacked W; ``lexi_unpack`` of each shape, checked bit for
-           bit; and one decode step's sums at M = 4 (7 matmuls per layer
-           and the LM head, as chip_smoke.py counts them).
+           M = 4 (the decode route), 256 and 1024 (the prefill route),
+           checked against its plain version within 1e-4 * (|x| @ |W|) +
+           1e-6, beside ``torch.mm`` on the unpacked W; ``lexi_unpack`` of
+           each shape, checked bit for bit; one decode step's sums at M = 4
+           (7 matmuls per layer and the LM head, as chip_smoke.py counts
+           them) and one prefill's sums at M = 1024 and 256 (the 252 block
+           matmuls; the LM head runs on the last positions only).
 
 Each reading:
 
@@ -171,13 +173,15 @@ def weight_kernels(cs, cfg, gen):
                             library_ms=0.0, bound_ms=0.0, unpack_ms=0.0,
                             unpack_ms_no_spin=0.0, unpack_host_us=0.0,
                             unpack_bound_ms=0.0)
+    prefill = {m: dict(ms=0.0, library_ms=0.0, bound_ms=0.0)
+               for m in (256, 1024)}
     for (kk, n), count in cs.weight_shapes(cfg):
         w = (torch.randn((kk, n), generator=gen, device="cuda") * 0.02
              ).to(bf16)
         pw = weights.pack_serving_params({"w": w}, backend="cuda")["w"]
         fields = (pw.signman, pw.planes, pw.dict_syms)
         row = dict(K=kk, N=n, k=pw.k, matmuls_per_step=count)
-        for m in (4, 1024):
+        for m in (4, 256, 1024):
             x = torch.randn((m, kk), generator=gen, device="cuda").to(bf16)
             fn = lambda: decompress_matmul.decompress_matmul(x, *fields, pw.k)
             got = fn()
@@ -194,6 +198,9 @@ def weight_kernels(cs, cfg, gen):
                          / cs.HBM_BYTES_PER_S,
                          2 * m * n * kk / cs.BF16_FLOPS))
             row[f"M{m}"] = t
+            if m in prefill and count > 1:
+                for key in prefill[m]:
+                    prefill[m][key] += count * t[key]
             if m == 4:
                 for key in ("ms", "ms_no_spin", "host_us", "library_ms",
                             "bound_ms"):
@@ -213,7 +220,8 @@ def weight_kernels(cs, cfg, gen):
         shapes.append(row)
         del w, pw, fields, rows, x
         torch.cuda.empty_cache()
-    return dict(shapes=shapes, step_m4=step)
+    return dict(shapes=shapes, step_m4=step,
+                **{f"prefill_m{m}": v for m, v in prefill.items()})
 
 
 def main() -> int:

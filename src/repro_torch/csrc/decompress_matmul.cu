@@ -19,7 +19,8 @@
 // nothing per element -- tensor cores, not FMAs.
 //
 // Two routes, picked on the host by kernels/decompress_matmul.py:plan
-// from (M, K, N, k), which also sizes the decode route's grid:
+// from (M, K, N, k), which also sizes the decode route's grid and picks
+// the prefill route's tile:
 //
 // Decode route (small M; split-K).  Grid (N / bn, splits, M-groups), 128
 // threads (4 warps), templated on the column tile bn (32, 64 or 128) so
@@ -52,14 +53,8 @@
 //     captured graph replays it as it is).  A cluster merge through
 //     distributed shared memory measured no faster on qwen3-4b's shapes.
 //
-// Prefill route (large M).  Grid (N / 128, M / 64), 256 threads (8 warps)
-// per CTA, a 64 x 128 output tile; the K loop runs inside the CTA,
-// BK = 64: each K step every thread reads two 16-column pieces of the
-// packed W tile and one row segment of x into registers, decodes the
-// pieces (decode16) into a bf16 tile in shared memory and copies x beside
-// it; the next step's loads are issued before this step's products.  bf16
-// tensor-core products (nvcuda::wmma 16x16x16, f32 accumulate): each warp
-// owns a 32 x 32 sub-tile and skips the fragments whose rows lie past M.
+// Prefill route (large M): decompress_matmul_prefill.cu, wgmma on W tiles
+// decoded into shared memory while the previous tile's products run.
 //
 // Edges are masked in the kernels (no host padding): rows past K and
 // columns past N load as 0, rows of x past M and columns past K load as 0,
@@ -68,9 +63,7 @@
 // K % 8 == 0 and x is 16-byte aligned, else element by element.  Templated
 // on k (1..8), so the plane words stay in registers.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "lexi_decode.cuh"
@@ -450,175 +443,6 @@ decode_kernel(const Args a) {
 
 }  // namespace dec
 
-// ---------------------------------------------------------------------------
-// prefill route
-// ---------------------------------------------------------------------------
-
-namespace pre {
-
-using namespace nvcuda;
-
-constexpr int kThreads = 256;
-constexpr int BM = 64, BN = 128, BK = 64;
-constexpr int XLD = BK + 8;        // shared row strides (bf16 elements):
-constexpr int WLD = BN + 8;        // multiples of 8, rows 32-byte aligned
-constexpr int kWChunks = BK * BN / 16 / kThreads;   // 16-col chunks/thread
-constexpr int kXChunks = BM * BK / 8 / kThreads;    // 8-col chunks/thread
-
-template <int KB>
-struct Regs {
-  uint4 sm[kWChunks];
-  uint32_t words[kWChunks][KB];
-  bool wok[kWChunks];
-  uint4 x[kXChunks];
-};
-
-template <int KB>
-__device__ __forceinline__ void load_tile(
-    Regs<KB>& r, const uint16_t* __restrict__ x,
-    const uint8_t* __restrict__ signman, const uint32_t* __restrict__ planes,
-    int M, int K, int N, int m0, int n0, int k0, bool vec_x) {
-  const int nw = N >> 5;
-#pragma unroll
-  for (int j = 0; j < kWChunks; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    const int kr = k0 + c / (BN / 16);
-    const int col = n0 + (c % (BN / 16)) * 16;
-    r.wok[j] = kr < K && col < N;
-    if (r.wok[j]) {
-      r.sm[j] = *reinterpret_cast<const uint4*>(signman + (long long)kr * N + col);
-#pragma unroll
-      for (int b = 0; b < KB; ++b)
-        r.words[j][b] = planes[((long long)b * K + kr) * nw + (col >> 5)];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kXChunks; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    const int m = m0 + c / (BK / 8);
-    const int kc = k0 + (c % (BK / 8)) * 8;
-    const uint16_t* src = x + (long long)m * K + kc;
-    if (vec_x) {
-      r.x[j] = (m < M && kc < K) ? *reinterpret_cast<const uint4*>(src)
-                                 : make_uint4(0, 0, 0, 0);
-    } else {
-      uint32_t v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const unsigned lo = (m < M && kc + 2 * e < K) ? src[2 * e] : 0u;
-        const unsigned hi = (m < M && kc + 2 * e + 1 < K) ? src[2 * e + 1] : 0u;
-        v[e] = lo | (hi << 16);
-      }
-      r.x[j] = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-template <int KB>
-__device__ __forceinline__ void store_tile(const Regs<KB>& r,
-                                           const uint16_t* __restrict__ lut,
-                                           uint16_t* xs, uint16_t* ws) {
-#pragma unroll
-  for (int j = 0; j < kWChunks; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    const int row = c / (BN / 16), g16 = c % (BN / 16);
-    uint4 h0 = make_uint4(0, 0, 0, 0), h1 = h0;
-    if (r.wok[j]) {
-      uint32_t bits[KB];
-#pragma unroll
-      for (int b = 0; b < KB; ++b) bits[b] = r.words[j][b] >> ((g16 & 1) * 16);
-      lexi::decode16<KB>(r.sm[j], bits, lut, h0, h1);
-    }
-    uint4* dst = reinterpret_cast<uint4*>(ws + row * WLD + g16 * 16);
-    dst[0] = h0;
-    dst[1] = h1;
-  }
-#pragma unroll
-  for (int j = 0; j < kXChunks; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    const int row = c / (BK / 8), c8 = (c % (BK / 8)) * 8;
-    *reinterpret_cast<uint4*>(xs + row * XLD + c8) = r.x[j];
-  }
-}
-
-template <int KB>
-__global__ void __launch_bounds__(kThreads)
-prefill_kernel(const uint16_t* __restrict__ x,
-               const uint8_t* __restrict__ signman,
-               const uint32_t* __restrict__ planes,
-               const uint8_t* __restrict__ dict, float* __restrict__ out,
-               int M, int K, int N, bool vec_x) {
-  __shared__ __align__(32) uint16_t xs[BM * XLD];
-  __shared__ __align__(32) uint16_t ws[BK * WLD];
-  __shared__ __align__(32) float stage[kThreads / 32][16 * 16];
-  __shared__ uint16_t lut[256];
-
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-  for (int i = threadIdx.x; i < (1 << KB); i += kThreads)
-    lut[i] = (uint16_t)(dict[i] << 7);
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (K + BK - 1) / BK;
-  Regs<KB> r;
-  if (nk > 0) load_tile<KB>(r, x, signman, planes, M, K, N, m0, n0, 0, vec_x);
-  for (int t = 0; t < nk; ++t) {
-    if (t > 0) __syncthreads();              // last step's products done
-    store_tile<KB>(r, lut, xs, ws);
-    __syncthreads();
-    if (t + 1 < nk)
-      load_tile<KB>(r, x, signman, planes, M, K, N, m0, n0, (t + 1) * BK,
-                    vec_x);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(
-            b[j], reinterpret_cast<const __nv_bfloat16*>(ws + kk * WLD + wn + 16 * j),
-            WLD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (m0 + wm + 16 * i >= M) continue;  // warp-uniform
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(
-            a, reinterpret_cast<const __nv_bfloat16*>(xs + (wm + 16 * i) * XLD + kk),
-            XLD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-  }
-
-  float* st = stage[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (m0 + wm + 16 * i >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm + 16 * i + (e >> 4);
-        const int gn = n0 + wn + 16 * j + (e & 15);
-        if (gm < M && gn < N) out[(long long)gm * N + gn] = st[e];
-      }
-      __syncwarp();
-    }
-  }
-}
-
-}  // namespace pre
-
 template <int KB, int BN>
 cudaError_t launch_decode(const dec::Args& a, cudaStream_t stream) {
   const dec::Layout L(BN, dec::chunk_rows(BN), KB, a.mrows / 8);
@@ -637,15 +461,7 @@ cudaError_t launch_decode(const dec::Args& a, cudaStream_t stream) {
 }
 
 template <int KB>
-cudaError_t launch(int route, const dec::Args& a, cudaStream_t stream) {
-  if (route == 0) {
-    dim3 grid((unsigned)((a.N + pre::BN - 1) / pre::BN),
-              (unsigned)((a.M + pre::BM - 1) / pre::BM));
-    pre::prefill_kernel<KB><<<grid, pre::kThreads, 0, stream>>>(
-        a.x, a.signman, a.planes, a.dict, a.out, a.M, a.K, a.N,
-        a.vec_x != 0);
-    return cudaGetLastError();
-  }
+cudaError_t launch(const dec::Args& a, cudaStream_t stream) {
   switch (a.bn) {
     case 32: return launch_decode<KB, 32>(a, stream);
     case 64: return launch_decode<KB, 64>(a, stream);
@@ -671,34 +487,49 @@ bool decode_shape_ok(const dec::Args& a, int k) {
 
 }  // namespace
 
+// The prefill route (decompress_matmul_prefill.cu).
+cudaError_t decompress_matmul_prefill(const void* x, const void* signman,
+                                      const void* planes, const void* dict,
+                                      void* out, int M, int K, int N, int k,
+                                      int bn, int bm, int vec_x,
+                                      cudaStream_t s);
+
 // shape: {M, K, N, k, vec_x, route, bn, rows, depth, splits, mrows,
-// pl_copy}.  route 0: the prefill tiles (bn .. pl_copy, ws and counters
-// unused); route 1: the split-K decode route with the plan's column tile
-// bn, chunk rows, split depth and count, x rows per CTA, and the plane
-// copy width in bytes; ws holds (splits - 1) * M * N floats and counters
-// (N / bn) * ceil(M / mrows) ints, zero before the launch and left zero
-// after it.  vec_x: K % 8 == 0 and x 16-byte aligned.
+// pl_copy}.  route 0: the prefill tiles, mrows x bn (128 x 128 or 256 x
+// 128), rows = 64 K rows per step, one split of depth K (pl_copy, ws and
+// counters unused).  route 1:
+// the split-K decode route with the plan's column tile bn, chunk rows,
+// split depth and count, x rows per CTA, and the plane copy width in
+// bytes; ws holds (splits - 1) * M * N floats and counters (N / bn) *
+// ceil(M / mrows) ints, zero before the launch and left zero after it.
+// vec_x: K % 8 == 0 and x 16-byte aligned.
 extern "C" int decompress_matmul_launch(
     const void* x, const void* signman, const void* planes, const void* dict,
     void* out, void* ws, void* counters, const int* shape, void* stream) {
   const int M = shape[0], K = shape[1], N = shape[2], k = shape[3];
   const int route = shape[5];
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k < 1 || k > 8) return (int)cudaErrorInvalidValue;
+  if (route == 0) {
+    if (shape[7] != 64 || shape[9] != 1) return (int)cudaErrorInvalidValue;
+    return (int)decompress_matmul_prefill(x, signman, planes, dict, out, M,
+                                          K, N, k, shape[6], shape[10],
+                                          shape[4], s);
+  }
   dec::Args a{(const uint16_t*)x, (const uint8_t*)signman,
               (const uint32_t*)planes, (const uint8_t*)dict, (float*)out,
               (float*)ws, (int*)counters, M, K, N, shape[6], shape[7],
               shape[8], shape[9], shape[10], shape[4], shape[11]};
-  if (k < 1 || k > 8 || (route == 1 && !decode_shape_ok(a, k)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  if (route != 1 || !decode_shape_ok(a, k)) return (int)cudaErrorInvalidValue;
   switch (k) {
-    case 1: return (int)launch<1>(route, a, s);
-    case 2: return (int)launch<2>(route, a, s);
-    case 3: return (int)launch<3>(route, a, s);
-    case 4: return (int)launch<4>(route, a, s);
-    case 5: return (int)launch<5>(route, a, s);
-    case 6: return (int)launch<6>(route, a, s);
-    case 7: return (int)launch<7>(route, a, s);
-    case 8: return (int)launch<8>(route, a, s);
+    case 1: return (int)launch<1>(a, s);
+    case 2: return (int)launch<2>(a, s);
+    case 3: return (int)launch<3>(a, s);
+    case 4: return (int)launch<4>(a, s);
+    case 5: return (int)launch<5>(a, s);
+    case 6: return (int)launch<6>(a, s);
+    case 7: return (int)launch<7>(a, s);
+    case 8: return (int)launch<8>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,7 +21,13 @@ the host:
   1/``WS_SHARE`` of the packed W bytes.  The partials and the arrival
   counters live in a workspace kept per (device, stream) (``_workspace``),
   which the kernel leaves zeroed.
-* ``prefill`` (larger M): 64 x 128 output tiles, the K loop in the CTA.
+* ``prefill`` (larger M; ``csrc/decompress_matmul_prefill.cu``): wgmma on
+  BM x 128 output tiles (BM 128 or 256, ``PREFILL_TILES``), the K loop in
+  the CTA; a producer warpgroup decodes each 64-row tile of W into shared
+  memory while the consumer warpgroups' products of earlier tiles run.
+  The grid is (M tiles, N tiles), one CTA per SM; ``plan`` picks the tile
+  per shape by ``prefill_cost`` (whole waves times a K step's measured
+  cost).  One CTA owns each output: no workspace.
 
 Unlike the reference's wrapper, nothing is padded on the host: the kernel
 masks the ragged M, K and N edges itself.  N must be a multiple of 32
@@ -42,23 +48,32 @@ from . import ref
 plain = ref.decompress_matmul_ref
 
 launches = 0          # kernel launches since the last reset
+launches_by_route = {"decode": 0, "prefill": 0}
 
-DECODE_MAX_M = 128    # the decode route's largest M (chip_smoke.py's M sweep)
+DECODE_MAX_M = 96     # the decode route's largest M (chip_smoke.py's M sweep)
 TARGET_CTAS = 264     # two CTAs on each of an H100's 132 SMs
 MIN_SPLIT_ROWS = 256  # the shallowest split worth its partial
 WS_SHARE = 8          # partials at most 1/8 of the packed W bytes
 CHUNK_BYTES = 8192    # signman bytes of one decode-route ring stage
 MAX_CTA_ROWS = 32     # rows of x one decode-route CTA holds (4 m8 tiles)
-PREFILL_TILE = (64, 128, 64)   # the prefill route's (BM, BN, BK)
+PREFILL_BK = 64       # K rows per prefill step (128 bytes of x)
+PREFILL_RINGS = (4, 3, 3)   # prefill slots: decoded W, x, packed W
+SMS = 132             # an H100's SMs; the prefill route runs one CTA each
+# the prefill route's (BM, BN) tiles and the relative cost of one K step
+# of each, one CTA per SM: on the H100 a 256-row step took 1.25-1.37x a
+# 128-row one at qwen3-4b's five block shapes (scripts/prefill_probe.py)
+PREFILL_STEP_COST = {(128, 128): 1.0, (256, 128): 1.3}
+PREFILL_TILES = tuple(PREFILL_STEP_COST)
+MAX_SMEM = 232448     # an H100 CTA's shared memory
 MAX_GRID_YZ = 65535
 
 
 class Plan(NamedTuple):
     """One launch's route and shape.  ``decode``: column tile ``bn``,
     ``splits`` splits of ``depth`` rows (a multiple of the ring's
-    ``rows``-row chunk), ``mrows`` rows of x per CTA.  ``prefill``: the
-    fixed 64 x 128 tiles (``bn`` 128, ``rows`` = BK, ``mrows`` = BM, one
-    split of all K)."""
+    ``rows``-row chunk), ``mrows`` rows of x per CTA.  ``prefill``: tiles
+    of ``mrows`` x ``bn`` (one of ``PREFILL_TILES``), ``rows`` =
+    ``PREFILL_BK``, one split of all K."""
     route: str
     bn: int
     splits: int
@@ -67,6 +82,10 @@ class Plan(NamedTuple):
     mrows: int
 
     def grid(self, m: int, n: int) -> Tuple[int, int, int]:
+        """The launch grid: decode (N / bn, splits, M-groups); prefill
+        (M tiles, N tiles, 1), M fastest."""
+        if self.route == "prefill":
+            return (-(-m // self.mrows), -(-n // self.bn), 1)
         return (-(-n // self.bn), self.splits, -(-m // self.mrows))
 
     def ctas(self, m: int, n: int) -> int:
@@ -94,6 +113,25 @@ def packed_bytes(kk: int, n: int, k: int) -> int:
     return kk * n + k * kk * n // 8
 
 
+def prefill_smem_bytes(bm: int, bn: int, k: int) -> int:
+    """Dynamic shared memory per CTA of a prefill launch (as
+    ``csrc/decompress_matmul_prefill.cu:smem_bytes``): the rings of
+    decoded bf16 W tiles, x tiles and packed W tiles (the signman and k
+    plane tiles, rounded up to 1 KB; ``PREFILL_RINGS`` slots each), and
+    1 KB to align the swizzled tiles."""
+    bk = PREFILL_BK
+    packed = -(-(bk * bn + k * bk * bn // 8) // 1024) * 1024
+    nw, nx, npk = PREFILL_RINGS
+    return nw * bk * bn * 2 + nx * bm * bk * 2 + npk * packed + 1024
+
+
+def prefill_cost(m: int, n: int, bm: int, bn: int) -> float:
+    """Relative time of a prefill launch on tiles of bm x bn: whole waves
+    of one CTA per SM, times a K step's cost (``PREFILL_STEP_COST``)."""
+    ctas = -(-m // bm) * -(-n // bn)
+    return -(-ctas // SMS) * PREFILL_STEP_COST[(bm, bn)]
+
+
 @functools.lru_cache(maxsize=None)
 def plan(m: int, kk: int, n: int, k: int, route: str = "auto") -> Plan:
     """The launch for x (m, kk) @ packed W (kk, n) at code width k.
@@ -106,12 +144,16 @@ def plan(m: int, kk: int, n: int, k: int, route: str = "auto") -> Plan:
     fewest splits that reach ``TARGET_CTAS``, each split a whole number
     of chunks, at least ``MIN_SPLIT_ROWS`` deep (or all of K) and the
     partials within 1/``WS_SHARE`` of the packed W.  When no choice
-    reaches the target (a small W), the one with the most CTAs."""
+    reaches the target (a small W), the one with the most CTAs.
+
+    Prefill: the tile of least ``prefill_cost``, the first of
+    ``PREFILL_TILES`` on a tie."""
     if route not in ("auto", "decode", "prefill"):
         raise ValueError(f"route must be auto, decode or prefill: {route!r}")
     if route == "prefill" or (route == "auto" and m > DECODE_MAX_M):
-        bm, bn, bk = PREFILL_TILE
-        return Plan("prefill", bn, 1, kk, bk, bm)
+        bm, bn = min(PREFILL_TILES,
+                     key=lambda t: prefill_cost(max(m, 1), n, *t))
+        return Plan("prefill", bn, 1, kk, PREFILL_BK, bm)
     cap_splits = 1 + packed_bytes(kk, n, k) // WS_SHARE // (4 * max(m, 1) * n)
     best = None
     for mrows in (32, 16, 8):
@@ -147,8 +189,7 @@ def _launch(m: int, kk: int, n: int, k: int, route: str, vec_x: bool,
     picks the widest plane copy the column tile allows."""
     p = plan(m, kk, n, k, route)
     _, gy, gz = p.grid(m, n)
-    if max(gy, gz, -(-m // PREFILL_TILE[0])) > MAX_GRID_YZ \
-            or max(m, kk, n) >= 1 << 31:
+    if max(gy, gz) > MAX_GRID_YZ or max(m, kk, n) >= 1 << 31:
         raise ValueError(f"shape {(m, kk, n)} is too large for one launch")
     nw = n // packing.LANES
     if p.bn >= 128 and nw % 4 == 0 and planes16:
@@ -188,8 +229,11 @@ def _workspace(device, stream: int, floats: int, counters: int
 
 
 def smem_bytes(p: Plan, k: int) -> int:
-    """Dynamic shared memory per CTA of a decode-route launch."""
+    """Dynamic shared memory per CTA of a launch, from the kernel
+    library."""
     from .ops import library
+    if p.route == "prefill":
+        return library().decompress_matmul_prefill_smem(p.bn, p.mrows, k)
     return library().decompress_matmul_smem(p.bn, p.rows, k, p.mrows)
 
 
@@ -237,4 +281,5 @@ def decompress_matmul(x: torch.Tensor, signman: torch.Tensor,
         stream)
     raise_on_error(rc, "decompress_matmul")
     launches += 1
+    launches_by_route[p.route] += 1
     return out

@@ -241,6 +241,7 @@ def reset_launch_counts() -> None:
     _attend.launches.update(dict.fromkeys(_attend.launches, 0))
     _hist.launches = _pack.launches = 0
     _dm.launches = _unpack.launches = 0
+    _dm.launches_by_route.update(dict.fromkeys(_dm.launches_by_route, 0))
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -268,7 +269,7 @@ def raise_on_error(rc: int, what: str) -> None:
 
 KERNELS = ("exp_histogram", "lexi_pack", "decode_attend_paged",
            "lexi_unpack", "decompress_matmul", "decode_attend")
-SOURCES = KERNELS + ("cuda_error",)
+SOURCES = KERNELS + ("decompress_matmul_prefill", "cuda_error")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIBRARY = BUILD_DIR / "librepro_torch_kernels.so"
@@ -284,6 +285,7 @@ _SIGNATURES = {
     "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     "decompress_matmul_launch": [_P] * 7 + [ctypes.POINTER(_I), _P],
     "decompress_matmul_smem": [_I] * 4,
+    "decompress_matmul_prefill_smem": [_I] * 3,
     "decode_attend_launch": [_P] * 13 + [_I] * 13 + [_LL, _F, _F, _I, _P],
 }
 

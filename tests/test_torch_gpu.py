@@ -521,14 +521,19 @@ def test_ops_unpack_matches_decompress(cuda, spread):
     assert torch.equal(_i16(ops.unpack(ct)), _i16(fixed.decompress(ct)))
 
 
-def _dm_check(gen, m, kk, n, k, make=_weight):
+def _dm_check(gen, m, kk, n, k, make=_weight, x=None):
     w = make(gen, (kk, n), k)
     sm, pl, d, n_esc = ops.compress_weight(w, k=k)
     assert int(n_esc) == 0
-    x = _bf16(gen, (m, kk))
+    if x is None:
+        x = _bf16(gen, (m, kk))
+    route = decompress_matmul.plan(m, kk, n, k).route
     before = decompress_matmul.launches
+    by_route = dict(decompress_matmul.launches_by_route)
     got = ops.matmul_compressed(x, sm, pl, d, k=k)
     assert decompress_matmul.launches == before + 1
+    by_route[route] += 1
+    assert decompress_matmul.launches_by_route == by_route
     want = ref.decompress_matmul_ref(x, sm, pl, d, k)
     # the products are exact in f32: only the summation order differs
     tol = 1e-4 * (x.float().abs() @ w.float().abs()) + 1e-6
@@ -556,8 +561,8 @@ def test_decompress_matmul_kernel_qwen3_shapes(cuda, kk, n, m):
 
 
 # the M values the decode route's plan distinguishes (the slot counts up
-# to 64, in M-groups of 8, 16 or 32 rows, and up to its threshold, 128),
-# then the prefill route
+# to 64, in M-groups of 8, 16 or 32 rows, and up to its threshold,
+# DECODE_MAX_M), then the prefill route's
 SWEEP_M = [1, 2, 3, 4, 5, 8, 15, 16, 17, 33, 64, 65, 128, 129, 1024]
 
 
@@ -652,6 +657,84 @@ def test_decompress_matmul_cuda_graph(cuda):
     with torch.cuda.graph(graph, stream=side):
         out = ops.matmul_compressed(x, sm, pl, d, k=5)
     assert decompress_matmul.launches == before + 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+# the prefill route (M > DECODE_MAX_M): every tile the plan can pick,
+# forced one at a time
+PREFILL_M = [129, 200, 1000, 1024, 4096]
+
+
+@pytest.fixture(params=decompress_matmul.PREFILL_TILES,
+                ids=[f"{bm}x{bn}" for bm, bn in
+                     decompress_matmul.PREFILL_TILES])
+def prefill_tile(request, monkeypatch):
+    """The plan's prefill tile forced to ``request.param`` (BM, BN)."""
+    dm = decompress_matmul
+    monkeypatch.setattr(dm, "PREFILL_TILES", (request.param,))
+    dm.plan.cache_clear()
+    dm._launch.cache_clear()
+    yield request.param
+    dm.plan.cache_clear()
+    dm._launch.cache_clear()
+
+
+@pytest.mark.parametrize("m", PREFILL_M)
+@pytest.mark.parametrize("kk,n", [(2560, 1024), (300, 96), (4095, 1056)],
+                         ids=["qwen3-wk", "ragged-k300-n96",
+                              "ragged-k4095-n1056"])
+def test_prefill_route_every_m(cuda, prefill_tile, kk, n, m):
+    """The prefill route on each tile at M from one row past the decode
+    route to 4096 (ragged last M tile), K not a multiple of the 64-row
+    step (300, 4095: element-wise x loads), N not a multiple of the column
+    tile (96, 1056: 4-byte plane copies)."""
+    p = decompress_matmul.plan(m, kk, n, 5)
+    assert p.route == "prefill" and (p.mrows, p.bn) == prefill_tile
+    _dm_check(torch.Generator(device=cuda).manual_seed(m + kk + n), m, kk,
+              n, 5)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("kk,n", [(1000, 32 * 33), (300, 96)],
+                         ids=["ragged", "odd-k"])
+def test_prefill_route_every_k(cuda, prefill_tile, kk, n, k):
+    _dm_check(torch.Generator(device=cuda).manual_seed(kk + k), 200, kk, n,
+              k, make=_weight_any_k)
+
+
+def test_prefill_route_x_unaligned(cuda, prefill_tile):
+    """x 2 bytes off a 16-byte boundary (K % 8 == 0): element-wise x
+    loads."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    m, kk, n = 1024, 2560, 1024
+    x = _bf16(gen, (m * kk + 1,))[1:].view(m, kk)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _dm_check(gen, m, kk, n, 5, x=x)
+
+
+@pytest.mark.parametrize("kk,n", QWEN3_4B_WEIGHTS[:5],
+                         ids=[f"{a}x{b}" for a, b in QWEN3_4B_WEIGHTS[:5]])
+def test_prefill_route_same_bits_and_graph(cuda, kk, n):
+    """At M = 1024 on the plan's tile: three launches give the same bits,
+    and one CUDA-graph capture replayed twice gives them too."""
+    x, sm, pl, d = _dm_operands(kk + n, 1024, kk, n)
+    assert decompress_matmul.plan(1024, kk, n, 5).route == "prefill"
+    want = ops.matmul_compressed(x, sm, pl, d, k=5)
+    for _ in range(2):
+        assert torch.equal(ops.matmul_compressed(x, sm, pl, d, k=5)
+                           .view(torch.int32), want.view(torch.int32))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = dict(decompress_matmul.launches_by_route)
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.matmul_compressed(x, sm, pl, d, k=5)
+    assert decompress_matmul.launches_by_route["prefill"] == \
+        before["prefill"] + 1
     for _ in range(2):
         out.zero_()
         graph.replay()

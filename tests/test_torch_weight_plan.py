@@ -2,11 +2,13 @@
 (``repro_torch.kernels.decompress_matmul.plan``), on the CPU: pure
 Python, no card.
 
-The plan picks the kernel's route from (M, K, N, k) and sizes the decode
-route's split-K grid.  These tests hold it to what the kernel assumes
-(every K row in exactly one split, splits aligned to the ring's chunk)
-and to what it promises: a grid that fills an H100 at qwen3-4b's decode
-shapes, and f32 partials that stay a small share of the packed W.
+The plan picks the kernel's route from (M, K, N, k), sizes the decode
+route's split-K grid and picks the prefill route's tile.  These tests
+hold it to what the kernel assumes (every K row in exactly one split,
+splits aligned to the ring's chunk; every output in exactly one prefill
+tile, a grid and shared memory the card takes) and to what it promises:
+a grid that fills an H100 at qwen3-4b's decode shapes, and f32 partials
+that stay a small share of the packed W.
 """
 
 import math
@@ -23,11 +25,30 @@ QWEN3_4B = [(2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728),
             (9728, 2560), (2560, 151936)]
 
 
-def _check_cover(p, m, kk, n):
+def _check_prefill_cover(p, m, kk, n, k):
+    """A prefill tile the kernel has, all K in the CTA's loop, every output
+    (row, column) in exactly one tile of the (M tiles, N tiles) grid, the
+    grid and the tile's shared memory within an H100's limits."""
+    assert (p.mrows, p.bn) in D.PREFILL_TILES
+    assert (p.splits, p.depth, p.rows) == (1, kk, D.PREFILL_BK)
+    gx, gy, gz = p.grid(m, n)
+    assert gz == 1 and gy <= D.MAX_GRID_YZ and gx < 1 << 31
+    for extent, tile, tiles in ((m, p.mrows, gx), (n, p.bn, gy)):
+        covered = [0] * extent
+        for t in range(tiles):
+            for i in range(t * tile, min(extent, (t + 1) * tile)):
+                covered[i] += 1
+        assert covered == [1] * extent
+        assert (tiles - 1) * tile < max(extent, 1)    # no empty tile
+    assert p.ctas(m, n) == gx * gy
+    assert D.prefill_smem_bytes(p.mrows, p.bn, k) <= D.MAX_SMEM
+
+
+def _check_cover(p, m, kk, n, k=5):
     """Every K row in exactly one split, splits a whole number of chunks,
     and the shapes the kernel's layout takes."""
     if p.route == "prefill":
-        assert (p.bn, p.splits, p.depth) == (128, 1, kk)
+        _check_prefill_cover(p, m, kk, n, k)
         return
     assert p.bn in (32, 64, 128) and p.rows == D.chunk_rows(p.bn)
     assert p.rows % 16 == 0 and p.depth % p.rows == 0 and p.depth >= p.rows
@@ -49,7 +70,7 @@ def _check_cover(p, m, kk, n):
                          + QWEN3_4B)
 def test_plan_covers_every_row_once(m, kk, n):
     for k in (1, 5, 8):
-        _check_cover(D.plan(m, kk, n, k), m, kk, n)
+        _check_cover(D.plan(m, kk, n, k), m, kk, n, k)
 
 
 @pytest.mark.parametrize("kk,n", QWEN3_4B,
@@ -74,6 +95,42 @@ def test_plan_routes_by_m():
     assert D.plan(4, 2560, 1024, 5, "prefill").route == "prefill"
     with pytest.raises(ValueError, match="route"):
         D.plan(4, 2560, 1024, 5, "split")
+
+
+@pytest.mark.parametrize("m", [129, 200, 256, 1000, 1024, 4096])
+@pytest.mark.parametrize("kk,n", QWEN3_4B, ids=[f"{a}x{b}" for a, b in QWEN3_4B])
+def test_prefill_tile_per_qwen3_shape(m, kk, n):
+    """At every prefill M and code width, the tile of least cost, each
+    output in one tile; at M = 1024 the tiles measured fastest on the
+    H100: 128 x 128 for wk/wv (N = 1024: 64 CTAs, one wave), 256 x 128
+    for the rest."""
+    for k in range(1, 9):
+        p = D.plan(m, kk, n, k)
+        assert p.route == "prefill"
+        _check_prefill_cover(p, m, kk, n, k)
+        assert D.prefill_cost(m, n, p.mrows, p.bn) == min(
+            D.prefill_cost(m, n, *t) for t in D.PREFILL_TILES)
+    if m == 1024:
+        assert (D.plan(m, kk, n, 5).mrows, D.plan(m, kk, n, 5).bn) == \
+            ((128, 128) if n == 1024 else (256, 128))
+
+
+def test_prefill_smem_and_grid_limits():
+    """Every tile at every code width within a CTA's 232,448 B of shared
+    memory (with the kernel's static 512 B dictionary and 64 B of
+    mbarriers); the largest vocabulary's column tiles within the grid's
+    y limit; the prefill route forced at tiny M still covers it."""
+    for bm, bn in D.PREFILL_TILES:
+        for k in range(1, 9):
+            assert D.prefill_smem_bytes(bm, bn, k) + 512 + 64 <= D.MAX_SMEM
+    assert D.prefill_smem_bytes(256, 128, 8) > D.prefill_smem_bytes(
+        128, 128, 8) > D.prefill_smem_bytes(128, 128, 1)
+    p = D.plan(1024, 2560, 151936, 5)
+    assert p.grid(1024, 151936)[1] == 1187 <= D.MAX_GRID_YZ
+    for m in (1, 4, 64):
+        p = D.plan(m, 300, 96, 5, "prefill")
+        _check_prefill_cover(p, m, 300, 96, 5)
+        assert p.grid(m, 96) == (1, 1, 1)
 
 
 def test_plan_small_shapes():
