@@ -18,6 +18,15 @@ non-zero:
                4 slots of 300..2000 tokens), including pages with escapes
                and with escape overflow; exact equality for the histogram
                and the pack, rtol = atol = 1e-4 for paged attention.
+               The two codec kernels also at the shapes of the encoder's
+               other callers (``CODEC_SHAPES``: a ring flush's page, the
+               fixed store's 3 records, the largest stacked weight leaf),
+               exact, each timed with and without the spin, after a clean
+               L2, and by the host's time per call, beside its bound and a
+               ``Tensor.copy_`` of the same input; then one
+               ``fixed.compress_many`` of 1 and of 16 pages, whole and by
+               part (the two kernels, the dictionary, the escape side
+               channel).
                The weight plane's kernels at qwen3-4b's weight shapes:
                ``lexi_unpack`` exact on one packed stacked leaf (36, 2560 x
                9728) and on the pool pages (``ops.unpack`` equal to
@@ -137,21 +146,27 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3, spin: bool = True
-            ) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, spin: bool = True,
+            clean: bool = False) -> float:
     """Median device time of ``fn`` in ms; the 50 MB L2 is flushed before
     every timed launch (the decode path meets its pages cold).  With
     ``spin``, a 1-million-cycle spin on the card after the flush lets the
     host enqueue ``fn`` before the first event is reached, so the host's
     own time to launch (the wrapper's checks, ctypes) is not counted;
-    without it, that time is counted wherever it exceeds the flush's."""
+    without it, that time is counted wherever it exceeds the flush's.
+    The flush writes 96 MB, so ``fn`` finds the L2 full of dirty lines,
+    which its own misses write back to memory; with ``clean``, the flush
+    reads the 96 MB instead and ``fn`` finds the L2 full of clean lines."""
     import torch
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.zeros(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.view(torch.int64).max()
+        else:
+            flush.zero_()
         if spin:
             torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
@@ -356,13 +371,149 @@ def sdpa_fn(q, rows):
         q[:, :, None], kk, vv, enable_gqa=True)
 
 
+# the encoder's callers' shapes (rows x elements): a decode-step ring
+# flush (one page), chip_smoke's 16-page table, the fixed batch's store
+# (up to 3 records), the largest stacked weight leaf (36 x 2560 x 9728)
+CODEC_SHAPES = (("flush", 1, 524288), ("table", 16, 524288),
+                ("fixed", 3, 2097152), ("leaf", 36, 24903680))
+
+
+def codec_bounds(g: int, n: int, k: int):
+    """The two codec kernels' bounds in ms: the histogram reads 2 bytes an
+    element; the pack reads 2 and writes 1 + k/8."""
+    return {"exp_histogram": 2 * g * n / HBM_BYTES_PER_S * 1e3,
+            "lexi_pack": (3 + k / 8) * g * n / HBM_BYTES_PER_S * 1e3}
+
+
+def codec_inputs(gen, pages):
+    """(name, x) for CODEC_SHAPES: the first two from ``pages`` (16 K/V-like
+    pages, with escapes and overflow), the store K/V-like, the leaf
+    N(0, 0.02) like the weights."""
+    import torch
+    for name, g, n in CODEC_SHAPES:
+        if name in ("flush", "table"):
+            x = pages[:g]
+        else:
+            x = torch.randn((g, n), generator=gen, device="cuda")
+            if name == "leaf":
+                x = x * 0.02
+            x = x.to(torch.bfloat16)
+        assert tuple(x.shape) == (g, n), (name, x.shape)
+        yield name, x
+
+
+def codec_check(name, x, k):
+    """Both codec kernels on x bit for bit against the plain versions;
+    rows 0 and -1 alone where the plain versions do not fit on the card."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import ops, ref
+    hist = ops.histogram(x)
+    lut = fixed.build_dictionary(hist, k)[1]
+    sm, pl = ops.pack(x, lut, k)
+    try:
+        sel = slice(None)
+        want = ref.histogram_ref(x)
+        sm_p, pl_p = ref.pack_ref(x, lut, k)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        sel = [0, x.shape[0] - 1]
+        want = ref.histogram_ref(x[sel])
+        sm_p, pl_p = ref.pack_ref(x[sel], lut[sel], k)
+    assert torch.equal(hist[sel], want), f"exp_histogram != plain ({name})"
+    assert torch.equal(sm[sel], sm_p) and torch.equal(pl[sel], pl_p), \
+        f"lexi_pack != plain ({name})"
+    del want, sm_p, pl_p, sm, pl
+    torch.cuda.empty_cache()
+    return "all rows" if sel == slice(None) else "rows 0 and -1 (plain OOM)"
+
+
+def codec_timing(x, k):
+    """Both codec kernels on x: ms with and without the spin, with the
+    spin after a clean flush, the host's us per call, and the bound; and,
+    as a yardstick of what streaming x costs at this size, one
+    ``Tensor.copy_`` of x (reads and writes 2 bytes an element) timed
+    both ways."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import ops
+    lut = fixed.build_dictionary(ops.histogram(x), k)[1]
+    bounds = codec_bounds(*x.shape, k)
+    out = {}
+    for kern, fn in (("exp_histogram", lambda: ops.histogram(x)),
+                     ("lexi_pack", lambda: ops.pack(x, lut, k))):
+        out[kern] = dict(ms=cuda_ms(fn), ms_no_spin=cuda_ms(fn, spin=False),
+                         ms_clean=cuda_ms(fn, clean=True),
+                         host_us=host_us(fn), bound_ms=bounds[kern])
+    dst = torch.empty_like(x)
+    out["copy"] = dict(ms=cuda_ms(lambda: dst.copy_(x)),
+                       ms_clean=cuda_ms(lambda: dst.copy_(x), clean=True),
+                       bound_ms=4 * x.numel() / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def codec_shapes(gen, pages, k):
+    """exp_histogram and lexi_pack at CODEC_SHAPES: exact, then timed."""
+    shapes = {}
+    for name, x in codec_inputs(gen, pages):
+        how = codec_check(name, x, k)
+        shapes[name] = t = codec_timing(x, k)
+        cp = t["copy"]
+        log("kernels", f"codec {name} {tuple(x.shape)} k={k}: exact against "
+                       f"the plain versions ({how}); " + "; ".join(
+                           f"{kern} {r['ms']:.5f} ms (no spin "
+                           f"{r['ms_no_spin']:.5f}, clean L2 "
+                           f"{r['ms_clean']:.5f}, host {r['host_us']:.1f} "
+                           f"us, bound {r['bound_ms']:.5f}, "
+                           f"{r['bound_ms'] / r['ms']:.0%} of it)"
+                           for kern, r in t.items() if kern != "copy")
+                       + f"; yardstick Tensor.copy_ {cp['ms']:.5f} ms (clean "
+                       f"L2 {cp['ms_clean']:.5f}, bound {cp['bound_ms']:.5f})")
+        del x
+    return shapes
+
+
+def compress_share(pages, k, c):
+    """One fixed.compress_many of 1 and of 16 pages, timed whole and by
+    part: the two kernels, the dictionary build and the rest (the escape
+    side channel's torch ops), with the spin; and the whole without it
+    and by the host's time per call."""
+    from repro_torch.core import fixed
+    from repro_torch.kernels import ops
+    out = {}
+    for g in (1, pages.shape[0]):
+        x = pages[:g]
+        hist = ops.histogram(x)
+        lut = fixed.build_dictionary(hist, k)[1]
+        fn = lambda: fixed.compress_many(x, k=k, esc_capacity=c)
+        t = dict(ms=cuda_ms(fn), ms_no_spin=cuda_ms(fn, spin=False),
+                 host_us=host_us(fn),
+                 exp_histogram=cuda_ms(lambda: ops.histogram(x)),
+                 build_dictionary=cuda_ms(
+                     lambda: fixed.build_dictionary(hist, k)),
+                 lexi_pack=cuda_ms(lambda: ops.pack(x, lut, k)))
+        t["rest"] = t["ms"] - t["exp_histogram"] - t["build_dictionary"] \
+            - t["lexi_pack"]
+        out[g] = t
+        log("kernels", f"compress_many ({g} x {x.shape[1]}, k={k}): "
+                       f"{t['ms']:.5f} ms (no spin {t['ms_no_spin']:.5f}, "
+                       f"host {t['host_us']:.1f} us/call); exp_histogram "
+                       f"{t['exp_histogram']:.5f} + lexi_pack "
+                       f"{t['lexi_pack']:.5f} = "
+                       f"{(t['exp_histogram'] + t['lexi_pack']) / t['ms']:.1%}"
+                       f"; build_dictionary {t['build_dictionary']:.5f} "
+                       f"({t['build_dictionary'] / t['ms']:.1%}); the rest "
+                       f"(escape side channel) {t['rest']:.5f} "
+                       f"({t['rest'] / t['ms']:.1%})")
+    return out
+
+
 def kernels_phase(cfg):
     import torch
     from repro_torch.core import entropy as E
     from repro_torch.core import fixed
     from repro_torch.kernels import attend_cases as AC
-    from repro_torch.kernels import decode_attend, exp_histogram, lexi_pack
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import decode_attend, ops, ref
     from repro_torch.models import cache as cache_mod
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -378,11 +529,10 @@ def kernels_phase(cfg):
     rows = pages.reshape(n_pages, n)
     rec = {}
 
-    # exp_histogram: exact, integer
+    # exp_histogram and lexi_pack: exact, at the four shapes of the
+    # encoder's callers; the JSON rows are the 16-page table's
+    shapes = codec_shapes(gen, rows, k)
     want = ref.histogram_ref(rows)
-    got = ops.histogram(rows)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want), "exp_histogram != plain"
     g = n_pages
     # yardstick: one torch.bincount over (row, exponent) keys; the exponent
     # field is extracted into the keys beforehand, outside the timing
@@ -390,31 +540,24 @@ def kernels_phase(cfg):
             + E.exponent(E.to_u16(rows))).reshape(-1)
     assert torch.equal(torch.bincount(keys, minlength=g * 256)
                        .reshape(g, 256).to(torch.int32), want)
+    table = shapes["table"]
     rec["exp_histogram"] = dict(
-        max_abs_err=int((got - want).abs().max()),
-        ms=cuda_ms(lambda: exp_histogram.exp_histogram(rows)),
+        max_abs_err=0, ms=table["exp_histogram"]["ms"],
         plain_ms=cuda_ms(lambda: ref.histogram_ref(rows), reps=5),
-        bound_ms=2 * n * g / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bound_ms=table["exp_histogram"]["bound_ms"], bound_by="bytes",
         library_ms=cuda_ms(lambda: torch.bincount(keys, minlength=g * 256)))
     del keys
     log("kernels", f"exp_histogram ({g} x {n}) exact: "
                    f"{rec['exp_histogram']}")
-
-    # lexi_pack: exact bytes, with each page's own dictionary
     _, enc_lut = fixed.build_dictionary(want, k)
-    sm_k, pl_k = ops.pack(rows, enc_lut, k)
-    sm_p, pl_p = ref.pack_ref(rows, enc_lut, k)
-    torch.cuda.synchronize()
-    assert torch.equal(sm_k, sm_p) and torch.equal(pl_k, pl_p), \
-        "lexi_pack != plain"
     rec["lexi_pack"] = dict(
-        max_abs_err=0,
-        ms=cuda_ms(lambda: lexi_pack.lexi_pack(rows, enc_lut, k)),
+        max_abs_err=0, ms=table["lexi_pack"]["ms"],
         plain_ms=cuda_ms(lambda: ref.pack_ref(rows, enc_lut, k), reps=5),
-        bound_ms=(2 * n + n + k * n / 8) * g / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None)
+        bound_ms=table["lexi_pack"]["bound_ms"], bound_by="bytes",
+        library_ms=None)
     log("kernels", f"lexi_pack ({g} x {n}, k={k}) exact: "
                    f"{rec['lexi_pack']}")
+    compress_share(rows, k, c)
 
     # the kernel-backed codec equals the CPU codec byte for byte
     ct = fixed.compress_many(pages, k=k, esc_capacity=c)

@@ -3,7 +3,7 @@
 call that computes the same function.
 
     python3 scripts/kernel_timing.py [--tree DIR] [--label NAME]
-        [--kernels attend,weights] [--breakdown]
+        [--kernels attend,weights,codec] [--breakdown]
 
 Imports ``repro_torch`` from DIR/src (default: this checkout), builds that
 tree's kernel library, and times, with chip_smoke.py's ``cuda_ms`` and
@@ -23,7 +23,15 @@ tree's kernel library, and times, with chip_smoke.py's ``cuda_ms`` and
            each shape, checked bit for bit; one decode step's sums at M = 4
            (7 matmuls per layer and the LM head, as chip_smoke.py counts
            them) and one prefill's sums at M = 1024 and 256 (the 252 block
-           matmuls; the LM head runs on the last positions only).
+           matmuls; the LM head runs on the last positions only);
+  codec    ``exp_histogram`` and ``lexi_pack`` at chip_smoke.py's four
+           codec shapes (a ring flush's page, the 16-page table, the fixed
+           store's 3 records, the largest stacked weight leaf; k 5), each
+           checked bit for bit against its plain version (the leaf's
+           first and last rows); one ``fixed.compress_many`` of 1 and of
+           16 pages, whole and by part; and the whole-model pack of
+           full-width qwen3-4b's random weights (``pack_serving_params``,
+           ``cuda`` backend; host clock, median of 3 after one warm-up).
 
 Each reading:
 
@@ -224,13 +232,55 @@ def weight_kernels(cs, cfg, gen):
                 **{f"prefill_m{m}": v for m, v in prefill.items()})
 
 
+def codec(cs, gen):
+    """The codec kernels at chip_smoke's shapes, compress_many's parts,
+    and the whole-model pack time."""
+    import statistics
+    import time
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import weights
+    from repro_torch.models import lm, params as PM
+
+    blk, w, k = 256, 2048, 5
+    n = blk * w
+    pages = cs._pages(gen, 16, blk, w).reshape(16, n)
+    shapes = {}
+    for name, x in cs.codec_inputs(gen, pages):
+        if name == "leaf":          # the plain versions' rows 0 and -1
+            cs.codec_check(name, x[[0, -1]].contiguous(), k)
+        else:
+            cs.codec_check(name, x, k)
+        shapes[name] = cs.codec_timing(x, k)
+        del x
+    share = cs.compress_share(pages, k, max(n // 128, 8))
+    del pages
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-4b")
+    params = PM.init_params(lm.lm_table(cfg),
+                            torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = weights.pack_serving_params(params, backend="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del packed
+    del params
+    torch.cuda.empty_cache()
+    return dict(shapes=shapes, compress_many=share,
+                pack_s=statistics.median(times[1:]), pack_s_all=times)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--kernels", default="attend,weights",
-                    help="comma-separated: attend, weights")
+                    help="comma-separated: attend, weights, codec")
     ap.add_argument("--breakdown", action="store_true")
     opts = ap.parse_args()
     tree = opts.tree.resolve()
@@ -254,7 +304,7 @@ def main() -> int:
     h, hkv, hd, blk, k = 32, 8, 128, 256, 5           # qwen3-4b, block 256
     gen = torch.Generator(device="cuda").manual_seed(0)
     kinds = set(opts.kernels.split(","))
-    if not kinds <= {"attend", "weights"}:
+    if not kinds <= {"attend", "weights", "codec"}:
         ap.error(f"unknown --kernels {opts.kernels!r}")
     rec = dict(label=opts.label or str(tree), card=card)
     if "attend" in kinds:
@@ -265,6 +315,8 @@ def main() -> int:
     if "weights" in kinds:
         from repro_torch.configs import get_config
         rec["weights"] = weight_kernels(cs, get_config("qwen3-4b"), gen)
+    if "codec" in kinds:
+        rec["codec"] = codec(cs, gen)
     line = json.dumps(rec)
     print(line)
     out = ROOT / "chiprun_out"

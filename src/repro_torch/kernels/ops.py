@@ -279,8 +279,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _SIGNATURES = {
-    "exp_histogram_launch": [_P, _P, _I, _LL, _P],
-    "lexi_pack_launch": [_P, _P, _P, _P, _I, _LL, _I, _P],
+    "exp_histogram_launch": [_P] * 4 + [_I, _LL, _I, _LL, _I, _P],
+    "lexi_pack_launch": [_P] * 4 + [_I, _LL, _I, _I, _I, _P],
     "decode_attend_paged_launch": [_P] * 15 + [_I] * 12 + [_F, _F, _I, _P],
     "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     "decompress_matmul_launch": [_P] * 7 + [ctypes.POINTER(_I), _P],

@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import fixed, weights
 from repro_torch.core.collectives import CodecConfig
 from repro_torch.kernels import decode_attend, decompress_matmul, lexi_unpack
+from repro_torch.kernels import exp_histogram, lexi_pack
 from repro_torch.kernels import attend_cases as AC
 from repro_torch.kernels import ops, ref
 from repro_torch.models import lm, params as PM
@@ -68,6 +69,188 @@ def test_codec_kernels_match_plain(cuda, n):
     ct_cpu = fixed.compress_many(x.cpu(), k=5)
     for f in FIELDS:
         assert torch.equal(getattr(ct, f).cpu(), getattr(ct_cpu, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the codec kernels: exp_histogram and lexi_pack, exact against the plain
+# versions
+# ---------------------------------------------------------------------------
+
+CODEC_NS = [1, 7, 31, 33, 1000, 524288 + 96]
+
+
+def _bits(gen, shape, device="cuda"):
+    """Arbitrary bf16 bit patterns: every exponent (0: zeros and
+    subnormals, 255: infinities and NaNs), sign and mantissa."""
+    return torch.randint(-(1 << 15), 1 << 15, shape, generator=gen,
+                         device=device, dtype=torch.int16).view(torch.bfloat16)
+
+
+def _luts(gen, g, k):
+    """A distinct random encode LUT per row, codes in 0 .. 2^k - 1."""
+    return torch.randint(0, 1 << k, (g, 256), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _check_codec(x, k, lut=None):
+    """Both kernels on x, one launch each, equal to the plain versions."""
+    before = ops.launch_counts()
+    hist = ops.histogram(x)
+    assert torch.equal(hist, ref.histogram_ref(x))
+    if lut is None:
+        lut = fixed.build_dictionary(hist, k)[1]
+    sm, pl = ops.pack(x, lut, k)
+    sm_p, pl_p = ref.pack_ref(x, lut, k)
+    assert torch.equal(sm, sm_p) and torch.equal(pl, pl_p)
+    after = ops.launch_counts()
+    assert after["exp_histogram"] == before["exp_histogram"] + 1
+    assert after["lexi_pack"] == before["lexi_pack"] + 1
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("n", CODEC_NS)
+def test_lexi_pack_every_k(cuda, n, k):
+    """Arbitrary bits and a random LUT per row at every code width: the
+    vector path (n % 16 == 0), a scalar last word (n % 32 != 0) and rows
+    that are all scalar."""
+    gen = torch.Generator(device=cuda).manual_seed(n * 10 + k)
+    x = _bits(gen, (3, n))
+    _check_codec(x, k, _luts(gen, 3, k))
+
+
+@pytest.mark.parametrize("g,n", [(1, 8), (2, 2048), (5, 524288),
+                                 (16, 524288), (3, 2097152), (400, 4096)]
+                         + [(3, n) for n in CODEC_NS])
+def test_exp_histogram_shapes(cuda, g, n):
+    """One CTA a row, several (the last one merges), more rows than the
+    grid's fill; wide exponents; the dictionary's LUT packs exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(g * n)
+    _check_codec(_bf16(gen, (g, n), spread=40), 5)
+
+
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3])
+def test_codec_one_repeated_value(cuda, n):
+    """One value over long rows, each row one CTA's (more rows than the
+    grid's fill): every thread's 8-bit counter of that bin would wrap
+    many times over unless folded in time."""
+    g = 200
+    assert exp_histogram.plan(g, n, n % 8 == 0).ctas == 1
+    x = torch.full((g, n), 1.5, dtype=torch.bfloat16, device=cuda)
+    x[g // 2:] = -3.0e-3
+    _check_codec(x, 3)
+    assert int(ops.histogram(x).max()) == n
+
+
+def test_codec_exponents_0_and_255(cuda):
+    """Zeros, subnormals, infinities and NaNs beside normal values."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _bf16(gen, (4, 4096), spread=20)
+    specials = torch.tensor([0.0, -0.0, 1e-40, -1e-39, float("inf"),
+                             float("-inf"), float("nan")],
+                            dtype=torch.bfloat16, device=cuda)
+    pick = torch.randint(0, len(specials), (4, 4096), generator=gen,
+                         device=cuda)
+    x = torch.where(torch.rand((4, 4096), generator=gen, device=cuda) < 0.3,
+                    specials[pick], x)
+    hist = ops.histogram(x)
+    assert int(hist[:, 0].min()) > 0 and int(hist[:, 255].min()) > 0
+    for k in (2, 5, 8):
+        _check_codec(x, k)
+
+
+@pytest.mark.parametrize("n", [4096, 1000])
+def test_codec_unaligned_rows(cuda, n):
+    """x contiguous but not 16-byte aligned (a view at storage offset 1):
+    both kernels take their scalar paths and give the same bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    base = _bf16(gen, (3 * n + 1,), spread=12)
+    x = base[1:].view(3, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert not exp_histogram.vector_path(n, x.data_ptr())
+    _check_codec(x, 5)
+
+
+def test_codec_two_launches_same_bytes(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _bf16(gen, (16, 524288), spread=9)
+    h1, h2 = ops.histogram(x), ops.histogram(x)
+    assert torch.equal(h1, h2)
+    lut = fixed.build_dictionary(h1, 5)[1]
+    (s1, p1), (s2, p2) = ops.pack(x, lut, 5), ops.pack(x, lut, 5)
+    assert torch.equal(s1, s2) and torch.equal(p1, p2)
+
+
+def test_codec_cuda_graph(cuda):
+    """histogram -> build_dictionary -> pack captured once on static
+    buffers, replayed on new data: equal to an eager run on that data."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _bf16(gen, (16, 524288), spread=9)
+
+    def encode():
+        hist = ops.histogram(x)
+        dict_syms, lut = fixed.build_dictionary(hist, 5)
+        return (hist, dict_syms, *ops.pack(x, lut, 5))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # the capture stream's workspace
+        encode()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = encode()
+    for seed in (7, 8):
+        x.copy_(_bf16(torch.Generator(device=cuda).manual_seed(seed),
+                      x.shape, spread=seed))
+        want = encode()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+def test_exp_histogram_streams_have_own_workspace(cuda):
+    """Launches on two streams that may overlap: each stream has its own
+    partials and arrival counters, so every result equals the call made
+    alone."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = _bf16(gen, (16, 524288), spread=9)
+    assert exp_histogram.plan(16, 524288, True).ctas > 1
+    want = ops.histogram(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        got.append(ops.histogram(x))
+        with torch.cuda.stream(side):
+            got.append(ops.histogram(x))
+    torch.cuda.current_stream().wait_stream(side)
+    for res in got:
+        assert torch.equal(res, want)
+    here = torch.cuda.current_stream().cuda_stream
+    assert {here, side.cuda_stream} <= {
+        s for _, s in exp_histogram._workspaces}
+
+
+def test_codec_one_launch_per_call(cuda):
+    """Each call is one kernel on the card, and the histogram needs no
+    memset: a torch.profiler trace of one call of each (after a warm-up
+    call has made the workspace) holds exactly its kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = _bf16(gen, (16, 524288), spread=9)
+    lut = fixed.build_dictionary(ops.histogram(x), 5)[1]
+    ops.pack(x, lut, 5)
+    torch.cuda.synchronize()
+    for name, call in (("exp_histogram_kernel", lambda: ops.histogram(x)),
+                       ("lexi_pack_kernel", lambda: ops.pack(x, lut, 5))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and name in names[0], names
 
 
 HEAD_MAPS = [(4, 2), (5, 1), (8, 8), (32, 8)]
