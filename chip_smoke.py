@@ -47,7 +47,10 @@ non-zero:
                sequences of 1100 tokens, block 256, k 5; full, window 700,
                softcap, codec off, a block whose escapes overflow inside
                sequence 2) and at gemma2-9b's (H 16/8, hd 256, 4400
-               tokens, window 4096, softcap 50), within 1e-4.  Both
+               tokens, window 4096, softcap 50), within 1e-4, in both its
+               launch forms: the length from the host, and the length a
+               device int32 with the grid the store's capacity (the form
+               the decode loop and its CUDA graph run; timed).  Both
                attention kernels split each stream into spans of P = 128
                rows across CTAs and merge in the kernel: their split edge
                cases (lengths 0, 1, P - 1, P, P + 1, blk, blk + 1, 2 blk;
@@ -69,18 +72,29 @@ non-zero:
                the same weights and tokens, raw and packed weights: logits
                agree within 1e-2.
   5. serve   — ServeEngine on full-width qwen3-4b (random weights from a
-               seed): 6 mixed requests over 4 slots, pages filled at
-               prefill and by ring flushes in replay and decode.  Every
-               request must get its budget and every kernel must have
-               launched.  In the last layer, every page a ring flush wrote
-               during the run must decode back, bit for bit, to its ring,
-               whose rows appended in the run must be the K/V the decode
-               and replay steps produced; so must the pages of four fresh
-               prefills, against the K/V of the model's forward pass.
-  6. profile — 8 decode steps of those 4 slots under torch.profiler:
-               host ms per step, device busy ms per step and share, the
-               attention kernel's share of device time, and the top
-               kernels (full table in ``chiprun_out/profile_decode.txt``).
+               seed), eagerly (``cuda_graphs=False``: the flush check reads
+               the card inside the step): 6 mixed requests over 4 slots,
+               pages filled at prefill and by ring flushes in replay and
+               decode.  Every request must get its budget and every kernel
+               must have launched.  In the last layer, every page a ring
+               flush wrote during the run must decode back, bit for bit, to
+               its ring, whose rows appended in the run must be the K/V the
+               decode and replay steps produced; so must the pages of four
+               fresh prefills, against the K/V of the model's forward pass.
+  6. graphs  — the same mix from CUDA graphs (the engine's default on the
+               card): streams, page table, page use and every byte of the
+               pool's pages and rings equal to the eager run's; every
+               eager step a flushing one and no other, the rest replayed,
+               the paged kernel launched once per layer and step.  The mix
+               again eagerly without the check (tok/s, TTFT of both).
+               Then 8 decode steps of the 4 fresh slots, eagerly and from
+               the graph, under torch.profiler: host ms per step, device
+               busy ms per step and share, tokens/s, kernels and host
+               launch calls per step, eager and replayed steps, the
+               attention kernel's share and the top kernels (full tables
+               in ``chiprun_out/profile_decode{,_graph}.txt``); and one
+               flushing step timed on its own beside a replayed step and
+               an eager step without a flush.
   7. fixed   — the fixed-batch loop (``engine.prefill`` +
                ``engine.decode_step``, the launcher's default mode) on the
                serve phase's weights: 4 prompts of 1000 tokens, 40 greedy
@@ -88,8 +102,12 @@ non-zero:
                layer's ``decode_attend`` launches once per step; the
                flushed block of layers 0 and 35 decodes bit for bit to its
                ring; the codec off (raw blocks) gives the same tokens.
+               The loop as ``generate`` runs it (``engine.FixedDecoder``),
+               eagerly and from a CUDA graph: the same tokens, block stores
+               and rings byte for byte, only the flushing step eager.
                Prints tokens/s and ms per decode step, then 8 steps under
-               the profiler (``chiprun_out/profile_decode_fixed.txt``),
+               the profiler, eager and from the graph
+               (``chiprun_out/profile_decode_fixed{,_graph}.txt``),
                how many tokens equal ``ServeEngine``'s on the same prompts
                and, at each sequence's first divergence, the top-2 logit
                margin of both paths and the largest gap between their
@@ -107,14 +125,19 @@ non-zero:
                raw run and its first divergence are printed, with the
                top-2 logit margin and the largest logit gap of the two
                weight stores there, the raw run's tokens teacher-forced
-               through both); tok/s and TTFT mean/p50/p95 of each.  Every
-               request gets its budget; both weight kernels launch; the
-               ``cuda`` run's admissions make 252 prefill-route launches
-               each (``decompress_matmul.launches_by_route``).
+               through both); tok/s and TTFT mean/p50/p95 of each, all
+               three from CUDA graphs; then ``cuda`` eagerly, whose
+               streams, page table and pool bytes the graph run must
+               equal.  Every request gets its budget; both weight kernels
+               launch; the ``cuda`` run's admissions make 252
+               prefill-route launches each
+               (``decompress_matmul.launches_by_route``).
                Last, the serve phase's 4 slots decode 8 steps from the
-               packed store under the profiler, as in phase 6
-               (``chiprun_out/profile_decode_packed.txt``).
-  9. the card's line, the ``kernels`` JSON line, then the result line.
+               packed store under the profiler, eagerly and from the
+               graph, as in phase 6
+               (``chiprun_out/profile_decode_packed{,_graph}.txt``).
+  9. the card's line, the ``kernels`` JSON line (launches from the runs
+     from CUDA graphs, the replays counted), then the result line.
 """
 
 from __future__ import annotations
@@ -753,22 +776,39 @@ def split_edges_fixed(cfg, gen):
     ring = torch.randn((b, blk, w), generator=gen, device="cuda"
                        ).to(torch.bfloat16)
     kw = dict(k=k, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
-    worst, n_calls = 0.0, 0
+    dev_len = torch.zeros((), dtype=torch.int32, device="cuda")
+    worst, n_calls, same = 0.0, 0, 0
     for length in lengths:
+        dev_len.fill_(length)
         for window, softcap in ((ref.WINDOW_NONE, None), (700, None),
                                 (5, None), (ref.WINDOW_NONE, 50.0)):
             args = (q, *store, ring, length, window)
-            got = decode_attend.decode_attend(*args, **kw, softcap=softcap)
-            worst = max(worst, AC.attend_close(got, ref.decode_attend_plain(
-                *args, **kw, softcap=softcap)))
-            assert AC.same_bits(got, decode_attend.decode_attend(
-                *args, **kw, softcap=softcap)), "fixed: launches differ"
-            n_calls += 1
+            want = ref.decode_attend_plain(*args, **kw, softcap=softcap)
+            host = None
+            # the host-length launch, then the device-length one (the
+            # length read on the card, the grid the store's capacity)
+            for form in (length, dev_len):
+                args = (q, *store, ring, form, window)
+                got = decode_attend.decode_attend(*args, **kw,
+                                                  softcap=softcap)
+                worst = max(worst, AC.attend_close(got, want))
+                assert AC.same_bits(got, decode_attend.decode_attend(
+                    *args, **kw, softcap=softcap)), "fixed: launches differ"
+                n_calls += 1
+                if host is None:
+                    host = got
+                else:
+                    AC.attend_close(got, host)
+                    same += AC.same_bits(got, host)
     log("kernels", f"decode_attend split edges (P={p}, block {blk}, B={b}): "
                    f"lengths {lengths}; full, window 700, window 5, softcap "
                    f"50; sequence 2 escapes on rows {p - 1} and {p} and past "
-                   f"the capacity: {n_calls} calls within 1e-4, each "
-                   f"launched twice bit for bit; max |err| {worst:.3e}")
+                   f"the capacity; host-length and device-length launches "
+                   f"({decode_attend.capacity_splits(nblk, blk)} splits): "
+                   f"{n_calls} calls within 1e-4, each launched twice bit "
+                   f"for bit; the two forms within 1e-4 of each other, "
+                   f"bit for bit in {same}/{n_calls // 2}; max |err| "
+                   f"{worst:.3e}")
     return worst
 
 
@@ -807,19 +847,22 @@ def _fixed_case(gen, b, h, hkv, hd, blk, length, k=5):
 
 def _fixed_check(args_codec, args_raw, kw_cases):
     """Kernel against plain version, normalised, within 1e-4, for every
-    (args, kwargs) case; returns the largest |error|."""
+    (args, kwargs) case, the host-length and the device-length launch;
+    returns the largest |error|."""
     import torch
     from repro_torch.kernels import decode_attend, ref
 
     worst = 0.0
     for codec_on, kw, window in kw_cases:
         args = (args_codec if codec_on else args_raw) + (window,)
-        o_k, _, l_k = decode_attend.decode_attend(*args, **kw)
         o_p, _, l_p = ref.decode_attend_plain(*args, **kw)
-        a = o_k / l_k.clamp(min=1e-30)[..., None]
         b = o_p / l_p.clamp(min=1e-30)[..., None]
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-        worst = max(worst, float((a - b).abs().max()))
+        dev = torch.tensor(args[-2], dtype=torch.int32, device="cuda")
+        for form in (args, args[:-2] + (dev, window)):    # both launches
+            o_k, _, l_k = decode_attend.decode_attend(*form, **kw)
+            a = o_k / l_k.clamp(min=1e-30)[..., None]
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            worst = max(worst, float((a - b).abs().max()))
     return worst
 
 
@@ -858,18 +901,34 @@ def fixed_attend_kernel(cfg, gen):
                        f"{length // blk} live blocks, escapes per block "
                        f"{n_esc[:3]}..., capacity {cap}) within 1e-4: full, "
                        f"window {window}, softcap {softcap}, codec off; "
+                       f"host-length and device-length launches; "
                        f"max |err| {errs[-1]:.3e}")
         if arch != cfg.name:
             del blocks, ct, ring, q, store, args, args_raw
             torch.cuda.empty_cache()
             continue
-        timed = (args + (full,), kw)
-        first = decode_attend.decode_attend(*timed[0], **timed[1])
-        assert AC.same_bits(first, decode_attend.decode_attend(*timed[0],
-                                                              **timed[1])), \
-            "decode_attend: two launches differ"
+        # timed: the device-length launch, as the decode loop runs it
+        # (its grid the store's capacity: length // blk + 1 blocks and the
+        # ring); the host-length launch logged beside it
+        host_form = (args + (full,), kw)
+        dev_len = torch.tensor(length, dtype=torch.int32, device="cuda")
+        timed = ((q, *store, ring, dev_len, full), kw)
+        for form in (host_form, timed):
+            first = decode_attend.decode_attend(*form[0], **form[1])
+            assert AC.same_bits(first, decode_attend.decode_attend(
+                *form[0], **form[1])), "decode_attend: two launches differ"
+        nblk = store[0].shape[0]
         grid_line("decode_attend", h, hkv, hd, blk, b,
                   decode_attend.fixed_splits(length, full, blk)[1], k)
+        grid_line("decode_attend", h, hkv, hd, blk, b,
+                  decode_attend.capacity_splits(nblk, blk), k)
+
+        def host_fn():
+            return decode_attend.decode_attend(*host_form[0], **host_form[1])
+
+        log("kernels", f"decode_attend host-length launch (grid from the "
+                       f"host length): {cuda_ms(host_fn):.4f} ms with the "
+                       f"spin, host time per call {host_us(host_fn):.1f} us")
         errs.append(split_edges_fixed(cfg, gen))
         live = length // blk
         lib_fn = sdpa_fn(q, fixed_rows(blocks, ring, length))
@@ -889,7 +948,7 @@ def fixed_attend_kernel(cfg, gen):
                             .decode_attend(*timed[0], **timed[1]), lib_fn))
     row["max_abs_err"] = max(errs)
     log("kernels", f"decode_attend at qwen3-4b's shapes, full window, "
-                   f"codec on: {row}")
+                   f"codec on, device-length launch: {row}")
     return row
 
 
@@ -1164,7 +1223,8 @@ class FlushCheck:
     layer's rings; when a ring fills, the page ``plan_append`` mapped for
     it must decompress bit for bit to the ring, whose rows appended in this
     run must be the recorded ones (the rest came from the prefill, which
-    the serve phase checks on its own).  Costs one host sync per step."""
+    the serve phase checks on its own).  Costs one host sync per step, so
+    the engine it watches steps eagerly (``cuda_graphs=False``)."""
 
     def __init__(self, layer: int, run):
         from repro_torch.models import cache as cache_mod
@@ -1196,10 +1256,13 @@ class FlushCheck:
             return
         import torch
         from repro_torch.core import fixed
-        for slot, r in zip(plan.write_slots.tolist(), plan.ring_idx.tolist()):
-            self.rows.setdefault(slot, {})[r] = \
-                new_vals[slot].to(torch.bfloat16).view(torch.int16).clone()
         blk = self.run.codec.cache_block
+        for slot, (row, on) in enumerate(zip(plan.rows.tolist(),
+                                             plan.active.tolist())):
+            if on:
+                self.rows.setdefault(slot, {})[row - slot * blk] = \
+                    new_vals[slot].to(torch.bfloat16).view(torch.int16) \
+                    .clone()
         for slot, pid in zip(plan.flush_slots.tolist(),
                              plan.flush_pages.tolist()):
             ring = pkv.ring[layer][slot].view(torch.int16)
@@ -1234,28 +1297,24 @@ def serve_phase(cfg, smi):
     run = RunConfig(codec=CodecConfig(cache_block=blk, decode_backend="auto"))
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, run, n_slots=4, max_len=8 * blk, seed=0,
-                      device="cuda")
+                      device="cuda", cuda_graphs=False)
     torch.cuda.synchronize()
     log("serve", f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
                  f"{cfg.vocab_size}, block {blk}; random init in "
                  f"{time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(0)
-    # (prompt, budget): 1100 -> 4 prefilled pages; 500 -> 1 page, its
-    # replay crosses 512 (flush in replay); 250 and 760 -> decode crosses
-    # 256 / 768 (flush in decode); 6 requests over 4 slots -> eviction and
-    # page reuse
-    specs = [(1100, 24), (500, 16), (250, 16), (760, 16), (300, 8),
-             (640, 12)]
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, (s,))
-                    .astype(np.int32), max_new_tokens=b)
-            for i, (s, b) in enumerate(specs)]
+    reqs = serve_mix(cfg, rng)
     last = cfg.n_layers - 1
     ops.reset_launch_counts()
     with FlushCheck(last, run) as flush:
         results, st = eng.run(reqs)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    assert st.graph_replays == 0 and st.eager_steps > 0
+    served = dict(reqs=reqs, run=run, stats=st,
+                  streams=[r.tokens for r in results],
+                  pool=pool_snapshot(eng.state.kv))
     for req, res in zip(reqs, results):
         assert len(res.tokens) == req.max_new_tokens, (req.uid, res)
         assert all(0 <= t < cfg.vocab_size for t in res.tokens), res.tokens
@@ -1311,61 +1370,247 @@ def serve_phase(cfg, smi):
     log("serve", f"pages of 4 fresh {n_tok}-token prefills (layers 0 and "
                  f"{last}) decode back to the model's K/V bit for bit")
     tok = engine.greedy_token(logits)
-    profile_decode(cfg, run, eng, tok, "decode")
-    return launches, eng, tok
+    return launches, eng, tok, served
 
 
-def profile_decode(cfg, run, eng, tok, name: str, steps: int = 8):
-    """Where a decode step of the paged engine's 4 slots goes: windows of
-    ``steps`` decode steps from ``tok`` (see ``profile_window``); the
-    slots' caches grow by ``steps`` tokens a window."""
+def serve_mix(cfg, rng):
+    """The serve phase's six requests over 4 slots.  (prompt, budget):
+    1100 -> 4 prefilled pages; 500 -> 1 page, its replay crosses 512
+    (flush in replay); 250 and 760 -> decode crosses 256 / 768 (flush in
+    decode); 6 requests over 4 slots -> eviction and page reuse."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+
+    specs = [(1100, 24), (500, 16), (250, 16), (760, 16), (300, 8),
+             (640, 12)]
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, (s,))
+                    .astype(np.int32), max_new_tokens=b)
+            for i, (s, b) in enumerate(specs)]
+
+
+POOL_FIELDS = ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+               "raw_pages", "ring")
+
+
+def pool_snapshot(pkv, clone: bool = True):
+    """Every byte a serving run can write to a paged pool: the host page
+    table and page use, and on the card every page of every layer (used
+    or freed) and the rings -- copies, or (``clone=False``) the pool's
+    own tensors."""
+    return dict(page_table=pkv.page_table.copy(),
+                page_used=pkv.page_used.copy(),
+                **{f: getattr(pkv, f).clone() if clone else getattr(pkv, f)
+                   for f in POOL_FIELDS if getattr(pkv, f) is not None})
+
+
+def check_graph_run(cfg, st, launches):
+    """A serving run with CUDA graphs: one capture, replays, every eager
+    step a flushing one, and the paged kernel launched once per layer in
+    every step (the capture's warm-up included)."""
+    assert st.cuda_graphs and st.graph_captures == 1, st
+    assert st.graph_replays > 0, st
+    assert st.eager_steps == st.flush_steps, st
+    passes = st.eager_steps + st.graph_replays + st.graph_captures
+    assert launches["decode_attend_paged"] == cfg.n_layers * passes, \
+        (launches, passes)
+    return passes
+
+
+# ---------------------------------------------------------------------------
+# phase 6: CUDA graphs of the paged decode step
+# ---------------------------------------------------------------------------
+
+def graphs_phase(cfg, serve_eng, tok, served, smi):
+    """The serve phase's mix again, from CUDA graphs: streams, page
+    tables, page use, every page and the rings equal to the eager run's
+    bit for bit; then eagerly without the flush check, for the mix's
+    timing; then the 4 slots' decode profiled both ways, and one flushing
+    step timed on its own.  Returns the graph run's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import ServeEngine, format_stats
+
+    run, reqs, eager = served["run"], served["reqs"], served["stats"]
+    stats = {}
+    for graphs in (True, False):
+        eng = ServeEngine(cfg, run, n_slots=4, max_len=8 * 256,
+                          params=serve_eng.params, device="cuda",
+                          cuda_graphs=graphs)
+        ops.reset_launch_counts()
+        results, st = eng.run(reqs)
+        torch.cuda.synchronize()
+        stats[graphs] = st
+        assert [r.tokens for r in results] == served["streams"], graphs
+        if not graphs:
+            continue
+        launches = ops.launch_counts()
+        assert all(launches[name] > 0 for name in SERVE_KERNELS), launches
+        passes = check_graph_run(cfg, st, launches)
+        assert st.eager_steps + st.graph_replays == eager.eager_steps
+        n_bytes = same_pools(served["pool"],
+                             pool_snapshot(eng.state.kv, clone=False))
+        log("graphs", f"raw weights, the serve mix from CUDA graphs: the "
+                      f"eager run's streams ({sum(map(len, served['streams']))}"
+                      f" tokens), page table, page use and all {n_bytes} B of "
+                      f"pages and rings bit for bit; {st.eager_steps} eager "
+                      f"steps = {st.flush_steps} flushing steps, "
+                      f"{st.graph_replays} replayed, 1 capture; "
+                      f"decode_attend_paged {launches['decode_attend_paged']}"
+                      f" launches = {cfg.n_layers} x {passes} passes "
+                      f"(the warm-up's included); launches {launches}")
+        del eng
+    del served["pool"]
+    torch.cuda.empty_cache()
+    for graphs, st in sorted(stats.items()):
+        log("graphs", f"serve mix, {'CUDA graphs' if graphs else 'eager'}: "
+                      + format_stats(st).replace("\n", " | "))
+        log("graphs", f"serve mix, {'CUDA graphs' if graphs else 'eager'}: "
+                      f"{st.tokens_per_s:.2f} tok/s, TTFT mean "
+                      f"{st.ttft_mean_s * 1e3:.1f} / p50 "
+                      f"{st.ttft_p50_s * 1e3:.1f} / p95 "
+                      f"{st.ttft_p95_s * 1e3:.1f} ms, inter-token "
+                      f"{st.inter_token_mean_s * 1e3:.2f} ms, wall "
+                      f"{st.wall_s:.2f}s, {st.eager_steps} eager + "
+                      f"{st.graph_replays} replayed steps | {smi}")
+    profile_decode(cfg, serve_eng, tok, "decode")
+    flush_step_time(cfg, serve_eng, tok, smi)
+    return launches
+
+
+def flush_step_time(cfg, eng, tok, smi):
+    """One flushing step of the 4 slots (all at one length, so all four
+    rings fill together: 36 ``compress_many`` calls of 4 pages), eager, on
+    its own; beside it a replayed step and an eager step without a flush.
+    Each is timed from a synchronised card to a synchronised card."""
+    import torch
     from repro_torch.serve import engine
 
-    def window():
-        t = tok
-        for _ in range(steps):
-            t = engine.greedy_token(engine.paged_decode_step(
-                cfg, run, eng.params, eng.state, t))
-        return t.cpu()
+    st, blk = eng.state, eng.run_cfg.codec.cache_block
+    dec = engine.PagedDecoder(cfg, eng.run_cfg, st, graphs=True)
+    eager = engine.PagedDecoder(cfg, eng.run_cfg, st, graphs=False)
+    dec.tok.copy_(tok)
+    dec.step(eng.params)                            # captures (or flushes)
+    while not (st.active & (st.lengths % blk == blk - 1)).any():
+        dec.step(eng.params)
 
-    profile_window(name, window, steps)
+    def timed(d):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.step(eng.params)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    n_flush = int((st.active & (st.lengths % blk == blk - 1)).sum())
+    flush0 = dec.counts.flush
+    t_flush = timed(dec)
+    assert dec.counts.flush == flush0 + 1
+    t_replay = [timed(dec) for _ in range(3)]
+    eager.tok.copy_(dec.tok)
+    t_eager = [timed(eager) for _ in range(3)]
+    log("graphs", f"one flushing step ({n_flush} rings fill, at length "
+                  f"{int(st.lengths.max()) - 1}), eager, synchronised on "
+                  f"both sides: {t_flush:.2f} ms; a replayed step "
+                  f"{', '.join(f'{t:.2f}' for t in t_replay)} ms; an eager "
+                  f"step without a flush "
+                  f"{', '.join(f'{t:.2f}' for t in t_eager)} ms | {smi}")
 
 
-def profile_window(name: str, window, steps: int):
+def same_pools(a, b) -> int:
+    """Assert two pool snapshots byte-identical; returns the bytes held."""
+    import numpy as np
+    import torch
+    assert a.keys() == b.keys(), (a.keys(), b.keys())
+    assert np.array_equal(a["page_table"], b["page_table"])
+    assert np.array_equal(a["page_used"], b["page_used"])
+    n = 0
+    for f in POOL_FIELDS:
+        if f in a:
+            assert torch.equal(a[f].view(torch.uint8), b[f].view(torch.uint8)), f
+            n += a[f].numel() * a[f].element_size()
+    return n
+
+
+def profile_decode(cfg, eng, tok, name: str, steps: int = 8):
+    """Where a decode step of the paged engine's 4 slots goes, eager and
+    from the CUDA graph (``engine.PagedDecoder``, the scheduler's decode
+    window): windows of ``steps`` decode steps from ``tok`` (see
+    ``profile_window``); the slots' caches grow by ``steps`` tokens a
+    window.  Returns {mode: metrics}."""
+    from repro_torch.serve import engine
+
+    out = {}
+    for graphs in (False, True):
+        dec = engine.PagedDecoder(cfg, eng.run_cfg, eng.state, graphs)
+        out["graph" if graphs else "eager"] = profile_window(
+            f"{name}_graph" if graphs else name,
+            lambda: dec.decode(eng.params, tok, steps).cpu(), steps,
+            dec.counts)
+    compare_profiles(name, out)
+    return out
+
+
+def compare_profiles(name, prof):
+    e, g = prof["eager"], prof["graph"]
+    log("profile", f"{name}: eager -> CUDA graph: host {e['host_ms']:.3f} -> "
+                   f"{g['host_ms']:.3f} ms/step "
+                   f"({e['host_ms'] / g['host_ms']:.2f}x), device busy "
+                   f"{e['busy_ms']:.3f} -> {g['busy_ms']:.3f} ms/step, "
+                   f"{e['tok_s']:.1f} -> {g['tok_s']:.1f} tok/s, host launch "
+                   f"calls {e['host_launches']:.0f} -> "
+                   f"{g['host_launches']:.1f} per step, kernels "
+                   f"{e['kernels']:.0f} -> {g['kernels']:.0f} per step")
+
+
+def profile_window(name: str, window, steps: int, counts=None):
     """``window()`` (``steps`` decode steps of 4 sequences, ending in a
-    host read) warm, then timed, then under torch.profiler: device busy
-    share and the top kernels summed by name.  The full table goes to
-    chiprun_out/profile_<name>.txt."""
+    host read) warm, then timed, then under torch.profiler: device
+    busy share, the kernels per step, the host's launch calls per step
+    (``cudaLaunchKernel``-like and ``cudaGraphLaunch`` runtime calls) and
+    the top kernels summed by name; with a decoder's ``counts``, its
+    eager and replayed steps in the timed window.  The full table goes to
+    chiprun_out/profile_<name>.txt.  Returns the metrics."""
+    import dataclasses
     import torch
 
-    window()                                        # warm
+    window()                                        # warm (and capture)
+    c0 = dataclasses.replace(counts) if counts is not None else None
     t0 = time.perf_counter()
     window()                                        # ends in a host read
     wall = time.perf_counter() - t0
+    split = "" if counts is None else (
+        f"; {counts.eager - c0.eager} eager steps "
+        f"({counts.flush - c0.flush} flushing), "
+        f"{counts.replays - c0.replays} replayed")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         window()
+    events = prof.key_averages()
     # device-side rows only (the kernels themselves), so ops that launch
     # them are not counted twice
-    rows = [e for e in prof.key_averages()
+    rows = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    launch_calls = sum(e.count for e in events
+                       if e.device_type == torch.autograd.DeviceType.CPU
+                       and ("LaunchKernel" in e.key
+                            or "GraphLaunch" in e.key))
     dev_total = sum(e.self_device_time_total for e in rows) / 1e3   # ms
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / f"profile_{name}.txt").write_text(prof.key_averages().table(
+    (out / f"profile_{name}.txt").write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
     attend = sum(e.self_device_time_total for e in rows
                  if "decode_attend" in e.key) / 1e3
+    kernels = sum(e.count for e in rows) / steps
     log("profile", f"{name}: {steps} decode steps, 4 sequences: wall "
                    f"{wall * 1e3:.1f} ms"
                    f" ({wall * 1e3 / steps:.2f} ms/step, profiler off); "
                    f"device busy {dev_total:.1f} ms in the profiled run "
                    f"({100 * dev_total / (wall * 1e3):.0f}% of the "
-                   f"unprofiled wall), "
-                   f"{sum(e.count for e in rows) / steps:.0f} kernel "
-                   f"launches per step")
+                   f"unprofiled wall), {kernels:.0f} kernels and "
+                   f"{launch_calls / steps:.1f} host launch calls per step"
+                   f"{split}")
     log("profile", f"{name}: host {wall * 1e3 / steps:.3f} ms/step; device "
                    f"busy {dev_total / steps:.3f} ms/step; attention "
                    f"{attend / steps:.3f} ms/step = "
@@ -1374,6 +1619,9 @@ def profile_window(name: str, window, steps: int):
     for e in top:
         log("profile", f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.2f}"
                        f" ms over {e.count} calls")
+    return dict(host_ms=wall * 1e3 / steps, busy_ms=dev_total / steps,
+                tok_s=4 * steps / wall, kernels=kernels,
+                host_launches=launch_calls / steps)
 
 
 # ---------------------------------------------------------------------------
@@ -1396,7 +1644,7 @@ def fixed_phase(cfg, params, smi):
 
     b, s, n, blk, prof_steps = 4, 1000, 40, 256, 8
     run = RunConfig(codec=CodecConfig(cache_block=blk))
-    max_len = s + n + 4 * prof_steps        # + three profile windows, A/B
+    max_len = s + n + 8 * prof_steps   # + 2 x three profile windows, A/B
     last = cfg.n_layers - 1
     rng = np.random.default_rng(7)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
@@ -1465,15 +1713,22 @@ def fixed_phase(cfg, params, smi):
                  f"to its ring; codec off (raw blocks through the same "
                  f"kernel) gives the same {b * (n + 1)} tokens")
     tok = out[:, -1:].to("cuda")
+    graph_launches = fixed_graphs(cfg, run, params, prompts, max_len, n, smi)
 
-    def window():
-        t = tok
-        for _ in range(prof_steps):
-            t = engine.greedy_token(engine.decode_step(cfg, run, params, st,
-                                                       t))
-        return t.cpu()
+    prof = {}
+    for graphs in (False, True):
+        dec = engine.FixedDecoder(cfg, run, params, st, tok, graphs)
 
-    profile_window("decode_fixed", window, prof_steps)
+        def window():
+            dec.tok.copy_(tok)
+            for _ in range(prof_steps):
+                dec.step()
+            return dec.tok.cpu()
+
+        prof["graph" if graphs else "eager"] = profile_window(
+            "decode_fixed_graph" if graphs else "decode_fixed", window,
+            prof_steps, dec.counts)
+    compare_profiles("decode_fixed", prof)
 
     eng = ServeEngine(cfg, run, n_slots=b, max_len=max_len, params=params,
                       device="cuda")
@@ -1518,8 +1773,8 @@ def fixed_phase(cfg, params, smi):
     # sequences: the fixed state above and the same prompts in the pool
     _, d = engine.prefill_sequences(cfg, run, params, prompts)
     engine.insert_sequences(cfg, run, eng.state, d, list(range(b)))
-    for _ in range(st.length - s):                # to the fixed length
-        engine.paged_decode_step(cfg, run, params, eng.state, tok)
+    dec = engine.PagedDecoder(cfg, run, eng.state, graphs=True)
+    dec.decode(params, tok, st.length - s)        # to the fixed length
     loops = {"fixed": lambda t: engine.decode_step(cfg, run, params, st, t),
              "paged": lambda t: engine.paged_decode_step(cfg, run, params,
                                                          eng.state, t)}
@@ -1534,8 +1789,63 @@ def fixed_phase(cfg, params, smi):
     log("fixed", f"host ms per decode step in turns (paged, fixed, fixed, "
                  f"paged) on the same 4 sequences at ~{st.length} tokens: "
                  f"fixed {times['fixed']}, paged {times['paged']}")
-    del eng
+    del eng, dec
     torch.cuda.empty_cache()
+    return graph_launches
+
+
+def fixed_graphs(cfg, run, params, prompts, max_len, n, smi):
+    """The fixed loop (``engine.FixedDecoder``, as ``generate`` runs it)
+    eagerly and from a CUDA graph: the same tokens, and every layer's
+    block store and ring byte-identical; the ring flush at 1024 the only
+    eager step of the graph run.  Returns the graph run's launches of
+    ``decode_attend``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    b, s = prompts.shape
+    runs = {}
+    for graphs in (False, True):
+        logits, st = engine.prefill(cfg, run, params, prompts, max_len)
+        dec = engine.FixedDecoder(cfg, run, params, st,
+                                  engine.greedy_token(logits), graphs)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [dec.tok.clone()]
+        for _ in range(n):
+            dec.step()
+            out.append(dec.tok.clone())
+        toks = torch.cat(out, 1).cpu()
+        wall = time.perf_counter() - t0
+        runs[graphs] = (toks, st, dec.counts, ops.launch_counts(), wall)
+    (t_e, st_e, c_e, _, w_e), (t_g, st_g, c_g, launches, w_g) = \
+        runs[False], runs[True]
+    assert torch.equal(t_e, t_g), "fixed loop: graph tokens != eager"
+    assert int(st_g.length_dev) == st_g.length == st_e.length == s + n
+    n_bytes = 0
+    for kv_e, kv_g in zip(st_e.kv, st_g.kv):
+        for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+                  "ring"):
+            a, g = getattr(kv_e, f), getattr(kv_g, f)
+            assert torch.equal(a.view(torch.uint8), g.view(torch.uint8)), f
+            n_bytes += a.numel() * a.element_size()
+    flushes = sum((s + t) % 256 == 255 for t in range(n))
+    assert c_e.eager == n and c_g.eager == c_g.flush == flushes == 1, c_g
+    assert c_g.replays == n - flushes and c_g.captures == 1
+    passes = c_g.eager + c_g.replays + c_g.captures
+    assert launches["decode_attend"] == cfg.n_layers * passes, launches
+    log("graphs", f"fixed loop, {b} x ({s} prompt + {n} steps), from a CUDA "
+                  f"graph: tokens and all {n_bytes} B of block stores and "
+                  f"rings equal to the eager loop's; {c_g.eager} eager step "
+                  f"(the ring flush), {c_g.replays} replayed, 1 capture; "
+                  f"decode_attend "
+                  f"{launches['decode_attend']} launches = {cfg.n_layers} x "
+                  f"{passes}; {n} steps in {w_e * 1e3:.1f} ms eager, "
+                  f"{w_g * 1e3:.1f} ms from the graph (the capture "
+                  f"included) | {smi}")
+    del runs
     return launches["decode_attend"]
 
 
@@ -1635,15 +1945,20 @@ def weights_phase(cfg, serve_eng, tok, smi):
                        f"== packed on the CPU byte for byte, k={card.k} "
                        f"(CPU pack {time.perf_counter() - t0:.1f}s)")
 
-    streams, counts, stats, routes = {}, {}, {}, {}
-    for name in ("raw", "unpack", "cuda"):
+    streams, counts, stats, routes, pools = {}, {}, {}, {}, {}
+    # the three weight stores from CUDA graphs (the engine's default on
+    # the card), then the cuda backend eagerly, which the graph run must
+    # equal byte for byte
+    for name in ("raw", "unpack", "cuda", "cuda_eager"):
+        be = name.split("_")[0]
         run = RunConfig(codec=dataclasses.replace(
-            CodecConfig(), weight_backend="auto" if name == "raw" else name))
+            CodecConfig(), weight_backend="auto" if be == "raw" else be))
         run, max_len, reqs = demo_serving_setup(run, cfg.vocab_size, 1024,
                                                 16, 6)
         eng = ServeEngine(cfg, run, n_slots=4, max_len=max_len,
-                          params=params if name == "raw" else packed,
-                          compress_weights=name != "raw", device="cuda")
+                          params=params if be == "raw" else packed,
+                          compress_weights=be != "raw", device="cuda",
+                          cuda_graphs=name != "cuda_eager")
         ops.reset_launch_counts()
         results, st = eng.run(reqs)
         torch.cuda.synchronize()
@@ -1652,6 +1967,8 @@ def weights_phase(cfg, serve_eng, tok, smi):
         for req, res in zip(reqs, results):
             assert len(res.tokens) == req.max_new_tokens, (name, req.uid)
         streams[name] = [res.tokens for res in results]
+        if be == "cuda":
+            pools[name] = pool_snapshot(eng.state.kv)
         log("weights", f"{name}: " + format_stats(st).replace("\n", " | "))
         log("weights", f"{name}: {st.tokens_per_s:.2f} tok/s, TTFT mean "
                        f"{st.ttft_mean_s * 1e3:.1f} / p50 "
@@ -1665,6 +1982,24 @@ def weights_phase(cfg, serve_eng, tok, smi):
         del eng
         torch.cuda.empty_cache()
     assert streams["unpack"] == streams["raw"], "unpack streams != raw"
+    assert streams["cuda"] == streams["cuda_eager"], "cuda: graph != eager"
+    n_bytes = same_pools(pools["cuda"], pools["cuda_eager"])
+    del pools
+    st = stats["cuda"]
+    for name in ("raw", "unpack", "cuda"):
+        check_graph_run(cfg, stats[name], counts[name])
+    assert stats["cuda_eager"].graph_replays == 0
+    log("graphs", f"packed weights (cuda backend), the demo mix from CUDA "
+                  f"graphs: the eager run's streams, page table, page use "
+                  f"and all {n_bytes} B of pages and rings bit for bit; "
+                  f"{st.eager_steps} eager steps = {st.flush_steps} "
+                  f"flushing, {st.graph_replays} replayed, 1 capture; "
+                  f"{stats['cuda_eager'].tokens_per_s:.2f} -> "
+                  f"{st.tokens_per_s:.2f} tok/s, TTFT mean "
+                  f"{stats['cuda_eager'].ttft_mean_s * 1e3:.1f} -> "
+                  f"{st.ttft_mean_s * 1e3:.1f} ms, inter-token "
+                  f"{stats['cuda_eager'].inter_token_mean_s * 1e3:.2f} -> "
+                  f"{st.inter_token_mean_s * 1e3:.2f} ms | {smi}")
     pairs = [(uid, i, a, b) for uid, (ra, rb) in
              enumerate(zip(streams["raw"], streams["cuda"]))
              for i, (a, b) in enumerate(zip(ra, rb))]
@@ -1698,19 +2033,27 @@ def weights_phase(cfg, serve_eng, tok, smi):
                        f"{'near-tie' if min(m_raw, m_cuda) <= gap else 'MARGIN ABOVE THE GAP'}")
     n_mm = sum(c for _, c in weight_shapes(cfg))
     for name, kernel, idle in (("cuda", "decompress_matmul", "lexi_unpack"),
+                               ("cuda_eager", "decompress_matmul",
+                                "lexi_unpack"),
                                ("unpack", "lexi_unpack", "decompress_matmul")):
         st, c = stats[name], counts[name]
         assert st.n_replay_dispatches == 0         # the mix has no tails
-        passes = st.decode_steps + st.n_admit_dispatches
+        # every decode step (eager or replayed), the graph's warm-up and
+        # every batched prefill
+        steps = st.eager_steps + st.graph_replays + st.graph_captures
+        assert steps == st.decode_steps + st.graph_captures, st
+        passes = steps + st.n_admit_dispatches
         assert c[kernel] > 0 and c[idle] == 0, (name, c)
         assert c[kernel] == n_mm * passes, (name, c[kernel], passes)
         assert st.weight_ratio < 0.95, st.weight_ratio
     # the cuda backend's admissions go through the prefill route (every
     # block matmul of a batched prefill; the LM head, on the last
     # positions only, and the decode steps through the decode route)
-    st, r = stats["cuda"], routes["cuda"]
-    assert r["prefill"] == (n_mm - 1) * st.n_admit_dispatches, r
-    assert r["decode"] == n_mm * st.decode_steps + st.n_admit_dispatches, r
+    for name in ("cuda", "cuda_eager"):
+        st, r = stats[name], routes[name]
+        steps = st.decode_steps + st.graph_captures
+        assert r["prefill"] == (n_mm - 1) * st.n_admit_dispatches, r
+        assert r["decode"] == n_mm * steps + st.n_admit_dispatches, r
     assert counts["raw"]["decompress_matmul"] == 0
     assert counts["raw"]["lexi_unpack"] == 0
     log("weights", f"{n_mm} packed matmuls per forward pass (decode step or "
@@ -1720,7 +2063,7 @@ def weights_phase(cfg, serve_eng, tok, smi):
                    f"{n_mm - 1} x {stats['cuda'].n_admit_dispatches} "
                    f"admissions")
     serve_eng.params = packed
-    profile_decode(cfg, serve_eng.run_cfg, serve_eng, tok, "decode_packed")
+    profile_decode(cfg, serve_eng, tok, "decode_packed")
     return {"decompress_matmul": counts["cuda"]["decompress_matmul"],
             "lexi_unpack": counts["unpack"]["lexi_unpack"]}
 
@@ -1745,7 +2088,9 @@ def main() -> int:
     cfg = get_config("qwen3-4b")
     rec = kernels_phase(cfg)
     small_phase()
-    launches, serve_eng, tok = serve_phase(cfg, smi)
+    _, serve_eng, tok, served = serve_phase(cfg, smi)
+    # launches on the main path's runs from CUDA graphs (replays counted)
+    launches = graphs_phase(cfg, serve_eng, tok, served, smi)
     launches["decode_attend"] = fixed_phase(cfg, serve_eng.params, smi)
     launches.update(weights_phase(cfg, serve_eng, tok, smi))
     kernels = []

@@ -3,7 +3,7 @@
 call that computes the same function.
 
     python3 scripts/kernel_timing.py [--tree DIR] [--label NAME]
-        [--kernels attend,weights,codec] [--breakdown]
+        [--kernels attend,weights,codec,decode] [--breakdown]
 
 Imports ``repro_torch`` from DIR/src (default: this checkout), builds that
 tree's kernel library, and times, with chip_smoke.py's ``cuda_ms`` and
@@ -31,7 +31,17 @@ tree's kernel library, and times, with chip_smoke.py's ``cuda_ms`` and
            first and last rows); one ``fixed.compress_many`` of 1 and of
            16 pages, whole and by part; and the whole-model pack of
            full-width qwen3-4b's random weights (``pack_serving_params``,
-           ``cuda`` backend; host clock, median of 3 after one warm-up).
+           ``cuda`` backend; host clock, median of 3 after one warm-up);
+  decode   the decode loops at full-width qwen3-4b (random N(0, 0.02)
+           weights from seed 0, block 256, codec on, raw weights): 4
+           sequences prefilled with 1024 random tokens, then windows of 8
+           greedy steps, each ending in a host read, by the host's clock
+           from a synchronised card -- ``engine.paged_decode_step`` and
+           ``engine.decode_step`` eagerly (every tree has them), and
+           ``engine.PagedDecoder`` / ``engine.FixedDecoder`` replaying
+           their CUDA graphs where the tree has them; one window warms up
+           (and captures), the median of 3 more is the reading, with
+           their min and max.  No window crosses a ring flush.
 
 Each reading:
 
@@ -274,13 +284,93 @@ def codec(cs, gen):
                 pack_s=statistics.median(times[1:]), pack_s_all=times)
 
 
+def decode():
+    """Host ms per step of the paged and fixed decode loops, eager and
+    from CUDA graphs (see the module's docstring)."""
+    import statistics
+    import time
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.models import lm, params as PM
+    from repro_torch.serve import engine
+
+    steps, windows = 8, 3
+    cfg = get_config("qwen3-4b")
+    blk, b, s = 256, 4, 4 * 256
+    run = RunConfig(codec=CodecConfig(cache_block=blk))
+    max_len = s + steps * (windows + 1) + 8
+    assert max_len // blk == s // blk, "a window would flush a ring"
+    params = PM.init_params(lm.lm_table(cfg),
+                            torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)),
+        dtype=torch.int32, device="cuda")
+
+    def paged_state():
+        st = engine.empty_paged_state(cfg, run, b, max_len, device="cuda")
+        logits, d = engine.prefill_sequences(cfg, run, params, prompts)
+        engine.insert_sequences(cfg, run, st, d, list(range(b)))
+        return engine.greedy_token(logits), st
+
+    tok, paged = paged_state()
+    _, fixed_st = engine.prefill(cfg, run, params, prompts, max_len)
+
+    def paged_eager():
+        t = tok
+        for _ in range(steps):
+            t = engine.greedy_token(engine.paged_decode_step(
+                cfg, run, params, paged, t))
+        return t.cpu()
+
+    def fixed_eager():
+        t = tok
+        for _ in range(steps):
+            t = engine.greedy_token(engine.decode_step(cfg, run, params,
+                                                       fixed_st, t))
+        return t.cpu()
+
+    loops = dict(paged=paged_eager, fixed=fixed_eager)
+    if hasattr(engine, "PagedDecoder"):
+        dec = engine.PagedDecoder(cfg, run, paged_state()[1], graphs=True)
+        loops["paged_graph"] = lambda: dec.decode(params, tok, steps).cpu()
+        _, fixed_g = engine.prefill(cfg, run, params, prompts, max_len)
+        fdec = engine.FixedDecoder(cfg, run, params, fixed_g, tok, True)
+
+        def fixed_graph():
+            fdec.tok.copy_(tok)
+            for _ in range(steps):
+                fdec.step()
+            return fdec.tok.cpu()
+
+        loops["fixed_graph"] = fixed_graph
+    rec = {}
+    for name, window in loops.items():
+        window()                                  # warm (and capture)
+        times = []
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window()
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+        ms = statistics.median(times)
+        rec[name] = dict(host_ms=ms, min=min(times), max=max(times),
+                         tok_s=b * 1e3 / ms)
+        print(f"[decode] {name} {ms:.3f} ms/step (min {min(times):.3f}, "
+              f"max {max(times):.3f}), {b * 1e3 / ms:.1f} tok/s", flush=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--kernels", default="attend,weights",
-                    help="comma-separated: attend, weights, codec")
+                    help="comma-separated: attend, weights, codec, decode")
     ap.add_argument("--breakdown", action="store_true")
     opts = ap.parse_args()
     tree = opts.tree.resolve()
@@ -304,7 +394,7 @@ def main() -> int:
     h, hkv, hd, blk, k = 32, 8, 128, 256, 5           # qwen3-4b, block 256
     gen = torch.Generator(device="cuda").manual_seed(0)
     kinds = set(opts.kernels.split(","))
-    if not kinds <= {"attend", "weights", "codec"}:
+    if not kinds <= {"attend", "weights", "codec", "decode"}:
         ap.error(f"unknown --kernels {opts.kernels!r}")
     rec = dict(label=opts.label or str(tree), card=card)
     if "attend" in kinds:
@@ -317,6 +407,8 @@ def main() -> int:
         rec["weights"] = weight_kernels(cs, get_config("qwen3-4b"), gen)
     if "codec" in kinds:
         rec["codec"] = codec(cs, gen)
+    if "decode" in kinds:
+        rec["decode"] = decode()
     line = json.dumps(rec)
     print(line)
     out = ROOT / "chiprun_out"

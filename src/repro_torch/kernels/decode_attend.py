@@ -20,8 +20,11 @@ unnormalised (out (S, H, hd) f32, m (S, H), l (S, H)).
 signman (nblk, B·blk·W) uint8, planes (nblk, k, B·blk·W/32) int32-held
 words, dicts (nblk, 2^k) uint8, esc_pos / esc_raw (nblk, C) int32 / uint8
 — one record per block for all B sequences — or raw_blocks
-(nblk, B, blk, W) bf16 when the codec is off; ``length`` the host-side
-post-append token count shared by every sequence.
+(nblk, B, blk, W) bf16 when the codec is off; ``length`` the
+post-append token count shared by every sequence: a host int, or a 0-d
+int32 CUDA tensor, which the kernel reads on the device (the launch form
+a CUDA graph can replay at every length) and clamps to the store's
+capacity, (nblk + 1)·blk - 1.
 
 ``decode_attend_paged``: the page pool's fields with leading n_pages —
 signman (P, n), planes (P, k, n/32), dicts (P, 2^k), esc_pos / esc_raw
@@ -32,11 +35,12 @@ entries already clipped to a valid id (they are dead by length); lengths
 Both kernels split each sequence's stream into spans of ``span_rows(blk)``
 rows, one CTA per (kv head, sequence, span), and merge the spans' partials
 in the kernel (``csrc/decode_attend_body.cuh``).  The grid comes from
-host-side values only (``paged_splits``, ``fixed_splits``); the partials
-and the per-(sequence, kv head) arrival counters live in a workspace
-cached per (device, stream) (``_workspace``), which the kernels leave
-zeroed.  Launches on one stream run in order and share it; a launch on
-another stream gets its own.
+host-side values only (``paged_splits``; ``fixed_splits`` for a host
+length, ``capacity_splits`` for a device one); the partials and the
+per-(sequence, kv head) arrival counters live in a workspace cached per
+(device, stream) (``_workspace``, grown as ``kernels.workspace`` says),
+which the kernels leave zeroed.  Launches on one stream run in order and
+share it; a launch on another stream gets its own.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from . import ref
+from . import ref, workspace
 
 plain = ref.decode_attend_plain
 plain_paged = ref.paged_decode_attend_plain
@@ -84,6 +88,14 @@ def fixed_splits(length: int, window: int, blk: int) -> Tuple[int, int]:
     return first, max(1, end - first)
 
 
+def capacity_splits(nblk: int, blk: int) -> int:
+    """Splits of the fixed-batch kernel's device-length launch: every span
+    the store's ``nblk`` blocks and the ring could hold.  The length is a
+    device value, so the grid cannot follow it (a CUDA graph replays one
+    grid); the spans outside [first live, last live] load nothing."""
+    return (nblk + 1) * blk // span_rows(blk)
+
+
 def geometry(hd: int, gmax: int, span: int) -> Dict[str, int]:
     """What both kernels launch for (hd, gmax, P): chunk rows, threads per
     (head, row) dot, dynamic shared memory and threads per CTA."""
@@ -109,10 +121,8 @@ def _workspace(device, stream: int, n_s: int, hkv: int, nsplit: int,
     overlap, so each has its own."""
     need = n_s * hkv * nsplit * gmax * (hd + 2)
     ws, cnt = _workspaces.get((device, stream), (None, None))
-    if ws is None or ws.numel() < need:
-        ws = torch.empty(need, dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < n_s * hkv:
-        cnt = torch.zeros(n_s * hkv, dtype=torch.int32, device=device)
+    ws = workspace.sized(ws, need, torch.float32, device)
+    cnt = workspace.sized(cnt, n_s * hkv, torch.int32, device, zeroed=True)
     _workspaces[(device, stream)] = (ws, cnt)
     return ws, cnt
 
@@ -202,23 +212,34 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
             raise ValueError("raw blocks do not match the ring geometry")
         c, nblk = 0, raw_blocks.shape[0]
         store = (None,) * 5 + (raw_blocks,)
-    length = int(length)
-    if length < 0 or length // blk > nblk:
-        raise ValueError(f"length {length} does not fit {nblk} blocks of "
-                         f"{blk} and the ring")
+    on_device = isinstance(length, torch.Tensor)
+    if on_device:
+        check_cuda(length, torch.int32, 0, "length")
+    else:
+        length = int(length)
+        if length < 0 or length // blk > nblk:
+            raise ValueError(f"length {length} does not fit {nblk} blocks "
+                             f"of {blk} and the ring")
     out, m, l = _outputs(q)
     if b == 0:
         return out, m, l
     window = int(window)
-    span0, nsplit = fixed_splits(length, window, blk)
+    span0, nsplit = (0, capacity_splits(nblk, blk)) if on_device \
+        else fixed_splits(length, window, blk)
     stream = _stream(q)
     ws, cnt = _workspace(q.device, stream, b, hkv, nsplit,
                          h - (hkv - 1) * (h // hkv), hd)
-    rc = library().decode_attend_launch(
-        _ptr(q), *(_ptr(t) for t in store), _ptr(ring), _ptr(out), _ptr(m),
-        _ptr(l), _ptr(ws), _ptr(cnt), b, h, hkv, hd, blk, w, k, c, length,
-        window, span_rows(blk), span0, nsplit, n // 32, float(scale),
-        float(softcap or 0.0), int(codec_on), stream)
+    common = (_ptr(q), *(_ptr(t) for t in store), _ptr(ring), _ptr(out),
+              _ptr(m), _ptr(l), _ptr(ws), _ptr(cnt), b, h, hkv, hd, blk, w,
+              k, c)
+    tail = (n // 32, float(scale), float(softcap or 0.0), int(codec_on),
+            stream)
+    if on_device:
+        rc = library().decode_attend_dev_launch(
+            *common, _ptr(length), window, span_rows(blk), nsplit, *tail)
+    else:
+        rc = library().decode_attend_launch(
+            *common, length, window, span_rows(blk), span0, nsplit, *tail)
     raise_on_error(rc, "decode_attend")
     launches["decode_attend"] += 1
     return out, m, l

@@ -43,7 +43,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.core import packing
-from . import ref
+from . import ref, workspace
 
 plain = ref.decompress_matmul_ref
 
@@ -205,7 +205,7 @@ def _launch(m: int, kk: int, n: int, k: int, route: str, vec_x: bool,
 
 
 # (device, stream handle) -> (partials, arrival counters, their sizes and
-# data pointers), grown on demand
+# data pointers), grown on demand as ``kernels.workspace`` says
 _workspaces: Dict[Tuple[torch.device, int], tuple] = {}
 
 
@@ -219,10 +219,9 @@ def _workspace(device, stream: int, floats: int, counters: int
     entry = _workspaces.get((device, stream))
     if entry is None or entry[2] < floats or entry[3] < counters:
         ws, cnt = entry[:2] if entry is not None else (None, None)
-        if ws is None or ws.numel() < floats:
-            ws = torch.empty(floats, dtype=torch.float32, device=device)
-        if cnt is None or cnt.numel() < counters:
-            cnt = torch.zeros(counters, dtype=torch.int32, device=device)
+        ws = workspace.sized(ws, floats, torch.float32, device)
+        cnt = workspace.sized(cnt, counters, torch.int32, device,
+                              zeroed=True)
         entry = _workspaces[(device, stream)] = (
             ws, cnt, ws.numel(), cnt.numel(), ws.data_ptr(), cnt.data_ptr())
     return entry[4], entry[5]

@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from . import ref
+from . import ref, workspace
 
 plain = ref.histogram_ref
 
@@ -79,13 +79,12 @@ _workspaces: Dict[Tuple[torch.device, int],
 def _workspace(device, stream: int, p: Plan
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The partials and arrival counters for one launch on ``stream``
-    (the counters allocated zeroed; every launch leaves them zero)."""
+    (the counters allocated zeroed; every launch leaves them zero), grown
+    as ``kernels.workspace`` says."""
     need, rows = p.workspace()
     part, arrived = _workspaces.get((device, stream), (None, None))
-    if part is None or part.numel() < need:
-        part = torch.empty(max(need, 1), dtype=torch.int32, device=device)
-    if arrived is None or arrived.numel() < rows:
-        arrived = torch.zeros(max(rows, 1), dtype=torch.int32, device=device)
+    part = workspace.sized(part, need, torch.int32, device)
+    arrived = workspace.sized(arrived, rows, torch.int32, device, zeroed=True)
     _workspaces[(device, stream)] = (part, arrived)
     return part, arrived
 

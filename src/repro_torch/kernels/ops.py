@@ -6,7 +6,8 @@ Every wrapper takes the kernel's plain PyTorch version for a CPU tensor
 and launches the kernel for a CUDA tensor; it never falls back from one to
 the other.  Each kernel module keeps a plain ``launches`` count (a dict by
 kernel in ``decode_attend``, which holds two) that its launcher bumps
-after a successful launch.
+after a successful launch; a CUDA graph of a step (``CapturedStep``) adds
+its captured launches on every replay.
 
 Build: the ``csrc/*.cu`` sources have a plain C interface; ``build()``
 compiles each in its own ``nvcc`` process for ``sm_90a`` (all started
@@ -244,6 +245,70 @@ def reset_launch_counts() -> None:
     _dm.launches_by_route.update(dict.fromkeys(_dm.launches_by_route, 0))
 
 
+_SCALAR_COUNTS = {"exp_histogram": _hist, "lexi_pack": _pack,
+                  "decompress_matmul": _dm, "lexi_unpack": _unpack}
+
+
+def _all_counts() -> Dict[str, int]:
+    """``launch_counts()`` and ``decompress_matmul``'s per-route counts
+    (keys ``decompress_matmul/<route>``)."""
+    return {**launch_counts(),
+            **{f"decompress_matmul/{r}": n
+               for r, n in _dm.launches_by_route.items()}}
+
+
+def _add_counts(delta: Dict[str, int], times: int) -> None:
+    for name, n in delta.items():
+        if name in _attend.launches:
+            _attend.launches[name] += n * times
+        elif name.startswith("decompress_matmul/"):
+            _dm.launches_by_route[name.split("/")[1]] += n * times
+        else:
+            mod = _SCALAR_COUNTS[name]
+            mod.launches += n * times
+
+
+class CapturedStep:
+    """A step of fixed-address device work, captured once as a CUDA graph
+    and replayed.
+
+    ``warmup()`` runs first, eagerly, on the graph's own capture stream:
+    it must launch what ``step()`` launches at the same shapes (so every
+    kernel workspace ``step`` bakes in exists before the capture; see
+    ``kernels.workspace``) and leave the state as ``step`` finds it.  Then
+    ``step()`` is captured -- it runs nothing, and must read and write only
+    tensors that outlive the graph.  ``replay()`` runs the graph on the
+    current stream.
+
+    Launch counts: a capture launches nothing, so the wrappers' counts of
+    the captured launches are taken back (the warm-up's stay: those ran),
+    and every replay adds them again, by kernel.  A failed capture or
+    replay raises; nothing falls back to eager steps."""
+
+    def __init__(self, step, warmup, device):
+        dev = torch.device(device)
+        here = torch.cuda.current_stream(dev)
+        self.stream = torch.cuda.Stream(dev)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            warmup()
+        here.wait_stream(self.stream)
+        self.graph = torch.cuda.CUDAGraph()
+        before = _all_counts()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                step()
+        finally:
+            after = _all_counts()
+            self.launches = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+            _add_counts(self.launches, -1)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _add_counts(self.launches, 1)
+
+
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
                name: str) -> None:
     """Validate a kernel operand before its pointer is passed on."""
@@ -287,6 +352,8 @@ _SIGNATURES = {
     "decompress_matmul_smem": [_I] * 4,
     "decompress_matmul_prefill_smem": [_I] * 3,
     "decode_attend_launch": [_P] * 13 + [_I] * 13 + [_LL, _F, _F, _I, _P],
+    "decode_attend_dev_launch": [_P] * 13 + [_I] * 8 + [_P] + [_I] * 3
+                                + [_LL, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

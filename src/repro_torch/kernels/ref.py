@@ -225,16 +225,18 @@ def decode_attend_ref(q, blocks_bf16, ring, length: int, *, kv_idx, scale,
 
 
 def decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
-                        raw_blocks, ring, length: int, window: int, *, k: int,
+                        raw_blocks, ring, length, window: int, *, k: int,
                         kv_idx: Sequence[int], scale: float,
                         softcap: Optional[float] = None):
     """Plain ``decode_attend``: the kernel's arguments and its unnormalised
     (out, m, l) partials, computed by decompressing the store's live blocks
     (``core.fixed.decompress`` of each whole B-sequence block: one
     dictionary, escapes by position across the batch) and one masked
-    softmax over [blocks ‖ ring]."""
+    softmax over [blocks ‖ ring].  ``length``: a host int or, as the
+    kernel's device-length launch takes it, a 0-d int32 tensor (read here
+    on the host)."""
     vals, ok = fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw,
-                                  raw_blocks, ring, length, window, k=k)
+                                  raw_blocks, ring, int(length), window, k=k)
     return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
 
 

@@ -28,9 +28,13 @@ yet all layers allocate in lockstep (same flushes, same stable argsort of
 allocator run once per step with no device sync.  Page allocation takes
 the lowest free ids in slot order (``np.argsort(used, kind="stable")``,
 the reference's ``jnp.argsort``), so page ids and tables match the
-reference's exactly.  Likewise the fixed-batch store's length is a host
-int kept by the caller, so ring writes and flushes are decided on the
-host.
+reference's exactly.  The device sees the table as one persistent
+tensor refreshed in place, and each step's per-slot values through one
+staged buffer (``PagedKV.step``), so a decode step's device work has the
+same shapes and addresses every step and replays from a CUDA graph.
+Likewise the fixed-batch store's length is a host int kept by the caller
+(beside a device copy that indexes the ring), so flushes are decided on
+the host.
 
 Collectives dropped at tp = 1: none remain in the cache (the interleaved
 per-shard ownership degenerates to "shard 0 owns every position").
@@ -126,11 +130,18 @@ class KVBlocks:
     ring: torch.Tensor                 # (B, block, W) bf16 in-flight block
 
     @property
+    def _stored(self) -> torch.Tensor:
+        return self.signman if self.signman is not None else self.raw_blocks
+
+    @property
     def group(self) -> int:
         """Sequences per compressed record (g)."""
-        stored = self.signman if self.signman is not None \
-            else self.raw_blocks
-        return self.ring.shape[0] // stored.shape[0]
+        return self.ring.shape[0] // self._stored.shape[0]
+
+    @property
+    def nblk(self) -> int:
+        """Blocks per sequence the store holds (the ring holds one more)."""
+        return self._stored.shape[1]
 
 
 def n_blocks(run: RunConfig, max_len: int) -> int:
@@ -213,25 +224,35 @@ def fill_from_prefill(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
 
 
 def append_token(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
-                 new_vals: torch.Tensor, length: int) -> None:
+                 new_vals: torch.Tensor, length: int,
+                 length_dev: Optional[torch.Tensor] = None) -> None:
     """Append one token's K/V (B, W) of every sequence at position
     ``length`` (a host int): a ring write at ``length % blk``; when that
     fills the ring, the ring is compressed into block ``length // blk``
-    (in place).  As in the reference the ring is not cleared after a
-    flush: rows past the length are dead by the live mask."""
+    (in place).  The ring row is indexed on the device, from
+    ``length_dev`` (the same length as a 0-d int32 on the ring's device;
+    made from ``length`` when not given), so a CUDA graph of a step that
+    does not fill the ring replays at every length; the host int decides
+    the flush.  As in the reference the
+    ring is not cleared after a flush: rows past the length are dead by
+    the live mask."""
     blk = run.codec.cache_block
-    r = length % blk
-    kv.ring[:, r] = new_vals.to(torch.bfloat16)
-    if r == blk - 1:
+    if length_dev is None:
+        length_dev = torch.tensor(length, dtype=torch.int32,
+                                  device=kv.ring.device)
+    kv.ring.index_copy_(1, (length_dev % blk).long().reshape(1),
+                        new_vals.to(torch.bfloat16)[:, None])
+    if length % blk == blk - 1:
         store_block(kv, length // blk, kv.ring, run.codec)
 
 
 def attend_cache(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
-                 q: torch.Tensor, length: int, spec: layers.AttnSpec,
+                 q: torch.Tensor, length, spec: layers.AttnSpec,
                  window=None) -> torch.Tensor:
     """Fixed-batch decode attention: q (B,Hq,1,hd) over the batch-shared
-    store (group = B) whose sequences hold ``length`` tokens (post-append).
-    Returns (B,Hq,1,hd) bf16.
+    store (group = B) whose sequences hold ``length`` tokens (post-append;
+    a host int, or a 0-d int32 tensor on q's device, which the kernel
+    reads there).  Returns (B,Hq,1,hd) bf16.
 
     ``kernels.ops.decode_attend`` launches the CUDA kernel on CUDA tensors
     and runs its plain version on CPU ones; ``run.codec.decode_backend`` is
@@ -274,18 +295,31 @@ class PagedKV:
     ring: torch.Tensor                 # (L, S, block, W) bf16
     page_table: np.ndarray             # (S, maxp) int32, -1 = unmapped
     page_used: np.ndarray              # (P,) bool
-    _ids_dev: Optional[torch.Tensor] = None
+    # device copy of page_table, unmapped entries clipped to page 0 (they
+    # are dead by length); one tensor for the pool's life, refreshed in
+    # place (``touch``), so a captured CUDA graph reads the current table
+    ids: Optional[torch.Tensor] = None          # (S, maxp) int32
+    # one decode step's per-slot values, staged by ``stage_append``:
+    # rows [flat ring row s * block + length % block, active, length,
+    # length + active] (``device_plan`` reads them)
+    step: Optional[torch.Tensor] = None         # (4, S) int32
+
+    def __post_init__(self):
+        dev = self.ring.device
+        if self.ids is None:
+            self.ids = torch.from_numpy(np.maximum(self.page_table, 0)).to(dev)
+        if self.step is None:
+            self.step = torch.zeros((4, self.page_table.shape[0]),
+                                    dtype=torch.int32, device=dev)
 
     def page_ids(self) -> torch.Tensor:
-        """Device copy of the page table, unmapped entries clipped to page
-        0 (they are dead by length); refreshed after host-side changes."""
-        if self._ids_dev is None:
-            self._ids_dev = torch.from_numpy(
-                np.maximum(self.page_table, 0)).to(self.ring.device)
-        return self._ids_dev
+        return self.ids
 
     def touch(self) -> None:
-        self._ids_dev = None
+        """Refresh ``ids`` in place after a host-side change to
+        ``page_table`` (one asynchronous copy from host memory)."""
+        self.ids.copy_(torch.from_numpy(np.maximum(self.page_table, 0)),
+                       non_blocking=True)
 
     def layer_fields(self, layer: int):
         """This layer's (signman, planes, dicts, esc_pos, esc_raw,
@@ -349,56 +383,84 @@ def _alloc_pages(pkv: PagedKV, count: int) -> np.ndarray:
 
 
 class AppendPlan(NamedTuple):
-    """Host-side plan of one decode step's cache appends, shared by every
-    layer (all layers append at the same positions and flush together)."""
-    write_slots: torch.Tensor      # (nw,) int64, device
-    ring_idx: torch.Tensor         # (nw,) int64, device
-    flush_slots: torch.Tensor      # (nf,) int64, device
-    flush_pages: torch.Tensor      # (nf,) int64, device
+    """One decode step's cache appends, shared by every layer (all layers
+    append at the same positions and flush together).  The device part
+    is views of ``PagedKV.step``, the same tensors every step, so a CUDA
+    graph of a step reads each step's values; the flush part is host-side
+    and runs only in an eager step."""
+    rows: torch.Tensor             # (S,) int64 flat ring row of every slot
+    active: torch.Tensor           # (S,) bool: the slot appends this step
+    pos: torch.Tensor              # (S,) int32 lengths before the step
+    post: torch.Tensor             # (S,) int32 lengths after it
+    flush_slots: np.ndarray        # (nf,) int64 slots whose ring fills
+    flush_pages: np.ndarray        # (nf,) int64 their new pages
 
 
-def plan_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
-                active: np.ndarray) -> AppendPlan:
-    """Decide where this step's token goes for each active slot and which
-    rings fill (host arithmetic only), allocate their pages, and map them
-    into the page table.  Mirrors the reference's in-graph
+def stage_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
+                 active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The host part of a step's appends: decide where each slot's token
+    goes and which active rings fill (host arithmetic only), allocate the
+    filling rings' pages, map them into the page table, and stage the
+    step's per-slot values into ``pkv.step`` (one copy from host memory).
+    Returns (flush slots, their pages).  Mirrors the reference's in-graph
     ``append_token_paged`` bookkeeping at tp = 1."""
     blk = run.codec.cache_block
-    write = np.flatnonzero(active)
-    ring_idx = lengths[write] % blk
-    flush = write[ring_idx == blk - 1]
+    lengths = np.asarray(lengths, np.int64)
+    active = np.asarray(active, bool)
+    r = lengths % blk
+    flush = np.flatnonzero(active & (r == blk - 1))
     pages = _alloc_pages(pkv, len(flush))
     if len(flush):
         pkv.page_table[flush, lengths[flush] // blk] = pages
         pkv.touch()
-    dev = pkv.ring.device
-    as_dev = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
-    return AppendPlan(as_dev(write), as_dev(ring_idx), as_dev(flush),
-                      as_dev(pages))
+    host = np.stack([np.arange(len(lengths)) * blk + r, active, lengths,
+                     lengths + active]).astype(np.int32)
+    pkv.step.copy_(torch.from_numpy(host), non_blocking=True)
+    return flush, pages.astype(np.int64)
+
+
+def device_plan(pkv: PagedKV, flush_slots=(), flush_pages=()) -> AppendPlan:
+    """The plan of the step staged in ``pkv.step`` (no flush by default:
+    the form a CUDA graph captures)."""
+    st = pkv.step
+    return AppendPlan(st[0].long(), st[1].bool(), st[2], st[3],
+                      np.asarray(flush_slots, np.int64),
+                      np.asarray(flush_pages, np.int64))
+
+
+def plan_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
+                active: np.ndarray) -> AppendPlan:
+    """``stage_append`` then ``device_plan``: one eager step's plan."""
+    return device_plan(pkv, *stage_append(run, pkv, lengths, active))
 
 
 def append_token_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
                        layer: int, new_vals: torch.Tensor,
                        plan: AppendPlan) -> None:
-    """Append one token's K/V (S, W) of ``layer`` at each planned slot's
-    ring position, then compress the rings that just filled into their
-    planned pages — only the flushing rings are compressed (the reference
-    compresses every ring and drops the rest; the stored bytes are the
-    same).  Updates the pool in place."""
+    """Append one token's K/V (S, W) of ``layer`` at every slot's ring row
+    under the active mask -- an inactive slot writes back the bytes it
+    read, so its row stays bit for bit what it was, and the write has the
+    same shape every step -- then compress the rings that just filled into
+    their planned pages: only the flushing rings are compressed (the
+    reference compresses every ring and drops the rest; the stored bytes
+    are the same).  Updates the pool in place."""
     ring = pkv.ring[layer]
-    if plan.write_slots.numel():
-        ring[plan.write_slots, plan.ring_idx] = \
-            new_vals[plan.write_slots].to(torch.bfloat16)
-    if plan.flush_slots.numel():
-        full = ring[plan.flush_slots]
+    flat = ring.view(-1, ring.shape[-1])
+    old = flat.index_select(0, plan.rows)
+    flat.index_copy_(0, plan.rows, torch.where(
+        plan.active[:, None], new_vals.to(torch.bfloat16), old))
+    if len(plan.flush_slots):
+        dev = ring.device
+        full = ring[torch.as_tensor(plan.flush_slots, device=dev)]
+        pages = torch.as_tensor(plan.flush_pages, device=dev)
         if run.codec.cache:
             ct = fixed.compress_many(
                 full, k=run.codec.k,
                 esc_capacity=run.codec.esc_capacity(full[0].numel()))
             for f in _FIELDS:
-                getattr(pkv, f)[layer][plan.flush_pages] = getattr(ct, f)
+                getattr(pkv, f)[layer][pages] = getattr(ct, f)
         else:
-            pkv.raw_pages[layer][plan.flush_pages] = full
+            pkv.raw_pages[layer][pages] = full
 
 
 def attend_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV, layer: int,

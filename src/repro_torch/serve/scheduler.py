@@ -19,10 +19,15 @@ cache (ports ``repro/serve/scheduler.py`` at tp = 1).
                   a stop sequence release their pages at the window
                   boundary (``_check_done``, ``_finish_ready``).
 
-The reference fuses a window's K steps into one ``lax.scan`` dispatch; here
-they are a plain loop of K eager steps whose tokens stay on the device
-until the window ends (CUDA graphs are a later change).  Streams are the
-same as stepping one token at a time.
+The reference fuses a window's K steps into one ``lax.scan`` dispatch
+(one jitted program per K, and per replay window).  Here a window is K
+steps of ``engine.PagedDecoder``: on the card each step that flushes no
+ring replays one CUDA graph of the whole step (embed -> every layer ->
+logits -> greedy), captured lazily at the engine's first such step; a
+step in which an appending slot's ring fills runs eagerly, as every step
+does on the CPU or with ``cuda_graphs=False``.  The window's tokens stay
+on the device until it ends.  Streams are the same as stepping one token
+at a time, graphs or not.
 
 ``compress_weights=True`` serves from the packed weight plane
 (``core.weights``): bulk weights are packed once at construction, on the
@@ -107,6 +112,14 @@ class ServeStats:
     weight_backend: str = "torch"      # resolved cuda | unpack | torch
     weight_bytes_per_step: int = 0     # stored (packed + raw-leaf) bytes
     weight_raw_bytes_per_step: int = 0   # same store, all bf16
+    # compiled dispatch (engine.PagedDecoder): decode and replay steps run
+    # eagerly (all of them without graphs; with them, the flushing ones)
+    # and replayed from the captured step graph
+    cuda_graphs: bool = False
+    eager_steps: int = 0
+    flush_steps: int = 0
+    graph_replays: int = 0
+    graph_captures: int = 0
 
     @property
     def cache_ratio(self) -> float:
@@ -216,7 +229,12 @@ class ServeEngine:
                  seed: int = 0, eos_id: Optional[int] = None,
                  stop_seqs: Optional[Sequence[Sequence[int]]] = None,
                  max_fuse_steps: int = 32, prefix_sharing: bool = False,
-                 compress_weights: bool = False, device="cuda"):
+                 compress_weights: bool = False, device="cuda",
+                 cuda_graphs: Optional[bool] = None):
+        """``cuda_graphs``: replay decode steps from a CUDA graph (``None``:
+        on a CUDA device, off on the CPU; ``True`` on the CPU raises).
+        ``False`` on the card steps eagerly, e.g. to check a step from the
+        host between its launches."""
         if prefix_sharing:
             raise NotImplementedError(
                 "prefix sharing is not ported yet (streams are the same "
@@ -224,6 +242,7 @@ class ServeEngine:
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
         self.device = resolve_device(device)
+        self.cuda_graphs = engine.resolve_graphs(cuda_graphs, self.device)
         if self.device.type == "cuda":
             # f32 products (prefill attention) stay f32, as in the reference
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,6 +270,8 @@ class ServeEngine:
         self.scheduler = RequestScheduler(max_len)
         self.state = engine.empty_paged_state(cfg, run, n_slots, max_len,
                                               device=self.device)
+        self.decoder = engine.PagedDecoder(cfg, run, self.state,
+                                           self.cuda_graphs)
 
     # -- helpers -----------------------------------------------------------
 
@@ -390,9 +411,8 @@ class ServeEngine:
                 toks[:len(t_s), s, 0] = t_s
                 feed[:len(t_s), s] = True
             w0 = time.perf_counter()
-            seq = engine.paged_replay_steps(
-                self.cfg, self.run_cfg, self.params, self.state,
-                torch.as_tensor(toks, device=self.device), feed)
+            seq = self.decoder.replay(
+                self.params, torch.as_tensor(toks, device=self.device), feed)
             seq = seq.cpu().numpy()
             ls.replay_dispatches += 1
             now = time.perf_counter()
@@ -447,14 +467,9 @@ class ServeEngine:
                     - len(ls.emitted[ls.slot_req[s].uid]) for s in live)
         n_steps = self._fuse_steps(bound)
         w0 = time.perf_counter()
-        tok = torch.as_tensor(ls.cur, device=self.device)
-        out = []
-        for _ in range(n_steps):
-            logits = engine.paged_decode_step(self.cfg, self.run_cfg,
-                                              self.params, self.state, tok)
-            tok = engine.greedy_token(logits)
-            out.append(tok)
-        seq = torch.stack(out).cpu().numpy()            # (K, n_slots, 1)
+        seq = self.decoder.decode(
+            self.params, torch.as_tensor(ls.cur, device=self.device),
+            n_steps).cpu().numpy()                      # (K, n_slots, 1)
         ls.steps += n_steps
         ls.dispatches += 1
         ls.decode_window_s.append(time.perf_counter() - w0)
@@ -470,8 +485,10 @@ class ServeEngine:
                 self._check_done(ls, s, req)
             self._track_peak(ls)
 
-    def _stats(self, ls: _LoopState, wall: float) -> ServeStats:
+    def _stats(self, ls: _LoopState, wall: float,
+               steps0: engine.StepCounts) -> ServeStats:
         stored_pb, raw_pb = cache_mod.page_bytes(self.cfg, self.run_cfg)
+        steps = self.decoder.counts
         lat = summarize_latencies([r.latency_s for r in ls.results.values()])
         ttft = summarize_latencies(list(ls.ttft_s.values()))
         n_req = len(ls.results)
@@ -499,7 +516,12 @@ class ServeEngine:
             weights_compressed=self.compress_weights,
             weight_backend=self.weight_backend,
             weight_bytes_per_step=self._weight_bytes[0],
-            weight_raw_bytes_per_step=self._weight_bytes[1])
+            weight_raw_bytes_per_step=self._weight_bytes[1],
+            cuda_graphs=self.cuda_graphs,
+            eager_steps=steps.eager - steps0.eager,
+            flush_steps=steps.flush - steps0.flush,
+            graph_replays=steps.replays - steps0.replays,
+            graph_captures=steps.captures - steps0.captures)
 
     def run(self, requests: List[Request]
             ) -> Tuple[List[RequestResult], ServeStats]:
@@ -512,6 +534,7 @@ class ServeEngine:
         for r in requests:
             self.scheduler.submit(r)
         ls = self._new_loop()
+        steps0 = dataclasses.replace(self.decoder.counts)
         t0 = time.perf_counter()
         while len(self.scheduler) or ls.live_slots():
             self._admit_phase(ls)
@@ -520,7 +543,8 @@ class ServeEngine:
             self._decode_window(ls)
             self._finish_ready(ls)
         wall = time.perf_counter() - t0
-        return [ls.results[r.uid] for r in requests], self._stats(ls, wall)
+        return ([ls.results[r.uid] for r in requests],
+                self._stats(ls, wall, steps0))
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +572,7 @@ def demo_serving_setup(run: RunConfig, vocab_size: int, prompt_len: int,
 
 
 def format_stats(st: ServeStats) -> str:
-    """Four-line human summary of a serving run."""
+    """Five-line human summary of a serving run."""
     return (f"{st.n_requests} reqs, {st.decode_steps} decode steps in "
             f"{st.n_dispatches} windows ({st.decode_backend} backend), "
             f"{st.requests_per_s:.2f} req/s, {st.tokens_per_s:.1f} tok/s\n"
@@ -564,4 +588,8 @@ def format_stats(st: ServeStats) -> str:
             f"({st.weight_backend} backend), "
             f"{st.weight_bytes_per_step / 1e3:.1f} kB HBM per decode step / "
             f"{st.weight_raw_bytes_per_step / 1e3:.1f} kB raw "
-            f"({st.weight_ratio:.2f}x)")
+            f"({st.weight_ratio:.2f}x)\n"
+            f"steps (decode and replay): {st.eager_steps} eager "
+            f"({st.flush_steps} flushing a ring), {st.graph_replays} "
+            f"replayed from the CUDA graph "
+            f"({'on' if st.cuda_graphs else 'off'})")

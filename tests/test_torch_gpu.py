@@ -976,3 +976,287 @@ def test_engine_serves_packed_weights_on_card(cuda):
         ServeEngine(TINY, RunConfig(codec=dataclasses.replace(
             CodecConfig(), cache_block=4, weight_backend="torch")),
             n_slots=2, max_len=48, compress_weights=True)
+
+
+# ---------------------------------------------------------------------------
+# compiled decode dispatch: CUDA graphs of the decode step
+# ---------------------------------------------------------------------------
+
+def _pool_bits(pkv):
+    """Every byte of a pool that a step can touch, with its host table."""
+    out = {"page_table": torch.as_tensor(pkv.page_table),
+           "page_used": torch.as_tensor(pkv.page_used),
+           "ring": pkv.ring.view(torch.int16).cpu()}
+    for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+              "raw_pages"):
+        t = getattr(pkv, f)
+        if t is not None:
+            used = torch.as_tensor(pkv.page_used).to(t.device)
+            out[f] = t[:, used].contiguous().view(torch.uint8).cpu()
+    return out
+
+
+@pytest.mark.parametrize("weights_be", ["raw", "cuda", "unpack"])
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_graph_streams_match_eager(cuda, codec_on, weights_be):
+    """ServeEngine with CUDA graphs against ``cuda_graphs=False`` on the
+    tiny mix (prompts 8, 13, 4, 23 over 2 slots: trunks and ragged tail
+    replays, ring flushes at block 4, evictions and readmissions after the
+    capture): the same streams, page tables, used pages and rings bit for
+    bit; every flushing step eager and no other, the rest replayed; each
+    kernel's launches counted per replay (the warm-up's too)."""
+    codec = dataclasses.replace(
+        CodecConfig() if codec_on else CodecConfig.off(), cache_block=4,
+        weight_backend="auto" if weights_be == "raw" else weights_be)
+    run = RunConfig(codec=codec)
+    params = PM.init_params(lm.lm_table(TINY),
+                            torch.Generator(device=cuda).manual_seed(1),
+                            device=cuda)
+    got = {}
+    for graphs in (False, True):
+        eng = ServeEngine(TINY, run, n_slots=2, max_len=48, params=params,
+                          compress_weights=weights_be != "raw",
+                          cuda_graphs=graphs)
+        ops.reset_launch_counts()
+        results, st = eng.run(_tiny_requests())
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert [len(r.tokens) for r in results] == [5, 6, 9, 4]
+        assert st.n_replay_dispatches > 0
+        got[graphs] = ([r.tokens for r in results], _pool_bits(eng.state.kv))
+        steps = st.eager_steps + st.graph_replays
+        if graphs:
+            assert st.cuda_graphs and st.graph_captures == 1
+            assert st.eager_steps == st.flush_steps
+            assert st.graph_replays > 0
+            passes = steps + st.graph_captures        # + the warm-up
+        else:
+            assert st.graph_replays == 0 and st.eager_steps == steps
+            passes = steps
+        assert counts["decode_attend_paged"] == TINY.n_layers * passes
+        if weights_be == "cuda":
+            n_mm = 7 * TINY.n_layers + 1
+            assert counts["decompress_matmul"] == \
+                n_mm * (passes + st.n_admit_dispatches)
+    assert got[True][0] == got[False][0]
+    assert got[True][1].keys() == got[False][1].keys()
+    for key in got[False][1]:
+        assert torch.equal(got[True][1][key], got[False][1][key]), key
+
+
+def test_graph_recaptured_when_params_change(cuda):
+    """A decoder's graph bakes in its parameters: replacing them (raw to
+    packed) captures again, and the packed graph's streams equal a fresh
+    packed engine's."""
+    codec = dataclasses.replace(CodecConfig(), cache_block=4)
+    run = RunConfig(codec=codec)
+    eng = ServeEngine(TINY, run, n_slots=2, max_len=48, seed=1)
+    eng.run(_tiny_requests()[:2])
+    fresh = ServeEngine(TINY, run, n_slots=2, max_len=48, seed=1,
+                        compress_weights=True)
+    eng.params = fresh.params
+    a, st = eng.run(_tiny_requests()[2:])
+    b, _ = fresh.run(_tiny_requests()[2:])
+    assert st.graph_captures == 1
+    assert [r.tokens for r in a] == [r.tokens for r in b]
+
+
+def test_generate_graph_matches_eager(cuda):
+    """The fixed-batch loop from a CUDA graph (``generate``'s default on
+    the card) against the eager loop: the same tokens; and through
+    ``FixedDecoder``, the same block store and rings, the flushing steps
+    (3 of 11 at block 4) eager, the rest replayed."""
+    run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
+    params = PM.init_params(lm.lm_table(TINY),
+                            torch.Generator(device=cuda).manual_seed(3),
+                            device=cuda)
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 512, (3, 6)), dtype=torch.int32, device=cuda)
+    outs, stores = [], []
+    for graphs in (False, True):
+        logits, st = engine.prefill(TINY, run, params, prompts, 24)
+        dec = engine.FixedDecoder(TINY, run, params, st,
+                                  engine.greedy_token(logits), graphs)
+        toks = [dec.tok.clone()]
+        for _ in range(11):
+            dec.step()
+            toks.append(dec.tok.clone())
+        outs.append(torch.cat(toks, 1))
+        assert int(st.length_dev) == st.length == 17
+        stores.append([{f: getattr(kv, f).contiguous().view(torch.uint8)
+                        for f in ("signman", "planes", "dict_syms",
+                                  "esc_pos", "esc_raw", "ring")}
+                       for kv in st.kv])
+        if graphs:
+            assert dec.counts.eager == dec.counts.flush == 3
+            assert dec.counts.replays == 8
+    for a, b in zip(*stores):
+        for f in a:
+            assert torch.equal(a[f], b[f]), f
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(engine.generate(TINY, run, params, prompts, 11, 24),
+                       outs[0])
+
+
+@pytest.mark.parametrize("heads", HEAD_MAPS, ids=HEAD_IDS)
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_fixed_decode_attend_device_length(cuda, heads, codec_on):
+    """The fixed kernel's device-length launch (the length a 0-d int32 on
+    the card, the grid every span of the store's capacity) at the split's
+    edge lengths and windows: within 1e-4 of the plain version and of the
+    host-length launch, twice bit for bit; a length past the capacity
+    reads as the capacity's last; and captured once in a CUDA graph,
+    replayed at every length by rewriting the length in place."""
+    h, hkv = heads
+    hd, blk, b = 128, 256, 3
+    w = 2 * hkv * hd
+    gen = torch.Generator(device=cuda).manual_seed(h + codec_on)
+    lengths = AC.edge_lengths(blk)
+    blocks = _edge_blocks(gen, b, blk, w, max(lengths) // blk + 1)
+    nblk = blocks.shape[0]
+    ring = _bf16(gen, (b, blk, w))
+    q = _bf16(gen, (b, h, hd))
+    n = b * blk * w
+    if codec_on:
+        ct = fixed.compress_many(blocks.reshape(nblk, n), k=5,
+                                 esc_capacity=max(n // 128, 8))
+        store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+                 None)
+    else:
+        store = (None,) * 5 + (blocks,)
+    kw = dict(k=5, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+    dev_len = torch.zeros((), dtype=torch.int32, device=cuda)
+    for length in lengths:
+        dev_len.fill_(length)
+        for window, softcap in WINDOWS:
+            host = (q, *store, ring, length, window)
+            dev = (q, *store, ring, dev_len, window)
+            before = decode_attend.launches["decode_attend"]
+            got = ops.decode_attend(*dev, softcap=softcap, **kw)
+            assert decode_attend.launches["decode_attend"] == before + 1
+            AC.attend_close(got, ref.decode_attend_plain(*host,
+                                                         softcap=softcap,
+                                                         **kw))
+            AC.attend_close(got, ops.decode_attend(*host, softcap=softcap,
+                                                   **kw))
+            assert AC.same_bits(got, ops.decode_attend(*dev, softcap=softcap,
+                                                       **kw))
+    dev_len.fill_((nblk + 1) * blk - 1)
+    last = ops.decode_attend(q, *store, ring, dev_len, ref.WINDOW_NONE, **kw)
+    dev_len.fill_((nblk + 1) * blk + 7)
+    assert AC.same_bits(ops.decode_attend(q, *store, ring, dev_len,
+                                          ref.WINDOW_NONE, **kw), last)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attend(q, *store, ring, dev_len, ref.WINDOW_NONE, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.decode_attend(q, *store, ring, dev_len, ref.WINDOW_NONE,
+                                **kw)
+    for length in lengths:
+        dev_len.fill_(length)
+        graph.replay()
+        AC.attend_close(out, ref.decode_attend_plain(
+            q, *store, ring, length, ref.WINDOW_NONE, **kw))
+
+
+def test_second_capture_keeps_first_graph(cuda):
+    """Two graphs captured on one stream, the second at larger shapes, so
+    its warm-up grows all three workspaces (attention, decompress_matmul's
+    split-K, the histogram's): the first graph, whose kernels hold the old
+    buffers, still replays bit for bit after the card's memory is churned.
+    Growing a workspace inside a capture raises."""
+    h, hkv, hd, blk = 32, 8, 128, 256
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    kw = dict(k=5, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+
+    def case(lengths, m, rows):
+        q, pool, ring, table, lens = _edge_pool(gen, h, hkv, hd, blk,
+                                                lengths, True)
+        x = _bf16(gen, (m, 2560))
+        wt = ops.compress_weight(_weight(gen, (2560, 9728), 5), k=5)[:3]
+        rowsx = _bf16(gen, (rows, 524288), spread=9)
+
+        def step():
+            return (*ops.decode_attend_paged(q, *pool, ring, table, lens,
+                                             ref.WINDOW_NONE, **kw),
+                    ops.matmul_compressed(x, *wt, k=5), ops.histogram(rowsx))
+        return step
+
+    side = torch.cuda.Stream()
+    graphs, outs, wants = [], [], []
+    for step in (case([300, 700], 4, 1), case([300, 700, 1100, 2000, 90, 5],
+                                              8, 16)):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            out = step()
+        g.replay()
+        torch.cuda.synchronize()
+        graphs.append(g)
+        outs.append(out)
+        wants.append([t.clone() for t in out])
+    with torch.cuda.stream(side):       # the pool the old buffers came from
+        junk = [torch.full((1 << 20,), 7.0, device=cuda) for _ in range(64)]
+    torch.cuda.current_stream().wait_stream(side)
+    for g, out, want in zip(graphs, outs, wants):
+        for t in out:
+            t.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    del junk
+    bigger = case([2000] * 12, 16, 24)
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="workspace"):
+        with torch.cuda.graph(g, stream=side):
+            bigger()
+
+
+def test_replay_launch_counts(cuda):
+    """``CapturedStep``: the capture counts nothing, the warm-up counts
+    what it launched, every replay counts the captured launches."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = _bf16(gen, (4, 2560))
+    wt = ops.compress_weight(_weight(gen, (2560, 1024), 5), k=5)[:3]
+    rows = _bf16(gen, (2, 4096))
+
+    def step():
+        return (ops.matmul_compressed(x, *wt, k=5), ops.histogram(rows),
+                ops.histogram(rows))
+
+    ops.reset_launch_counts()
+    graph = ops.CapturedStep(step, step, cuda)
+    counts = ops.launch_counts()
+    assert counts["decompress_matmul"] == 1 and counts["exp_histogram"] == 2
+    assert graph.launches == {"decompress_matmul": 1, "exp_histogram": 2,
+                              "decompress_matmul/decode": 1}
+    for _ in range(3):
+        graph.replay()
+    counts = ops.launch_counts()
+    assert counts["decompress_matmul"] == 4 and counts["exp_histogram"] == 8
+    assert decompress_matmul.launches_by_route["decode"] == 4
+
+
+def test_host_sync_in_captured_step_raises(cuda, monkeypatch):
+    """A host read inside the captured step (here an injected ``.item()``
+    in the greedy pick) fails the capture, and the error reaches the
+    caller: no eager fallback."""
+    real = engine.greedy_token
+
+    def reading(logits):
+        float(logits.max())
+        return real(logits)
+
+    run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
+    eng = ServeEngine(TINY, run, n_slots=2, max_len=48, seed=1)
+    monkeypatch.setattr(engine, "greedy_token", reading)
+    with pytest.raises(RuntimeError):
+        eng.run(_tiny_requests())
+    assert eng.decoder.counts.replays == 0
