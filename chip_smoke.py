@@ -17,7 +17,10 @@ non-zero:
                path's shapes (qwen3-4b pages: block 256, W 2048, k 5;
                4 slots of 300..2000 tokens), including pages with escapes
                and with escape overflow; exact equality for the histogram
-               and the pack, rtol = atol = 1e-4 for paged attention.
+               and the pack, rtol = atol = 1e-4 for paged attention, also
+               where two slots hold the same page-table row, q, ring and
+               length (as after a prefix hit: their outputs equal bit for
+               bit).
                The two codec kernels also at the shapes of the encoder's
                other callers (``CODEC_SHAPES``: a ring flush's page, the
                fixed store's 3 records, the largest stacked weight leaf),
@@ -72,8 +75,10 @@ non-zero:
                the same weights and tokens, raw and packed weights: logits
                agree within 1e-2.
   5. serve   — ServeEngine on full-width qwen3-4b (random weights from a
-               seed), eagerly (``cuda_graphs=False``: the flush check reads
-               the card inside the step): 6 mixed requests over 4 slots,
+               seed; phases 5-8 serve with ``prefix_sharing=False``, as
+               before sharing was ported, so that their numbers stay
+               comparable), eagerly (``cuda_graphs=False``: the flush check
+               reads the card inside the step): 6 mixed requests over 4 slots,
                pages filled at prefill and by ring flushes in replay and
                decode.  Every request must get its budget and every kernel
                must have launched.  In the last layer, every page a ring
@@ -136,7 +141,28 @@ non-zero:
                packed store under the profiler, eagerly and from the
                graph, as in phase 6
                (``chiprun_out/profile_decode_packed{,_graph}.txt``).
-  9. the card's line, the ``kernels`` JSON line (launches from the runs
+  9. prefix  — prefix sharing and the tiered PageCache on the serve
+               phase's raw weights, block 256, 4 slots of 4096 tokens (72
+               pool columns): a 20-request mix (``prefix_mix``: 4
+               2048-token system prompts in 3 rounds with seeded user
+               tails of 64-448 tokens, 6 unrelated 2048-token prompts that
+               press on the pool, two exact duplicates) from CUDA graphs
+               with the path's kernels counted in that run: every budget
+               met, hits, fewer admissions than requests, evictions, each
+               duplicate's stream equal to its original's; then every
+               retained column evicted and the duplicates served again
+               from the warm tier (no prefill, the same streams, every
+               imported page's bytes hashing to its spilled digest); the
+               mix with sharing off (the share of equal tokens, and each
+               divergence teacher-forced through both runs' paths, which
+               must be a near-tie); the first 6 requests eagerly and from
+               graphs (streams, page table, page use, pool and ring bytes
+               equal); the launcher's tail-free demo mix on and off (the
+               replay cost of a hit; divergences near-ties).  Prints tok/s,
+               TTFT, admissions, hits, spilled and fetched pages and
+               bytes, evicted columns, and ms per column spilled and
+               imported.
+  10. the card's line, the ``kernels`` JSON line (launches from the runs
      from CUDA graphs, the replays counted), then the result line.
 """
 
@@ -622,6 +648,21 @@ def kernels_phase(cfg):
                                                 kv_idx=kv_idx, scale=scale)
     torch.testing.assert_close(o_k / l_k[..., None], o_p / l_p[..., None],
                                rtol=1e-4, atol=1e-4)
+    # prefix sharing: slot 1 holds the longest slot's page-table row (its
+    # escape and overflow pages), q, ring and length, as after a hit
+    q_a, ring_a, ids_a, lens_a = AC.alias_slot(q, ring, page_ids, lens,
+                                               src=s_ - 1, dst=1)
+    args_a = (q_a, *fields, ring_a, ids_a, lens_a, ref.WINDOW_NONE)
+    got = decode_attend.decode_attend_paged(*args_a, k=k, kv_idx=kv_idx,
+                                            scale=scale)
+    errs.append(AC.attend_close(got, ref.paged_decode_attend_plain(
+        *args_a, k=k, kv_idx=kv_idx, scale=scale)))
+    assert AC.same_bits([t[1] for t in got], [t[s_ - 1] for t in got]), \
+        "decode_attend_paged: aliased slots differ"
+    log("kernels", f"decode_attend_paged, slots 1 and {s_ - 1} on the same "
+                   f"page ids, q, ring and length {int(lens_a[1])}: within "
+                   f"1e-4 of the plain version (max {errs[-1]:.3g}), the "
+                   f"two slots' (out, m, l) equal bit for bit")
 
     args = (q, *fields, ring, page_ids, lens, ref.WINDOW_NONE)
     kw = dict(k=k, kv_idx=kv_idx, scale=scale)
@@ -1244,11 +1285,11 @@ class FlushCheck:
         self.cache.append_token_paged = self._append
         self.cache.release_pages = self._release
 
-    def release(self, pkv, slots_mask):
+    def release(self, pkv, slots_mask, free_mask=None):
         for slot in range(len(slots_mask)):
             if slots_mask[slot]:
                 self.rows.pop(slot, None)
-        self._release(pkv, slots_mask)
+        self._release(pkv, slots_mask, free_mask)
 
     def append(self, cfg, run, pkv, layer, new_vals, plan):
         self._append(cfg, run, pkv, layer, new_vals, plan)
@@ -1297,7 +1338,7 @@ def serve_phase(cfg, smi):
     run = RunConfig(codec=CodecConfig(cache_block=blk, decode_backend="auto"))
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, run, n_slots=4, max_len=8 * blk, seed=0,
-                      device="cuda", cuda_graphs=False)
+                      device="cuda", cuda_graphs=False, prefix_sharing=False)
     torch.cuda.synchronize()
     log("serve", f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
@@ -1435,7 +1476,7 @@ def graphs_phase(cfg, serve_eng, tok, served, smi):
     for graphs in (True, False):
         eng = ServeEngine(cfg, run, n_slots=4, max_len=8 * 256,
                           params=serve_eng.params, device="cuda",
-                          cuda_graphs=graphs)
+                          cuda_graphs=graphs, prefix_sharing=False)
         ops.reset_launch_counts()
         results, st = eng.run(reqs)
         torch.cuda.synchronize()
@@ -1731,7 +1772,7 @@ def fixed_phase(cfg, params, smi):
     compare_profiles("decode_fixed", prof)
 
     eng = ServeEngine(cfg, run, n_slots=b, max_len=max_len, params=params,
-                      device="cuda")
+                      device="cuda", prefix_sharing=False)
     reqs = [Request(uid=i, prompt=prompts[i].cpu().numpy(),
                     max_new_tokens=n + 1) for i in range(b)]
     t0 = time.perf_counter()
@@ -1958,7 +1999,8 @@ def weights_phase(cfg, serve_eng, tok, smi):
         eng = ServeEngine(cfg, run, n_slots=4, max_len=max_len,
                           params=params if be == "raw" else packed,
                           compress_weights=be != "raw", device="cuda",
-                          cuda_graphs=name != "cuda_eager")
+                          cuda_graphs=name != "cuda_eager",
+                          prefix_sharing=False)
         ops.reset_launch_counts()
         results, st = eng.run(reqs)
         torch.cuda.synchronize()
@@ -2068,6 +2110,396 @@ def weights_phase(cfg, serve_eng, tok, smi):
             "lexi_unpack": counts["unpack"]["lexi_unpack"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: prefix sharing and the tiered PageCache
+# ---------------------------------------------------------------------------
+
+PREFIX_BLK, PREFIX_MAX_LEN = 256, 4096
+
+
+def prefix_mix(cfg, rng):
+    """The prefix phase's requests and {duplicate uid: original uid}.
+    Four system prompts of 2048 tokens (8 page columns each) cycle A B C
+    D over 3 rounds, each followed by a distinct seeded user tail of
+    64-448 tokens, budgets 16-32.  Between rounds 2 and 3 come 6 unrelated
+    2048-token prompts (budget 16): the 12 requests alone hold at most 44
+    distinct columns of the pool's 72, and these 48 more make retention
+    press on the pool, so that columns are evicted and restored from the
+    warm tier within the run.  Last, exact duplicates of two earlier
+    prompts: one whose tail fits one column and one whose tail crosses
+    into a second."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+
+    v = cfg.vocab_size
+    systems = [rng.integers(0, v, (2048,)) for _ in range(4)]
+    tails = rng.choice(np.arange(64, 449), 12, replace=False)
+    reqs, tail_of = [], {}
+
+    def add(prompt, budget):
+        reqs.append(Request(uid=len(reqs), prompt=prompt.astype(np.int32),
+                            max_new_tokens=int(budget)))
+
+    for rnd in range(3):
+        if rnd == 2:
+            for _ in range(6):
+                add(rng.integers(0, v, (2048,)), 16)
+        for j in range(4):
+            t = int(tails[4 * rnd + j])
+            tail_of[len(reqs)] = t
+            add(np.concatenate([systems[j], rng.integers(0, v, (t,))]),
+                rng.integers(16, 33))
+    short = min(u for u, t in tail_of.items() if t <= PREFIX_BLK)
+    long_ = min(u for u, t in tail_of.items() if t > PREFIX_BLK)
+    dups = {}
+    for orig in (short, long_):
+        dups[len(reqs)] = orig
+        add(reqs[orig].prompt.copy(), reqs[orig].max_new_tokens)
+    return reqs, dups
+
+
+class SharingProbe:
+    """Watches one ServeEngine with prefix sharing: the time and columns
+    of every spill (the card-to-host export and the digests) and of every
+    admission by a hit (map, then the warm wire built and imported), each
+    from a synchronised card to a synchronised card; each hit's keys, its
+    hot and warm columns and the slot's page-table row after it; and the
+    tokens of every batched prefill (for the teacher-forced check)."""
+
+    def __init__(self, eng):
+        import numpy as np
+        import torch
+        self.eng, self.sync = eng, torch.cuda.synchronize
+        self.spill_s, self.spill_cols = 0.0, 0
+        self.import_s, self.import_cols, self.hits = 0.0, 0, []
+        self.batches = {}             # uid -> (batch tokens, row)
+        spill, admit, cold = (eng._spill_slots, eng._admit_shared,
+                              eng._admit_cold_batch)
+
+        def spill_slots(slots, rows):
+            n0 = len(eng.cache.warm)
+            self.sync()
+            t0 = time.perf_counter()
+            spill(slots, rows)
+            self.sync()
+            self.spill_s += time.perf_counter() - t0
+            self.spill_cols += len(eng.cache.warm) - n0
+
+        def admit_shared(ls, s, req, m, keys, warm):
+            self.sync()
+            t0 = time.perf_counter()
+            admit(ls, s, req, m, keys, warm)
+            self.sync()
+            if warm:
+                self.import_s += time.perf_counter() - t0
+                self.import_cols += len(warm)
+            self.hits.append(dict(uid=req.uid, keys=list(keys), m=m,
+                                  h=m - len(warm),
+                                  row=eng.state.kv.page_table[s].copy()))
+
+        def admit_cold(ls, batch, slots, trunk, replays):
+            toks = torch.as_tensor(np.stack([r.prompt[:trunk]
+                                             for r in batch]),
+                                   dtype=torch.int32, device=eng.device)
+            for j, r in enumerate(batch):
+                self.batches[r.uid] = (toks, j)
+            cold(ls, batch, slots, trunk, replays)
+
+        eng._spill_slots = spill_slots
+        eng._admit_shared = admit_shared
+        eng._admit_cold_batch = admit_cold
+
+    def line(self):
+        sp = self.spill_s * 1e3 / max(self.spill_cols, 1)
+        im = self.import_s * 1e3 / max(self.import_cols, 1)
+        return (f"spill {self.spill_cols} columns in {self.spill_s * 1e3:.1f}"
+                f" ms ({sp:.2f} ms per column), warm import "
+                f"{self.import_cols} columns in {self.import_s * 1e3:.1f} ms "
+                f"({im:.2f} ms per column, the map included)")
+
+
+def pool_page_payloads(pkv, page: int, codec_on: bool):
+    """One pool page's payload per layer, in the transport's wire bytes."""
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.serve import scheduler, transport
+    wire = cache_mod.PageWire(
+        *(None if getattr(pkv, f) is None else getattr(pkv, f)[:, [page]]
+          for f in cache_mod.PageWire._fields[:-1]), ring=pkv.ring[:, 0])
+    kv = scheduler._host_fields(wire)
+    return [transport.page_payload(kv, codec_on, 0, l, 0)
+            for l in range(pkv.ring.shape[0])]
+
+
+def prefix_stats_line(st):
+    return (f"{st.tokens_per_s:.2f} tok/s, TTFT mean "
+            f"{st.ttft_mean_s * 1e3:.1f} / p50 {st.ttft_p50_s * 1e3:.1f} / "
+            f"p95 {st.ttft_p95_s * 1e3:.1f} ms, wall {st.wall_s:.2f}s, "
+            f"{st.n_admit_dispatches} admissions (batched prefills) of "
+            f"{st.n_requests} requests, {st.n_replay_dispatches} replay "
+            f"windows, {st.shared_page_hits} shared page hits "
+            f"({st.cache_hot_hits} hot re-acquires), "
+            f"{st.cache_spilled_pages} pages / {st.cache_spilled_bytes} B "
+            f"spilled, {st.cache_fetched_pages} pages / "
+            f"{st.cache_fetched_bytes} B fetched, {st.cache_evicted_cols} "
+            f"columns evicted, {st.cache_reprefill_cols} re-prefills, "
+            f"{st.eager_steps} eager + {st.graph_replays} replayed steps")
+
+
+def prefix_phase(cfg, params, smi):
+    """Serve a shared-prefix mix on full-width qwen3-4b, raw weights,
+    block 256, 4 slots of 4096 tokens (72 pool columns): sharing on from
+    CUDA graphs, the warm tier restoring the duplicates after an eviction
+    of every retained column, sharing off, a sub-mix eager against graphs,
+    and the launcher's tail-free demo mix on and off."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve.digest import page_digest
+    from repro_torch.serve.scheduler import (Request, ServeEngine,
+                                             demo_serving_setup, format_stats)
+
+    run = RunConfig(codec=CodecConfig(cache_block=PREFIX_BLK))
+    reqs, dups = prefix_mix(cfg, np.random.default_rng(11))
+    t_phase = time.perf_counter()
+
+    def engine(sharing=True, graphs=True, run_=run, max_len=PREFIX_MAX_LEN):
+        return ServeEngine(cfg, run_, n_slots=4, max_len=max_len,
+                           params=params, device="cuda", cuda_graphs=graphs,
+                           prefix_sharing=sharing)
+
+    # sharing on, from CUDA graphs: the path's kernels counted in this run
+    eng = engine()
+    assert eng.state.kv.page_used.shape[0] == 72
+    probe = SharingProbe(eng)
+    ops.reset_launch_counts()
+    results, st = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    streams = {r.uid: r.tokens for r in results}
+    for req, res in zip(reqs, results):
+        assert len(res.tokens) == req.max_new_tokens, (req.uid, res)
+    assert all(launches[name] > 0 for name in SERVE_KERNELS), launches
+    check_graph_run(cfg, st, launches)
+    assert st.shared_page_hits > 0 and st.cache_hot_hits > 0, st
+    assert st.n_admit_dispatches < st.n_requests, st
+    assert st.cache_evicted_cols > 0, st
+    for dup, orig in dups.items():
+        assert streams[dup] == streams[orig], (dup, orig)
+    log("prefix", f"sharing on, CUDA graphs: " + format_stats(st)
+        .replace("\n", " | "))
+    log("prefix", f"sharing on, CUDA graphs, {len(reqs)} requests: "
+                  f"{prefix_stats_line(st)}; {probe.line()}; launches "
+                  f"{launches}; duplicates {sorted(dups.items())} "
+                  f"(duplicate, original): streams equal | {smi}")
+
+    # the warm tier: evict every retained column, then the duplicates
+    # again restore from the spilled bytes with no prefill
+    st0 = st
+    on_hits = {h["uid"]: h["m"] for h in probe.hits}
+    hit_uids = set(on_hits)
+    n_evict = eng.cache.retained()
+    eng._ensure_free_pages(1 << 30)
+    assert eng.cache.retained() == 0 and not eng.state.kv.page_used.any()
+    probe.hits.clear()
+    again = [Request(uid=100 + d, prompt=reqs[d].prompt.copy(),
+                     max_new_tokens=reqs[d].max_new_tokens) for d in dups]
+    res2, st2 = eng.run(again)
+    torch.cuda.synchronize()
+    for r, d in zip(res2, dups):
+        assert r.tokens == streams[d], (r.uid, d)
+    assert st2.n_admit_dispatches == 0, st2
+    assert st2.cache_fetched_pages > st0.cache_fetched_pages, st2
+    n_pages = 0
+    for hit in probe.hits:
+        for c in range(hit["h"], hit["m"]):
+            key, page = hit["keys"][c], int(hit["row"][c])
+            got = pool_page_payloads(eng.state.kv, page, True)
+            assert [page_digest(p) for p in got] == eng.cache.warm[key], \
+                (hit["uid"], c)
+            n_pages += len(got)
+    assert n_pages > 0
+    log("prefix", f"warm restore: {n_evict} retained columns evicted, the 2 "
+                  f"duplicates served again from the warm tier with no "
+                  f"prefill, on the same streams; {n_pages} imported pages' "
+                  f"bytes hash to their spilled digests; "
+                  f"{prefix_stats_line(st2)}; {probe.line()} | {smi}")
+    on_batches = probe.batches
+    del eng, probe
+    torch.cuda.empty_cache()
+
+    # sharing off: the same mix, every request cold
+    eng = engine(sharing=False)
+    off_probe = SharingProbe(eng)
+    res_off, st_off = eng.run(reqs)
+    torch.cuda.synchronize()
+    off = {r.uid: r.tokens for r in res_off}
+    off_batches = off_probe.batches
+    del eng, off_probe
+    torch.cuda.empty_cache()
+    assert st_off.shared_page_hits == 0 and st_off.cache_spilled_pages == 0
+    log("prefix", f"sharing off, CUDA graphs: {prefix_stats_line(st_off)} "
+                  f"| {smi}")
+    near_ties("prefix mix", cfg, run, params, reqs, streams, off, on_batches,
+              on_hits, off_batches, hit_uids)
+
+    # the first 6 requests (4 cold, 2 hits) eagerly and from graphs
+    sub = reqs[:6]
+    got = {}
+    for graphs in (False, True):
+        eng = engine(graphs=graphs)
+        res, st_sub = eng.run(sub)
+        torch.cuda.synchronize()
+        assert st_sub.shared_page_hits > 0
+        got[graphs] = ([r.tokens for r in res], pool_snapshot(eng.state.kv),
+                       st_sub)
+        del eng
+    assert got[True][0] == got[False][0], "sub-mix: graph != eager"
+    n_bytes = same_pools(got[True][1], got[False][1])
+    log("prefix", f"the first 6 requests (sharing on), eager and from CUDA "
+                  f"graphs: the same streams, page table, page use and all "
+                  f"{n_bytes} B of pages and rings; eager "
+                  f"{prefix_stats_line(got[False][2])}; graphs "
+                  f"{prefix_stats_line(got[True][2])} | {smi}")
+    del got
+    torch.cuda.empty_cache()
+
+    # the replay cost of a hit: the launcher's tail-free demo mix (prompts
+    # 1024 / 512 at block 256), sharing on and off
+    demo = {}
+    run_d, max_len, dreqs = demo_serving_setup(run, cfg.vocab_size, 1024, 16,
+                                               6)
+    for sharing in (True, False):
+        eng = engine(sharing=sharing, run_=run_d, max_len=max_len)
+        dprobe = SharingProbe(eng)
+        res, st_d = eng.run(dreqs)
+        demo[sharing] = ({r.uid: r.tokens for r in res}, st_d,
+                         dprobe.batches,
+                         {h["uid"]: h["m"] for h in dprobe.hits})
+        log("prefix", f"demo mix, sharing {'on' if sharing else 'off'}: "
+                      f"{prefix_stats_line(st_d)}; TTFT per request "
+                      f"{[round(r.ttft_s * 1e3, 1) for r in res]} ms | {smi}")
+        del eng, dprobe
+    assert demo[True][1].shared_page_hits > 0
+    near_ties("demo mix", cfg, run_d, params, dreqs, demo[True][0],
+              demo[False][0], demo[True][2], demo[True][3], demo[False][2],
+              set(demo[True][3]), max_len=max_len)
+    log("prefix", f"demo mix: TTFT mean {demo[False][1].ttft_mean_s * 1e3:.1f}"
+                  f" (off) -> {demo[True][1].ttft_mean_s * 1e3:.1f} ms (on); "
+                  f"the phase took {time.perf_counter() - t_phase:.1f}s")
+    torch.cuda.empty_cache()
+
+
+def near_ties(label, cfg, run, params, reqs, on, off, on_batches, on_hits,
+              off_batches, hit_uids, max_len=PREFIX_MAX_LEN):
+    """Sharing on against off: the share of equal tokens, and at each
+    request's first divergence both runs' paths teacher-forced
+    (``teacher_forced_paths``): the pages the request started from
+    prefilled again in the batch that made them -- off: its own batch; on:
+    its own, or for a hit the first cold request of the on-run whose
+    prompt shares the hit's mapped columns, kept to those columns -- then
+    the rest of the prompt and the on-run's tokens fed through decode
+    steps.  Each divergence must be a near-tie: a top-2 margin within the
+    largest gap between the two paths' logits."""
+    import numpy as np
+    blk = run.codec.cache_block
+    n_tok = sum(len(t) for t in off.values())
+    same = sum(int(a == b) for u in off for a, b in zip(off[u], on[u]))
+    first = {u: next(i for i, (a, b) in enumerate(zip(off[u], on[u]))
+                     if a != b)
+             for u in off if off[u] != on[u]}
+    log("prefix", f"{label}, sharing on vs off: {same}/{n_tok} tokens equal "
+                  f"({same / n_tok:.4f}); first divergence (uid: position) "
+                  f"{first}")
+
+    def on_start(uid):
+        if uid in on_batches:
+            return on_batches[uid], on_batches[uid][0].shape[1]
+        for u in sorted(on_batches):
+            keep = min(on_hits[uid] * blk, on_batches[u][0].shape[1])
+            if np.array_equal(reqs[u].prompt[:keep], reqs[uid].prompt[:keep]):
+                return on_batches[u], keep
+        raise AssertionError(f"{label}: no cold provider for uid {uid}")
+
+    todo = sorted(first.items())
+    for i in range(0, len(todo), 2):
+        paths = []
+        for uid, pos in todo[i:i + 2]:
+            forced = np.asarray(on[uid][:pos], np.int32)
+            for start, keep in (on_start(uid), (off_batches[uid],
+                                                off_batches[uid][0].shape[1])):
+                paths.append((start, keep, np.concatenate(
+                    [reqs[uid].prompt[keep:], forced])))
+        logits = teacher_forced_paths(cfg, run, params, paths, max_len)
+        for j, (uid, pos) in enumerate(todo[i:i + 2]):
+            a, b = logits[2 * j], logits[2 * j + 1]
+            m_on, m_off, gap = logit_margins(a, b)
+            tie = min(m_on, m_off) <= gap
+            log("prefix", f"{label}, uid {uid} position {pos} "
+                          f"({'hit' if uid in hit_uids else 'cold'} in the "
+                          f"on-run; on token {on[uid][pos]}, off "
+                          f"{off[uid][pos]}; teacher-forced argmax on "
+                          f"{int(a.argmax())} / off {int(b.argmax())}): "
+                          f"top-2 margin on {m_on:.4g} / off {m_off:.4g}, "
+                          f"largest logit gap {gap:.4g}: "
+                          f"{'near-tie' if tie else 'MARGIN ABOVE THE GAP'}")
+            assert tie, (label, uid, pos, m_on, m_off, gap)
+
+
+def teacher_forced_paths(cfg, run, params, paths, max_len):
+    """Up to 4 paths through the paged engine's decode, one slot each:
+    ``(batch, keep, feed)``, where ``batch`` = (tokens (B, T) on the card,
+    row) is a batched prefill whose row's first ``keep`` tokens of pages
+    (whole columns, or the whole row with its ring) start the slot, and
+    ``feed`` the tokens then fed one decode step at a time (all 4 slots'
+    rows computed every step, as the engine runs them; steps from the
+    CUDA graph, each path's last step eager).  Returns each path's logits
+    (Vp,) after its feed (the prefill's own when the feed is empty)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine
+
+    st = engine.empty_paged_state(cfg, run, 4, max_len,
+                                  device=paths[0][0][0].device)
+    blk = run.codec.cache_block
+    out = [None] * len(paths)
+    for slot, ((toks, row), keep, feed) in enumerate(paths):
+        logits, d = engine.prefill_sequences(cfg, run, params, toks)
+        one = engine.PrefilledSequences(kv=[dataclasses.replace(
+            kvb, **{f: getattr(kvb, f)[row:row + 1] for f in
+                    ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+                     "raw_blocks", "ring") if getattr(kvb, f) is not None})
+            for kvb in d.kv], length=d.length)
+        engine.insert_sequences(cfg, run, st, one, [slot])
+        if keep < d.length:           # a hit: its mapped columns only
+            assert keep % blk == 0, keep
+            st.kv.page_table[slot, keep // blk:] = -1
+            st.kv.touch()
+            st.kv.ring[:, slot].zero_()
+            st.lengths[slot] = keep
+        if not len(feed):
+            out[slot] = logits[row, -1]
+        del d, one, logits
+    graph = engine.PagedDecoder(cfg, run, st, graphs=True)
+    eager = engine.PagedDecoder(cfg, run, st, graphs=False)
+    n = [len(f) for _, _, f in paths]
+    for t in range(max(n)):
+        active = np.array([slot < len(paths) and t < n[slot]
+                           for slot in range(4)])
+        tok = torch.tensor([[int(paths[s][2][t]) if active[s] else 0]
+                            for s in range(4)], dtype=torch.int32)
+        last = active & np.array([s < len(paths) and t == n[s] - 1
+                                  for s in range(4)])
+        dec = eager if last.any() else graph
+        dec.tok.copy_(tok)
+        logits = dec.forward(params, active)
+        for s in np.flatnonzero(last):
+            out[s] = logits[s, -1]
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -2092,7 +2524,9 @@ def main() -> int:
     # launches on the main path's runs from CUDA graphs (replays counted)
     launches = graphs_phase(cfg, serve_eng, tok, served, smi)
     launches["decode_attend"] = fixed_phase(cfg, serve_eng.params, smi)
+    raw_params = serve_eng.params
     launches.update(weights_phase(cfg, serve_eng, tok, smi))
+    prefix_phase(cfg, raw_params, smi)
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(

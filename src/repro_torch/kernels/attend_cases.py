@@ -72,6 +72,17 @@ def with_escapes(x: torch.Tensor, rows) -> torch.Tensor:
     return torch.where(sel, (torch.sign(x.float()) * tiny).to(x.dtype), x)
 
 
+def alias_slot(q, ring, table, lens, src: int, dst: int):
+    """Copies of a paged case's q, ring, page table and lengths in which
+    slot ``dst`` holds slot ``src``'s row of each: two slots that read the
+    same pages, as two requests sharing a prefix do after a hit (their
+    outputs must hold the same bits)."""
+    out = [t.clone() for t in (q, ring, table, lens)]
+    for t in out:
+        t[dst] = t[src]
+    return out
+
+
 def same_bits(a, b) -> bool:
     """Two (out, m, l) results hold the same bits."""
     return all(torch.equal(x.view(torch.int32), y.view(torch.int32))

@@ -6,7 +6,8 @@ batching (a request stream through ``ServeEngine``).
         --batch 4 --prompt-len 64 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --no-reduced --continuous --requests 6 --slots 4 --prompt-len 1024 \
-        --new-tokens 16 [--compress-weights [--weight-backend unpack]]
+        --new-tokens 16 [--compress-weights [--weight-backend unpack]] \
+        [--no-prefix-sharing]
 
 Weights are a seeded random init (no checkpoint ships with the repo).
 ``--reduced`` (the default) serves ``make_reduced(cfg)``; ``--no-reduced``
@@ -68,6 +69,9 @@ def main(argv=None) -> int:
                     help="continuous mode: comma-separated token ids; a "
                          "slot stops when its stream ends with them "
                          "(stop_reason=stop_string)")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="continuous mode: disable prefix-cache page "
+                         "sharing between requests")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -144,6 +148,7 @@ def _serve_continuous(cfg, run: RunConfig, args) -> int:
              if args.stop_seq else None)
     eng = ServeEngine(cfg, run, n_slots=args.slots, max_len=max_len,
                       seed=run.seed, eos_id=args.eos_id, stop_seqs=stops,
+                      prefix_sharing=not args.no_prefix_sharing,
                       compress_weights=args.compress_weights,
                       device=args.device)
     results, st = eng.run(reqs)

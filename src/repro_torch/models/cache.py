@@ -518,10 +518,135 @@ def paged_insert_many(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
         pkv.ring[layer][slots_t] = kvb.ring
 
 
-def release_pages(pkv: PagedKV, slots_mask: np.ndarray) -> None:
-    """Unmap the masked slots' table rows and free their pages (in
-    place; host bookkeeping only)."""
-    rows = pkv.page_table[slots_mask]
-    pkv.page_used[rows[rows >= 0]] = False
+def map_prefix_pages(pkv: PagedKV, slot: int, page_ids: np.ndarray,
+                     n_cols: int) -> None:
+    """Map already-filled shared pages into slot ``slot``'s table row (all
+    layers): ``page_ids`` (maxp,) holds the matched full prefix columns'
+    page ids (entries from ``n_cols`` on are ignored).  The slot's ring
+    starts empty (the shared prefix is block-aligned; the tail is
+    private).  No page data moves: sharing is page-table indirection, the
+    host scheduler owns the refcounts.  The ring is cleared on the device
+    outside any captured step; the table reaches the device through
+    ``touch``."""
+    maxp = pkv.page_table.shape[1]
+    ids = np.asarray(page_ids, np.int32)[:n_cols]
+    row = np.full((maxp,), -1, np.int32)
+    row[:n_cols] = ids
+    pkv.page_table[slot] = row
+    pkv.page_used[ids] = True        # live already: a re-assert
+    pkv.ring[:, slot].zero_()
+    pkv.touch()
+
+
+class PageWire(NamedTuple):
+    """One slot's cache payload in transfer layout, every layer: the
+    dense, column-ordered view of a sequence's pages that
+    ``export_sequence`` gathers out of a pool and ``import_sequence``
+    scatters into one (ports ``repro/models/cache.py:PageWire`` as
+    ``engine.export_slot`` stacks it over layers).  Compressed fields are
+    byte-identical to the pool pages they came from; page ids never cross
+    the wire.  Leaves are ``None`` exactly as in ``PagedKV``.  Shapes
+    (n_cols exported columns; columns past the sequence's full pages are
+    zeroed):
+
+      signman   (L, n_cols, N) u8          N = block*W
+      planes    (L, n_cols, k, Npad/32) int32 (the reference's u32 bits)
+      dict_syms (L, n_cols, 2^k) u8
+      esc_pos   (L, n_cols, C) i32
+      esc_raw   (L, n_cols, C) u8
+      raw_pages (L, n_cols, block, W) bf16
+      ring      (L, block, W) bf16         the in-flight partial block
+    """
+    signman: Optional[torch.Tensor]
+    planes: Optional[torch.Tensor]
+    dict_syms: Optional[torch.Tensor]
+    esc_pos: Optional[torch.Tensor]
+    esc_raw: Optional[torch.Tensor]
+    raw_pages: Optional[torch.Tensor]
+    ring: torch.Tensor
+
+
+_WIRE_FIELDS = _FIELDS + ("raw_pages",)
+
+
+def export_n_cols(length: int, blk: int) -> int:
+    """Full page columns of a sequence of ``length`` tokens (the
+    reference's ``export_n_cols`` at tp = 1)."""
+    return max(int(length), 0) // blk
+
+
+def export_sequence(pkv: PagedKV, slot: int, n_cols: int, length: int,
+                    col0: int = 0) -> PageWire:
+    """Gather slot ``slot``'s pages ``[col0, col0 + n_cols)`` and its ring
+    into transfer layout (one gather per field from the host table's
+    ids, no decompression).  Columns at or past the sequence's full pages
+    (``length // block``) are zeroed, so the payload is deterministic."""
+    blk = pkv.ring.shape[2]
+    maxp = pkv.page_table.shape[1]
+    cols = col0 + np.arange(n_cols)
+    valid = (cols < length // blk) & (cols < maxp)
+    row = pkv.page_table[slot]
+    pid = np.where(valid, np.maximum(row[np.clip(cols, 0, maxp - 1)], 0), 0)
+    dev = pkv.ring.device
+    pid_t = torch.as_tensor(pid, dtype=torch.int64, device=dev)
+    dead = torch.as_tensor(~valid, device=dev)
+
+    def take(field):
+        if field is None:
+            return None
+        out = field.index_select(1, pid_t)
+        out[:, dead] = 0
+        return out
+
+    return PageWire(*(take(getattr(pkv, f)) for f in _WIRE_FIELDS),
+                    ring=pkv.ring[:, slot].clone())
+
+
+def import_sequence(pkv: PagedKV, slot: int, wire: PageWire, length: int,
+                    col0: int = 0) -> None:
+    """Scatter a :class:`PageWire` into slot ``slot`` of this pool, the
+    inverse of ``export_sequence`` up to page ids: fresh pages come from
+    this pool's free list (``_alloc_pages``, lowest free ids first, as the
+    reference's stable argsort), the fields are byte-copied into them, and
+    the row maps them in column order.  Wire columns land at ``[col0,
+    col0 + n_cols)``; the row below ``col0`` is kept (prefix reuse maps
+    shared pages there first); columns at or past ``length // block`` are
+    dropped.  The host checks capacity: a dry pool raises before any
+    device write."""
+    lead = wire.signman if pkv.signman is not None else wire.raw_pages
+    n_cols = lead.shape[1]
+    blk = pkv.ring.shape[2]
+    maxp = pkv.page_table.shape[1]
+    nfull = length // blk
+    n_valid = max(min(n_cols, nfull - col0), 0)
+    assert col0 + n_valid <= maxp, (col0, n_valid, maxp)
+    pages = _alloc_pages(pkv, n_valid)
+    dev = pkv.ring.device
+    tgt = torch.as_tensor(pages, dtype=torch.int64, device=dev)
+    for f in _WIRE_FIELDS:
+        dst = getattr(pkv, f)
+        if dst is not None and n_valid:
+            dst[:, tgt] = getattr(wire, f)[:, :n_valid].to(dev)
+    row = pkv.page_table[slot].copy()
+    row[col0:] = -1
+    row[col0:max(nfull, col0)] = 0       # the reference's zero padding
+    row[col0:col0 + n_valid] = pages
+    pkv.page_table[slot] = row
+    pkv.ring[:, slot] = wire.ring.to(dev)
+    pkv.touch()
+
+
+def release_pages(pkv: PagedKV, slots_mask: np.ndarray,
+                  free_mask: Optional[np.ndarray] = None) -> None:
+    """Unmap the masked slots' table rows and free pages (in place; host
+    bookkeeping only).  ``free_mask`` None: every page of a masked row is
+    freed.  With prefix sharing the host passes ``free_mask`` (n_pages,)
+    bool, exactly the pages whose last reference went, so pages that
+    other rows or the retained prefix index still hold stay used."""
+    if free_mask is None:
+        rows = pkv.page_table[slots_mask]
+        pkv.page_used[rows[rows >= 0]] = False
+    else:
+        pkv.page_used &= ~np.asarray(free_mask, bool)
     pkv.page_table[slots_mask] = -1
     pkv.touch()

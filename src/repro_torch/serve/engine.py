@@ -22,7 +22,10 @@ Continuous batching (driven by ``serve.scheduler.ServeEngine``):
            attends through its page table; one greedy token per slot
            (``PagedDecoder`` runs the scheduler's decode and replay
            windows);
-  evict  — ``release_slots`` frees a finished slot's pages.
+  evict  — ``release_slots`` frees a finished slot's pages;
+  share  — ``map_shared_slot`` maps a cached prefix's pages into a slot,
+           ``export_slot`` / ``import_slot`` copy a slot's pages out to
+           host bytes and back (the scheduler's tiered PageCache).
 
 Compiled dispatch: the reference jits each decode window (a ``lax.scan``
 of K steps) and the fixed loop; here ``PagedDecoder`` and
@@ -497,9 +500,46 @@ def paged_replay_steps(cfg: ModelConfig, run: RunConfig, params,
         params, tokens, feed)
 
 
-def release_slots(state: PagedState, mask: np.ndarray) -> PagedState:
-    """Evict finished sequences: free their pages, clear their slots."""
-    cache_mod.release_pages(state.kv, mask)
+def map_shared_slot(state: PagedState, slot: int, page_ids: np.ndarray,
+                    n_cols: int, base_len: int) -> PagedState:
+    """Admit a prefix-cache hit: map ``n_cols`` already-filled page
+    columns (ids ``page_ids`` (maxp,)) into ``slot``'s table row, with no
+    prefill and no page copy.  The slot starts at ``base_len`` tokens;
+    the prompt suffix replays through decode steps."""
+    cache_mod.map_prefix_pages(state.kv, slot, page_ids, n_cols)
+    state.lengths[slot] = base_len
+    state.active[slot] = True
+    return state
+
+
+def export_slot(state: PagedState, slot: int, n_cols: int, col0: int = 0
+                ) -> Tuple[cache_mod.PageWire, int]:
+    """One slot's cache payload for a handoff or a spill: (the
+    ``cache.export_sequence`` of page columns ``[col0, col0 + n_cols)``
+    and the ring, the slot's length).  The reference's recurrent-state
+    half waits for the SSM models."""
+    length = int(state.lengths[slot])
+    return cache_mod.export_sequence(state.kv, slot, n_cols, length,
+                                     col0), length
+
+
+def import_slot(state: PagedState, slot: int, kv_wire: cache_mod.PageWire,
+                length: int, col0: int = 0) -> PagedState:
+    """Import an exported sequence into free slot ``slot``: pages from
+    this pool's free list, fields byte-copied (``cache.import_sequence``;
+    ``col0`` > 0 keeps the row below it), the slot active at ``length``."""
+    cache_mod.import_sequence(state.kv, slot, kv_wire, length, col0)
+    state.lengths[slot] = length
+    state.active[slot] = True
+    return state
+
+
+def release_slots(state: PagedState, mask: np.ndarray,
+                  free_mask: Optional[np.ndarray] = None) -> PagedState:
+    """Evict finished sequences: free their pages (with prefix sharing,
+    only ``free_mask``'s: the pages whose last reference went), clear
+    their slots."""
+    cache_mod.release_pages(state.kv, mask, free_mask)
     state.lengths[mask] = 0
     state.active[mask] = False
     return state

@@ -5,19 +5,45 @@ cache (ports ``repro/serve/scheduler.py`` at tp = 1).
 ``RequestScheduler`` is the admission queue.  The loop:
 
     while work:
-        admit   — queued requests are drained per trunk bucket (the largest
+        admit   — (a) queued requests whose prompt prefix matches full page
+                  columns in the tiered ``PageCache`` take them with no
+                  prefill: hot columns map into the slot's page-table row
+                  (``engine.map_shared_slot``), warm ones import their
+                  spilled bytes (``engine.import_slot``) (``_admit_shared``);
+                  (b) the rest are drained per trunk bucket (the largest
                   power of two <= the prompt length) and prefilled together
                   in one batched pass, each sequence's blocks compressed on
-                  its own (``_admit_cold_batch``); leftover prompt tokens
-                  replay per slot through decode steps (``_run_replays``),
-                  which are exact at every position;
+                  its own (``_admit_cold_batch``); (c) leftover prompt
+                  tokens (a bucket's tail or an unmatched suffix) replay
+                  per slot through decode steps (``_run_replays``), which
+                  are exact at every position;
         step    — one window runs K decode steps (K = the largest power of
                   two <= the earliest budget-finish, capped), one greedy
                   token per active slot and step, read back once per window
                   (``_decode_window``, ``_fuse_steps``);
         evict   — slots that hit their budget, emit ``eos_id`` or complete
                   a stop sequence release their pages at the window
-                  boundary (``_check_done``, ``_finish_ready``).
+                  boundary (``_check_done``, ``_finish_ready``); with
+                  prefix sharing a column whose last reference goes is
+                  spilled to host bytes (warm tier) and RETAINED on the
+                  device (hot tier) until pool pressure evicts it
+                  (``_free_slots``, ``_ensure_free_pages``).
+
+Prefix sharing (``prefix_sharing=True``, the default, as in the
+reference): full pages are immutable once compressed, so sharing is
+page-table indirection.  The host keeps a ``pagecache.PageCache`` keyed
+by chained SHA-256 prefix digests (``digest.chain_keys``), one key per
+full page column: the hot tier maps a key to its page id, retains
+zero-ref columns under an LRU and evicts them only under pool pressure;
+the warm tier holds their compressed payloads in host RAM (spilled at
+last release through ``engine.export_slot``, restored through
+``engine.import_slot``); the remote tier is a ``remote_fetch`` callable.
+Page ids come from the host page table, so no step of it reads the
+device, apart from the spill's copy of the pages themselves.  MoE and
+MLA auto-disable sharing, as in the reference.  A hit changes the page
+table and ring between windows, on the host and outside any captured
+step; the captured step reads the table through ``PagedKV.ids`` and is
+not captured again.
 
 The reference fuses a window's K steps into one ``lax.scan`` dispatch
 (one jitted program per K, and per replay window).  Here a window is K
@@ -34,11 +60,13 @@ at a time, graphs or not.
 parameters' device, and every matmul against them runs the backend
 ``CodecConfig.weight_backend`` resolves to.
 
-Left out of this slice: prefix sharing and the tiered PageCache (the port
-runs ``prefix_sharing=False``; the reference's streams are unchanged by
-sharing), request tracing, and disaggregated replicas.  Dropped with the
-mesh at one GPU: the shard_map wrappers and the leading per-shard axis of
-every state leaf.
+Left out: the hybrid models' boundary SSM snapshots (``_snapshot_match``,
+``_admit_snapshot``, ``_capture_snapshots``: they wait for the SSM
+models), request tracing and the metrics registry (they wait for
+telemetry), and disaggregated replicas (``remote_fetch`` is accepted and
+handed to the ``PageCache``; no peer is wired to it yet).  Dropped with
+the mesh at one GPU: the shard_map wrappers and the leading per-shard
+axis of every state leaf (a column's page-id vector has one entry).
 """
 
 from __future__ import annotations
@@ -57,6 +85,9 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import lm, params as PM
 from . import engine
+from . import transport
+from .digest import chain_keys
+from .pagecache import PageCache
 
 
 @dataclasses.dataclass
@@ -120,6 +151,16 @@ class ServeStats:
     flush_steps: int = 0
     graph_replays: int = 0
     graph_captures: int = 0
+    # prefix sharing: page columns mapped or imported at admission, and
+    # the tiered PageCache's lifetime counters (engine lifetime)
+    shared_page_hits: int = 0
+    cache_hot_hits: int = 0          # retained zero-ref columns re-acquired
+    cache_spilled_pages: int = 0     # page payloads written to the warm store
+    cache_spilled_bytes: int = 0
+    cache_fetched_pages: int = 0     # payloads restored from warm/remote
+    cache_fetched_bytes: int = 0
+    cache_reprefill_cols: int = 0    # warm columns lost on every tier
+    cache_evicted_cols: int = 0      # hot columns evicted under pool pressure
 
     @property
     def cache_ratio(self) -> float:
@@ -168,6 +209,7 @@ class _LoopState:
     dispatches: int = 0
     admit_dispatches: int = 0
     replay_dispatches: int = 0
+    shared_hits: int = 0
     peak_pages: int = 0
     first_tok_t: Dict[int, float] = dataclasses.field(default_factory=dict)
     ttft_s: Dict[int, float] = dataclasses.field(default_factory=dict)
@@ -211,6 +253,26 @@ class RequestScheduler:
         return len(self.queue)
 
 
+def _host_fields(wire: cache_mod.PageWire) -> Dict[str, np.ndarray]:
+    """A ``PageWire``'s fields on the host in the transport's ``(tp, L,
+    cols, ...)`` layout (tp = 1), with the reference's dtypes: planes as
+    uint32, raw bf16 pages as uint16 bits (the same bytes)."""
+    kv = {}
+    for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+              "raw_pages"):
+        t = getattr(wire, f)
+        if t is None:
+            continue
+        if f == "raw_pages":
+            a = t.view(torch.int16).cpu().numpy().view(np.uint16)
+        else:
+            a = t.cpu().numpy()
+            if f == "planes":
+                a = a.view(np.uint32)
+        kv[f] = a[None]
+    return kv
+
+
 def resolve_device(device) -> torch.device:
     """The serving device: CUDA unless the caller asks for the CPU; a
     CUDA request on a machine without a GPU raises."""
@@ -228,17 +290,18 @@ class ServeEngine:
                  n_slots: int = 4, max_len: int = 256, params=None,
                  seed: int = 0, eos_id: Optional[int] = None,
                  stop_seqs: Optional[Sequence[Sequence[int]]] = None,
-                 max_fuse_steps: int = 32, prefix_sharing: bool = False,
+                 max_fuse_steps: int = 32, prefix_sharing: bool = True,
+                 store_pages: int = 4096, remote_fetch=None,
                  compress_weights: bool = False, device="cuda",
                  cuda_graphs: Optional[bool] = None):
         """``cuda_graphs``: replay decode steps from a CUDA graph (``None``:
         on a CUDA device, off on the CPU; ``True`` on the CPU raises).
         ``False`` on the card steps eagerly, e.g. to check a step from the
-        host between its launches."""
-        if prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing is not ported yet (streams are the same "
-                "without it)")
+        host between its launches.  ``prefix_sharing``: share full prefix
+        pages through the tiered ``PageCache`` (off by itself for MoE and
+        MLA, whose decode is not bit-equal to their prefill);
+        ``store_pages`` bounds its warm store, ``remote_fetch(digests) ->
+        {digest: payload}`` is its remote tier."""
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
         self.device = resolve_device(device)
@@ -251,6 +314,11 @@ class ServeEngine:
         self.eos_id = eos_id
         self.stop_seqs = _norm_stops(stop_seqs)
         self.max_fuse_steps = max_fuse_steps
+        # sharing needs KV pages and a decode step bit-equal to prefill at
+        # prompt positions (the matched prefix skips prefill, the suffix
+        # replays), which rules out MoE and MLA, as in the reference
+        self.prefix_sharing = bool(prefix_sharing and cfg.n_heads > 0
+                                   and cfg.moe is None and cfg.mla is None)
         self.decode_backend = kernel_ops.resolve_decode_backend(
             run.codec, self.device)
         self.table = lm.lm_table(cfg)
@@ -272,6 +340,28 @@ class ServeEngine:
                                               device=self.device)
         self.decoder = engine.PagedDecoder(cfg, run, self.state,
                                            self.cuda_graphs)
+        # tokens of one full page column (tp = 1: one block)
+        self.blk_tokens = run.codec.cache_block
+        self._n_pages = self.state.kv.page_used.shape[0]
+        self._maxp = self.state.kv.page_table.shape[1]
+        # host-side page lifecycle: the tiered PageCache owns the prefix
+        # index, refcounts, retention LRU and warm store; _slot_keys holds
+        # the prefix keys each slot has a reference on
+        self.cache = PageCache(max_store_pages=store_pages,
+                               remote_fetch=remote_fetch)
+        self._slot_keys: List[List[bytes]] = [[] for _ in range(n_slots)]
+        self._slot_busy = np.zeros((n_slots,), bool)
+
+    # the prefix index and refcounts live in the PageCache (views, as in
+    # the reference)
+
+    @property
+    def _prefix_index(self) -> Dict[bytes, np.ndarray]:
+        return self.cache.index
+
+    @property
+    def _prefix_ref(self) -> Dict[bytes, int]:
+        return self.cache.ref
 
     # -- helpers -----------------------------------------------------------
 
@@ -295,7 +385,7 @@ class ServeEngine:
     def _pages_for_length(self, length: int) -> int:
         """Pages one sequence of ``length`` tokens holds (all layers) —
         host arithmetic mirroring the flush rule, no device sync."""
-        return (length // self.run_cfg.codec.cache_block) * self.cfg.n_layers
+        return self._lfp(length) * self.cfg.n_layers
 
     def _req_eos(self, req: Request) -> Optional[int]:
         return req.eos_id if req.eos_id is not None else self.eos_id
@@ -314,7 +404,215 @@ class ServeEngine:
     def _track_peak(self, ls: _LoopState) -> None:
         pages = sum(self._pages_for_length(ls.slot_len[s])
                     for s in ls.live_slots())
+        if self.prefix_sharing:
+            pages -= self._shared_page_overcount()
         ls.peak_pages = max(ls.peak_pages, pages)
+
+    def _shared_page_overcount(self) -> int:
+        """Pages the per-slot sum counts more than once because they are
+        prefix-shared: (ref - 1) per indexed column, times the layers."""
+        over = sum(max(r - 1, 0) for r in self._prefix_ref.values())
+        return over * self.cfg.n_layers
+
+    def _pages_in_use(self) -> int:
+        """Pages in use, summed over layers (the host's page use)."""
+        return int(self.state.kv.page_used.sum()) * self.cfg.n_layers
+
+    # -- prefix index ------------------------------------------------------
+
+    def _prefix_keys(self, prompt: np.ndarray, n_cols: int) -> List[bytes]:
+        """Chained content keys, one per full page column."""
+        return chain_keys(prompt, n_cols, self.blk_tokens)
+
+    def _prefix_match_cols(self, prompt: np.ndarray
+                           ) -> Tuple[int, List[bytes], List[List[bytes]]]:
+        """(matched column count, their keys, warm payload columns).
+
+        The longest run of leading full page columns restorable from the
+        cache: hot columns (mapped for free) extended by warm ones
+        (payloads fetched and imported, no prefill).  Capped so that one
+        suffix token at least replays (the first generated token needs
+        the last prompt position's logits), and gated on replay cost: a
+        match is taken only when the suffix to replay is no longer than
+        the cold path's own bucket tail (or one column).  The gate is
+        monotone in the depth, so it is checked on the deepest candidate
+        before any warm bytes are fetched."""
+        if not self.prefix_sharing or self.cfg.ssm is not None:
+            return 0, [], []
+        bt = self.blk_tokens
+        keys = self._prefix_keys(prompt, (len(prompt) - 1) // bt)
+        h = 0
+        while h < len(keys) and keys[h] in self.cache.index:
+            h += 1
+        m_cand = h
+        while m_cand < len(keys) and self.cache.has_warm(keys[m_cand]):
+            m_cand += 1
+
+        def ok(mm: int) -> bool:
+            if mm < 1:
+                return False
+            suffix = len(prompt) - mm * bt
+            cold_tail = len(prompt) - self._bucket_of(len(prompt))
+            return suffix <= max(cold_tail, bt)
+
+        if not ok(m_cand):
+            return 0, [], []
+        warm: List[List[bytes]] = []
+        m = h
+        for j in range(h, m_cand):
+            payloads = self.cache.fetch_warm(keys[j])
+            if payloads is None:        # gone on every tier: truncate
+                break
+            warm.append(payloads)
+            m += 1
+        if not ok(m):
+            return 0, [], []
+        return m, keys[:m], warm
+
+    def _register_prefixes(self, slots_prompts) -> None:
+        """Index the freshly admitted slots' full page columns from the
+        host page table.  Keys already indexed were mapped shared and
+        counted at map time; new keys start at refcount 1 (their owner)."""
+        if not self.prefix_sharing or not slots_prompts:
+            return
+        rows = self.state.kv.page_table
+        for slot, prompt, length in slots_prompts:
+            keys = self._prefix_keys(prompt, length // self.blk_tokens)
+            for c, key in enumerate(keys):
+                if key in self.cache.index:
+                    continue
+                ids = rows[slot, c:c + 1].copy()
+                assert (ids >= 0).all(), (slot, c, ids)
+                self.cache.insert(key, ids)
+                self._slot_keys[slot].append(key)
+
+    # -- slot release (tiered retention) -----------------------------------
+
+    def _page_geometry(self) -> Tuple[int, int, int, int, int]:
+        """(blk, w, k, esc_cap, npad) of one page in this pool: the
+        payload geometry shared with the transport's wire format."""
+        blk, w, _, npad, esc_cap, k = cache_mod._page_geometry(self.cfg,
+                                                               self.run_cfg)
+        return blk, w, k, esc_cap, npad
+
+    def _spill_slots(self, slots: List[int], rows: np.ndarray) -> None:
+        """Export and spill every page column whose LAST reference is
+        being released (hot -> warm), before the refcounts drop, while
+        the releasing slot's row still addresses the pages.  Columns
+        already warm skip the export.  One export per slot of the window
+        of columns to spill (a copy from the card to the host; the
+        reference exports a power-of-two window from column 0 to bound its
+        jit cache, with the same bytes per column)."""
+        holds: Dict[bytes, int] = {}
+        for s in slots:
+            for key in self._slot_keys[s]:
+                holds[key] = holds.get(key, 0) + 1
+        codec_on = bool(self.run_cfg.codec.cache)
+        done = set()
+        for s in slots:
+            colof = {int(rows[s, c]): c for c in range(self._maxp)
+                     if rows[s, c] >= 0}
+            pend = []
+            for key in self._slot_keys[s]:
+                if (key in done or self.cache.has_warm(key)
+                        or self.cache.ref.get(key, 0) != holds[key]):
+                    continue          # other refs remain: stays hot there
+                ids = self.cache.index.get(key)
+                c = None if ids is None else colof.get(int(ids[0]))
+                if c is None:
+                    continue          # duplicate column owned elsewhere
+                pend.append((key, c))
+            if not pend:
+                continue
+            c0 = min(c for _, c in pend)
+            wire, _ = engine.export_slot(
+                self.state, s, max(c for _, c in pend) + 1 - c0, col0=c0)
+            kv = _host_fields(wire)
+            for key, c in pend:
+                self.cache.spill(key, [
+                    transport.page_payload(kv, codec_on, 0, l, c - c0)
+                    for l in range(self.cfg.n_layers)])
+                done.add(key)
+
+    def _free_slots(self, slots: List[int]) -> None:
+        """Evict ``slots`` through the tiered PageCache: spill last-copy
+        columns to the warm store, drop the slots' references (columns at
+        zero stay RETAINED on the device under the cache's LRU), and free
+        only the pages no index entry claims (decode-grown columns,
+        duplicates; every page when sharing is off).  A double release
+        raises: freeing a slot that is not occupied would hand its
+        (possibly shared) pages back to the allocator while another
+        sequence still reads them."""
+        slots = [int(s) for s in slots]
+        for s in slots:
+            if not self._slot_busy[s]:
+                raise RuntimeError(
+                    f"double release: slot {s} is not occupied")
+        mask = np.zeros((self.n_slots,), bool)
+        mask[slots] = True
+        if not self.prefix_sharing:
+            engine.release_slots(self.state, mask)
+        else:
+            rows = self.state.kv.page_table.copy()
+            self._spill_slots(slots, rows)        # 1) hot -> warm handoff
+            for s in slots:                       # 2) drop references
+                for key in self._slot_keys[s]:
+                    self.cache.release(key)       # zero-ref -> retained
+            free = np.zeros((self._n_pages,), bool)
+            for s in slots:                       # 3) free unindexed pages
+                keep = {int(self.cache.index[key][0])
+                        for key in self._slot_keys[s]
+                        if key in self.cache.index}
+                for p in rows[s]:
+                    if p >= 0 and int(p) not in keep:
+                        free[int(p)] = True
+                self._slot_keys[s] = []
+            engine.release_slots(self.state, mask, free_mask=free)
+        self._slot_busy[mask] = False
+
+    def _lfp(self, length: int) -> int:
+        """Full page columns of a sequence of ``length`` tokens (host
+        arithmetic mirroring the flush rule)."""
+        return max(length, 0) // self.run_cfg.codec.cache_block
+
+    def _page_growth(self, l0: int, l1: int) -> int:
+        """New full pages when a slot grows from l0 to l1 tokens."""
+        return self._lfp(l1) - self._lfp(l0)
+
+    def _evict_pages(self, ids: List[np.ndarray]) -> None:
+        """Free the pages of evicted hot columns (page use only: a
+        zero-ref column is in no slot's row)."""
+        fmask = np.zeros((self._n_pages,), bool)
+        for v in ids:
+            fmask[int(v[0])] = True
+        engine.release_slots(self.state, np.zeros((self.n_slots,), bool),
+                             free_mask=fmask)
+
+    def _ensure_free_pages(self, need: int) -> None:
+        """Make room for ``need`` fresh pages by evicting retained zero-ref
+        columns (LRU order) from the hot tier: retention must never cause
+        an allocation failure the free-at-zero engine could not have had.
+        Called before every page-allocating admission, import, replay
+        window and decode window.  Spilling happened at release, so
+        eviction only clears page use."""
+        if need <= 0 or not self.cache.lru:
+            return
+        free = self._n_pages - int(self.state.kv.page_used.sum())
+        ids = []
+        while free + len(ids) < need and self.cache.lru:
+            ids.append(self.cache.evict_lru()[1])
+        if ids:
+            self._evict_pages(ids)
+
+    def drop_cache(self) -> int:
+        """Evict every RETAINED (zero-ref) column and clear the warm tier;
+        live slots are untouched.  Returns the hot columns dropped."""
+        if not self.prefix_sharing:
+            return 0
+        ids = self.cache.drop_retained()
+        if ids:
+            self._evict_pages(ids)
+        return len(ids)
 
     def _check_done(self, ls: _LoopState, s: int, req: Request) -> None:
         """Termination check after each emitted token.  Priority when
@@ -362,12 +660,73 @@ class ServeEngine:
             ls.done[s], ls.reason[s] = False, ""
             freed.append(s)
         if freed:
-            mask = np.zeros((self.n_slots,), bool)
-            mask[freed] = True
-            engine.release_slots(self.state, mask)
+            self._free_slots(freed)
         return fresh
 
     # -- the serving loop --------------------------------------------------
+
+    def _warm_wire(self, warm: List[List[bytes]]) -> cache_mod.PageWire:
+        """Fetched warm payload columns as one import-ready ``PageWire``
+        on the engine's device, with a zero ring (a warm restore is
+        page-aligned, so the ring is written before it is read)."""
+        blk, w, k, esc_cap, npad = self._page_geometry()
+        codec_on = bool(self.run_cfg.codec.cache)
+        n_layers = self.cfg.n_layers
+        kv = transport.empty_page_fields(codec_on, 1, n_layers, len(warm),
+                                         blk, w, k, esc_cap, npad)
+        for c, payloads in enumerate(warm):
+            for l in range(n_layers):
+                transport.scatter_page_payload(
+                    kv, codec_on, 0, l, c, payloads[l], blk=blk, w=w, k=k,
+                    esc_cap=esc_cap, npad=npad)
+
+        def dev(a, dtype=None):
+            t = torch.from_numpy(a[0])
+            t = t if dtype is None else t.view(dtype)
+            return t.to(self.device)
+
+        ring = torch.zeros((n_layers, blk, w), dtype=torch.bfloat16,
+                           device=self.device)
+        if codec_on:
+            return cache_mod.PageWire(
+                signman=dev(kv["signman"]),
+                planes=dev(kv["planes"].view(np.int32)),
+                dict_syms=dev(kv["dict_syms"]), esc_pos=dev(kv["esc_pos"]),
+                esc_raw=dev(kv["esc_raw"]), raw_pages=None, ring=ring)
+        return cache_mod.PageWire(
+            signman=None, planes=None, dict_syms=None, esc_pos=None,
+            esc_raw=None,
+            raw_pages=dev(kv["raw_pages"].view(np.int16), torch.bfloat16),
+            ring=ring)
+
+    def _admit_shared(self, ls: _LoopState, s: int, req: Request, m: int,
+                      keys: List[bytes],
+                      warm: List[List[bytes]]) -> None:
+        """Prefix-cache hit: map the hot columns, import the warm ones
+        (fetched payloads, no prefill), and leave the suffix to replay.
+        Hot keys are acquired BEFORE the pool-pressure valve runs, so a
+        retained column this admission maps cannot be evicted to make
+        room for its own warm import."""
+        h = m - len(warm)
+        ls.admit_t.setdefault(req.uid, time.perf_counter())
+        ids = np.zeros((self._maxp,), np.int32)
+        for c in range(h):
+            ids[c] = self.cache.acquire(keys[c])[0]
+            self._slot_keys[s].append(keys[c])
+        if warm:
+            self._ensure_free_pages(len(warm))
+        if h:
+            base_cols = h if warm else m    # the import sets the length
+            engine.map_shared_slot(self.state, s, ids, h,
+                                   base_cols * self.blk_tokens)
+        if warm:
+            engine.import_slot(self.state, s, self._warm_wire(warm),
+                               m * self.blk_tokens, col0=h)
+        ls.shared_hits += m
+        ls.slot_req[s] = req
+        self._slot_busy[s] = True
+        ls.slot_len[s] = m * self.blk_tokens
+        ls.emitted[req.uid] = []
 
     def _admit_cold_batch(self, ls: _LoopState, batch: List[Request],
                           slots: List[int], trunk: int, replays) -> None:
@@ -375,6 +734,7 @@ class ServeEngine:
         w0 = time.perf_counter()
         for r in batch:
             ls.admit_t.setdefault(r.uid, w0)
+        self._ensure_free_pages(len(batch) * self._lfp(trunk))
         prompts = torch.as_tensor(np.stack([r.prompt[:trunk] for r in batch]),
                                   dtype=torch.int32, device=self.device)
         logits, d = engine.prefill_sequences(self.cfg, self.run_cfg,
@@ -386,6 +746,7 @@ class ServeEngine:
         ls.admit_window_s.append(now - w0)
         for j, (req, s) in enumerate(zip(batch, slots)):
             ls.slot_req[s] = req
+            self._slot_busy[s] = True
             ls.slot_len[s] = trunk
             tail = req.prompt[trunk:]
             if len(tail):
@@ -410,6 +771,10 @@ class ServeEngine:
                 t_s = rem[s][off[s]:off[s] + k]
                 toks[:len(t_s), s, 0] = t_s
                 feed[:len(t_s), s] = True
+            self._ensure_free_pages(sum(      # pool-pressure valve
+                self._page_growth(ls.slot_len[s], ls.slot_len[s]
+                                  + min(k, len(rem[s]) - off[s]))
+                for s in rem))
             w0 = time.perf_counter()
             seq = self.decoder.replay(
                 self.params, torch.as_tensor(toks, device=self.device), feed)
@@ -428,30 +793,70 @@ class ServeEngine:
             self._track_peak(ls)
 
     def _admit_phase(self, ls: _LoopState) -> None:
-        """Admit until slots or requests run out, one batched prefill per
-        trunk bucket, then replay every admitted slot's leftover tokens."""
+        """Admit until slots or admissible requests run out: prefix-cache
+        hits first (queue order), then one batched prefill per trunk
+        bucket; then replay every admitted slot's leftover prompt tokens
+        and index the new slots' full columns.  A cold request whose first
+        column another cold request of this phase already covers waits,
+        so that it hits the index in the next phase."""
         replays = []
+        new_slots = []
+        blocked = set()       # first-column keys cold-admitted now
         q = self.scheduler.queue
-        while True:
+        progress = True
+        while progress:
+            progress = False
             free = [s for s in range(self.n_slots) if ls.slot_req[s] is None]
             if not free or not q:
                 break
+            if self.prefix_sharing:       # pass A: prefix-cache hits
+                rest = deque()
+                while q and free:
+                    req = q.popleft()
+                    m, mkeys, warm = self._prefix_match_cols(req.prompt)
+                    if m >= 1:
+                        s = free.pop(0)
+                        self._admit_shared(ls, s, req, m, mkeys, warm)
+                        replays.append(
+                            (s, np.asarray(req.prompt[m * self.blk_tokens:],
+                                           np.int32)))
+                        new_slots.append(s)
+                        progress = True
+                    else:
+                        rest.append(req)
+                while rest:
+                    q.appendleft(rest.pop())
+            free = [s for s in range(self.n_slots) if ls.slot_req[s] is None]
+            if not free or not q:         # pass B: one cold bucket
+                continue
             batch: List[Request] = []
             rest = deque()
             bucket = None
             while q:
                 req = q.popleft()
                 b = self._bucket_of(len(req.prompt))
-                if len(batch) < len(free) and bucket in (None, b):
+                fk = (self._prefix_keys(req.prompt, 1)[0]
+                      if self.prefix_sharing
+                      and len(req.prompt) > self.blk_tokens else None)
+                ok = (len(batch) < len(free) and bucket in (None, b)
+                      and (fk is None or fk not in blocked))
+                if ok:
                     bucket = b
                     batch.append(req)
+                    if fk is not None:
+                        blocked.add(fk)
                 else:
                     rest.append(req)
             while rest:
                 q.appendleft(rest.pop())
-            self._admit_cold_batch(ls, batch, free[:len(batch)], bucket,
-                                   replays)
+            if batch:
+                slots = free[:len(batch)]
+                self._admit_cold_batch(ls, batch, slots, bucket, replays)
+                new_slots.extend(slots)
+                progress = True
         self._run_replays(ls, replays)
+        self._register_prefixes(
+            [(s, ls.slot_req[s].prompt, ls.slot_len[s]) for s in new_slots])
 
     def _decode_window(self, ls: _LoopState) -> None:
         """One decode window of K steps, K bounded by the earliest
@@ -466,6 +871,9 @@ class ServeEngine:
         bound = min(ls.slot_req[s].max_new_tokens
                     - len(ls.emitted[ls.slot_req[s].uid]) for s in live)
         n_steps = self._fuse_steps(bound)
+        self._ensure_free_pages(sum(          # pool-pressure valve
+            self._page_growth(ls.slot_len[s], ls.slot_len[s] + n_steps)
+            for s in live))
         w0 = time.perf_counter()
         seq = self.decoder.decode(
             self.params, torch.as_tensor(ls.cur, device=self.device),
@@ -521,7 +929,10 @@ class ServeEngine:
             eager_steps=steps.eager - steps0.eager,
             flush_steps=steps.flush - steps0.flush,
             graph_replays=steps.replays - steps0.replays,
-            graph_captures=steps.captures - steps0.captures)
+            graph_captures=steps.captures - steps0.captures,
+            shared_page_hits=ls.shared_hits,
+            **{f"cache_{k}": v for k, v in self.cache.counters().items()
+               if k not in ("remote_pages", "remote_bytes")})
 
     def run(self, requests: List[Request]
             ) -> Tuple[List[RequestResult], ServeStats]:
@@ -556,7 +967,9 @@ def demo_serving_setup(run: RunConfig, vocab_size: int, prompt_len: int,
     """(run', max_len, requests) for a demo request stream, as the
     reference builds it at tp = 1: the cache block shrinks to a quarter of
     the prompt (at least 4), two base prompts (full and half length)
-    cycle, and even-numbered requests get twice the token budget."""
+    cycle, and even-numbered requests get twice the token budget.  The
+    repeats share their base's prefix pages (``shared_page_hits``,
+    ``cache_hot_hits``) unless sharing is off."""
     rng = np.random.default_rng(seed)
     blk = max(4, prompt_len // 4)
     run = dataclasses.replace(
@@ -572,17 +985,25 @@ def demo_serving_setup(run: RunConfig, vocab_size: int, prompt_len: int,
 
 
 def format_stats(st: ServeStats) -> str:
-    """Five-line human summary of a serving run."""
+    """Six-line human summary of a serving run."""
     return (f"{st.n_requests} reqs, {st.decode_steps} decode steps in "
             f"{st.n_dispatches} windows ({st.decode_backend} backend), "
             f"{st.requests_per_s:.2f} req/s, {st.tokens_per_s:.1f} tok/s\n"
             f"admission: {st.n_admit_dispatches} batched prefills + "
-            f"{st.n_replay_dispatches} replay windows\n"
+            f"{st.n_replay_dispatches} replay windows, "
+            f"{st.shared_page_hits} shared-prefix page hits\n"
             f"paged cache peak {st.peak_pages} pages: "
             f"{st.peak_cache_bytes / 1e3:.1f} kB stored / "
             f"{st.peak_cache_raw_bytes / 1e3:.1f} kB raw "
             f"({st.cache_ratio:.2f}x); mean request latency "
             f"{st.mean_latency_s * 1e3:.0f} ms\n"
+            f"retention: {st.cache_hot_hits} hot-tier re-acquires, "
+            f"{st.cache_spilled_pages} pages spilled "
+            f"({st.cache_spilled_bytes / 1e3:.1f} kB), "
+            f"{st.cache_fetched_pages} fetched back "
+            f"({st.cache_fetched_bytes / 1e3:.1f} kB), "
+            f"{st.cache_evicted_cols} columns evicted, "
+            f"{st.cache_reprefill_cols} re-prefills\n"
             f"weights: "
             f"{'packed' if st.weights_compressed else 'raw bf16'} "
             f"({st.weight_backend} backend), "

@@ -438,6 +438,26 @@ def test_decode_attend_paged_slot_counts(cuda, n_slots):
     assert AC.same_bits(got, ops.decode_attend_paged(*args, **kw))
 
 
+@pytest.mark.parametrize("blk", [16, 256])
+def test_decode_attend_paged_aliased_slots(cuda, blk):
+    """Prefix sharing maps the same page ids into several slots' rows: a
+    slot that holds the longest slot's row (with its overflowing page and
+    its page of escapes across a span boundary), q, ring and length is
+    within 1e-4 of the plain version and gives the same bits as that
+    slot."""
+    h, hkv, hd = 32, 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(blk + 1)
+    lengths = [3 * blk + 5, 2, blk + 1, 2 * blk]
+    q, pool, ring, table, lens = _edge_pool(gen, h, hkv, hd, blk, lengths,
+                                            True)
+    q, ring, table, lens = AC.alias_slot(q, ring, table, lens, src=0, dst=2)
+    args = (q, *pool, ring, table, lens, ref.WINDOW_NONE)
+    kw = dict(k=5, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+    got = ops.decode_attend_paged(*args, **kw)
+    AC.attend_close(got, ref.paged_decode_attend_plain(*args, **kw))
+    assert AC.same_bits([t[0] for t in got], [t[2] for t in got])
+
+
 def test_decode_attend_paged_reads_no_device_value(cuda):
     """The paged launch sizes its grid from shapes alone: under
     ``torch.cuda.set_sync_debug_mode("error")`` a call does not
@@ -1039,6 +1059,58 @@ def test_graph_streams_match_eager(cuda, codec_on, weights_be):
             assert counts["decompress_matmul"] == \
                 n_mm * (passes + st.n_admit_dispatches)
     assert got[True][0] == got[False][0]
+    assert got[True][1].keys() == got[False][1].keys()
+    for key in got[False][1]:
+        assert torch.equal(got[True][1][key], got[False][1][key]), key
+
+
+def _shared_requests():
+    """A shared-prefix mix over 2 slots at block 4: a base prompt, its
+    exact duplicate, a fork of its first 4 columns, an unrelated prompt,
+    the base again; more requests than slots."""
+    rng = np.random.default_rng(42)
+    a = rng.integers(0, 512, (24,)).astype(np.int32)
+    b = rng.integers(0, 512, (12,)).astype(np.int32)
+    fork = np.concatenate([a[:16], rng.integers(0, 512, (6,))
+                           .astype(np.int32)])
+    return [Request(uid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(zip([a, b, a.copy(), fork, a.copy()],
+                                           [5, 3, 4, 4, 3]))]
+
+
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_prefix_sharing_graph_matches_eager(cuda, codec_on):
+    """Prefix sharing on the card: the shared mix from CUDA graphs and
+    eagerly gives the same streams, hits and cache counters, and the same
+    page tables, page use and pool bytes; then, with every retained column
+    evicted, the base prompt again restores its prefix from the warm tier
+    (no prefill) on the same stream in both modes."""
+    codec = dataclasses.replace(
+        CodecConfig() if codec_on else CodecConfig.off(), cache_block=4)
+    run = RunConfig(codec=codec)
+    params = PM.init_params(lm.lm_table(TINY),
+                            torch.Generator(device=cuda).manual_seed(1),
+                            device=cuda)
+    got = {}
+    for graphs in (False, True):
+        eng = ServeEngine(TINY, run, n_slots=2, max_len=48, params=params,
+                          cuda_graphs=graphs)
+        results, st = eng.run(_shared_requests())
+        assert st.shared_page_hits > 0 and st.cache_hot_hits > 0
+        assert st.graph_replays > 0 if graphs else st.graph_replays == 0
+        eng._ensure_free_pages(1 << 30)
+        again, st2 = eng.run([Request(uid=9, prompt=_shared_requests()[0]
+                                      .prompt, max_new_tokens=5)])
+        assert again[0].tokens == results[0].tokens
+        assert st2.n_admit_dispatches == 0 and st2.cache_fetched_pages > 0
+        torch.cuda.synchronize()
+        got[graphs] = ([r.tokens for r in results], _pool_bits(eng.state.kv),
+                       [getattr(st2, f) for f in (
+                           "shared_page_hits", "cache_hot_hits",
+                           "cache_spilled_pages", "cache_spilled_bytes",
+                           "cache_fetched_pages", "cache_evicted_cols")])
+    assert got[True][0] == got[False][0]
+    assert got[True][2] == got[False][2]
     assert got[True][1].keys() == got[False][1].keys()
     for key in got[False][1]:
         assert torch.equal(got[True][1][key], got[False][1][key]), key

@@ -114,7 +114,8 @@ def served(request):
 def test_streams_identical(served):
     for mix, over, want in served["runs"]:
         te = TEngine(served["tcfg"], served["trun"], n_slots=SLOTS,
-                     max_len=MAXLEN, params=served["params"], device="cpu")
+                     max_len=MAXLEN, params=served["params"], device="cpu",
+                     prefix_sharing=False)
         res, st = te.run([TRequest(uid=i, prompt=p, max_new_tokens=b,
                                    **over.get(i, {}))
                           for i, (p, b) in enumerate(mix)])
@@ -181,8 +182,8 @@ def test_teacher_forced_logits(served):
 def test_engine_validation():
     tcfg = TModel(**_cfg_kw("gqa"))
     _, trun = _runs(True)
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, trun, device="cpu", prefix_sharing=True)
+    assert TEngine(tcfg, trun, device="cpu", prefix_sharing=True) \
+        .prefix_sharing
     with pytest.raises(RuntimeError, match="CUDA"):
         if torch.cuda.is_available():
             raise RuntimeError("CUDA present: nothing to refuse")
