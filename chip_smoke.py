@@ -162,8 +162,34 @@ non-zero:
                TTFT, admissions, hits, spilled and fetched pages and
                bytes, evicted columns, and ms per column spilled and
                imported.
-  10. the card's line, the ``kernels`` JSON line (launches from the runs
-     from CUDA graphs, the replays counted), then the result line.
+  10. disagg — disaggregated serving on the serve phase's raw weights,
+               block 256, 4 slots of 2048 tokens per replica, on the
+               launcher's tail-free demo mix (repeated prompts: wire
+               dedup and import prefix hits) and the serve phase's mix
+               (rings cross half full), each four ways from CUDA graphs:
+               (a) ``DisaggEngine`` 1 prefill -> 1 decode replica over the
+               loopback transport, (b) the same streaming pages during
+               admission, (c) 1 prefill -> 2 decode replicas, (d) the
+               decode replica in a second process on the card
+               (``launch.disagg_host.spawn_decode_host``, its weights'
+               ``param_digest`` equal to this process's) over TCP,
+               streaming.  The streams of (a)-(d) equal bit for bit, every
+               budget met, (b) and (d) the same wire-byte counters; every
+               page in the receivers' stores hashes to its digest; each
+               handoff of (a) exported again from the decode replica
+               right after its import equals the blob (ring, length,
+               tokens, every imported column; without a prefix hit its
+               ``to_wire`` bytes); against the monolithic engine (sharing
+               off) the share of equal tokens, each divergence
+               teacher-forced through both paths and required to be a
+               near-tie.  Prints wire against raw bytes
+               (``link_reduction``), codec-only bytes, dedup references,
+               pages streamed and chunk bytes, the LinkModel's modelled
+               ms (100 Gb/s chiplet link, not measured), export and import
+               ms per column, transfer ms per handoff, tok/s and TTFT.
+  11. the card's line, the ``kernels`` JSON line (launches from the runs
+     from CUDA graphs, the replays counted; the disagg phase's in-process
+     runs added), then the result line.
 """
 
 from __future__ import annotations
@@ -2404,14 +2430,7 @@ def near_ties(label, cfg, run, params, reqs, on, off, on_batches, on_hits,
     largest gap between the two paths' logits."""
     import numpy as np
     blk = run.codec.cache_block
-    n_tok = sum(len(t) for t in off.values())
-    same = sum(int(a == b) for u in off for a, b in zip(off[u], on[u]))
-    first = {u: next(i for i, (a, b) in enumerate(zip(off[u], on[u]))
-                     if a != b)
-             for u in off if off[u] != on[u]}
-    log("prefix", f"{label}, sharing on vs off: {same}/{n_tok} tokens equal "
-                  f"({same / n_tok:.4f}); first divergence (uid: position) "
-                  f"{first}")
+    first = divergences("prefix", f"{label}, sharing on vs off", on, off)
 
     def on_start(uid):
         if uid in on_batches:
@@ -2422,50 +2441,88 @@ def near_ties(label, cfg, run, params, reqs, on, off, on_batches, on_hits,
                 return on_batches[u], keep
         raise AssertionError(f"{label}: no cold provider for uid {uid}")
 
+    def paths_of(uid, pos):
+        forced = np.asarray(on[uid][:pos], np.int32)
+        return [(start, keep, np.concatenate([reqs[uid].prompt[keep:],
+                                              forced]))
+                for start, keep in (on_start(uid), (
+                    off_batches[uid], off_batches[uid][0].shape[1]))]
+
+    check_ties("prefix", label, cfg, run, params, first, on, off, paths_of,
+               max_len, lambda uid, pos: ("hit" if uid in hit_uids
+                                          else "cold") + " in the on-run",
+               ("on", "off"))
+
+
+def divergences(phase, label, on, off):
+    """Log the share of equal tokens of two runs' streams ({uid: tokens});
+    returns each differing request's first divergence {uid: position}."""
+    n_tok = sum(len(t) for t in off.values())
+    same = sum(int(a == b) for u in off for a, b in zip(off[u], on[u]))
+    first = {u: next(i for i, (a, b) in enumerate(zip(off[u], on[u]))
+                     if a != b)
+             for u in off if off[u] != on[u]}
+    log(phase, f"{label}: {same}/{n_tok} tokens equal "
+               f"({same / n_tok:.4f}); first divergence (uid: position) "
+               f"{first}")
+    return first
+
+
+def check_ties(phase, label, cfg, run, params, first, on, off, paths_of,
+               max_len, describe, names):
+    """Teacher-force each divergence {uid: position} through both runs'
+    paths (``paths_of(uid, pos)`` -> [path of ``on``, path of ``off``], as
+    ``teacher_forced_paths`` takes them; two divergences per call) and
+    require a near-tie: the smaller top-2 margin within the largest gap
+    between the two paths' logits.  ``describe(uid, pos)`` names the
+    on-run's path in the log, ``names`` the two runs."""
     todo = sorted(first.items())
     for i in range(0, len(todo), 2):
-        paths = []
-        for uid, pos in todo[i:i + 2]:
-            forced = np.asarray(on[uid][:pos], np.int32)
-            for start, keep in (on_start(uid), (off_batches[uid],
-                                                off_batches[uid][0].shape[1])):
-                paths.append((start, keep, np.concatenate(
-                    [reqs[uid].prompt[keep:], forced])))
+        paths = [p for uid, pos in todo[i:i + 2] for p in paths_of(uid, pos)]
         logits = teacher_forced_paths(cfg, run, params, paths, max_len)
         for j, (uid, pos) in enumerate(todo[i:i + 2]):
             a, b = logits[2 * j], logits[2 * j + 1]
             m_on, m_off, gap = logit_margins(a, b)
             tie = min(m_on, m_off) <= gap
-            log("prefix", f"{label}, uid {uid} position {pos} "
-                          f"({'hit' if uid in hit_uids else 'cold'} in the "
-                          f"on-run; on token {on[uid][pos]}, off "
-                          f"{off[uid][pos]}; teacher-forced argmax on "
-                          f"{int(a.argmax())} / off {int(b.argmax())}): "
-                          f"top-2 margin on {m_on:.4g} / off {m_off:.4g}, "
-                          f"largest logit gap {gap:.4g}: "
-                          f"{'near-tie' if tie else 'MARGIN ABOVE THE GAP'}")
+            n_on, n_off = names
+            log(phase, f"{label}, uid {uid} position {pos} "
+                       f"({describe(uid, pos)};"
+                       f" {n_on} token {on[uid][pos]}, {n_off} "
+                       f"{off[uid][pos]}; teacher-forced argmax {n_on} "
+                       f"{int(a.argmax())} / {n_off} {int(b.argmax())}): "
+                       f"top-2 margin {n_on} {m_on:.4g} / {n_off} "
+                       f"{m_off:.4g}, largest logit gap {gap:.4g}: "
+                       f"{'near-tie' if tie else 'MARGIN ABOVE THE GAP'}")
             assert tie, (label, uid, pos, m_on, m_off, gap)
 
 
 def teacher_forced_paths(cfg, run, params, paths, max_len):
     """Up to 4 paths through the paged engine's decode, one slot each:
-    ``(batch, keep, feed)``, where ``batch`` = (tokens (B, T) on the card,
-    row) is a batched prefill whose row's first ``keep`` tokens of pages
-    (whole columns, or the whole row with its ring) start the slot, and
-    ``feed`` the tokens then fed one decode step at a time (all 4 slots'
-    rows computed every step, as the engine runs them; steps from the
-    CUDA graph, each path's last step eager).  Returns each path's logits
-    (Vp,) after its feed (the prefill's own when the feed is empty)."""
+    ``(start, keep, feed)``, where ``start`` is either a batch = (tokens
+    (B, T) on the card, row), a batched prefill whose row's first ``keep``
+    tokens of pages (whole columns, or the whole row with its ring) start
+    the slot, or a host ``SequenceBlob`` imported whole into the slot
+    (``keep`` unused), and ``feed`` the tokens then fed one decode step at
+    a time (all 4 slots' rows computed every step, as the engine runs
+    them; steps from the CUDA graph, each path's last step eager).
+    Returns each path's logits (Vp,) after its feed (a batch's prefill's
+    own when the feed is empty)."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.serve import engine
+    from repro_torch.serve import disagg, engine
 
-    st = engine.empty_paged_state(cfg, run, 4, max_len,
-                                  device=paths[0][0][0].device)
+    dev = params["embed"].device
+    st = engine.empty_paged_state(cfg, run, 4, max_len, device=dev)
     blk = run.codec.cache_block
     out = [None] * len(paths)
-    for slot, ((toks, row), keep, feed) in enumerate(paths):
+    for slot, (start, keep, feed) in enumerate(paths):
+        if isinstance(start, disagg.SequenceBlob):
+            assert len(feed), "a blob path needs a feed"
+            engine.import_slot(st, slot, disagg.blob_wire(start, dev),
+                               start.length)
+            continue
+        toks, row = start
         logits, d = engine.prefill_sequences(cfg, run, params, toks)
         one = engine.PrefilledSequences(kv=[dataclasses.replace(
             kvb, **{f: getattr(kvb, f)[row:row + 1] for f in
@@ -2500,6 +2557,298 @@ def teacher_forced_paths(cfg, run, params, paths, max_len):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: disaggregated serving
+# ---------------------------------------------------------------------------
+
+DISAGG_BLK, DISAGG_MAX_LEN, DISAGG_SEED = 256, 2048, 0
+STAT_BYTES = ("n_transfers", "wire_bytes", "wire_bytes_nodedup",
+              "wire_raw_bytes", "dedup_page_refs", "pages_streamed",
+              "stream_chunk_bytes", "pages_resent", "store_evicted",
+              "decode_prefix_hits", "link_model_ms", "link_model_ms_raw")
+
+
+class DisaggProbe:
+    """Watches one in-process ``DisaggEngine``: each closing export
+    (``PrefillReplica._export_blob``) and each import
+    (``DecodeReplica.import_handoff``) timed from a synchronised card to a
+    synchronised card, per page column; the prefill replicas' batched
+    prefills (for the teacher-forced check).  With ``reexport``, every
+    slot is exported again from the decode replica right after its import
+    (outside the timed span): the blob's ring, length, tokens and every
+    column not mapped from an earlier import must be its bytes, and the
+    re-exported state is kept per uid."""
+
+    def __init__(self, dis, reexport=False):
+        import torch
+        self.sync = torch.cuda.synchronize
+        self.export_s = self.import_s = 0.0
+        self.export_cols = self.import_cols = self.n_imports = 0
+        self.post, self.checked = {}, 0
+        self.mapped_cols = self.mapped_differ = 0
+        self.sharing = [SharingProbe(pr.engine) for pr in dis.prefills]
+        for pr in dis.prefills:
+            export = pr._export_blob
+
+            def export_blob(s, export=export):
+                self.sync()
+                t0 = time.perf_counter()
+                blob = export(s)
+                self.sync()
+                self.export_s += time.perf_counter() - t0
+                self.export_cols += blob.n_cols
+                return blob
+
+            pr._export_blob = export_blob
+        for dr in dis.decodes:
+            imp = dr.import_handoff
+
+            def import_handoff(h, dr=dr, imp=imp):
+                hits0 = dr.ls.shared_hits
+                self.sync()
+                t0 = time.perf_counter()
+                slot = imp(h)
+                self.sync()
+                self.import_s += time.perf_counter() - t0
+                self.import_cols += h.blob.n_cols
+                self.n_imports += 1
+                if reexport:
+                    self.check(dr, h, slot, dr.ls.shared_hits - hits0)
+                return slot
+
+            dr.import_handoff = import_handoff
+
+    @property
+    def batches(self):
+        """{uid: (batch tokens, row)} of the prefill replicas' prefills."""
+        return {u: b for p in self.sharing for u, b in p.batches.items()}
+
+    def check(self, dr, h, slot, m):
+        import numpy as np
+        from repro_torch.serve.disagg import PrefillReplica
+        pr = PrefillReplica(dr.engine)
+        pr.ls = dr.ls
+        post = pr._export_blob(slot)
+        blob = h.blob
+        assert (post.length, post.cur_token, post.emitted, post.n_cols) == \
+            (blob.length, blob.cur_token, blob.emitted, blob.n_cols)
+        np.testing.assert_array_equal(post.kv["ring"], blob.kv["ring"])
+        for f in blob.kv:
+            if f != "ring":
+                np.testing.assert_array_equal(post.kv[f][:, :, m:],
+                                              blob.kv[f][:, :, m:])
+                if m:
+                    self.mapped_differ += int(not np.array_equal(
+                        post.kv[f][:, :, :m], blob.kv[f][:, :, :m]))
+        if not m:
+            assert post.to_wire(None)[0] == blob.to_wire(None)[0]
+        self.mapped_cols += m
+        self.checked += 1
+        self.post[h.req.uid] = post
+
+    def line(self):
+        return (f"export {self.export_cols} columns in "
+                f"{self.export_s * 1e3:.1f} ms "
+                f"({self.export_s * 1e3 / max(self.export_cols, 1):.2f} ms "
+                f"per column), import {self.import_cols} columns in "
+                f"{self.import_s * 1e3:.1f} ms "
+                f"({self.import_s * 1e3 / max(self.import_cols, 1):.2f} ms "
+                f"per column, {self.n_imports} imports)")
+
+
+def disagg_stats_line(st):
+    return (f"{st.tokens_per_s:.2f} tok/s, TTFT mean "
+            f"{st.ttft_mean_s * 1e3:.1f} / p50 {st.ttft_p50_s * 1e3:.1f} / "
+            f"p95 {st.ttft_p95_s * 1e3:.1f} ms, wall {st.wall_s:.2f}s, "
+            f"{st.n_admit_dispatches} admissions, {st.n_replay_dispatches} "
+            f"replay windows, {st.decode_steps} decode steps; "
+            f"{st.n_transfers} transfers: wire {st.wire_bytes} B against "
+            f"{st.wire_raw_bytes} B raw bf16 (link_reduction "
+            f"{st.link_reduction:.4f}), codec-only {st.wire_bytes_nodedup} "
+            f"B, {st.dedup_page_refs} dedup references, "
+            f"{st.pages_streamed} pages streamed in "
+            f"{st.stream_chunk_bytes} B of chunks, {st.decode_prefix_hits} "
+            f"import prefix hits; LinkModel (modelled, 100 Gb/s chiplet "
+            f"link, not measured) {st.link_model_ms:.3f} ms compressed vs "
+            f"{st.link_model_ms_raw:.3f} ms raw; transfer "
+            f"{st.transfer_mean_s * 1e3:.2f} ms per handoff (host, mean)")
+
+
+def disagg_paths(on, reqs, probe, off_batches):
+    """``paths_of(uid, pos)`` for ``check_ties``: the disaggregated run's
+    path (a ``DisaggProbe(reexport=True)`` watched it) against the
+    monolithic run's batched prefill.  At position 0 the first token is
+    the prefill replica's, so its path is its prefill batch; later, the
+    decode replica's state re-exported right after the import, as a
+    ``SequenceBlob``."""
+    import numpy as np
+
+    def paths_of(uid, pos):
+        forced = np.asarray(on[uid][:pos], np.int32)
+        ob = off_batches[uid]
+        off_path = (ob, ob[0].shape[1], np.concatenate(
+            [reqs[uid].prompt[ob[0].shape[1]:], forced]))
+        if pos == 0:
+            b = probe.batches[uid]
+            return [(b, b[0].shape[1], np.concatenate(
+                [reqs[uid].prompt[b[0].shape[1]:], forced])), off_path]
+        return [(probe.post[uid], None, forced), off_path]
+
+    return paths_of
+
+
+def describe_disagg_path(uid, pos):
+    return ("disagg from its prefill batch" if pos == 0 else
+            "disagg from the decode replica's state after its import")
+
+
+def disagg_phase(cfg, params, smi):
+    """Disaggregated prefill -> decode serving on full-width qwen3-4b (the
+    serve phase's raw weights, block 256, 4 slots of 2048 tokens per
+    replica), on two mixes, each four ways: (a) 1 prefill -> 1 decode
+    replica over the loopback transport, (b) the same with streaming
+    export, (c) 1 prefill -> 2 decode replicas, (d) the decode replica in
+    a second OS process on the card (``launch.disagg_host``), over TCP,
+    streaming.  Returns the kernel launches of the in-process runs."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.disagg_host import (param_digest,
+                                                spawn_decode_host,
+                                                stop_child)
+    from repro_torch.serve import DisaggEngine, SocketTransport
+    from repro_torch.serve.digest import page_digest
+    from repro_torch.serve.scheduler import ServeEngine, demo_serving_setup
+
+    t_phase = time.perf_counter()
+    run = RunConfig(codec=CodecConfig(cache_block=DISAGG_BLK))
+    run_d, _, demo = demo_serving_setup(run, cfg.vocab_size, 1024, 16, 6)
+    assert run_d == run
+    mixes = (("demo mix", demo),
+             ("serve mix", serve_mix(cfg, np.random.default_rng(0))))
+    kw = dict(n_slots=4, max_len=DISAGG_MAX_LEN, params=params,
+              seed=DISAGG_SEED, device="cuda")
+    launches = {name: 0 for name in SERVE_KERNELS}
+    host_flags = ["--model", cfg.name, "--no-reduced", "--codec", "on",
+                  "--cache-block", str(DISAGG_BLK), "--slots", "4",
+                  "--max-len", str(DISAGG_MAX_LEN), "--seed",
+                  str(DISAGG_SEED), "--device", "cuda"]
+    mine = param_digest(params)
+    procs = []
+    try:
+        for label, reqs in mixes:
+            mono = ServeEngine(cfg, run, prefix_sharing=False, **kw)
+            mono_probe = SharingProbe(mono)
+            res, st_m = mono.run(reqs)
+            torch.cuda.synchronize()
+            off = {r.uid: r.tokens for r in res}
+            off_batches = mono_probe.batches
+            del mono, mono_probe
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("disagg", f"{label}, monolithic (sharing off, CUDA graphs): "
+                          f"{prefix_stats_line(st_m)} | {smi}")
+
+            streams, stats = {}, {}
+            ops.reset_launch_counts()
+            for way, n_decode, streaming in (("a", 1, False), ("b", 1, True),
+                                             ("c", 2, False)):
+                dis = DisaggEngine(cfg, run, n_decode=n_decode,
+                                   streaming=streaming, **kw)
+                probe = DisaggProbe(dis, reexport=way == "a")
+                res, st = dis.run(reqs)
+                torch.cuda.synchronize()
+                for req, r in zip(reqs, res):
+                    assert len(r.tokens) == req.max_new_tokens, (way, r)
+                streams[way] = {r.uid: r.tokens for r in res}
+                stats[way] = st
+                for name, t in dis.transport._stores.items():
+                    for d, payload in t._lru.items():
+                        assert page_digest(payload) == d, (way, name)
+                n_store = sum(len(t) for t in dis.transport._stores.values())
+                log("disagg", f"{label} ({way}) 1 prefill -> {n_decode} "
+                              f"decode, {'streaming' if streaming else 'whole'}"
+                              f" export: {disagg_stats_line(st)}; "
+                              f"{probe.line()}; {n_store} pages in the "
+                              f"receivers' stores hash to their digests | "
+                              f"{smi}")
+                if way == "a":
+                    assert probe.checked == st.n_transfers > 0
+                    log("disagg", f"{label} (a): all {probe.checked} "
+                                  f"handoffs re-exported from the decode "
+                                  f"replica right after the import: ring, "
+                                  f"length, tokens and every imported column"
+                                  f" equal the blob's (the imports without "
+                                  f"a prefix hit: to_wire(None) byte for "
+                                  f"byte); {probe.mapped_cols} columns "
+                                  f"mapped from earlier imports, "
+                                  f"{probe.mapped_differ} of their fields "
+                                  f"differ from the blob's own pages")
+                    a_probe = probe
+                del dis, probe
+                gc.collect()          # replicas and probes hold cycles
+                torch.cuda.empty_cache()
+            counts = ops.launch_counts()
+            assert all(counts[n] > 0 for n in SERVE_KERNELS), counts
+            for n in SERVE_KERNELS:
+                launches[n] += counts[n]
+
+            # (d): a fresh decode host per mix (one session each)
+            t0 = time.perf_counter()
+            proc, port, host_params = spawn_decode_host(host_flags,
+                                                        timeout=600.0)
+            procs.append(proc)
+            assert host_params == mine, (host_params, mine)
+            log("disagg", f"decode host (pid {proc.pid}, port {port}) up in "
+                          f"{time.perf_counter() - t0:.1f}s; its weights, "
+                          f"drawn from seed {DISAGG_SEED} on the card, equal"
+                          f" the serve phase's (param_digest {mine})")
+            tr = SocketTransport(timeout=600.0)
+            dis = DisaggEngine(cfg, run, transport=tr, streaming=True,
+                               decode_addrs=[f"127.0.0.1:{port}"], **kw)
+            res, st = dis.run(reqs)
+            tr.close()
+            assert proc.wait(timeout=60) == 0
+            streams["d"] = {r.uid: r.tokens for r in res}
+            stats["d"] = st
+            del dis
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("disagg", f"{label} (d) 1 prefill -> 1 decode replica in a "
+                          f"second process, TCP, streaming: "
+                          f"{disagg_stats_line(st)} | {smi}")
+            for way in "bcd":
+                assert streams[way] == streams["a"], (label, way)
+            for f in STAT_BYTES:
+                assert getattr(stats["b"], f) == getattr(stats["d"], f), f
+            log("disagg", f"{label}: the streams of (a)-(d) are equal bit for "
+                          f"bit; (b) and (d) report the same wire-byte "
+                          f"counters ({', '.join(STAT_BYTES)}); every "
+                          f"budget met; kernel launches (a)-(c) {counts}")
+            first = divergences("disagg", f"{label}, disaggregated (a) vs "
+                                          f"monolithic", streams["a"], off)
+            on = streams["a"]
+            check_ties("disagg", f"{label}, disaggregated vs monolithic", cfg,
+                       run, params, first, on, off,
+                       disagg_paths(on, reqs, a_probe, off_batches),
+                       DISAGG_MAX_LEN, describe_disagg_path,
+                       ("disagg", "mono"))
+            del a_probe
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                stop_child(proc)
+    log("disagg", f"kernel launches of the in-process disaggregated runs "
+                  f"{launches}; the phase took "
+                  f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -2527,6 +2876,8 @@ def main() -> int:
     raw_params = serve_eng.params
     launches.update(weights_phase(cfg, serve_eng, tok, smi))
     prefix_phase(cfg, raw_params, smi)
+    for name, n in disagg_phase(cfg, raw_params, smi).items():
+        launches[name] += n
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(

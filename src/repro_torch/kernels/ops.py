@@ -20,6 +20,7 @@ than the library, which is then loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import gc
 import math
 import os
 import shutil
@@ -283,7 +284,11 @@ class CapturedStep:
     Launch counts: a capture launches nothing, so the wrappers' counts of
     the captured launches are taken back (the warm-up's stay: those ran),
     and every replay adds them again, by kernel.  A failed capture or
-    replay raises; nothing falls back to eager steps."""
+    replay raises; nothing falls back to eager steps.
+
+    Python's cyclic garbage collector is paused during the capture: a
+    collection there could free a dead engine's graph, and destroying a
+    graph while another is being captured invalidates the capture."""
 
     def __init__(self, step, warmup, device):
         dev = torch.device(device)
@@ -295,10 +300,14 @@ class CapturedStep:
         here.wait_stream(self.stream)
         self.graph = torch.cuda.CUDAGraph()
         before = _all_counts()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, stream=self.stream):
                 step()
         finally:
+            if gc_on:
+                gc.enable()
             after = _all_counts()
             self.launches = {k: after[k] - before[k] for k in after
                              if after[k] != before[k]}

@@ -8,13 +8,18 @@ batching (a request stream through ``ServeEngine``).
         --no-reduced --continuous --requests 6 --slots 4 --prompt-len 1024 \
         --new-tokens 16 [--compress-weights [--weight-backend unpack]] \
         [--no-prefix-sharing]
+    PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
+        --prefill-replicas 1 --decode-replicas 2 --streaming --device cpu
 
 Weights are a seeded random init (no checkpoint ships with the repo).
 ``--reduced`` (the default) serves ``make_reduced(cfg)``; ``--no-reduced``
 serves the published width.  ``--device cpu`` runs the kernels' plain
 versions on the CPU.  Fixed-batch mode with ``--codec full`` uses
 32-token cache blocks, as the reference does, so the default 64 + 32-token
-run decodes from full compressed blocks.
+run decodes from full compressed blocks.  ``--disagg`` serves the
+continuous mode's stream through prefill -> decode replicas in one
+process, joined by the loopback page transport (multi-process serving:
+``repro_torch.launch.disagg_host``).
 """
 
 from __future__ import annotations
@@ -72,6 +77,18 @@ def main(argv=None) -> int:
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="continuous mode: disable prefix-cache page "
                          "sharing between requests")
+    ap.add_argument("--disagg", action="store_true",
+                    help="serve through disaggregated prefill->decode "
+                         "replicas over compressed page transfer")
+    ap.add_argument("--prefill-replicas", type=int, default=1,
+                    help="--disagg: number of prefill replicas")
+    ap.add_argument("--decode-replicas", type=int, default=1,
+                    help="--disagg: number of decode replicas")
+    ap.add_argument("--streaming", action="store_true",
+                    help="--disagg: stream full compressed pages across "
+                         "the transfer link as admission fills them; "
+                         "multi-process serving lives in "
+                         "repro_torch.launch.disagg_host")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -83,10 +100,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
-    if args.continuous:
+    if args.continuous or args.disagg:
         return _serve_continuous(cfg, run, args)
     if args.compress_weights:
-        ap.error("--compress-weights needs --continuous")
+        ap.error("--compress-weights needs --continuous or --disagg")
     return _serve_fixed(cfg, run, args)
 
 
@@ -140,19 +157,33 @@ def _serve_fixed(cfg, run: RunConfig, args) -> int:
 
 
 def _serve_continuous(cfg, run: RunConfig, args) -> int:
+    """Request-stream mode; with --disagg the stream runs through prefill
+    -> decode replicas joined by compressed page transfer."""
     from repro_torch.serve.scheduler import (ServeEngine, demo_serving_setup,
                                              format_stats)
     run, max_len, reqs = demo_serving_setup(
         run, cfg.vocab_size, args.prompt_len, args.new_tokens, args.requests)
     stops = ([tuple(int(t) for t in args.stop_seq.split(","))]
              if args.stop_seq else None)
-    eng = ServeEngine(cfg, run, n_slots=args.slots, max_len=max_len,
-                      seed=run.seed, eos_id=args.eos_id, stop_seqs=stops,
-                      prefix_sharing=not args.no_prefix_sharing,
-                      compress_weights=args.compress_weights,
-                      device=args.device)
-    results, st = eng.run(reqs)
-    print("[serve] continuous:", format_stats(st))
+    if args.disagg:
+        from repro_torch.serve.disagg import DisaggEngine, format_disagg_stats
+        eng = DisaggEngine(cfg, run, n_prefill=args.prefill_replicas,
+                           n_decode=args.decode_replicas,
+                           n_slots=args.slots, max_len=max_len,
+                           seed=run.seed, eos_id=args.eos_id,
+                           stop_seqs=stops, streaming=args.streaming,
+                           compress_weights=args.compress_weights,
+                           device=args.device)
+        results, st = eng.run(reqs)
+        print("[serve] disagg:", format_disagg_stats(st))
+    else:
+        eng = ServeEngine(cfg, run, n_slots=args.slots, max_len=max_len,
+                          seed=run.seed, eos_id=args.eos_id, stop_seqs=stops,
+                          prefix_sharing=not args.no_prefix_sharing,
+                          compress_weights=args.compress_weights,
+                          device=args.device)
+        results, st = eng.run(reqs)
+        print("[serve] continuous:", format_stats(st))
     print("[serve] sample continuations:",
           [(r.tokens[:6], r.stop_reason) for r in results[:2]])
     return 0

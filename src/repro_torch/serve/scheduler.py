@@ -60,17 +60,29 @@ at a time, graphs or not.
 parameters' device, and every matmul against them runs the backend
 ``CodecConfig.weight_backend`` resolves to.
 
+Telemetry, as in the reference (``serve.telemetry``): ``tracer=``
+records each request's spans (``queue``, ``admit``, ``replay``,
+``decode``, the root ``request``) and the engine lane's
+(``admit_batch``, ``replay_window``, ``decode_window``, ``cache_spill``,
+``cache_fetch``), stamped with host clocks at window boundaries that exist
+anyway: no span adds a device sync or sits inside a captured step, and a
+disabled tracer changes nothing.  ``sync_metrics`` refreshes the
+engine's ``MetricsRegistry`` under the reference's names.  The same loop
+runs split across replicas (``serve.disagg``): a prefill replica drives
+``_admit_phase`` (streaming pages through ``admit_progress_cb``), a decode
+replica ``_decode_window`` on slots seeded by imports, its ``PageCache``
+``remote_fetch`` wired to the transport's stores.
+
 Left out: the hybrid models' boundary SSM snapshots (``_snapshot_match``,
 ``_admit_snapshot``, ``_capture_snapshots``: they wait for the SSM
-models), request tracing and the metrics registry (they wait for
-telemetry), and disaggregated replicas (``remote_fetch`` is accepted and
-handed to the ``PageCache``; no peer is wired to it yet).  Dropped with
-the mesh at one GPU: the shard_map wrappers and the leading per-shard
-axis of every state leaf (a column's page-id vector has one entry).
+models).  Dropped with the mesh at one GPU: the shard_map wrappers and the
+leading per-shard axis of every state leaf (a column's page-id vector has
+one entry).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -88,6 +100,8 @@ from . import engine
 from . import transport
 from .digest import chain_keys
 from .pagecache import PageCache
+from .telemetry import (ENGINE_LANE, MetricsRegistry, Tracer,
+                        summarize_latencies)
 
 
 @dataclasses.dataclass
@@ -173,16 +187,6 @@ class ServeStats:
                                                 1)
 
 
-def summarize_latencies(values: Sequence[float]) -> Dict[str, float]:
-    """mean/p50/p95 of a latency sample, 0.0 on empty."""
-    lats = sorted(float(v) for v in values)
-    if not lats:
-        return {"mean": 0.0, "p50": 0.0, "p95": 0.0}
-    return {"mean": float(np.mean(lats)),
-            "p50": float(np.percentile(lats, 50)),
-            "p95": float(np.percentile(lats, 95))}
-
-
 def _norm_stops(stop_seqs) -> Tuple[Tuple[int, ...], ...]:
     """Normalize stop sequences to a tuple of int tuples; empty sequences
     are rejected (they would stop every request at its first token)."""
@@ -232,6 +236,10 @@ class RequestScheduler:
     def __init__(self, max_len: int):
         self.max_len = max_len
         self.queue: deque[Request] = deque()
+        # wired by the owning engine: the root request span opens at
+        # submit, and submit_t feeds TTFT (first token - submit)
+        self.tracer: Tracer = Tracer(False)
+        self.pid = "serve"
         self.submit_t: Dict[int, float] = {}
 
     def submit(self, req: Request) -> None:
@@ -247,23 +255,30 @@ class RequestScheduler:
         # validate stop sequences before the request can occupy a slot
         _norm_stops(req.stop_seqs)
         self.submit_t[req.uid] = time.perf_counter()
+        self.tracer.request_begin(
+            req.uid, pid=self.pid,
+            args={"prompt_len": s,
+                  "max_new_tokens": int(req.max_new_tokens)})
+        self.tracer.stage(req.uid, "queue")
         self.queue.append(req)
 
     def __len__(self) -> int:
         return len(self.queue)
 
 
-def _host_fields(wire: cache_mod.PageWire) -> Dict[str, np.ndarray]:
-    """A ``PageWire``'s fields on the host in the transport's ``(tp, L,
-    cols, ...)`` layout (tp = 1), with the reference's dtypes: planes as
-    uint32, raw bf16 pages as uint16 bits (the same bytes)."""
+def _host_fields(wire: cache_mod.PageWire, ring: bool = False
+                 ) -> Dict[str, np.ndarray]:
+    """A ``PageWire``'s page fields (and with ``ring`` its ring) on the
+    host in the transport's ``(tp, L, ...)`` layout (tp = 1), with the
+    reference's dtypes: planes as uint32, raw bf16 as uint16 bits (the
+    same bytes)."""
     kv = {}
     for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
-              "raw_pages"):
+              "raw_pages") + (("ring",) if ring else ()):
         t = getattr(wire, f)
         if t is None:
             continue
-        if f == "raw_pages":
+        if t.dtype == torch.bfloat16:
             a = t.view(torch.int16).cpu().numpy().view(np.uint16)
         else:
             a = t.cpu().numpy()
@@ -293,7 +308,8 @@ class ServeEngine:
                  max_fuse_steps: int = 32, prefix_sharing: bool = True,
                  store_pages: int = 4096, remote_fetch=None,
                  compress_weights: bool = False, device="cuda",
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None,
+                 tracer: Optional[Tracer] = None, name: str = "serve"):
         """``cuda_graphs``: replay decode steps from a CUDA graph (``None``:
         on a CUDA device, off on the CPU; ``True`` on the CPU raises).
         ``False`` on the card steps eagerly, e.g. to check a step from the
@@ -301,7 +317,10 @@ class ServeEngine:
         pages through the tiered ``PageCache`` (off by itself for MoE and
         MLA, whose decode is not bit-equal to their prefill);
         ``store_pages`` bounds its warm store, ``remote_fetch(digests) ->
-        {digest: payload}`` is its remote tier."""
+        {digest: payload}`` is its remote tier.  ``tracer`` records the
+        request and engine-lane spans (shared by a disaggregated fleet,
+        whose replicas it tells apart by ``name``); ``registry`` holds
+        the engine's metrics, refreshed by ``sync_metrics``."""
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
         self.device = resolve_device(device)
@@ -335,7 +354,14 @@ class ServeEngine:
             self.params = weights_mod.pack_serving_params(
                 self.params, backend=self.weight_backend)
         self._weight_bytes = weights_mod.weight_plane_bytes(self.params)
+        # telemetry: host clocks read at window boundaries that exist
+        # anyway, never a device sync; the registry is per engine
+        self.name = name
+        self.tracer = tracer if tracer is not None else Tracer(False)
+        self.registry = MetricsRegistry()
         self.scheduler = RequestScheduler(max_len)
+        self.scheduler.tracer = self.tracer
+        self.scheduler.pid = name
         self.state = engine.empty_paged_state(cfg, run, n_slots, max_len,
                                               device=self.device)
         self.decoder = engine.PagedDecoder(cfg, run, self.state,
@@ -351,6 +377,11 @@ class ServeEngine:
                                remote_fetch=remote_fetch)
         self._slot_keys: List[List[bytes]] = [[] for _ in range(n_slots)]
         self._slot_busy = np.zeros((n_slots,), bool)
+        # streaming prefill export: a disaggregated prefill replica sets
+        # this to ship freshly completed page columns mid-admission (after
+        # the batched trunk insert and after every replay window); called
+        # with the loop state, None = no-op
+        self.admit_progress_cb = None
 
     # the prefix index and refcounts live in the PageCache (views, as in
     # the reference)
@@ -459,12 +490,13 @@ class ServeEngine:
             return 0, [], []
         warm: List[List[bytes]] = []
         m = h
-        for j in range(h, m_cand):
-            payloads = self.cache.fetch_warm(keys[j])
-            if payloads is None:        # gone on every tier: truncate
-                break
-            warm.append(payloads)
-            m += 1
+        with self._cache_fetch_span():
+            for j in range(h, m_cand):
+                payloads = self.cache.fetch_warm(keys[j])
+                if payloads is None:    # gone on every tier: truncate
+                    break
+                warm.append(payloads)
+                m += 1
         if not ok(m):
             return 0, [], []
         return m, keys[:m], warm
@@ -495,6 +527,30 @@ class ServeEngine:
                                                                self.run_cfg)
         return blk, w, k, esc_cap, npad
 
+    @contextlib.contextmanager
+    def _cache_fetch_span(self):
+        """Engine-lane span over a warm / remote fetch burst.  Its byte
+        args are deltas of the PageCache counters, so summed trace bytes
+        equal the ``cache.*`` counters by construction."""
+        tr = self.tracer
+        if not tr.enabled:
+            yield
+            return
+        c = self.cache
+        t0 = tr.now()
+        p0, b0 = c.fetched_pages, c.fetched_bytes
+        rp0, rb0 = c.remote_pages, c.remote_bytes
+        try:
+            yield
+        finally:
+            if c.fetched_pages != p0 or c.remote_pages != rp0:
+                tr.emit("cache_fetch", cat="cache", pid=self.name,
+                        tid=ENGINE_LANE, t0=t0, t1=tr.now(),
+                        args={"pages": c.fetched_pages - p0,
+                              "bytes": c.fetched_bytes - b0,
+                              "remote_pages": c.remote_pages - rp0,
+                              "remote_bytes": c.remote_bytes - rb0})
+
     def _spill_slots(self, slots: List[int], rows: np.ndarray) -> None:
         """Export and spill every page column whose LAST reference is
         being released (hot -> warm), before the refcounts drop, while
@@ -503,6 +559,9 @@ class ServeEngine:
         of columns to spill (a copy from the card to the host; the
         reference exports a power-of-two window from column 0 to bound its
         jit cache, with the same bytes per column)."""
+        tr = self.tracer
+        t0 = tr.now()
+        p0, b0 = self.cache.spilled_pages, self.cache.spilled_bytes
         holds: Dict[bytes, int] = {}
         for s in slots:
             for key in self._slot_keys[s]:
@@ -533,6 +592,11 @@ class ServeEngine:
                     transport.page_payload(kv, codec_on, 0, l, c - c0)
                     for l in range(self.cfg.n_layers)])
                 done.add(key)
+        if tr.enabled and self.cache.spilled_pages != p0:
+            tr.emit("cache_spill", cat="cache", pid=self.name,
+                    tid=ENGINE_LANE, t0=t0, t1=tr.now(),
+                    args={"pages": self.cache.spilled_pages - p0,
+                          "bytes": self.cache.spilled_bytes - b0})
 
     def _free_slots(self, slots: List[int]) -> None:
         """Evict ``slots`` through the tiered PageCache: spill last-copy
@@ -633,6 +697,7 @@ class ServeEngine:
                      now: float) -> None:
         ls.emitted[req.uid] = [t]
         ls.first_tok_t[req.uid] = now
+        self.tracer.stage_end(req.uid)
         ls.cur[s] = t
         self._check_done(ls, s, req)
 
@@ -654,6 +719,9 @@ class ServeEngine:
                 tokens=ls.emitted[req.uid][:req.max_new_tokens],
                 latency_s=now - ls.admit_t[req.uid],
                 stop_reason=ls.reason[s], ttft_s=ttft)
+            self.tracer.request_end(
+                req.uid, args={"stop_reason": res.stop_reason,
+                               "tokens": len(res.tokens)})
             ls.results[req.uid] = res
             fresh.append(res)
             ls.slot_req[s] = None
@@ -662,6 +730,9 @@ class ServeEngine:
         if freed:
             self._free_slots(freed)
         return fresh
+
+    def _free_slot_ids(self, ls: _LoopState) -> List[int]:
+        return [s for s in range(self.n_slots) if ls.slot_req[s] is None]
 
     # -- the serving loop --------------------------------------------------
 
@@ -709,6 +780,9 @@ class ServeEngine:
         room for its own warm import."""
         h = m - len(warm)
         ls.admit_t.setdefault(req.uid, time.perf_counter())
+        self.tracer.stage(req.uid, "admit",
+                          args={"mode": "warm" if warm else "shared",
+                                "cols": m, "warm_cols": len(warm)})
         ids = np.zeros((self._maxp,), np.int32)
         for c in range(h):
             ids[c] = self.cache.acquire(keys[c])[0]
@@ -731,12 +805,15 @@ class ServeEngine:
     def _admit_cold_batch(self, ls: _LoopState, batch: List[Request],
                           slots: List[int], trunk: int, replays) -> None:
         """One batched prefill admits the whole bucket."""
+        tr = self.tracer
         w0 = time.perf_counter()
         for r in batch:
             ls.admit_t.setdefault(r.uid, w0)
+            tr.stage(r.uid, "admit", args={"mode": "cold", "bucket": trunk})
         self._ensure_free_pages(len(batch) * self._lfp(trunk))
         prompts = torch.as_tensor(np.stack([r.prompt[:trunk] for r in batch]),
                                   dtype=torch.int32, device=self.device)
+        t0 = tr.now()
         logits, d = engine.prefill_sequences(self.cfg, self.run_cfg,
                                              self.params, prompts)
         engine.insert_sequences(self.cfg, self.run_cfg, self.state, d, slots)
@@ -744,6 +821,9 @@ class ServeEngine:
         ls.admit_dispatches += 1
         now = time.perf_counter()
         ls.admit_window_s.append(now - w0)
+        tr.emit("admit_batch", cat="dispatch", pid=self.name,
+                tid=ENGINE_LANE, t0=t0, t1=tr.now(),
+                args={"bucket": trunk, "batch": len(batch)})
         for j, (req, s) in enumerate(zip(batch, slots)):
             ls.slot_req[s] = req
             self._slot_busy[s] = True
@@ -754,6 +834,8 @@ class ServeEngine:
                 replays.append((s, np.asarray(tail, np.int32)))
             else:
                 self._first_token(ls, s, req, int(toks[j, 0]), now)
+        if self.admit_progress_cb is not None:
+            self.admit_progress_cb(ls)   # trunk pages exist: stream them
 
     def _run_replays(self, ls: _LoopState, replays) -> None:
         """Feed admitted slots' leftover prompt tokens through replay
@@ -762,6 +844,10 @@ class ServeEngine:
         last prompt token."""
         rem = {s: tail for s, tail in replays}
         off = {s: 0 for s in rem}
+        tr = self.tracer
+        for s in rem:
+            tr.stage(ls.slot_req[s].uid, "replay",
+                     args={"tail_tokens": len(rem[s])})
         while rem:
             longest = max(len(rem[s]) - off[s] for s in rem)
             k = self._fuse_steps(longest)
@@ -775,6 +861,7 @@ class ServeEngine:
                 self._page_growth(ls.slot_len[s], ls.slot_len[s]
                                   + min(k, len(rem[s]) - off[s]))
                 for s in rem))
+            t0 = tr.now()
             w0 = time.perf_counter()
             seq = self.decoder.replay(
                 self.params, torch.as_tensor(toks, device=self.device), feed)
@@ -782,6 +869,9 @@ class ServeEngine:
             ls.replay_dispatches += 1
             now = time.perf_counter()
             ls.admit_window_s.append(now - w0)
+            tr.emit("replay_window", cat="dispatch", pid=self.name,
+                    tid=ENGINE_LANE, t0=t0, t1=tr.now(),
+                    args={"steps": k, "slots": len(rem)})
             for s in list(rem):
                 n_fed = min(k, len(rem[s]) - off[s])
                 off[s] += n_fed
@@ -791,6 +881,8 @@ class ServeEngine:
                                       int(seq[n_fed - 1, s, 0]), now)
                     del rem[s]
             self._track_peak(ls)
+            if self.admit_progress_cb is not None:
+                self.admit_progress_cb(ls)   # ring flushes filled pages
 
     def _admit_phase(self, ls: _LoopState) -> None:
         """Admit until slots or admissible requests run out: prefix-cache
@@ -806,7 +898,7 @@ class ServeEngine:
         progress = True
         while progress:
             progress = False
-            free = [s for s in range(self.n_slots) if ls.slot_req[s] is None]
+            free = self._free_slot_ids(ls)
             if not free or not q:
                 break
             if self.prefix_sharing:       # pass A: prefix-cache hits
@@ -826,7 +918,7 @@ class ServeEngine:
                         rest.append(req)
                 while rest:
                     q.appendleft(rest.pop())
-            free = [s for s in range(self.n_slots) if ls.slot_req[s] is None]
+            free = self._free_slot_ids(ls)
             if not free or not q:         # pass B: one cold bucket
                 continue
             batch: List[Request] = []
@@ -874,6 +966,8 @@ class ServeEngine:
         self._ensure_free_pages(sum(          # pool-pressure valve
             self._page_growth(ls.slot_len[s], ls.slot_len[s] + n_steps)
             for s in live))
+        tr = self.tracer
+        t0 = tr.now()
         w0 = time.perf_counter()
         seq = self.decoder.decode(
             self.params, torch.as_tensor(ls.cur, device=self.device),
@@ -881,6 +975,15 @@ class ServeEngine:
         ls.steps += n_steps
         ls.dispatches += 1
         ls.decode_window_s.append(time.perf_counter() - w0)
+        t1 = tr.now()
+        tr.emit("decode_window", cat="dispatch", pid=self.name,
+                tid=ENGINE_LANE, t0=t0, t1=t1,
+                args={"steps": n_steps, "slots": len(live),
+                      "weight_bytes": n_steps * self._weight_bytes[0]})
+        if tr.enabled:
+            for s in live:
+                tr.request_span(ls.slot_req[s].uid, "decode", t0=t0, t1=t1,
+                                args={"steps": n_steps})
         for t_i in range(n_steps):
             for s in live:
                 req = ls.slot_req[s]
@@ -893,46 +996,96 @@ class ServeEngine:
                 self._check_done(ls, s, req)
             self._track_peak(ls)
 
+    def sync_metrics(self, ls: _LoopState,
+                     wall: Optional[float] = None) -> MetricsRegistry:
+        """Refresh this engine's metrics registry from the loop state, with
+        the reference's names: absolute values, safe to call repeatedly
+        (the METRICS RPC calls it on every snapshot; ``_stats`` reads
+        through it, so ``ServeStats`` is a view over the registry).
+        ``serve.admit_compiles`` is 0: the port compiles no admission
+        function (the reference counts its jitted ones).
+        ``serve.pool_bytes`` is this pool's device bytes
+        (``engine.paged_state_nbytes``), which differ from the
+        reference's: its page tables and slot state are on the device and
+        per layer, the port's on the host."""
+        reg = self.registry
+        c = reg.counter
+        n_tok = sum(len(r.tokens) for r in ls.results.values())
+        c("serve.requests").set(len(ls.results))
+        c("serve.tokens").set(n_tok)
+        c("serve.decode_steps").set(ls.steps)
+        c("serve.decode_dispatches").set(ls.dispatches)
+        c("serve.admit_dispatches").set(ls.admit_dispatches)
+        c("serve.replay_dispatches").set(ls.replay_dispatches)
+        c("serve.admit_compiles").set(0)
+        c("serve.shared_page_hits").set(ls.shared_hits)
+        reg.gauge("serve.peak_pages", agg="max").set(ls.peak_pages)
+        reg.gauge("serve.pool_bytes").set(
+            engine.paged_state_nbytes(self.state))
+        if wall is not None:
+            reg.gauge("serve.wall_s", agg="max").set(wall)
+        for k, v in self.cache.counters().items():
+            c(f"cache.{k}").set(v)
+        reg.gauge("weights.bytes_per_step", agg="max").set(
+            self._weight_bytes[0])
+        reg.gauge("weights.raw_bytes_per_step", agg="max").set(
+            self._weight_bytes[1])
+        reg.gauge("weights.compressed", agg="max").set(
+            int(self.compress_weights))
+        c("weights.hbm_bytes").set(ls.steps * self._weight_bytes[0])
+        reg.histogram("latency.request_s").set_values(
+            [r.latency_s for r in ls.results.values()])
+        reg.histogram("latency.ttft_s").set_values(list(ls.ttft_s.values()))
+        reg.histogram("latency.admit_window_s").set_values(
+            ls.admit_window_s)
+        reg.histogram("latency.decode_window_s").set_values(
+            ls.decode_window_s)
+        return reg
+
     def _stats(self, ls: _LoopState, wall: float,
                steps0: engine.StepCounts) -> ServeStats:
         stored_pb, raw_pb = cache_mod.page_bytes(self.cfg, self.run_cfg)
+        reg = self.sync_metrics(ls, wall)
+        v = reg.value
         steps = self.decoder.counts
-        lat = summarize_latencies([r.latency_s for r in ls.results.values()])
-        ttft = summarize_latencies(list(ls.ttft_s.values()))
-        n_req = len(ls.results)
-        n_tok = sum(len(r.tokens) for r in ls.results.values())
+        lat = summarize_latencies(reg.values_of("latency.request_s"))
+        ttft = summarize_latencies(reg.values_of("latency.ttft_s"))
+        admitw = summarize_latencies(reg.values_of("latency.admit_window_s"))
+        decw = summarize_latencies(reg.values_of("latency.decode_window_s"))
+        n_req, n_tok = v("serve.requests"), v("serve.tokens")
+        n_steps = v("serve.decode_steps")
+        peak = v("serve.peak_pages")
         return ServeStats(
-            n_requests=n_req, n_tokens=n_tok, decode_steps=ls.steps,
-            n_dispatches=ls.dispatches,
-            n_admit_dispatches=ls.admit_dispatches,
-            n_replay_dispatches=ls.replay_dispatches,
+            n_requests=n_req, n_tokens=n_tok, decode_steps=n_steps,
+            n_dispatches=v("serve.decode_dispatches"),
+            n_admit_dispatches=v("serve.admit_dispatches"),
+            n_replay_dispatches=v("serve.replay_dispatches"),
             wall_s=wall, requests_per_s=n_req / max(wall, 1e-9),
             tokens_per_s=n_tok / max(wall, 1e-9),
-            peak_pages=ls.peak_pages,
-            peak_cache_bytes=ls.peak_pages * stored_pb,
-            peak_cache_raw_bytes=ls.peak_pages * raw_pb,
+            peak_pages=peak, peak_cache_bytes=peak * stored_pb,
+            peak_cache_raw_bytes=peak * raw_pb,
             mean_latency_s=lat["mean"], latency_p50_s=lat["p50"],
             latency_p95_s=lat["p95"], decode_backend=self.decode_backend,
             ttft_mean_s=ttft["mean"], ttft_p50_s=ttft["p50"],
             ttft_p95_s=ttft["p95"],
-            admit_window_mean_s=summarize_latencies(
-                ls.admit_window_s)["mean"],
-            decode_window_mean_s=summarize_latencies(
-                ls.decode_window_s)["mean"],
-            inter_token_mean_s=(sum(ls.decode_window_s) / ls.steps
-                                if ls.steps else 0.0),
+            admit_window_mean_s=admitw["mean"],
+            decode_window_mean_s=decw["mean"],
+            inter_token_mean_s=(sum(ls.decode_window_s) / n_steps
+                                if n_steps else 0.0),
             weights_compressed=self.compress_weights,
             weight_backend=self.weight_backend,
-            weight_bytes_per_step=self._weight_bytes[0],
-            weight_raw_bytes_per_step=self._weight_bytes[1],
+            weight_bytes_per_step=v("weights.bytes_per_step"),
+            weight_raw_bytes_per_step=v("weights.raw_bytes_per_step"),
             cuda_graphs=self.cuda_graphs,
             eager_steps=steps.eager - steps0.eager,
             flush_steps=steps.flush - steps0.flush,
             graph_replays=steps.replays - steps0.replays,
             graph_captures=steps.captures - steps0.captures,
-            shared_page_hits=ls.shared_hits,
-            **{f"cache_{k}": v for k, v in self.cache.counters().items()
-               if k not in ("remote_pages", "remote_bytes")})
+            shared_page_hits=v("serve.shared_page_hits"),
+            **{f"cache_{k}": v(f"cache.{k}")
+               for k in ("hot_hits", "spilled_pages", "spilled_bytes",
+                         "fetched_pages", "fetched_bytes", "reprefill_cols",
+                         "evicted_cols")})
 
     def run(self, requests: List[Request]
             ) -> Tuple[List[RequestResult], ServeStats]:

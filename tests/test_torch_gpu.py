@@ -1332,3 +1332,129 @@ def test_host_sync_in_captured_step_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.run(_tiny_requests())
     assert eng.decoder.counts.replays == 0
+
+
+# ---------------------------------------------------------------------------
+# disaggregated serving on the card
+# ---------------------------------------------------------------------------
+
+def _disagg_run(codec_on):
+    codec = dataclasses.replace(
+        CodecConfig() if codec_on else CodecConfig.off(), cache_block=4)
+    return RunConfig(codec=codec)
+
+
+def _card_params(cuda):
+    return PM.init_params(lm.lm_table(TINY),
+                          torch.Generator(device=cuda).manual_seed(1),
+                          device=cuda)
+
+
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_disagg_export_wire_import_bitexact(cuda, codec_on):
+    """On the card: a slot exported to a host blob, serialized, parsed and
+    imported into another pool (other page ids), then exported again,
+    gives the same wire bytes; the imported pages hold the source pages'
+    bytes and the ring its ring."""
+    from repro_torch.serve.disagg import DecodeReplica, Handoff, PrefillReplica
+    from repro_torch.serve.transport import SequenceBlob
+    run = _disagg_run(codec_on)
+    params = _card_params(cuda)
+    src = ServeEngine(TINY, run, n_slots=2, max_len=48, params=params,
+                      prefix_sharing=False)
+    pr = PrefillReplica(src)
+    prompt = np.random.default_rng(3).integers(0, 512, (19,)).astype(np.int32)
+    pr.submit(Request(uid=0, prompt=prompt, max_new_tokens=4))
+    src._admit_phase(pr.ls)
+    blob = pr._export_blob(0)
+    data = blob.to_wire(None)[0]
+    dec = DecodeReplica(ServeEngine(TINY, run, n_slots=2, max_len=48,
+                                    params=params, prefix_sharing=False))
+    dec.engine.state.kv.page_used[:3] = True
+    slot = dec.import_handoff(Handoff(req=pr.ls.slot_req[0],
+                                      blob=SequenceBlob.from_wire(data),
+                                      admit_t=0.0))
+    torch.cuda.synchronize()
+    pr2 = PrefillReplica(dec.engine)
+    pr2.ls = dec.ls
+    assert pr2._export_blob(slot).to_wire(None)[0] == data
+    a, b = src.state.kv, dec.engine.state.kv
+    for c in range(blob.n_cols):
+        p, q = int(a.page_table[0, c]), int(b.page_table[slot, c])
+        assert p != q
+        for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+                  "raw_pages"):
+            if getattr(a, f) is not None:
+                assert torch.equal(getattr(a, f)[:, p], getattr(b, f)[:, q])
+    assert torch.equal(a.ring[:, 0], b.ring[:, slot])
+
+
+def test_disagg_loopback_socket_and_eager_decode_equal(cuda):
+    """The shared mix through 1 prefill -> 1 decode replica on the card:
+    the loopback fleet from CUDA graphs, a fleet whose decode replica sits
+    behind a threaded socket host, and the loopback fleet with every step
+    eager give the same streams and wire bytes; the graph and eager decode
+    replicas end with the same page tables and pool bytes."""
+    import socket
+    import threading
+    from repro_torch.serve import (DecodeReplica, DisaggEngine, PageHost,
+                                   SocketTransport)
+    from repro_torch.serve.net import framing
+    run = _disagg_run(True)
+    params = _card_params(cuda)
+    reqs = _shared_requests()
+    got = {}
+    for graphs in (True, False):
+        dis = DisaggEngine(TINY, run, n_slots=2, max_len=48, params=params,
+                           streaming=True, cuda_graphs=graphs)
+        ops.reset_launch_counts()
+        res, st = dis.run(reqs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert all(counts[k] > 0 for k in ATTEND_PATH_KERNELS), counts
+        assert st.pages_streamed > 0 and st.n_transfers == len(reqs)
+        got[graphs] = ([r.tokens for r in res], st.wire_bytes,
+                       _pool_bits(dis.decodes[0].engine.state.kv))
+    assert got[True][:2] == got[False][:2]
+    for key in got[False][2]:
+        assert torch.equal(got[True][2][key], got[False][2][key]), key
+
+    host_eng = ServeEngine(TINY, run, n_slots=2, max_len=48, params=params)
+    fp = framing.config_fingerprint(TINY, run.codec, 1, 2, 48, 0)
+    host = PageHost(DecodeReplica(host_eng), fp)
+    listener = socket.create_server(("127.0.0.1", 0))
+    thread = threading.Thread(target=host.serve_forever, args=(listener,),
+                              kwargs={"once": True}, daemon=True)
+    thread.start()
+    tr = SocketTransport(timeout=120.0)
+    try:
+        dis = DisaggEngine(TINY, run, n_slots=2, max_len=48, params=params,
+                           transport=tr, streaming=True,
+                           decode_addrs=[f"127.0.0.1:"
+                                         f"{listener.getsockname()[1]}"])
+        res, st = dis.run(reqs)
+        tr.close()
+        thread.join(timeout=30)
+    finally:
+        listener.close()
+    assert ([r.tokens for r in res], st.wire_bytes) == got[True][:2]
+
+
+def test_capture_pauses_the_cyclic_collector(cuda):
+    """The cyclic garbage collector is off while a step is captured (a
+    dead engine's graph freed there would invalidate the capture) and on
+    again after it; the captured step replays."""
+    import gc
+    x = torch.zeros(4, device=cuda)
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        x.add_(1)
+
+    assert gc.isenabled()
+    graph = ops.CapturedStep(step, lambda: x.add_(0), cuda)
+    assert seen == [False] and gc.isenabled()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert x.tolist() == [1.0] * 4
