@@ -187,8 +187,29 @@ non-zero:
                pages streamed and chunk bytes, the LinkModel's modelled
                ms (100 Gb/s chiplet link, not measured), export and import
                ms per column, transfer ms per handoff, tok/s and TTFT.
-  11. the card's line, the ``kernels`` JSON line (launches from the runs
-     from CUDA graphs, the replays counted; the disagg phase's in-process
+  11. hybrid — the parallel attention ∥ SSM hybrid, full-width
+               zamba2-1.2b (26 layers, d 2048, 16/16 heads, hd 128, SSM
+               d_inner 4096 = 64 heads x 64, d_state 64; random weights
+               from seed 0), block 256: both attention kernels at its
+               shapes (MHA, W 4096) within 1e-4 of their plain versions
+               and timed beside SDPA, the codec pair exact on its pages;
+               the reference tests' tiny hybrid (hymba_3global) on the card
+               against the CPU, raw and packed (1e-2); the serve mix (6
+               requests, 4 slots, exact trunks: no replay) eagerly and
+               from CUDA graphs: streams, page table, pool bytes and SSM
+               state bytes equal; 8 profiled decode steps of 4 fresh
+               1000-token slots and the SSM work's device time alone
+               (``chiprun_out/profile_decode_hybrid{,_graph}.txt``); a
+               page-aligned prompt served twice with sharing on (the
+               second a boundary-snapshot hit, no prefill, the same
+               stream); 1 prefill -> 1 decode replica over the loopback
+               (the monolithic streams, each imported SSM state equal to
+               its export, the SSM section's wire bytes); the packed
+               weight plane (``cuda``: both weight kernels, ``conv_x``
+               through ``lexi_unpack``); the fixed loop 4 x 1000, graph ==
+               eager byte for byte (SSM state included).
+  12. the card's line, the ``kernels`` JSON line (launches from the runs
+     from CUDA graphs, the replays counted; the disagg and hybrid phases'
      runs added), then the result line.
 """
 
@@ -268,7 +289,7 @@ def host_us(fn, calls: int = 100) -> float:
     return t
 
 
-def attend_timing(name: str, fn, lib_fn):
+def attend_timing(phase: str, name: str, fn, lib_fn):
     """An attention kernel's and its SDPA yardstick's time, both ways (with
     the spin: device time, the JSON line's; without: as the events read
     when the host's launch is slower than the L2 flush), and the host's
@@ -277,11 +298,11 @@ def attend_timing(name: str, fn, lib_fn):
              ms_no_spin=cuda_ms(fn, spin=False),
              library_ms_no_spin=cuda_ms(lib_fn, spin=False),
              host_us=host_us(fn), library_host_us=host_us(lib_fn))
-    log("kernels", f"{name} timing: with the spin {t['ms']:.4f} ms (SDPA "
-                   f"{t['library_ms']:.4f}); without it {t['ms_no_spin']:.4f}"
-                   f" ms (SDPA {t['library_ms_no_spin']:.4f}); host time per "
-                   f"call {t['host_us']:.1f} us (SDPA "
-                   f"{t['library_host_us']:.1f})")
+    log(phase, f"{name} timing: with the spin {t['ms']:.4f} ms (SDPA "
+               f"{t['library_ms']:.4f}); without it {t['ms_no_spin']:.4f}"
+               f" ms (SDPA {t['library_ms_no_spin']:.4f}); host time per "
+               f"call {t['host_us']:.1f} us (SDPA "
+               f"{t['library_host_us']:.1f})")
     return t
 
 
@@ -587,28 +608,19 @@ def kernels_phase(cfg):
     import torch
     from repro_torch.core import entropy as E
     from repro_torch.core import fixed
-    from repro_torch.kernels import attend_cases as AC
-    from repro_torch.kernels import decode_attend, ops, ref
-    from repro_torch.models import cache as cache_mod
+    from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    blk, hd, hkv, h = 256, cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
-    w = 2 * hkv * hd
-    n, k = blk * w, 5
-    c = max(n // 128, 8)
-    lengths = [300, 700, 1100, 2000]
-    s_ = len(lengths)
-    n_live = sum(L // blk for L in lengths)
-    n_pages = n_live + 2
-    pages = _pages(gen, n_pages, blk, w)
-    rows = pages.reshape(n_pages, n)
+    k = ATTEND_K
     rec = {}
+    rec["decode_attend_paged"], rows, c = paged_attend_kernel(
+        cfg, gen, "kernels")
 
     # exp_histogram and lexi_pack: exact, at the four shapes of the
     # encoder's callers; the JSON rows are the 16-page table's
+    g, n = rows.shape
     shapes = codec_shapes(gen, rows, k)
     want = ref.histogram_ref(rows)
-    g = n_pages
     # yardstick: one torch.bincount over (row, exponent) keys; the exponent
     # field is extracted into the keys beforehand, outside the timing
     keys = (torch.arange(g, device="cuda")[:, None] * 256
@@ -633,6 +645,50 @@ def kernels_phase(cfg):
     log("kernels", f"lexi_pack ({g} x {n}, k={k}) exact: "
                    f"{rec['lexi_pack']}")
     compress_share(rows, k, c)
+    rec.update(weight_kernels(cfg, gen))
+    rec["decode_attend"] = fixed_attend_kernel(cfg, gen, "kernels",
+                                               also=("gemma2-9b",))
+    return rec
+
+
+ATTEND_BLK, ATTEND_K = 256, 5
+PAGED_LENGTHS = [300, 700, 1100, 2000]
+
+
+def bound_row(by: float, flops: float) -> dict:
+    """The JSON line's bound of work moving ``by`` bytes and doing
+    ``flops`` f32 operations."""
+    t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_attend_kernel(cfg, gen, phase):
+    """decode_attend_paged against its plain version at ``cfg``'s attention
+    shapes (block 256, k 5, slots of PAGED_LENGTHS walking permuted pool
+    pages, the escape and overflow pages live in the longest slot): the
+    codec pair exact on the pool's pages and the card's compress equal to
+    the CPU's; within 1e-4 at full and window 700, codec off, with two
+    slots aliased and at the split edges; two launches bit for bit; timed
+    beside SDPA and its bound.  Returns (the JSON row, the pool's pages
+    as rows, the escape capacity)."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import attend_cases as AC
+    from repro_torch.kernels import decode_attend, lexi_unpack, ops, ref
+    from repro_torch.models import cache as cache_mod
+
+    blk, k, lengths = ATTEND_BLK, ATTEND_K, PAGED_LENGTHS
+    hd, hkv, h = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    w = 2 * hkv * hd
+    n = blk * w
+    c = max(n // 128, 8)
+    s_ = len(lengths)
+    n_live = sum(L // blk for L in lengths)
+    n_pages = n_live + 2
+    pages = _pages(gen, n_pages, blk, w)
+    rows = pages.reshape(n_pages, n)
+    how = codec_check(f"{cfg.name} pool pages", rows, k)
 
     # the kernel-backed codec equals the CPU codec byte for byte
     ct = fixed.compress_many(pages, k=k, esc_capacity=c)
@@ -642,8 +698,17 @@ def kernels_phase(cfg):
         assert torch.equal(getattr(ct, f).cpu(), getattr(ct_cpu, f)), f
     n_esc = ct.n_escapes.cpu().tolist()
     assert n_esc[1] > 0 and n_esc[1] <= c and n_esc[2] > c, n_esc
-    log("kernels", f"compress on the card == compress on the CPU "
-                   f"(escapes per page {n_esc[:4]}..., capacity {c})")
+    # lexi_unpack on the pool pages, and the kernel-backed decompress
+    i16 = lambda t: t.view(torch.int16)
+    fl = (ct.signman, ct.planes, ct.dict_syms)
+    assert torch.equal(i16(lexi_unpack.lexi_unpack(*fl, ct.k)),
+                       i16(ref.unpack_ref(*fl, ct.k)))
+    assert torch.equal(i16(ops.unpack(ct)), i16(fixed.decompress(ct)))
+    log(phase, f"exp_histogram and lexi_pack on {cfg.name}'s {n_pages} pool "
+               f"pages ({blk} x {w}) exact ({how}); compress on the card == "
+               f"compress on the CPU (escapes per page {n_esc[:4]}..., "
+               f"capacity {c}); lexi_unpack on them == plain, ops.unpack == "
+               f"fixed.decompress bit for bit")
 
     # decode_attend_paged: slots walk permuted pages; the escape and
     # overflow pages are live in the longest slot
@@ -652,52 +717,41 @@ def kernels_phase(cfg):
     maxp = page_ids.shape[1]
     fields = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
               None)
-    kv_idx = cache_mod.gqa_head_table(cfg, h)
-    scale = hd ** -0.5
+    kw = dict(k=k, kv_idx=cache_mod.gqa_head_table(cfg, h), scale=hd ** -0.5)
     errs = []
     for window in (ref.WINDOW_NONE, 700):
         args = (q, *fields, ring, page_ids, lens, window)
-        o_k, m_k, l_k = decode_attend.decode_attend_paged(
-            *args, k=k, kv_idx=kv_idx, scale=scale)
-        o_p, m_p, l_p = ref.paged_decode_attend_plain(
-            *args, k=k, kv_idx=kv_idx, scale=scale)
-        a = o_k / l_k.clamp(min=1e-30)[..., None]
-        b = o_p / l_p.clamp(min=1e-30)[..., None]
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-        errs.append(float((a - b).abs().max()))
+        errs.append(AC.attend_close(
+            decode_attend.decode_attend_paged(*args, **kw),
+            ref.paged_decode_attend_plain(*args, **kw)))
     # codec off: raw bf16 pages through the same kernel
     raw = (None,) * 5 + (fixed.decompress(ct),)
     args_raw = (q, *raw, ring, page_ids, lens, ref.WINDOW_NONE)
-    o_k, _, l_k = decode_attend.decode_attend_paged(
-        *args_raw, k=k, kv_idx=kv_idx, scale=scale)
-    o_p, _, l_p = ref.paged_decode_attend_plain(*args_raw, k=k,
-                                                kv_idx=kv_idx, scale=scale)
-    torch.testing.assert_close(o_k / l_k[..., None], o_p / l_p[..., None],
-                               rtol=1e-4, atol=1e-4)
+    errs.append(AC.attend_close(
+        decode_attend.decode_attend_paged(*args_raw, **kw),
+        ref.paged_decode_attend_plain(*args_raw, **kw)))
     # prefix sharing: slot 1 holds the longest slot's page-table row (its
     # escape and overflow pages), q, ring and length, as after a hit
     q_a, ring_a, ids_a, lens_a = AC.alias_slot(q, ring, page_ids, lens,
                                                src=s_ - 1, dst=1)
     args_a = (q_a, *fields, ring_a, ids_a, lens_a, ref.WINDOW_NONE)
-    got = decode_attend.decode_attend_paged(*args_a, k=k, kv_idx=kv_idx,
-                                            scale=scale)
+    got = decode_attend.decode_attend_paged(*args_a, **kw)
     errs.append(AC.attend_close(got, ref.paged_decode_attend_plain(
-        *args_a, k=k, kv_idx=kv_idx, scale=scale)))
+        *args_a, **kw)))
     assert AC.same_bits([t[1] for t in got], [t[s_ - 1] for t in got]), \
         "decode_attend_paged: aliased slots differ"
-    log("kernels", f"decode_attend_paged, slots 1 and {s_ - 1} on the same "
-                   f"page ids, q, ring and length {int(lens_a[1])}: within "
-                   f"1e-4 of the plain version (max {errs[-1]:.3g}), the "
-                   f"two slots' (out, m, l) equal bit for bit")
+    log(phase, f"decode_attend_paged, slots 1 and {s_ - 1} on the same "
+               f"page ids, q, ring and length {int(lens_a[1])}: within "
+               f"1e-4 of the plain version (max {errs[-1]:.3g}), the "
+               f"two slots' (out, m, l) equal bit for bit")
 
     args = (q, *fields, ring, page_ids, lens, ref.WINDOW_NONE)
-    kw = dict(k=k, kv_idx=kv_idx, scale=scale)
     first = decode_attend.decode_attend_paged(*args, **kw)
     assert AC.same_bits(first, decode_attend.decode_attend_paged(*args, **kw)), \
         "decode_attend_paged: two launches differ"
-    grid_line("decode_attend_paged", h, hkv, hd, blk, s_,
+    grid_line(phase, "decode_attend_paged", h, hkv, hd, blk, s_,
               decode_attend.paged_splits(maxp, blk), k)
-    errs.append(split_edges_paged(cfg, gen))
+    errs.append(split_edges_paged(cfg, gen, phase))
     # yardstick: one library call (SDPA, GQA) on already-decompressed
     # pages gathered per slot; the port never calls it
     lib_fn = sdpa_fn(q, torch.cat(
@@ -706,27 +760,22 @@ def kernels_phase(cfg):
     page_bytes = n * (1 + k / 8) + c
     by = (n_live * page_bytes + ring_rows * w * 2 + q.numel() * 2
           + s_ * h * (hd + 2) * 4)
-    flops = 4 * s_ * h * hd * sum(lengths)
-    t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOPS
-    rec["decode_attend_paged"] = dict(
+    row = dict(
         max_abs_err=max(errs),
-        plain_ms=cuda_ms(lambda: ref.paged_decode_attend_plain(
-            *args, k=k, kv_idx=kv_idx, scale=scale), reps=5),
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        **attend_timing("decode_attend_paged",
+        plain_ms=cuda_ms(lambda: ref.paged_decode_attend_plain(*args, **kw),
+                         reps=5),
+        **bound_row(by, 4 * s_ * h * hd * sum(lengths)),
+        **attend_timing(phase, "decode_attend_paged",
                         lambda: decode_attend.decode_attend_paged(*args, **kw),
                         lib_fn))
-    log("kernels", f"decode_attend_paged (S={s_}, H={h}/{hkv}, hd={hd}, "
-                   f"lengths {lengths}, {n_live} live pages) within 1e-4 "
-                   f"(full + window 700 + codec off + split edges), two "
-                   f"launches bit for bit: {rec['decode_attend_paged']}")
-    rec.update(weight_kernels(cfg, ct, gen))
-    rec["decode_attend"] = fixed_attend_kernel(cfg, gen)
-    return rec
+    log(phase, f"decode_attend_paged (S={s_}, H={h}/{hkv}, hd={hd}, "
+               f"lengths {lengths}, {n_live} live pages) within 1e-4 "
+               f"(full + window 700 + codec off + split edges), two "
+               f"launches bit for bit: {row}")
+    return row, rows, c
 
 
-def grid_line(name, h, hkv, hd, blk, n_seq, nsplit, k):
+def grid_line(phase, name, h, hkv, hd, blk, n_seq, nsplit, k):
     """Log a kernel's launch: grid, threads, chunk rows, shared memory per
     CTA, and registers and spills of its k instantiation (ptxas -v)."""
     from repro_torch.kernels import decode_attend
@@ -734,18 +783,18 @@ def grid_line(name, h, hkv, hd, blk, n_seq, nsplit, k):
     geo = decode_attend.geometry(hd, h - (hkv - 1) * (h // hkv), span)
     regs = next((r for (_, args), r in ptxas_report(name).items()
                  if args == (k,)), {})
-    log("kernels", f"{name} launch at H={h}/{hkv}, hd={hd}: nsplit {nsplit} "
-                   f"(P={span} rows), grid {hkv} x {n_seq} x {nsplit} = "
-                   f"{hkv * n_seq * nsplit} CTAs of {geo['threads']} "
-                   f"threads, chunks of {geo['chunk_rows']} rows, "
-                   f"{geo['smem_bytes']} B shared memory per CTA, "
-                   f"{regs.get('registers')} registers, spills "
-                   f"{regs.get('spill_stores')}/{regs.get('spill_loads')} B "
-                   f"(k={k})")
+    log(phase, f"{name} launch at H={h}/{hkv}, hd={hd}: nsplit {nsplit} "
+               f"(P={span} rows), grid {hkv} x {n_seq} x {nsplit} = "
+               f"{hkv * n_seq * nsplit} CTAs of {geo['threads']} "
+               f"threads, chunks of {geo['chunk_rows']} rows, "
+               f"{geo['smem_bytes']} B shared memory per CTA, "
+               f"{regs.get('registers')} registers, spills "
+               f"{regs.get('spill_stores')}/{regs.get('spill_loads')} B "
+               f"(k={k})")
 
 
-def split_edges_paged(cfg, gen):
-    """The paged kernel's split edge cases at qwen3-4b's heads, block 256
+def split_edges_paged(cfg, gen, phase):
+    """The paged kernel's split edge cases at ``cfg``'s heads, block 256
     (P = 128): slot lengths at span and block edges, a window leaving only
     the last span, a page with escapes on rows P - 1 and P and one past
     its capacity; then 1 and 64 slots.  Every call within 1e-4 and
@@ -795,17 +844,17 @@ def split_edges_paged(cfg, gen):
             assert AC.same_bits(got, decode_attend.decode_attend_paged(
                 *args, **kw, softcap=softcap)), "paged: launches differ"
             n_calls += 1
-    log("kernels", f"decode_attend_paged split edges (P={p}, block {blk}): "
-                   f"lengths {AC.edge_lengths(blk)}, 1 slot, 64 slots; full, "
-                   f"window 700, window 5 (last span only), softcap 50; "
-                   f"escapes on rows {p - 1} and {p} of a page and past the "
-                   f"capacity of another: {n_calls} calls within 1e-4, each "
-                   f"launched twice bit for bit; max |err| {worst:.3e}")
+    log(phase, f"decode_attend_paged split edges (P={p}, block {blk}): "
+               f"lengths {AC.edge_lengths(blk)}, 1 slot, 64 slots; full, "
+               f"window 700, window 5 (last span only), softcap 50; "
+               f"escapes on rows {p - 1} and {p} of a page and past the "
+               f"capacity of another: {n_calls} calls within 1e-4, each "
+               f"launched twice bit for bit; max |err| {worst:.3e}")
     return worst
 
 
-def split_edges_fixed(cfg, gen):
-    """The fixed kernel's split edge cases at qwen3-4b's heads, block 256,
+def split_edges_fixed(cfg, gen, phase):
+    """The fixed kernel's split edge cases at ``cfg``'s heads, block 256,
     3 sequences: the lengths of ``attend_cases.edge_lengths``, full / window 5 /
     window 700 / softcap; block 1 holds escapes in sequence 0 and, in
     sequence 2, on rows P - 1 and P (within the capacity) followed by more
@@ -867,15 +916,15 @@ def split_edges_fixed(cfg, gen):
                 else:
                     AC.attend_close(got, host)
                     same += AC.same_bits(got, host)
-    log("kernels", f"decode_attend split edges (P={p}, block {blk}, B={b}): "
-                   f"lengths {lengths}; full, window 700, window 5, softcap "
-                   f"50; sequence 2 escapes on rows {p - 1} and {p} and past "
-                   f"the capacity; host-length and device-length launches "
-                   f"({decode_attend.capacity_splits(nblk, blk)} splits): "
-                   f"{n_calls} calls within 1e-4, each launched twice bit "
-                   f"for bit; the two forms within 1e-4 of each other, "
-                   f"bit for bit in {same}/{n_calls // 2}; max |err| "
-                   f"{worst:.3e}")
+    log(phase, f"decode_attend split edges (P={p}, block {blk}, B={b}): "
+               f"lengths {lengths}; full, window 700, window 5, softcap "
+               f"50; sequence 2 escapes on rows {p - 1} and {p} and past "
+               f"the capacity; host-length and device-length launches "
+               f"({decode_attend.capacity_splits(nblk, blk)} splits): "
+               f"{n_calls} calls within 1e-4, each launched twice bit "
+               f"for bit; the two forms within 1e-4 of each other, "
+               f"bit for bit in {same}/{n_calls // 2}; max |err| "
+               f"{worst:.3e}")
     return worst
 
 
@@ -933,19 +982,25 @@ def _fixed_check(args_codec, args_raw, kw_cases):
     return worst
 
 
-def fixed_attend_kernel(cfg, gen):
-    """decode_attend against its plain version at qwen3-4b's and
-    gemma2-9b's attention shapes, timed at qwen3-4b's."""
+FIXED_CASES = {"gemma2-9b": (4400, 4096)}   # arch: (length, window)
+
+
+def fixed_attend_kernel(cfg, gen, phase, also=()):
+    """decode_attend against its plain version at ``cfg``'s attention
+    shapes and at those of the archs in ``also`` (B=4, block 256, length
+    1100 and window 700 unless FIXED_CASES says otherwise): full, window,
+    softcap 50, codec off, host- and device-length launches; at ``cfg``'s
+    the split edges too, two launches bit for bit, timed beside SDPA and
+    its bound.  Returns the JSON row."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import attend_cases as AC
     from repro_torch.kernels import decode_attend, ref
 
-    b, blk, k = 4, 256, 5
+    b, blk, k, softcap = 4, ATTEND_BLK, ATTEND_K, 50.0
     errs = []
-    for arch, length, window, softcap in (("qwen3-4b", 1100, 700, 50.0),
-                                          ("gemma2-9b", 4400, 4096, 50.0)):
-        c_ = cfg if arch == cfg.name else get_config(arch)
+    for c_ in (cfg, *map(get_config, also)):
+        length, window = FIXED_CASES.get(c_.name, (1100, 700))
         h, hkv, hd = c_.n_heads, c_.n_kv_heads, c_.head_dim
         blocks, ct, ring, q = _fixed_case(gen, b, h, hkv, hd, blk, length)
         cap = ct.esc_pos.shape[-1]
@@ -963,14 +1018,14 @@ def fixed_attend_kernel(cfg, gen):
                  (True, dict(kw, softcap=softcap), win),
                  (False, kw, full), (False, dict(kw, softcap=softcap), win)]
         errs.append(_fixed_check(args, args_raw, cases))
-        log("kernels", f"decode_attend at {arch}'s shapes (B={b}, H={h}/"
-                       f"{hkv}, hd={hd}, block {blk}, length {length}, "
-                       f"{length // blk} live blocks, escapes per block "
-                       f"{n_esc[:3]}..., capacity {cap}) within 1e-4: full, "
-                       f"window {window}, softcap {softcap}, codec off; "
-                       f"host-length and device-length launches; "
-                       f"max |err| {errs[-1]:.3e}")
-        if arch != cfg.name:
+        log(phase, f"decode_attend at {c_.name}'s shapes (B={b}, H={h}/"
+                   f"{hkv}, hd={hd}, block {blk}, length {length}, "
+                   f"{length // blk} live blocks, escapes per block "
+                   f"{n_esc[:3]}..., capacity {cap}) within 1e-4: full, "
+                   f"window {window}, softcap {softcap}, codec off; "
+                   f"host-length and device-length launches; "
+                   f"max |err| {errs[-1]:.3e}")
+        if c_ is not cfg:
             del blocks, ct, ring, q, store, args, args_raw
             torch.cuda.empty_cache()
             continue
@@ -985,90 +1040,126 @@ def fixed_attend_kernel(cfg, gen):
             assert AC.same_bits(first, decode_attend.decode_attend(
                 *form[0], **form[1])), "decode_attend: two launches differ"
         nblk = store[0].shape[0]
-        grid_line("decode_attend", h, hkv, hd, blk, b,
+        grid_line(phase, "decode_attend", h, hkv, hd, blk, b,
                   decode_attend.fixed_splits(length, full, blk)[1], k)
-        grid_line("decode_attend", h, hkv, hd, blk, b,
+        grid_line(phase, "decode_attend", h, hkv, hd, blk, b,
                   decode_attend.capacity_splits(nblk, blk), k)
 
         def host_fn():
             return decode_attend.decode_attend(*host_form[0], **host_form[1])
 
-        log("kernels", f"decode_attend host-length launch (grid from the "
-                       f"host length): {cuda_ms(host_fn):.4f} ms with the "
-                       f"spin, host time per call {host_us(host_fn):.1f} us")
-        errs.append(split_edges_fixed(cfg, gen))
+        log(phase, f"decode_attend host-length launch (grid from the "
+                   f"host length): {cuda_ms(host_fn):.4f} ms with the "
+                   f"spin, host time per call {host_us(host_fn):.1f} us")
+        errs.append(split_edges_fixed(cfg, gen, phase))
         live = length // blk
         lib_fn = sdpa_fn(q, fixed_rows(blocks, ring, length))
         n = b * blk * 2 * hkv * hd
         by = (live * (n * (1 + k / 8) + (1 << k) + 5 * cap)
               + b * (length - live * blk) * 2 * hkv * hd * 2
               + q.numel() * 2 + b * h * (hd + 2) * 4)
-        flops = 4 * b * h * hd * length
-        t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOPS
         row = dict(
             max_abs_err=None,
             plain_ms=cuda_ms(lambda: ref.decode_attend_plain(
                 *timed[0], **timed[1]), reps=5),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            **attend_timing("decode_attend", lambda: decode_attend
+            **bound_row(by, 4 * b * h * hd * length),
+            **attend_timing(phase, "decode_attend", lambda: decode_attend
                             .decode_attend(*timed[0], **timed[1]), lib_fn))
     row["max_abs_err"] = max(errs)
-    log("kernels", f"decode_attend at qwen3-4b's shapes, full window, "
-                   f"codec on, device-length launch: {row}")
+    log(phase, f"decode_attend at {cfg.name}'s shapes, full window, "
+               f"codec on, device-length launch: {row}")
     return row
 
 
+SSM_MATMULS = ("w_zx", "w_bc", "w_dt", "w_out")
+
+
 def weight_shapes(cfg):
-    """[((K, N), matmuls per decode step)] of the dense model's weights:
-    wq, wk and wv, wo, w_gate and w_up, w_down per layer, and the LM
-    head."""
+    """[((K, N), matmuls per decode step)] of the model's weights: wq, wk
+    and wv, wo, w_gate and w_up, w_down per layer, a hybrid's SSM
+    projections (SSM_MATMULS) per layer, and the LM head."""
+    from repro_torch.models import ssm as ssm_mod
     d, hd, layers = cfg.d_model, cfg.head_dim, cfg.n_layers
     q, kv, f = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff
-    return [((d, q), layers), ((d, kv), 2 * layers), ((q, d), layers),
-            ((d, f), 2 * layers), ((f, d), layers),
-            ((d, cfg.padded_vocab(1)), 1)]
+    shapes = [((d, q), layers), ((d, kv), 2 * layers), ((q, d), layers),
+              ((d, f), 2 * layers), ((f, d), layers)]
+    if cfg.ssm is not None:
+        table = ssm_mod.ssm_table(cfg)
+        shapes += [(table[name].shape, layers) for name in SSM_MATMULS]
+    return shapes + [((d, cfg.padded_vocab(1)), 1)]
 
 
-def weight_kernels(cfg, ct, gen):
-    """lexi_unpack and decompress_matmul against their plain versions at
-    qwen3-4b's weight shapes; ``ct`` are the pool pages of the codec
-    checks above (with escapes and overflow)."""
+def weight_case(w, pw, gen):
+    """Both weight kernels on one (K, N) leaf ``w`` and its packed form
+    ``pw``: decompress_matmul at M 4 and 1024 within 1e-4 * (|x| @ |W|) +
+    1e-6 of its plain version, two launches bit for bit; lexi_unpack equal
+    to ``w`` and to its plain version.  Returns {M: (x, max |err|)}."""
     import torch
-    from repro_torch.core import fixed, weights
-    from repro_torch.kernels import decompress_matmul, lexi_unpack, ops, ref
+    from repro_torch.kernels import decompress_matmul, lexi_unpack, ref
+
+    kk = w.shape[0]
+    fields = (pw.signman, pw.planes, pw.dict_syms)
+    cases = {}
+    for m in (4, 1024):
+        x = torch.randn((m, kk), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got = decompress_matmul.decompress_matmul(x, *fields, pw.k)
+        again = decompress_matmul.decompress_matmul(x, *fields, pw.k)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+            (tuple(w.shape), m)
+        want = ref.decompress_matmul_ref(x, *fields, pw.k)
+        tol = 1e-4 * (x.float().abs() @ w.float().abs()) + 1e-6
+        err = (got - want).abs()
+        assert bool((err <= tol).all()), (tuple(w.shape), m,
+                                          float(err.max()))
+        cases[m] = (x, float(err.max()))
+        del got, again, want, tol, err
+    rows = (pw.signman.reshape(1, -1), pw.planes.reshape(1, pw.k, -1),
+            pw.dict_syms.reshape(1, -1))
+    got = lexi_unpack.lexi_unpack(*rows, pw.k).view(torch.int16)
+    assert torch.equal(got, w.reshape(1, -1).view(torch.int16))
+    assert torch.equal(got, ref.unpack_ref(*rows, pw.k).view(torch.int16))
+    return cases
+
+
+def stacked_unpack_check(w, pw):
+    """lexi_unpack on a stacked packed leaf (L, K, N) in one launch: the
+    leaf's bits, and the plain version's row by row (its int64
+    temporaries)."""
+    import torch
+    from repro_torch.core import weights
+    from repro_torch.kernels import ref
 
     i16 = lambda t: t.view(torch.int16)
-    bf16 = torch.bfloat16
-    # lexi_unpack on the pool pages, and the kernel-backed decompress
-    pages = (ct.signman, ct.planes, ct.dict_syms)
-    assert torch.equal(i16(lexi_unpack.lexi_unpack(*pages, ct.k)),
-                       i16(ref.unpack_ref(*pages, ct.k)))
-    assert torch.equal(i16(ops.unpack(ct)), i16(fixed.decompress(ct)))
-    log("kernels", f"lexi_unpack on {ct.signman.shape[0]} pool pages == "
-                   f"plain; ops.unpack == fixed.decompress bit for bit "
-                   f"(escapes per page {ct.n_escapes.tolist()[:3]}..., "
-                   f"capacity {ct.esc_pos.shape[-1]})")
+    back = weights.unpack_weight(pw)
+    assert torch.equal(i16(back), i16(w))
+    for i in range(w.shape[0]):
+        row = ref.unpack_ref(pw.signman[i].reshape(1, -1),
+                             pw.planes[i].reshape(1, pw.k, -1),
+                             pw.dict_syms[i].reshape(1, -1), pw.k)
+        assert torch.equal(i16(row), i16(back[i].reshape(1, -1)))
 
-    # one stacked leaf packed on the card: unpacks to its bits, and to the
-    # plain version's (row by row: the plain version's int64 temporaries)
+
+def weight_kernels(cfg, gen):
+    """lexi_unpack and decompress_matmul against their plain versions at
+    ``cfg``'s weight shapes, timed."""
+    import torch
+    from repro_torch.core import weights
+    from repro_torch.kernels import decompress_matmul, lexi_unpack, ref
+
+    bf16 = torch.bfloat16
+    # one stacked leaf packed on the card
     nl, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     w = (torch.randn((nl, d, f), generator=gen, device="cuda") * 0.02
          ).to(bf16)
     pw = weights.pack_serving_params({"blocks": {"w": w}},
                                      backend="cuda")["blocks"]["w"]
     assert isinstance(pw, weights.PackedWeight), "stacked leaf not packed"
-    back = weights.unpack_weight(pw)
-    assert torch.equal(i16(back), i16(w))
-    for i in range(nl):
-        row = ref.unpack_ref(pw.signman[i].reshape(1, -1),
-                             pw.planes[i].reshape(1, pw.k, -1),
-                             pw.dict_syms[i].reshape(1, -1), pw.k)
-        assert torch.equal(i16(row), i16(back[i].reshape(1, -1)))
+    stacked_unpack_check(w, pw)
     log("kernels", f"lexi_unpack on a packed stacked leaf {tuple(w.shape)} "
                    f"(k={pw.k}, one launch of {nl} rows): exact, and equal "
                    f"to the plain version row by row")
-    del w, back, pw
+    del w, pw
 
     dm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, b_bytes=0.0,
               b_ops=0.0, max_abs_err=0.0, host_us=0.0)
@@ -1082,17 +1173,8 @@ def weight_kernels(cfg, ct, gen):
              ).to(bf16)
         pw = weights.pack_serving_params({"w": w}, backend="cuda")["w"]
         fields = (pw.signman, pw.planes, pw.dict_syms)
-        for m in (4, 1024):
-            x = torch.randn((m, kk), generator=gen, device="cuda").to(bf16)
+        for m, (x, err) in weight_case(w, pw, gen).items():
             fn = lambda: decompress_matmul.decompress_matmul(x, *fields, pw.k)
-            got = fn()
-            again = fn()
-            assert torch.equal(got.view(torch.int32),
-                               again.view(torch.int32)), (kk, n, m)
-            want = ref.decompress_matmul_ref(x, *fields, pw.k)
-            tol = 1e-4 * (x.float().abs() @ w.float().abs()) + 1e-6
-            err = (got - want).abs()
-            assert bool((err <= tol).all()), (kk, n, m, float(err.max()))
             t = cuda_ms(fn)
             t_plain = cuda_ms(lambda: ref.decompress_matmul_ref(
                 x, *fields, pw.k), reps=3)
@@ -1112,7 +1194,7 @@ def weight_kernels(cfg, ct, gen):
             log("kernels", f"decompress_matmul M={m} K={kk} N={n} k={pw.k}: "
                            f"{p.route} route, {tile}, {p.ctas(m, n)} CTAs"
                            f"{smem}; max "
-                           f"|err| {float(err.max()):.3e} within "
+                           f"|err| {err:.3e} within "
                            f"1e-4*(|x|@|W|)+1e-6, two launches bit for bit; "
                            f"{t:.4f} ms, plain {t_plain:.4f} ms, torch.mm on "
                            f"the unpacked W {t_lib:.4f} ms, bound "
@@ -1131,17 +1213,16 @@ def weight_kernels(cfg, ct, gen):
                 dm["b_bytes"] += count * t_bytes
                 dm["b_ops"] += count * t_ops
                 dm["host_us"] += count * t_host
-                dm["max_abs_err"] = max(dm["max_abs_err"], float(err.max()))
-            del got, again, want, tol, err
+                dm["max_abs_err"] = max(dm["max_abs_err"], err)
         rows = (pw.signman.reshape(1, -1), pw.planes.reshape(1, pw.k, -1),
                 pw.dict_syms.reshape(1, -1))
         fn = lambda: lexi_unpack.lexi_unpack(*rows, pw.k)
-        assert torch.equal(i16(fn()), i16(w.reshape(1, -1)))
         t = cuda_ms(fn)
         t_plain = cuda_ms(lambda: ref.unpack_ref(*rows, pw.k), reps=3)
         t_host = host_us(fn)
         t_bound = (pw.nbytes() + 2 * kk * n) / HBM_BYTES_PER_S * 1e3
-        log("kernels", f"lexi_unpack K={kk} N={n} k={pw.k}: exact; {t:.4f} "
+        log("kernels", f"lexi_unpack K={kk} N={n} k={pw.k}: exact (the leaf's "
+                       f"bits and the plain version's); {t:.4f} "
                        f"ms, plain {t_plain:.4f} ms, bound {t_bound:.5f} ms; "
                        f"host {t_host:.1f} us per call")
         un["ms"] += count * t
@@ -1149,7 +1230,7 @@ def weight_kernels(cfg, ct, gen):
         un["bound_ms"] += count * t_bound
         un["host_us"] += count * t_host
         packed.append((pw, count))
-        del w, fields, rows
+        del w, x, fields, rows
         torch.cuda.empty_cache()
     n_pre = sum(c for _, c in weight_shapes(cfg) if c > 1)
     log("kernels", f"decompress_matmul's prefill route, one 1024-token "
@@ -1236,7 +1317,10 @@ def small_phase():
                      f"{launched['decompress_matmul']}")
 
 
-def small_model_diff(packed: bool) -> float:
+def small_model_diff(packed: bool, cfg=None) -> float:
+    """Prefill + 10 teacher-forced paged decode steps of a tiny model (a
+    dense one by default) on the card and on the CPU from the same weights
+    and tokens; returns the largest logit gap (<= 1e-2)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ModelConfig, RunConfig
@@ -1245,9 +1329,10 @@ def small_model_diff(packed: bool) -> float:
     from repro_torch.models import lm, params as PM
     from repro_torch.serve import engine
 
-    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
-                      n_heads=8, n_kv_heads=4, d_ff=128, vocab_size=512,
-                      head_dim=16, qk_norm=True)
+    if cfg is None:
+        cfg = ModelConfig(name="tiny", family="dense", n_layers=2,
+                          d_model=64, n_heads=8, n_kv_heads=4, d_ff=128,
+                          vocab_size=512, head_dim=16, qk_norm=True)
     run = RunConfig(codec=CodecConfig(cache_block=4))
     params = PM.init_params(lm.lm_table(cfg),
                             torch.Generator().manual_seed(3))
@@ -1256,7 +1341,8 @@ def small_model_diff(packed: bool) -> float:
         assert isinstance(params["blocks"]["attn"]["wq"],
                           weights.PackedWeight)
     rng = np.random.default_rng(3)
-    prompt = torch.as_tensor(rng.integers(0, 512, (2, 9)), dtype=torch.int32)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 9)),
+                             dtype=torch.int32)
     worst = 0.0
     states, toks = {}, {}
     for dev in ("cpu", "cuda"):
@@ -1410,7 +1496,7 @@ def serve_phase(cfg, smi):
                               dtype=torch.int32, device="cuda")
     raw = {}
 
-    def keep(i, kv):
+    def keep(i, kv, _ssm):
         if i in (0, last):
             raw[i] = engine.kv_payload(*kv)
         return None
@@ -1898,14 +1984,18 @@ def fixed_graphs(cfg, run, params, prompts, max_len, n, smi):
             a, g = getattr(kv_e, f), getattr(kv_g, f)
             assert torch.equal(a.view(torch.uint8), g.view(torch.uint8)), f
             n_bytes += a.numel() * a.element_size()
+    if st_e.ssm is not None:          # a hybrid's recurrent state too
+        n_bytes += same_ssm(st_e.ssm, st_g.ssm)
     flushes = sum((s + t) % 256 == 255 for t in range(n))
     assert c_e.eager == n and c_g.eager == c_g.flush == flushes == 1, c_g
     assert c_g.replays == n - flushes and c_g.captures == 1
     passes = c_g.eager + c_g.replays + c_g.captures
     assert launches["decode_attend"] == cfg.n_layers * passes, launches
-    log("graphs", f"fixed loop, {b} x ({s} prompt + {n} steps), from a CUDA "
-                  f"graph: tokens and all {n_bytes} B of block stores and "
-                  f"rings equal to the eager loop's; {c_g.eager} eager step "
+    log("graphs", f"fixed loop ({cfg.name}), {b} x ({s} prompt + {n} "
+                  f"steps), from a CUDA graph: tokens and all {n_bytes} B "
+                  f"of block stores and rings"
+                  f"{' and SSM state' if st_e.ssm is not None else ''} "
+                  f"equal to the eager loop's; {c_g.eager} eager step "
                   f"(the ring flush), {c_g.replays} replayed, 1 capture; "
                   f"decode_attend "
                   f"{launches['decode_attend']} launches = {cfg.n_layers} x "
@@ -2849,6 +2939,350 @@ def disagg_phase(cfg, params, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the parallel attention ∥ SSM hybrid (zamba2-1.2b)
+# ---------------------------------------------------------------------------
+
+HYBRID_BLK = 256
+
+
+def same_ssm(a, b) -> int:
+    """Assert two SSM states (``models.ssm.SSMState``) byte-identical;
+    returns the bytes held."""
+    import torch
+    n = 0
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        n += x.numel() * x.element_size()
+    return n
+
+
+def tiny_hybrid_cfg():
+    """The reference tests' hybrid (``tests/test_serve_engine.py``): 3
+    layers, hymba_3global windows, Mamba2 with d_state 16."""
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+    return ModelConfig(
+        name="h", family="hybrid", n_layers=3, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=128, vocab_size=500, head_dim=16,
+        parallel_hybrid=True, attn_layout="hymba_3global", window=16,
+        ssm=SSMConfig(d_state=16, headdim=8, chunk=16), sub_quadratic=True)
+
+
+def packed_leaf_checks(cfg, params, packed, gen):
+    """Both weight kernels on the hybrid's own packed leaves, at the shapes
+    its runs give them: ``weight_case`` on layer 0 of each stacked matmul
+    leaf and on the LM head (together, ``weight_shapes(cfg)``'s shapes),
+    ``stacked_unpack_check`` on ``conv_x`` (consumed through
+    ``raw_weight``)."""
+    import torch
+    from repro_torch.core import weights
+
+    def walk(t, path=()):
+        if isinstance(t, dict):
+            for key, v in t.items():
+                yield from walk(v, path + (key,))
+        elif isinstance(t, weights.PackedWeight):
+            yield path, t
+
+    shapes = set()
+    for path, pw in walk(packed):
+        w, name = _at(params, path), "/".join(path)
+        if path[-1] == "conv_x":
+            stacked_unpack_check(w, pw)
+            log("hybrid", f"lexi_unpack on {name} {tuple(w.shape)} (k="
+                          f"{pw.k}, read through raw_weight), one launch: "
+                          f"exact, and equal to the plain version row by "
+                          f"row")
+            continue
+        if pw.ndim == 3:
+            w, pw, name = w[0], pw[0], name + "[0]"
+        errs = {m: e for m, (_, e) in weight_case(w, pw, gen).items()}
+        shapes.add(tuple(w.shape))
+        log("hybrid", f"decompress_matmul on {name} (K={w.shape[0]}, N="
+                      f"{w.shape[1]}, k={pw.k}): max |err| at M=4 "
+                      f"{errs[4]:.3e}, at M=1024 {errs[1024]:.3e}, within "
+                      f"1e-4*(|x|@|W|)+1e-6 of the plain version, two "
+                      f"launches bit for bit; lexi_unpack exact, == plain")
+        torch.cuda.empty_cache()
+    assert shapes == {s_ for s_, _ in weight_shapes(cfg)}, shapes
+
+
+def hybrid_prefill_slots(cfg, eng, n_tok: int, seed: int):
+    """Four fresh ``n_tok``-token sequences prefilled into slots 0-3 of an
+    idle engine; returns the greedy tokens that follow them."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine
+
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, n_tok)),
+                              dtype=torch.int32, device="cuda")
+    logits, d = engine.prefill_sequences(cfg, eng.run_cfg, eng.params,
+                                         prompts)
+    engine.insert_sequences(cfg, eng.run_cfg, eng.state, d, [0, 1, 2, 3])
+    return engine.greedy_token(logits)
+
+
+def ssm_step_ms(cfg, eng) -> float:
+    """Device ms of one step's SSM work alone (every layer's
+    ``ssm_decode_step`` and its masked in-place state write, 4 slots),
+    replayed from a CUDA graph on a copy of the engine's state."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, ssm as ssm_mod
+
+    st = ssm_mod.SSMState(*(t.clone() for t in eng.state.ssm))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((4, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    active = torch.ones((4,), dtype=torch.bool, device="cuda")
+    ps = [lm.layer_params(eng.params, i)["ssm"] for i in range(cfg.n_layers)]
+
+    def body():
+        for i, p in enumerate(ps):
+            sst = ssm_mod.take(st, i)
+            _, new = ssm_mod.ssm_decode_step(cfg, p, x, sst)
+            ssm_mod.write_state(sst, new, active)
+
+    graph = ops.CapturedStep(body, body, "cuda")
+    return cuda_ms(graph.replay, reps=10, spin=False)
+
+
+def hybrid_phase(smi):
+    """The parallel attention ∥ SSM hybrid: full-width zamba2-1.2b (random
+    weights from seed 0) through every serving path of the dense family.
+    Returns the kernel launches of its runs from CUDA graphs (replays
+    counted) and of its packed run."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import weights
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DisaggEngine, engine
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("zamba2-1.2b")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    paged_attend_kernel(cfg, gen, "hybrid")
+    fixed_attend_kernel(cfg, gen, "hybrid")
+    for packed in (False, True):
+        ops.reset_launch_counts()
+        worst = small_model_diff(packed, tiny_hybrid_cfg())
+        assert (ops.launch_counts()["decompress_matmul"] > 0) == packed
+        log("hybrid", f"tiny hybrid (hymba_3global, 3 layers), "
+                      f"{'packed' if packed else 'raw'} weights, prefill + "
+                      f"10 teacher-forced steps: card vs CPU logits max "
+                      f"|diff| {worst:.2e} (<= 1e-2)")
+
+    blk = HYBRID_BLK
+    run = RunConfig(codec=CodecConfig(cache_block=blk))
+    kw = dict(n_slots=4, max_len=8 * blk, seed=0, device="cuda")
+    reqs = serve_mix(cfg, np.random.default_rng(0))
+    launches = {name: 0 for name in REPLACES}
+    runs = {}
+    params = None
+    for graphs in (False, True):
+        eng = ServeEngine(cfg, run, params=params, cuda_graphs=graphs,
+                          prefix_sharing=False, **kw)
+        params = eng.params
+        ops.reset_launch_counts()
+        results, st = eng.run(reqs)
+        torch.cuda.synchronize()
+        for req, res in zip(reqs, results):
+            assert len(res.tokens) == req.max_new_tokens, (req.uid, res)
+        runs[graphs] = (eng, [r.tokens for r in results], st,
+                        ops.launch_counts())
+    (e_eng, e_tok, e_st, _), (g_eng, g_tok, g_st, g_l) = runs[False], \
+        runs[True]
+    assert g_tok == e_tok, "hybrid: graph streams != eager"
+    n_pool = same_pools(pool_snapshot(e_eng.state.kv, clone=False),
+                        pool_snapshot(g_eng.state.kv, clone=False))
+    n_ssm = same_ssm(e_eng.state.ssm, g_eng.state.ssm)
+    passes = check_graph_run(cfg, g_st, g_l)
+    assert all(g_l[n] > 0 for n in SERVE_KERNELS), g_l
+    for n in SERVE_KERNELS:
+        launches[n] += g_l[n]
+    assert g_st.n_replay_dispatches == 0          # the exact trunk
+    assert g_st.n_admit_dispatches == len(reqs)   # 6 distinct lengths
+    w_bytes = weights.weight_plane_bytes(params)
+    log("hybrid", f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads, SSM d_inner "
+                  f"{cfg.ssm.d_inner(cfg.d_model)} (64 heads x 64, d_state "
+                  f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}), vocab "
+                  f"{cfg.vocab_size}; weights {w_bytes[0]} B | {smi}")
+    log("hybrid", f"serve mix (6 requests, 4 slots, block {blk}, prompts "
+                  f"250-1100, exact trunks: {g_st.n_admit_dispatches} "
+                  f"admissions, no replay) from CUDA graphs: the eager run's "
+                  f"streams ({sum(map(len, g_tok))} tokens), page table, "
+                  f"page use, all {n_pool} B of pages and rings and all "
+                  f"{n_ssm} B of SSM state bit for bit; {g_st.eager_steps} "
+                  f"eager (= flushing) steps, {g_st.graph_replays} replayed; "
+                  f"pool {engine.paged_state_nbytes(g_eng.state)} B; "
+                  f"launches {g_l} ({cfg.n_layers} x {passes} passes)")
+    for graphs, (_, _, st, _) in sorted(runs.items()):
+        log("hybrid", f"serve mix, {'CUDA graphs' if graphs else 'eager'}: "
+                      f"{st.tokens_per_s:.2f} tok/s, TTFT mean "
+                      f"{st.ttft_mean_s * 1e3:.1f} ms, inter-token "
+                      f"{st.inter_token_mean_s * 1e3:.2f} ms, wall "
+                      f"{st.wall_s:.2f}s | {smi}")
+    del runs, e_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8 decode steps of 4 fresh 1000-token slots, eager and from the
+    # graph, profiled; the SSM work's share of the graph step's device time
+    tok = hybrid_prefill_slots(cfg, g_eng, 1000, seed=3)
+    prof = profile_decode(cfg, g_eng, tok, "decode_hybrid")
+    ssm_ms, g = ssm_step_ms(cfg, g_eng), prof["graph"]
+    log("hybrid", f"decode step, 4 slots at ~1000 tokens, from the graph: "
+                  f"host {g['host_ms']:.3f} ms/step, device busy "
+                  f"{g['busy_ms']:.3f} ms/step, {g['tok_s']:.1f} tok/s; the "
+                  f"SSM work alone ({cfg.n_layers} layers, replayed from its "
+                  f"own graph) {ssm_ms:.3f} ms = "
+                  f"{100 * ssm_ms / g['busy_ms']:.1f}% of the step's busy "
+                  f"time | {smi}")
+    del g_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a snapshot hit: a page-aligned prompt served twice with sharing on
+    rng = np.random.default_rng(4)
+    p512 = rng.integers(0, cfg.vocab_size, (2 * blk,)).astype(np.int32)
+    eng = ServeEngine(cfg, run, params=params, **kw)
+    ops.reset_launch_counts()
+    res, st = eng.run([Request(uid=0, prompt=p512, max_new_tokens=12),
+                       Request(uid=1, prompt=p512.copy(),
+                               max_new_tokens=12)])
+    torch.cuda.synchronize()
+    for n_, c_ in ops.launch_counts().items():
+        launches[n_] += c_ if n_ in SERVE_KERNELS else 0
+    assert res[0].tokens == res[1].tokens, "snapshot hit: streams differ"
+    assert st.n_admit_dispatches == 1 and st.shared_page_hits == 2, st
+    assert len(eng.cache.snapshots) == 1
+    log("hybrid", f"snapshot hit: a {2 * blk}-token prompt served twice "
+                  f"with sharing on: 1 prefill, the second admission maps "
+                  f"its {st.shared_page_hits} columns and restores the "
+                  f"boundary SSM snapshot (no prefill, no replay); streams "
+                  f"equal ({len(res[1].tokens)} tokens)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # disaggregated: 1 prefill -> 1 decode replica over the loopback
+    dis = DisaggEngine(cfg, run, params=params, **kw)
+    dec, ssm_wire = dis.decodes[0], []
+    imp = dec.import_handoff
+
+    def check_import(h):
+        s = imp(h)
+        got = [t[:, s] for t in dec.engine.state.ssm]
+        hh, cx, cbc = h.blob.ssm
+        assert torch.equal(got[0].cpu(), torch.from_numpy(hh[0]))
+        for t, a in ((got[1], cx), (got[2], cbc)):
+            assert np.array_equal(
+                t.view(torch.int16).cpu().numpy().view(np.uint16), a[0])
+        ssm_wire.append(sum(a.nbytes for a in h.blob.ssm))
+        return s
+
+    dec.import_handoff = check_import
+    ops.reset_launch_counts()
+    res, dst = dis.run(reqs)
+    torch.cuda.synchronize()
+    for n_, c_ in ops.launch_counts().items():
+        launches[n_] += c_ if n_ in SERVE_KERNELS else 0
+    assert [r.tokens for r in res] == g_tok, "disagg streams != monolithic"
+    assert len(ssm_wire) == dst.n_transfers > 0
+    log("hybrid", f"disagg 1 prefill -> 1 decode (loopback): the monolithic "
+                  f"streams bit for bit; {dst.n_transfers} handoffs, each "
+                  f"decode slot's imported SSM state byte-identical to the "
+                  f"prefill replica's export; wire {dst.wire_bytes} B of "
+                  f"{dst.wire_raw_bytes} B raw (link_reduction "
+                  f"{dst.link_reduction:.4f}), of which the raw SSM section "
+                  f"{sum(ssm_wire)} B ({sum(ssm_wire) // dst.n_transfers} B "
+                  f"a handoff); {dst.tokens_per_s:.2f} tok/s, TTFT mean "
+                  f"{dst.ttft_mean_s * 1e3:.1f} ms, transfer "
+                  f"{dst.transfer_mean_s * 1e3:.1f} ms a handoff | {smi}")
+    del dis, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the packed weight plane, the serve mix's first 3 requests from CUDA
+    # graphs: ``unpack`` (exact decode, then the raw product) must give
+    # the raw streams; ``cuda`` launches both weight kernels (conv_x
+    # through lexi_unpack); its first divergence from the raw stream is
+    # teacher-forced through both stores and must be a near-tie
+    packed = weights.pack_serving_params(params, backend="cuda")
+    assert isinstance(packed["blocks"]["ssm"]["conv_x"], weights.PackedWeight)
+    assert not isinstance(packed["blocks"]["ssm"]["gate_norm"],
+                          weights.PackedWeight)
+    packed_leaf_checks(cfg, params, packed, gen)
+    raw3 = g_tok[:3]
+    for be in ("unpack", "cuda"):
+        run_be = RunConfig(codec=dataclasses.replace(run.codec,
+                                                     weight_backend=be))
+        eng = ServeEngine(cfg, run_be, params=packed, compress_weights=True,
+                          prefix_sharing=False, **kw)
+        assert eng.weight_backend == be
+        ops.reset_launch_counts()
+        res, st = eng.run(reqs[:3])
+        torch.cuda.synchronize()
+        pl = ops.launch_counts()
+        got = [r.tokens for r in res]
+        del eng
+        if be == "unpack":
+            assert got == raw3, "unpack backend: streams != raw"
+            assert pl["lexi_unpack"] > 0 and pl["decompress_matmul"] == 0
+            log("hybrid", f"packed weights (unpack backend): the raw run's "
+                          f"streams; {st.tokens_per_s:.2f} tok/s")
+            continue
+        for name in ("decompress_matmul", "lexi_unpack"):
+            assert pl[name] > 0, pl
+            launches[name] += pl[name]
+        same = sum(a == b for r, g in zip(got, raw3) for a, b in zip(r, g))
+        log("hybrid", f"packed weights (cuda backend), the serve mix's "
+                      f"first 3 requests from CUDA graphs: "
+                      f"{st.weight_bytes_per_step} B per step of "
+                      f"{st.weight_raw_bytes_per_step} B raw "
+                      f"({st.weight_ratio:.3f}); {same}/"
+                      f"{sum(map(len, got))} tokens equal to the raw run; "
+                      f"{st.tokens_per_s:.2f} tok/s; launches "
+                      f"decompress_matmul {pl['decompress_matmul']}, "
+                      f"lexi_unpack {pl['lexi_unpack']} | {smi}")
+        for uid, (ra, rb) in enumerate(zip(raw3, got)):
+            i = next((j for j, (a, b) in enumerate(zip(ra, rb)) if a != b),
+                     None)
+            if i is None:
+                continue
+            prompt = torch.as_tensor(reqs[uid].prompt, dtype=torch.int32,
+                                     device="cuda")[None]
+            forced = torch.as_tensor([ra[:i]], dtype=torch.int32,
+                                     device="cuda")
+            side = [teacher_forced(cfg, run, w, prompt, prompt.shape[1],
+                                   forced, 8 * blk)[i][0]
+                    for w in (params, packed)]
+            m_raw, m_cuda, gap = logit_margins(*side)
+            log("hybrid", f"raw vs cuda, request {uid} position {i}: top-2 "
+                          f"margin raw {m_raw:.4g} / cuda {m_cuda:.4g}, "
+                          f"largest logit gap {gap:.4g}")
+            assert min(m_raw, m_cuda) <= gap, "packed: margin above the gap"
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fixed loop: 4 x 1000 tokens, graph == eager byte for byte
+    prompts = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 1000)), dtype=torch.int32, device="cuda")
+    launches["decode_attend"] += fixed_graphs(cfg, run, params, prompts,
+                                              1000 + 40 + blk, 40, smi)
+    log("hybrid", f"phase done in {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -2877,6 +3311,9 @@ def main() -> int:
     launches.update(weights_phase(cfg, serve_eng, tok, smi))
     prefix_phase(cfg, raw_params, smi)
     for name, n in disagg_phase(cfg, raw_params, smi).items():
+        launches[name] += n
+    del raw_params, serve_eng
+    for name, n in hybrid_phase(smi).items():
         launches[name] += n
     kernels = []
     for name, r in rec.items():

@@ -1,4 +1,6 @@
-"""Dense transformer blocks at tp = 1 (ports ``repro/models/blocks.py``).
+"""Transformer blocks at tp = 1 (ports ``repro/models/blocks.py``): the
+dense family (attention + MLP) and the parallel hybrid (attention ∥ Mamba2
+on the same normed input, + MLP).
 
 Collectives dropped: the ``lexi_all_gather`` of the normalised activations
 and the ``psum_scatter`` of the mixer/FFN outputs.  At tp = 1 the
@@ -6,8 +8,9 @@ reference's gather still round-trips activations through
 ``fixed.compress``/``decompress``, which is the identity as long as no
 escape overflows its side channel; the port has no such round trip (the
 tests check that the reference's gathers saw no overflow on their inputs).
-The mixer output is rounded to bf16 before the residual add, as the
-reference's bf16 reduce-scatter does.
+The mixer outputs are summed in f32 (attention's o-projection plus, for a
+hybrid, the SSM's output projection) and the sum is rounded to bf16 before
+the residual add, as the reference's bf16 reduce-scatter does.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from . import attention, layers
+from . import attention, layers, ssm as ssm_mod
 from .params import PDef
 
 
@@ -28,13 +31,23 @@ def mlp_table(cfg: ModelConfig) -> Dict[str, PDef]:
 
 
 def block_table(cfg: ModelConfig) -> Dict:
-    """Parameter table for ONE dense layer (unstacked)."""
-    if cfg.n_heads == 0 or cfg.ssm is not None or cfg.moe is not None \
-            or cfg.encdec or not cfg.d_ff:
+    """Parameter table for ONE layer (unstacked): dense, or the parallel
+    hybrid with its ``ssm`` subtable."""
+    if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention + MLP family is ported")
+            f"{cfg.name}: MoE blocks wait for the MoE slice (models/moe.py)")
+    if cfg.n_heads == 0:
+        raise NotImplementedError(
+            f"{cfg.name}: attention-free blocks wait for the mamba2 slice "
+            "(a KV-less PagedState)")
+    if cfg.encdec or not cfg.d_ff:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and FFN-less blocks wait for the "
+            "enc-dec slice")
     d = cfg.d_model
     t: Dict = {"ln1": PDef((d,), "ones"), "attn": attention.attn_table(cfg)}
+    if cfg.ssm is not None:
+        t["ssm"] = ssm_mod.ssm_table(cfg)
     if cfg.post_norm:
         t["ln1b"] = PDef((d,), "ones")
     t["ln2"] = PDef((d,), "ones")
@@ -56,14 +69,27 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return x + y
 
 
+def mixer_residual(cfg: ModelConfig, p, x: torch.Tensor,
+                   partial: torch.Tensor) -> torch.Tensor:
+    """The mixers' f32 sum rounded to bf16, (post-normed,) added to the
+    residual, then the FFN sub-block."""
+    out = partial.to(torch.bfloat16)
+    if cfg.post_norm:
+        out = layers.rms_norm(out, p["ln1b"], cfg.norm_eps)
+    return mlp(cfg, p, x + out)
+
+
 def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
                   positions: torch.Tensor, spec: layers.AttnSpec,
                   window=None, want_cache: bool = False):
-    """x (B,S,D) -> (x', (k, v) or None)."""
+    """x (B,S,D) -> (x', (k, v) or None, the SSM's final ``SSMState`` or
+    None).  A hybrid's attention and SSM outputs are summed in f32."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     o, kv = attention.attn_forward(cfg, run, p["attn"], h, positions, spec,
                                    window=window, want_cache=want_cache)
-    out = o.to(torch.bfloat16)
-    if cfg.post_norm:
-        out = layers.rms_norm(out, p["ln1b"], cfg.norm_eps)
-    return mlp(cfg, p, x + out), kv
+    st = None
+    if "ssm" in p:
+        o_ssm, st = ssm_mod.ssm_forward(cfg, p["ssm"], h,
+                                        want_state=want_cache)
+        o = o + o_ssm
+    return mixer_residual(cfg, p, x, o), kv, st

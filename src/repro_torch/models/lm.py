@@ -63,10 +63,12 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
                tokens: torch.Tensor, want_cache: bool = False,
                cache_fn=None):
     """Trunk forward: tokens (B, S) -> (final-normed hidden (B, S, D),
-    per-layer ``cache_fn(i, (k, v))`` results or None).
+    per-layer ``cache_fn(i, (k, v), ssm_state)`` results or None).
 
-    ``cache_fn`` (prefill) turns each layer's rope'd K/V into its decode
-    cache right away, so raw K/V of only one layer is alive at a time."""
+    ``cache_fn`` (prefill) turns each layer's rope'd K/V (and, for a
+    hybrid, its final ``SSMState``, else None) into its decode cache right
+    away, so the raw tensors of only one layer are alive at a time.
+    Without ``cache_fn`` the list holds the (kv, ssm_state) pairs."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     spec = attention.base_attn_spec(cfg)
@@ -75,9 +77,10 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
     caches = [] if want_cache else None
     for i in range(cfg.n_layers):
         win: Optional[int] = None if wins is None else int(wins[i])
-        x, kv = blocks.block_forward(cfg, run, layer_params(params, i), x,
-                                     positions, spec, window=win,
-                                     want_cache=want_cache)
+        x, kv, st = blocks.block_forward(cfg, run, layer_params(params, i),
+                                         x, positions, spec, window=win,
+                                         want_cache=want_cache)
         if want_cache:
-            caches.append(cache_fn(i, kv) if cache_fn is not None else kv)
+            caches.append(cache_fn(i, kv, st) if cache_fn is not None
+                          else (kv, st))
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches

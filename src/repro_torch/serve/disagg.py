@@ -1,6 +1,6 @@
 """Disaggregated prefill serving: prefill replicas feeding decode replicas
 through compressed page transfer (ports ``repro/serve/disagg.py`` at tp =
-1 for the dense family).
+1 for the dense family and the parallel attention ∥ SSM hybrids).
 
 The monolithic ``ServeEngine`` interleaves admission (prefill-heavy,
 bursty) and decode (latency-sensitive, steady) on one set of slots.
@@ -11,9 +11,10 @@ exact:
     (``ServeEngine._admit_phase``: batched bucketed prefill, fused tail
     replay), with prefix sharing off;
   * the handoff copies the slot's cache state byte for byte: compressed
-    full pages travel as stored, plus the partial-tail ring, the slot's
-    length and its emitted tokens (``transport.SequenceBlob``, the
-    reference's wire bytes);
+    full pages travel as stored, plus the partial-tail ring, a hybrid's
+    SSM state (f32 ``h`` and the bf16 conv rings, raw), the slot's length
+    and its emitted tokens (``transport.SequenceBlob``, the reference's
+    wire bytes);
   * slots are independent in the paged decode path, so the decode replica
     stepping an imported slot computes what the prefill replica would
     have.
@@ -38,8 +39,8 @@ into pages from the decode pool's own free list.
 decode replicas in other OS processes (``launch.disagg_host``) over TCP:
 the same wire bytes, the same streams.
 
-Left out: tp > 1 (and ``local_full_pages``), blobs carrying SSM state,
-and MoE / MLA replicas, which wait for those models.  The reference
+Left out: tp > 1 (and ``local_full_pages``), attention-free (KV-less)
+blobs, and MoE / MLA replicas, which wait for those models.  The reference
 rounds streaming export windows to powers of two to bound its jit cache;
 the port exports exactly the new columns, with the same chunk entries.
 """
@@ -56,6 +57,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import cache as cache_mod
+from repro_torch.models.ssm import SSMState
 from . import engine as engine_mod
 from .scheduler import (Request, RequestResult, ServeEngine, _host_fields,
                         _LoopState)
@@ -156,6 +158,31 @@ def blob_wire(blob: SequenceBlob, device, col0: int = 0
         ring=_dev(kv["ring"][0], torch.bfloat16, device))
 
 
+def ssm_host(ssm: Optional[SSMState]):
+    """A slot's SSM state (leaves (L, ...), views of the pool's) copied
+    into the blob's host section: (tp = 1, L, ...) numpy leaves, ``h`` f32
+    and the rings as bf16 bits."""
+    if ssm is None:
+        return None
+
+    def host(t):
+        return t.to("cpu", copy=True).numpy()[None]
+
+    return (host(ssm.h), host(ssm.conv_x.view(torch.int16)).view(np.uint16),
+            host(ssm.conv_bc.view(torch.int16)).view(np.uint16))
+
+
+def ssm_wire(blob: SequenceBlob, device) -> Optional[SSMState]:
+    """A blob's SSM section as an ``SSMState`` (leaves (L, ...)) on
+    ``device``, or None."""
+    if blob.ssm is None:
+        return None
+    h, cx, cbc = blob.ssm
+    return SSMState(h=torch.from_numpy(h[0]).to(device),
+                    conv_x=_dev(cx[0], torch.bfloat16, device),
+                    conv_bc=_dev(cbc[0], torch.bfloat16, device))
+
+
 class PrefillReplica:
     """One admission-only replica: runs the engine's batched / bucketed
     admission (and tail replay) on its own pool, then exports every
@@ -212,8 +239,8 @@ class PrefillReplica:
             sent = st["sent"] if st is not None else 0
             if valid <= sent:
                 continue
-            wire, _ = engine_mod.export_slot(eng.state, s, valid - sent,
-                                             col0=sent)
+            wire, _, _ = engine_mod.export_slot(eng.state, s, valid - sent,
+                                                col0=sent)
             kv = _host_fields(wire)
             entries = [(0, l, c, page_payload(kv, codec_on, 0, l, c - sent))
                        for l in range(eng.cfg.n_layers)
@@ -285,14 +312,14 @@ class PrefillReplica:
         length = ls.slot_len[s]
         blk, w, k, esc_cap, npad = eng._page_geometry()
         n_cols = cache_mod.export_n_cols(length, blk)
-        wire, dev_len = engine_mod.export_slot(eng.state, s, n_cols)
+        wire, ssm, dev_len = engine_mod.export_slot(eng.state, s, n_cols)
         assert dev_len == length, (s, length, dev_len)
         return SequenceBlob(
             codec_on=bool(eng.run_cfg.codec.cache), tp=1,
             n_layers=eng.cfg.n_layers, n_cols=n_cols, blk=blk, w=w, k=k,
             esc_cap=esc_cap, npad=npad, length=length,
             cur_token=int(ls.cur[s, 0]), emitted=list(ls.emitted[req.uid]),
-            kv=_host_fields(wire, ring=True), ssm=None)
+            kv=_host_fields(wire, ring=True), ssm=ssm_host(ssm))
 
 
 class DecodeReplica:
@@ -391,7 +418,7 @@ class DecodeReplica:
         eng, ls, blob = self.engine, self.ls, h.blob
         blk, w, k, esc_cap, npad = eng._page_geometry()
         want = (1, eng.cfg.n_layers, blk, w, k, esc_cap, npad,
-                bool(eng.run_cfg.codec.cache), False)
+                bool(eng.run_cfg.codec.cache), eng.cfg.ssm is not None)
         got = (blob.tp, blob.n_layers, blob.blk, blob.w, blob.k,
                blob.esc_cap, blob.npad, blob.codec_on, blob.ssm is not None)
         if want != got:
@@ -438,7 +465,8 @@ class DecodeReplica:
             engine_mod.map_shared_slot(eng.state, s, ids, m,
                                        m * eng.blk_tokens)
             ls.shared_hits += m
-        engine_mod.import_slot(eng.state, s, wire, blob.length, col0=m)
+        engine_mod.import_slot(eng.state, s, wire, blob.length, col0=m,
+                               ssm_slot=ssm_wire(blob, eng.device))
         ls.slot_req[s] = req
         eng._slot_busy[s] = True
         ls.slot_len[s] = blob.length

@@ -1,6 +1,7 @@
 """Serving engine (ports ``repro/serve/engine.py``) at tp = 1: prefill,
-then greedy decode over a LEXI-compressed KV cache, in two dataflows that
-share the per-layer compute (``_attn_block``):
+then greedy decode over a LEXI-compressed KV cache (and, for the parallel
+attention ∥ SSM hybrids, each layer's recurrent SSM state), in two
+dataflows that share the per-layer compute (``_attn_block``):
 
 Fixed batch (the reference's original research loop; ``launch/serve.py``
 without ``--continuous``):
@@ -24,8 +25,18 @@ Continuous batching (driven by ``serve.scheduler.ServeEngine``):
            windows);
   evict  — ``release_slots`` frees a finished slot's pages;
   share  — ``map_shared_slot`` maps a cached prefix's pages into a slot,
-           ``export_slot`` / ``import_slot`` copy a slot's pages out to
-           host bytes and back (the scheduler's tiered PageCache).
+           ``export_slot`` gathers a slot's pages (and views of its SSM
+           state) for their copy to host bytes, ``import_slot`` writes
+           them back (the scheduler's tiered
+           PageCache, the disaggregated handoff); ``restore_ssm`` scatters
+           a boundary SSM snapshot into a slot.
+
+SSM state (hybrids): stacked (L, B or n_slots, ...) ``models.ssm.SSMState``
+buffers allocated once, next to the caches.  Each decode step runs
+``ssm.ssm_decode_step`` beside attention (outputs summed in f32) and
+copies the new state into those buffers in place; the paged step copies
+only the rows of ``plan.active`` (a device mask), so inactive and fed-off
+slots keep their state, under a CUDA graph too.
 
 Compiled dispatch: the reference jits each decode window (a ``lax.scan``
 of K steps) and the fixed loop; here ``PagedDecoder`` and
@@ -56,7 +67,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention, blocks, cache as cache_mod, layers
-from repro_torch.models import lm
+from repro_torch.models import lm, ssm as ssm_mod
+from repro_torch.models.ssm import SSMState
 
 
 @dataclasses.dataclass
@@ -65,10 +77,12 @@ class DecodeState:
     (group = B); all B sequences hold ``length`` tokens, a host int that
     decides the ring flushes, kept equal to ``length_dev``, the same
     count as a 0-d int32 on the stores' device that the step's device
-    work reads (rope positions, ring row, attention length)."""
+    work reads (rope positions, ring row, attention length).  A hybrid's
+    ``ssm`` holds every layer's recurrent state, stacked (L, B, ...)."""
     kv: List[cache_mod.KVBlocks]       # one per layer
     length: int
     length_dev: Optional[torch.Tensor] = None
+    ssm: Optional[SSMState] = None
 
     def __post_init__(self):
         if self.length_dev is None:
@@ -79,18 +93,22 @@ class DecodeState:
 @dataclasses.dataclass
 class PrefilledSequences:
     """``prefill_sequences`` output: per-layer single-sequence block
-    stores (group = 1), ``length`` tokens each, for ``insert_sequences``."""
+    stores (group = 1), ``length`` tokens each, and a hybrid's final SSM
+    states (L, B, ...), for ``insert_sequences``."""
     kv: List[cache_mod.KVBlocks]       # one per layer, leading axis B
     length: int
+    ssm: Optional[SSMState] = None
 
 
 @dataclasses.dataclass
 class PagedState:
     """Slot-based decode state.  ``lengths``/``active`` are per slot and
-    shared by every layer (a sequence is at the same position in all)."""
+    shared by every layer (a sequence is at the same position in all);
+    a hybrid's ``ssm`` is stacked (L, n_slots, ...)."""
     kv: cache_mod.PagedKV
     lengths: np.ndarray                # (n_slots,) int32 tokens per slot
     active: np.ndarray                 # (n_slots,) bool slot occupied
+    ssm: Optional[SSMState] = None
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
@@ -107,19 +125,30 @@ def kv_payload(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
-             stores: List[cache_mod.KVBlocks]) -> torch.Tensor:
+             stores: List[cache_mod.KVBlocks],
+             ssm: Optional[SSMState] = None) -> torch.Tensor:
     """tokens (B, S) -> last-position logits (B,1,Vp); layer i's K/V fills
-    the empty block store ``stores[i]`` in place.
+    the empty block store ``stores[i]`` in place, and a hybrid's final SSM
+    state layer i of ``ssm`` (L, B, ...).
 
     Each layer's K/V is compressed inside the layer loop (``lm_forward``'s
     ``cache_fn``), so raw K/V of one layer only is alive at a time."""
-    def to_blocks(i, kv):
+    def to_blocks(i, kv, st):
+        if st is not None:
+            ssm_mod.write_state(ssm_mod.take(ssm, i), st)
         return cache_mod.fill_from_prefill(cfg, run, stores[i],
                                            kv_payload(*kv))
 
     x, _ = lm.lm_forward(cfg, run, params, tokens, want_cache=True,
                          cache_fn=to_blocks)
     return lm.logits_for(cfg, params, x[:, -1:])
+
+
+def _empty_ssm(cfg: ModelConfig, batch: int, device) -> Optional[SSMState]:
+    """Zeroed (L, batch, ...) SSM state of a hybrid, None otherwise."""
+    if cfg.ssm is None:
+        return None
+    return ssm_mod.empty_state(cfg, (cfg.n_layers, batch), device)
 
 
 def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
@@ -129,7 +158,7 @@ def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
         kv=[cache_mod.empty_kv(cfg, run, batch, max_len, group=batch,
                                device=device)
             for _ in range(cfg.n_layers)],
-        length=0)
+        length=0, ssm=_empty_ssm(cfg, batch, device))
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
@@ -140,7 +169,7 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
     state = empty_state(cfg, run, b, max_len, device=tokens.device)
-    logits = _prefill(cfg, run, params, tokens, state.kv)
+    logits = _prefill(cfg, run, params, tokens, state.kv, state.ssm)
     state.length = s
     state.length_dev.fill_(s)
     return logits, state
@@ -154,32 +183,39 @@ def prefill_sequences(cfg: ModelConfig, run: RunConfig, params,
     b, s = tokens.shape
     stores = [cache_mod.empty_kv(cfg, run, b, s, device=tokens.device)
               for _ in range(cfg.n_layers)]
-    logits = _prefill(cfg, run, params, tokens, stores)
-    return logits, PrefilledSequences(kv=stores, length=s)
+    ssm = _empty_ssm(cfg, b, tokens.device)
+    logits = _prefill(cfg, run, params, tokens, stores, ssm)
+    return logits, PrefilledSequences(kv=stores, length=s, ssm=ssm)
 
 
 def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
-                attend) -> torch.Tensor:
+                attend, sst: Optional[SSMState] = None,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer's decode step around its cache: x (B,1,D), ``pos`` (B,)
     rope positions; ``attend(q, new_vals)`` appends the new K/V and returns
-    the merged attention (B,Hq,1,hd) bf16."""
+    the merged attention (B,Hq,1,hd) bf16.  A hybrid's ``sst`` (this
+    layer's state buffers) steps beside attention, its output summed in
+    f32, and takes the new state in place (only ``active``'s rows if
+    given)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos)
-    out = attention.decode_out(cfg, p["attn"], attend(q, new_vals)) \
-        .to(torch.bfloat16)
-    if cfg.post_norm:
-        out = layers.rms_norm(out, p["ln1b"], cfg.norm_eps)
-    return blocks.mlp(cfg, p, x + out)
+    o = attention.decode_out(cfg, p["attn"], attend(q, new_vals))
+    if sst is not None:
+        o_ssm, new = ssm_mod.ssm_decode_step(cfg, p["ssm"], h, sst)
+        ssm_mod.write_state(sst, new, active)
+        o = o + o_ssm
+    return blocks.mixer_residual(cfg, p, x, o)
 
 
 def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
                  kv: cache_mod.KVBlocks, length: int,
                  length_dev: torch.Tensor, post: torch.Tensor,
-                 spec: layers.AttnSpec, window=None) -> torch.Tensor:
+                 spec: layers.AttnSpec, window=None,
+                 sst: Optional[SSMState] = None) -> torch.Tensor:
     """One layer's fixed-batch decode step: the new token at position
     ``length`` (host int, for the flush; ``length_dev`` the same on the
     device) of every sequence, ``post`` = length + 1 on the device; ``kv``
-    updated in place."""
+    (and a hybrid's SSM state ``sst``) updated in place."""
     pos = length_dev.expand(x.shape[0])
 
     def attend(q, new_vals):
@@ -187,7 +223,7 @@ def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
         return cache_mod.attend_cache(cfg, run, kv, q, post, spec,
                                       window=window)
 
-    return _attn_block(cfg, p, x, pos, attend)
+    return _attn_block(cfg, p, x, pos, attend, sst)
 
 
 def _fixed_forward(cfg: ModelConfig, run: RunConfig, params,
@@ -203,7 +239,9 @@ def _fixed_forward(cfg: ModelConfig, run: RunConfig, params,
     for i in range(cfg.n_layers):
         x = decode_block(cfg, run, lm.layer_params(params, i), x,
                          state.kv[i], state.length, state.length_dev, post,
-                         spec, window=None if wins is None else int(wins[i]))
+                         spec, window=None if wins is None else int(wins[i]),
+                         sst=None if state.ssm is None
+                         else ssm_mod.take(state.ssm, i))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     state.length_dev.copy_(post)
     return lm.logits_for(cfg, params, x)
@@ -261,15 +299,19 @@ class FixedDecoder:
 
     def _warmup(self) -> None:
         """One step on the capture stream, then the state put back: the
-        ring row it wrote (every layer), the device length and the
-        tokens."""
+        ring row it wrote (every layer), a hybrid's SSM state, the device
+        length and the tokens."""
         st, blk = self.state, self.run.codec.cache_block
         r = st.length % blk
         keep = [kv.ring[:, r].clone() for kv in st.kv]
+        ssm_keep = None if st.ssm is None else [t.clone() for t in st.ssm]
         tok, length = self.tok.clone(), st.length_dev.clone()
         self._body()
         for kv, row in zip(st.kv, keep):
             kv.ring[:, r] = row
+        if ssm_keep is not None:
+            for t, v in zip(st.ssm, ssm_keep):
+                t.copy_(v)
         self.tok.copy_(tok)
         st.length_dev.copy_(length)
 
@@ -312,41 +354,48 @@ def generate(cfg: ModelConfig, run: RunConfig, params, prompts: torch.Tensor,
 def empty_paged_state(cfg: ModelConfig, run: RunConfig, n_slots: int,
                       max_len: int, n_pages: Optional[int] = None,
                       device="cpu") -> PagedState:
-    """Zeroed paged state with a page pool sized for ``n_slots``."""
+    """Zeroed paged state with a page pool sized for ``n_slots`` (and a
+    hybrid's SSM state for every slot, allocated once)."""
     return PagedState(
         kv=cache_mod.empty_paged_kv(cfg, run, n_slots, max_len,
                                     n_pages=n_pages, device=device),
         lengths=np.zeros((n_slots,), np.int32),
-        active=np.zeros((n_slots,), bool))
+        active=np.zeros((n_slots,), bool),
+        ssm=_empty_ssm(cfg, n_slots, device))
 
 
 def paged_state_nbytes(state: PagedState) -> int:
-    """Device bytes of the paged state (pools and rings), from shapes."""
+    """Device bytes of the paged state (pools, rings and SSM state), from
+    shapes."""
     kv = state.kv
     return sum(t.numel() * t.element_size() for t in
                (kv.signman, kv.planes, kv.dict_syms, kv.esc_pos, kv.esc_raw,
-                kv.raw_pages, kv.ring) if t is not None)
+                kv.raw_pages, kv.ring) if t is not None) \
+        + ssm_mod.state_nbytes(state.ssm)
 
 
 def paged_decode_block(cfg: ModelConfig, run: RunConfig, p, layer: int,
                        x: torch.Tensor, kv: cache_mod.PagedKV,
                        plan: cache_mod.AppendPlan, spec: layers.AttnSpec,
-                       window=None) -> torch.Tensor:
+                       window=None,
+                       sst: Optional[SSMState] = None) -> torch.Tensor:
     """One layer's decode step at per-slot positions.  x (S,1,D); the
     plan's ``pos`` (S,) are the rope positions, ``post`` (S,) the lengths
-    including the new token.  Inactive slots leave their cache untouched
-    (their outputs are garbage the scheduler drops)."""
+    including the new token.  Inactive slots leave their cache and SSM
+    state untouched (their outputs are garbage the scheduler drops): the
+    new state is written only where ``plan.active``."""
     def attend(q, new_vals):
         cache_mod.append_token_paged(cfg, run, kv, layer, new_vals, plan)
         return cache_mod.attend_paged(cfg, run, kv, layer, q, plan.post,
                                       spec, window=window)
 
-    return _attn_block(cfg, p, x, plan.pos, attend)
+    return _attn_block(cfg, p, x, plan.pos, attend, sst, plan.active)
 
 
 def _paged_forward(cfg: ModelConfig, run: RunConfig, params,
                    kv: cache_mod.PagedKV, plan: cache_mod.AppendPlan,
-                   tokens: torch.Tensor) -> torch.Tensor:
+                   tokens: torch.Tensor,
+                   ssm: Optional[SSMState] = None) -> torch.Tensor:
     """The device work of one paged step: tokens (S, 1) -> logits (S, 1,
     Vp).  Every value it reads comes through ``plan`` (views of the
     pool's step buffer) and the pool's persistent tensors, so without a
@@ -358,7 +407,8 @@ def _paged_forward(cfg: ModelConfig, run: RunConfig, params,
     for i in range(cfg.n_layers):
         x = paged_decode_block(
             cfg, run, lm.layer_params(params, i), i, x, kv, plan, spec,
-            window=None if wins is None else int(wins[i]))
+            window=None if wins is None else int(wins[i]),
+            sst=None if ssm is None else ssm_mod.take(ssm, i))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm.logits_for(cfg, params, x)
 
@@ -396,7 +446,8 @@ class PagedDecoder:
 
     def _body(self, plan: cache_mod.AppendPlan) -> None:
         self.tok.copy_(greedy_token(_paged_forward(
-            self.cfg, self.run, self.params, self.state.kv, plan, self.tok)))
+            self.cfg, self.run, self.params, self.state.kv, plan, self.tok,
+            self.state.ssm)))
 
     def _capture(self, params, active: np.ndarray) -> None:
         """Capture the step.  Its warm-up runs the step with no slot
@@ -436,7 +487,7 @@ class PagedDecoder:
         else:
             logits = _paged_forward(self.cfg, self.run, params, st.kv,
                                     cache_mod.device_plan(st.kv, *flush),
-                                    self.tok)
+                                    self.tok, st.ssm)
             self.counts.eager += 1
             self.counts.flush += bool(len(flush[0]))
         st.lengths += act.astype(np.int32)
@@ -481,6 +532,10 @@ def insert_sequences(cfg: ModelConfig, run: RunConfig, state: PagedState,
     of ``d.length`` tokens) into free slots ``slots`` (in place)."""
     slots = np.asarray(slots, np.int64)
     cache_mod.paged_insert_many(cfg, run, state.kv, d.kv, slots, d.length)
+    if state.ssm is not None:
+        idx = torch.as_tensor(slots, device=state.ssm.h.device)
+        for dst, src in zip(state.ssm, d.ssm):
+            dst[:, idx] = src
     state.lengths[slots] = d.length
     state.active[slots] = True
     return state
@@ -505,7 +560,10 @@ def map_shared_slot(state: PagedState, slot: int, page_ids: np.ndarray,
     """Admit a prefix-cache hit: map ``n_cols`` already-filled page
     columns (ids ``page_ids`` (maxp,)) into ``slot``'s table row, with no
     prefill and no page copy.  The slot starts at ``base_len`` tokens;
-    the prompt suffix replays through decode steps."""
+    the prompt suffix replays through decode steps.  A hybrid's SSM state
+    is left untouched: the scheduler restores a boundary snapshot
+    (``restore_ssm`` / ``import_slot``), since pages alone cannot rebuild a
+    recurrence."""
     cache_mod.map_prefix_pages(state.kv, slot, page_ids, n_cols)
     state.lengths[slot] = base_len
     state.active[slot] = True
@@ -513,22 +571,39 @@ def map_shared_slot(state: PagedState, slot: int, page_ids: np.ndarray,
 
 
 def export_slot(state: PagedState, slot: int, n_cols: int, col0: int = 0
-                ) -> Tuple[cache_mod.PageWire, int]:
+                ) -> Tuple[cache_mod.PageWire, Optional[SSMState], int]:
     """One slot's cache payload for a handoff or a spill: (the
     ``cache.export_sequence`` of page columns ``[col0, col0 + n_cols)``
-    and the ring, the slot's length).  The reference's recurrent-state
-    half waits for the SSM models."""
+    and the ring, views of the slot's SSM state (leaves (L, ...)) or
+    None, the slot's length).  A consumer that keeps the SSM state copies
+    it (``disagg.ssm_host``); a spill never reads it."""
     length = int(state.lengths[slot])
+    ssm_slot = None
+    if state.ssm is not None:
+        ssm_slot = SSMState(*(t[:, slot] for t in state.ssm))
     return cache_mod.export_sequence(state.kv, slot, n_cols, length,
-                                     col0), length
+                                     col0), ssm_slot, length
+
+
+def restore_ssm(state: PagedState, slot: int, ssm_slot: SSMState
+                ) -> PagedState:
+    """Scatter one slot's SSM state (leaves (L, ...), any device) into
+    ``slot``: a boundary snapshot hit whose pages were all mapped."""
+    for dst, src in zip(state.ssm, ssm_slot):
+        dst[:, slot].copy_(src)
+    return state
 
 
 def import_slot(state: PagedState, slot: int, kv_wire: cache_mod.PageWire,
-                length: int, col0: int = 0) -> PagedState:
+                length: int, col0: int = 0,
+                ssm_slot: Optional[SSMState] = None) -> PagedState:
     """Import an exported sequence into free slot ``slot``: pages from
     this pool's free list, fields byte-copied (``cache.import_sequence``;
-    ``col0`` > 0 keeps the row below it), the slot active at ``length``."""
+    ``col0`` > 0 keeps the row below it), a hybrid's ``ssm_slot`` scattered
+    into the slot, the slot active at ``length``."""
     cache_mod.import_sequence(state.kv, slot, kv_wire, length, col0)
+    if ssm_slot is not None:
+        restore_ssm(state, slot, ssm_slot)
     state.lengths[slot] = length
     state.active[slot] = True
     return state

@@ -41,8 +41,7 @@ For hybrid (attention + SSM) models the cache additionally holds
 after a tail-less, page-aligned admission, keyed by the prompt's LAST
 chained prefix key.  A later identical prompt maps/restores pages AND
 state and skips prefill entirely — the only replay-free (hence bit-
-exact) way to prefix-share a recurrence.  The port keeps these methods,
-but no path calls them until SSM models are ported.
+exact) way to prefix-share a recurrence.
 """
 
 from __future__ import annotations

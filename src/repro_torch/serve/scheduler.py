@@ -11,12 +11,13 @@ cache (ports ``repro/serve/scheduler.py`` at tp = 1).
                   (``engine.map_shared_slot``), warm ones import their
                   spilled bytes (``engine.import_slot``) (``_admit_shared``);
                   (b) the rest are drained per trunk bucket (the largest
-                  power of two <= the prompt length) and prefilled together
-                  in one batched pass, each sequence's blocks compressed on
-                  its own (``_admit_cold_batch``); (c) leftover prompt
-                  tokens (a bucket's tail or an unmatched suffix) replay
-                  per slot through decode steps (``_run_replays``), which
-                  are exact at every position;
+                  power of two <= the prompt length; the whole prompt for
+                  SSM, MoE and MLA families, ``_bucket_of``) and prefilled
+                  together in one batched pass, each sequence's blocks
+                  compressed on its own (``_admit_cold_batch``); (c)
+                  leftover prompt tokens (a bucket's tail or an unmatched
+                  suffix) replay per slot through decode steps
+                  (``_run_replays``), which are exact at every position;
         step    — one window runs K decode steps (K = the largest power of
                   two <= the earliest budget-finish, capped), one greedy
                   token per active slot and step, read back once per window
@@ -40,8 +41,14 @@ last release through ``engine.export_slot``, restored through
 ``engine.import_slot``); the remote tier is a ``remote_fetch`` callable.
 Page ids come from the host page table, so no step of it reads the
 device, apart from the spill's copy of the pages themselves.  MoE and
-MLA auto-disable sharing, as in the reference.  A hit changes the page
-table and ring between windows, on the host and outside any captured
+MLA auto-disable sharing, as in the reference.  Hybrids (attention ∥
+SSM) cannot replay a suffix through the recurrence bit for bit, so they
+share whole page-aligned prompts only: a tail-less admission captures
+the slot's SSM state and first greedy token at the prompt boundary into
+the PageCache (``_capture_snapshots``), and a later identical prompt maps
+or imports every page column and restores that snapshot with no prefill
+and no replay (``_snapshot_match``, ``_admit_snapshot``).  A hit changes
+the page table and ring between windows, on the host and outside any captured
 step; the captured step reads the table through ``PagedKV.ids`` and is
 not captured again.
 
@@ -73,11 +80,9 @@ runs split across replicas (``serve.disagg``): a prefill replica drives
 replica ``_decode_window`` on slots seeded by imports, its ``PageCache``
 ``remote_fetch`` wired to the transport's stores.
 
-Left out: the hybrid models' boundary SSM snapshots (``_snapshot_match``,
-``_admit_snapshot``, ``_capture_snapshots``: they wait for the SSM
-models).  Dropped with the mesh at one GPU: the shard_map wrappers and the
+Dropped with the mesh at one GPU: the shard_map wrappers and the
 leading per-shard axis of every state leaf (a column's page-id vector has
-one entry).
+one entry; a snapshot's SSM leaves are (L, ...)).
 """
 
 from __future__ import annotations
@@ -96,6 +101,7 @@ from repro_torch.core import weights as weights_mod
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import lm, params as PM
+from repro_torch.models.ssm import SSMState
 from . import engine
 from . import transport
 from .digest import chain_keys
@@ -402,12 +408,17 @@ class ServeEngine:
         k = 1 << (max(bound, 1).bit_length() - 1)
         return min(k, self.max_fuse_steps)
 
-    @staticmethod
-    def _bucket_of(prompt_len: int) -> int:
+    def _bucket_of(self, prompt_len: int) -> int:
         """Trunk bucket: the largest power of two that fits the prompt.
         Leftover tokens replay through decode steps, which for pure
         attention are exact at prompt positions, so bucketing never
-        changes streams."""
+        changes streams.  Routed and recurrent layers (MoE, SSM, MLA) are
+        not bit-equal between a decode step and the batched prefill at the
+        same position, so those families take the exact trunk: the whole
+        prompt at tp = 1 (every distinct length is its own batch)."""
+        c = self.cfg
+        if c.moe is not None or c.ssm is not None or c.mla is not None:
+            return prompt_len
         b = 1
         while b * 2 <= prompt_len:
             b *= 2
@@ -501,6 +512,34 @@ class ServeEngine:
             return 0, [], []
         return m, keys[:m], warm
 
+    def _snapshot_match(self, prompt: np.ndarray):
+        """Hybrid replay-free hit: ``(keys, hot cols, warm payload
+        columns, snapshot)`` when EVERY full column of this page-aligned
+        prompt is restorable (hot or warm) AND its boundary SSM snapshot
+        exists; None otherwise.  Partial matches stay cold: replaying a
+        suffix through the recurrence is not bit-equal to prefill."""
+        bt = self.blk_tokens
+        if len(prompt) < bt or len(prompt) % bt != 0:
+            return None
+        n = len(prompt) // bt
+        keys = self._prefix_keys(prompt, n)
+        snap = self.cache.get_snapshot(keys[-1])
+        if snap is None:
+            return None
+        h = 0
+        while h < n and keys[h] in self.cache.index:
+            h += 1
+        if any(not self.cache.has_warm(keys[j]) for j in range(h, n)):
+            return None
+        warm: List[List[bytes]] = []
+        with self._cache_fetch_span():
+            for j in range(h, n):
+                payloads = self.cache.fetch_warm(keys[j])
+                if payloads is None:
+                    return None
+                warm.append(payloads)
+        return keys, h, warm, snap
+
     def _register_prefixes(self, slots_prompts) -> None:
         """Index the freshly admitted slots' full page columns from the
         host page table.  Keys already indexed were mapped shared and
@@ -584,7 +623,7 @@ class ServeEngine:
             if not pend:
                 continue
             c0 = min(c for _, c in pend)
-            wire, _ = engine.export_slot(
+            wire, _, _ = engine.export_slot(
                 self.state, s, max(c for _, c in pend) + 1 - c0, col0=c0)
             kv = _host_fields(wire)
             for key, c in pend:
@@ -802,6 +841,40 @@ class ServeEngine:
         ls.slot_len[s] = m * self.blk_tokens
         ls.emitted[req.uid] = []
 
+    def _admit_snapshot(self, ls: _LoopState, s: int, req: Request,
+                        keys: List[bytes], h: int,
+                        warm: List[List[bytes]], snap) -> None:
+        """Hybrid snapshot hit: map or import ALL page columns and restore
+        the boundary SSM state, with no prefill and no replay.  The first
+        greedy token comes from the snapshot, computed by the original
+        admission at the same boundary, so the stream is exact."""
+        n, nr = len(keys), len(warm)
+        ls.admit_t.setdefault(req.uid, time.perf_counter())
+        self.tracer.stage(req.uid, "admit",
+                          args={"mode": "snapshot", "cols": n,
+                                "warm_cols": nr})
+        ids = np.zeros((self._maxp,), np.int32)
+        for c in range(h):
+            ids[c] = self.cache.acquire(keys[c])[0]
+            self._slot_keys[s].append(keys[c])
+        if nr:
+            self._ensure_free_pages(nr)
+        if h:
+            base_cols = h if nr else n
+            engine.map_shared_slot(self.state, s, ids, h,
+                                   base_cols * self.blk_tokens)
+        if nr:
+            engine.import_slot(self.state, s, self._warm_wire(warm),
+                               n * self.blk_tokens, col0=h,
+                               ssm_slot=snap["ssm"])
+        else:
+            engine.restore_ssm(self.state, s, snap["ssm"])
+        ls.shared_hits += n
+        ls.slot_req[s] = req
+        self._slot_busy[s] = True
+        ls.slot_len[s] = n * self.blk_tokens
+        self._first_token(ls, s, req, int(snap["g0"]), time.perf_counter())
+
     def _admit_cold_batch(self, ls: _LoopState, batch: List[Request],
                           slots: List[int], trunk: int, replays) -> None:
         """One batched prefill admits the whole bucket."""
@@ -905,6 +978,16 @@ class ServeEngine:
                 rest = deque()
                 while q and free:
                     req = q.popleft()
+                    if self.cfg.ssm is not None:  # whole-prompt hits only
+                        hit = self._snapshot_match(req.prompt)
+                        if hit is not None:
+                            s = free.pop(0)
+                            self._admit_snapshot(ls, s, req, *hit)
+                            new_slots.append(s)
+                            progress = True
+                        else:
+                            rest.append(req)
+                        continue
                     m, mkeys, warm = self._prefix_match_cols(req.prompt)
                     if m >= 1:
                         s = free.pop(0)
@@ -949,6 +1032,30 @@ class ServeEngine:
         self._run_replays(ls, replays)
         self._register_prefixes(
             [(s, ls.slot_req[s].prompt, ls.slot_len[s]) for s in new_slots])
+        if self.prefix_sharing and self.cfg.ssm is not None:
+            self._capture_snapshots(ls, new_slots)
+
+    def _capture_snapshots(self, ls: _LoopState,
+                           new_slots: List[int]) -> None:
+        """Capture boundary SSM snapshots for tail-less page-aligned
+        admissions (hybrids only): the recurrent state right after the
+        prompt, copied to host memory, plus the first greedy token -- what
+        makes a later identical prompt replay-free."""
+        for s in new_slots:
+            req = ls.slot_req[s]
+            if req is None:
+                continue
+            ln = ls.slot_len[s]
+            if (ln != len(req.prompt) or ln % self.blk_tokens != 0
+                    or not ls.emitted.get(req.uid)):
+                continue
+            keys = self._prefix_keys(req.prompt, ln // self.blk_tokens)
+            if self.cache.get_snapshot(keys[-1]) is not None:
+                continue
+            snap = SSMState(*(t[:, s].to("cpu", copy=True)
+                              for t in self.state.ssm))
+            self.cache.put_snapshot(keys[-1], {
+                "ssm": snap, "g0": int(ls.emitted[req.uid][0])})
 
     def _decode_window(self, ls: _LoopState) -> None:
         """One decode window of K steps, K bounded by the earliest

@@ -45,8 +45,10 @@ reference falls back to the same dtype when no numpy bfloat16 is
 installed, and the bytes are the same.  The port's pool keeps ``planes``
 as int32; callers view them as ``uint32`` at this byte boundary.  Blobs
 keep the reference's leading ``(tp, n_layers)`` axes, with tp = 1, so that
-the wire bytes match.  The SSM section is parsed and written as in the
-reference, but no port model fills it yet.
+the wire bytes match.  A hybrid's blob carries the SSM section: per
+layer the slot's f32 recurrent state ``h`` and its bf16 conv rings (as
+``uint16`` bits), raw, as the reference ships them; ``raw_bytes`` and the
+wire bytes count it beside the pages.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, SSMConfig
 from repro_torch.core import fixed, weights
 from repro_torch.core.collectives import CodecConfig
 from repro_torch.kernels import decode_attend, decompress_matmul, lexi_unpack
@@ -1458,3 +1458,131 @@ def test_capture_pauses_the_cyclic_collector(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert x.tolist() == [1.0] * 4
+
+
+# ---------------------------------------------------------------------------
+# the parallel attention ∥ SSM hybrid: graphs against eager, SSM bytes
+# ---------------------------------------------------------------------------
+
+TINY_HYBRID = ModelConfig(
+    name="h", family="hybrid", n_layers=3, d_model=64, n_heads=4,
+    n_kv_heads=2, d_ff=128, vocab_size=512, head_dim=16,
+    parallel_hybrid=True, attn_layout="hymba_3global", window=16,
+    ssm=SSMConfig(d_state=16, headdim=8, chunk=16), sub_quadratic=True)
+
+
+def _ssm_bits(ssm):
+    return [t.contiguous().view(torch.uint8).cpu() for t in ssm]
+
+
+@pytest.mark.parametrize("sharing", [False, True], ids=["off", "sharing"])
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_hybrid_graph_streams_match_eager(cuda, codec_on, sharing):
+    """The tiny hybrid through ServeEngine from CUDA graphs and eagerly
+    (the tiny mix over 2 slots, block 4, windows of 16; with sharing, two
+    page-aligned repeats that restore a boundary SSM snapshot): the same
+    streams, hits, page tables, pool bytes and SSM state bit for bit;
+    every flushing step eager, the rest replayed."""
+    codec = dataclasses.replace(
+        CodecConfig() if codec_on else CodecConfig.off(), cache_block=4)
+    run = RunConfig(codec=codec)
+    params = PM.init_params(lm.lm_table(TINY_HYBRID),
+                            torch.Generator(device=cuda).manual_seed(1),
+                            device=cuda)
+    reqs = _tiny_requests()
+    if sharing:
+        reqs += [Request(uid=10 + i, prompt=reqs[0].prompt.copy(),
+                         max_new_tokens=4) for i in range(2)]
+    got = {}
+    for graphs in (False, True):
+        eng = ServeEngine(TINY_HYBRID, run, n_slots=2, max_len=48,
+                          params=params, cuda_graphs=graphs,
+                          prefix_sharing=sharing)
+        results, st = eng.run(reqs)
+        torch.cuda.synchronize()
+        assert [len(r.tokens) for r in results] == \
+            [r.max_new_tokens for r in reqs]
+        assert st.n_replay_dispatches == 0          # the exact trunk
+        assert (st.shared_page_hits > 0) == sharing
+        if graphs:
+            assert st.graph_captures == 1 and st.graph_replays > 0
+            assert st.eager_steps == st.flush_steps
+        got[graphs] = ([r.tokens for r in results], _pool_bits(eng.state.kv),
+                       _ssm_bits(eng.state.ssm), st.shared_page_hits)
+    assert got[True][0] == got[False][0]
+    assert got[True][3] == got[False][3]
+    for key in got[False][1]:
+        assert torch.equal(got[True][1][key], got[False][1][key]), key
+    for a, b in zip(got[True][2], got[False][2]):
+        assert torch.equal(a, b)
+
+
+def test_hybrid_generate_graph_matches_eager(cuda):
+    """The hybrid's fixed loop from a CUDA graph against the eager loop:
+    the same tokens, block stores, rings and SSM state (the capture's
+    warm-up puts the state back)."""
+    run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
+    params = PM.init_params(lm.lm_table(TINY_HYBRID),
+                            torch.Generator(device=cuda).manual_seed(3),
+                            device=cuda)
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 512, (3, 6)), dtype=torch.int32, device=cuda)
+    outs, states = [], []
+    for graphs in (False, True):
+        logits, st = engine.prefill(TINY_HYBRID, run, params, prompts, 24)
+        dec = engine.FixedDecoder(TINY_HYBRID, run, params, st,
+                                  engine.greedy_token(logits), graphs)
+        toks = [dec.tok.clone()]
+        for _ in range(11):
+            dec.step()
+            toks.append(dec.tok.clone())
+        outs.append(torch.cat(toks, 1))
+        states.append(_ssm_bits(st.ssm) + [
+            getattr(kv, f).contiguous().view(torch.uint8).cpu()
+            for kv in st.kv for f in ("signman", "planes", "ring")])
+        if graphs:
+            assert dec.counts.replays == 8 and dec.counts.eager == 3
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+
+
+def test_hybrid_masked_ssm_update_in_graph(cuda):
+    """A slot turned inactive in the middle of a window keeps its SSM state
+    through replayed steps (the masked in-place write reads ``active``
+    from the staged step buffer), while the active slot's state moves; the
+    graph's states equal an eager decoder's on a copy, step for step."""
+    run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
+    params = PM.init_params(lm.lm_table(TINY_HYBRID),
+                            torch.Generator(device=cuda).manual_seed(5),
+                            device=cuda)
+    prompts = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 512, (2, 9)), dtype=torch.int32, device=cuda)
+    sts = []
+    for _ in range(2):
+        st = engine.empty_paged_state(TINY_HYBRID, run, 2, 48, device=cuda)
+        logits, d = engine.prefill_sequences(TINY_HYBRID, run, params,
+                                             prompts)
+        engine.insert_sequences(TINY_HYBRID, run, st, d, [0, 1])
+        sts.append(st)
+    tok = engine.greedy_token(logits)
+    decs = [engine.PagedDecoder(TINY_HYBRID, run, sts[0], graphs=True),
+            engine.PagedDecoder(TINY_HYBRID, run, sts[1], graphs=False)]
+    for dec in decs:
+        dec.tok.copy_(tok)
+    only0 = np.array([True, False])
+    for t in range(5):                  # lengths 9..13: a flush at 11
+        mask = None if t < 2 else only0
+        before = _ssm_bits(sts[0].ssm)
+        for dec in decs:
+            dec.step(params, mask)
+        torch.cuda.synchronize()
+        after = _ssm_bits(sts[0].ssm)
+        for a, b, e in zip(after, before, _ssm_bits(sts[1].ssm)):
+            assert torch.equal(a, e)
+            moved = a.reshape(3, 2, -1) != b.reshape(3, 2, -1)
+            assert moved[:, 0].any()
+            assert moved[:, 1].any() == (mask is None)
+        assert torch.equal(decs[0].tok, decs[1].tok)
+    assert decs[0].counts.replays >= 3 and decs[0].counts.captures == 1
+    assert list(sts[0].lengths) == [14, 11]

@@ -208,7 +208,7 @@ def test_block_forward(model):
         jcfg, jrun, pj, xx, pp, spec, 1, want_cache=True),
         jnp.asarray(x), jnp.asarray(pos))
     pl = tlm.layer_params(tp_, 1)
-    xt, (kt, vt) = tblocks.block_forward(
+    xt, (kt, vt), _ = tblocks.block_forward(
         tcfg, trun, pl, to_torch(x), torch.as_tensor(pos),
         tattn.base_attn_spec(tcfg), want_cache=True)
     close_bf16(xt, xj, steps=1)
@@ -245,7 +245,7 @@ def test_lm_forward_and_prefill(model):
     for i in range(tcfg.n_layers):
         pl = tlm.layer_params(tp_, i)
         h1 = tlayers.rms_norm(x, pl["ln1"], tcfg.norm_eps)
-        x_new, _ = tblocks.block_forward(tcfg, trun, pl, x,
+        x_new, _, _ = tblocks.block_forward(tcfg, trun, pl, x,
                                          torch.arange(20), spec)
         o = tattn.attn_forward(tcfg, trun, pl["attn"], h1, torch.arange(20),
                                spec)[0].to(torch.bfloat16)

@@ -379,31 +379,31 @@ def test_export_import_round_trip(ref_run):
     tengine.insert_sequences(TCFG, trun, eng.state, d, [0])
     pkv = eng.state.kv
     n = tcache.export_n_cols(14, BLK)
-    wire, length = tengine.export_slot(eng.state, 0, n)
+    wire, _, length = tengine.export_slot(eng.state, 0, n)
     assert length == 14 and n == 3
     tengine.import_slot(eng.state, 1, wire, length)
     _ids_match(pkv)
     assert set(pkv.page_table[1, :3]).isdisjoint(pkv.page_table[0, :3])
-    again, _ = tengine.export_slot(eng.state, 1, n)
+    again, _, _ = tengine.export_slot(eng.state, 1, n)
     for f in tcache.PageWire._fields:
         x, y = getattr(wire, f), getattr(again, f)
         assert (x is None) == (y is None), f
         if x is not None:
             assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), f
     # columns past the sequence's full pages export as zeros
-    wide, _ = tengine.export_slot(eng.state, 0, n + 2)
+    wide, _, _ = tengine.export_slot(eng.state, 0, n + 2)
     lead = wide.signman if wide.signman is not None else wide.raw_pages
     assert not lead[:, n:].any()
     # a partial import keeps the mapped columns below col0
     tengine.release_slots(eng.state, np.array([False, True]))
     _ids_match(pkv)
     tengine.map_shared_slot(eng.state, 1, pkv.page_table[0], 1, BLK)
-    tail, _ = tengine.export_slot(eng.state, 0, n - 1, col0=1)
+    tail, _, _ = tengine.export_slot(eng.state, 0, n - 1, col0=1)
     tengine.import_slot(eng.state, 1, tail, length, col0=1)
     _ids_match(pkv)
     assert pkv.page_table[1, 0] == pkv.page_table[0, 0]
     assert pkv.page_table[1, 1] != pkv.page_table[0, 1]
-    again, _ = tengine.export_slot(eng.state, 1, n)
+    again, _, _ = tengine.export_slot(eng.state, 1, n)
     for f in tcache.PageWire._fields:
         x, y = getattr(wire, f), getattr(again, f)
         if x is not None:
