@@ -208,9 +208,32 @@ non-zero:
                weight plane (``cuda``: both weight kernels, ``conv_x``
                through ``lexi_unpack``); the fixed loop 4 x 1000, graph ==
                eager byte for byte (SSM state included).
-  12. the card's line, the ``kernels`` JSON line (launches from the runs
-     from CUDA graphs, the replays counted; the disagg and hybrid phases'
-     runs added), then the result line.
+  12. moe_mla — MoE and the MLA latent path of both attention kernels:
+               the kernels phase's attention checks (split edges, codec
+               off, aliased slots, timed beside SDPA on the decompressed
+               rows and the bound) at full-width deepseek-v2-lite-16b's
+               MLA shapes (16 heads on one 576-wide latent row, values its
+               first 512 columns) and at jamba-tiny-dev's (16/8 heads, hd
+               64); a tiny MoE + MLA model on the card against the CPU, raw
+               and packed (1e-2); then deepseek-v2-lite-16b (27 layers, d
+               2048, 64 experts top-6 + 2 shared, 32.4 GB of random bf16
+               weights from seed 0, depth not cut), block 256, 4 slots:
+               the serve mix eagerly and from CUDA graphs (streams, page
+               table, pool bytes equal; exact trunks), 8 profiled decode
+               steps of 4 fresh 1000-token slots
+               (``chiprun_out/profile_decode_moe_mla{,_graph}.txt``), the
+               fixed loop 4 x 1000 graph == eager byte for byte, the serve
+               mix through 1 prefill -> 1 decode replica (the monolithic
+               streams), and the packed weight plane (both weight kernels
+               on the router, N 64, ``w_dkv``, N 576, and a shared expert
+               at M 4 and 1024; the first 3 requests ``unpack`` == raw and
+               ``cuda`` with every divergence a near-tie; its decode step
+               profiled, ``..._packed{,_graph}.txt``); last, jamba-tiny-dev
+               (8 layers, attention ∥ Mamba2, 8 experts top-2) eagerly and
+               from graphs (streams, pool bytes and SSM state equal).
+  13. the card's line, the ``kernels`` JSON line (launches from the runs
+     from CUDA graphs, the replays counted; the disagg, hybrid and
+     moe_mla phases' runs added), then the result line.
 """
 
 from __future__ import annotations
@@ -226,7 +249,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 REPLACES = {"decode_attend_paged": "src/repro/kernels/decode_attend.py:421",
             "exp_histogram": "src/repro/kernels/exp_histogram.py:47",
@@ -454,17 +476,43 @@ def fixed_rows(blocks, ring, length):
     return torch.cat([dec, ring[:, :length - live * blk]], 1)
 
 
-def sdpa_fn(q, rows):
+def sdpa_fn(q, rows, mla_lora=None):
     """The yardstick the port never calls: one SDPA (``enable_gqa``) call
     of q (S, H, hd) over K/V rows (S, T, Hkv * 2 * hd) already
-    decompressed."""
+    decompressed, or over MLA latent rows (S, T, hd): keys the whole row,
+    values its first ``mla_lora`` columns, one kv head."""
     import torch
     s_, t, w = rows.shape
     hd = q.shape[-1]
-    kv = rows.reshape(s_, t, w // (2 * hd), 2, hd)
-    kk, vv = kv[..., 0, :].transpose(1, 2), kv[..., 1, :].transpose(1, 2)
+    if mla_lora is not None:
+        kk, vv = rows[:, None], rows[:, None, :, :mla_lora]
+    else:
+        kv = rows.reshape(s_, t, w // (2 * hd), 2, hd)
+        kk, vv = kv[..., 0, :].transpose(1, 2), kv[..., 1, :].transpose(1, 2)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         q[:, :, None], kk, vv, enable_gqa=True)
+
+
+def attend_geom(cfg):
+    """The attention kernels' operands at ``cfg``'s shapes: heads h over
+    hkv kv heads, the query's width hd, the payload's width w, the output
+    width hd_v, and the kernels' keyword arguments (head map, scale,
+    ``mla_lora``).  MLA: one latent row of lora + rope columns that every
+    head shares, values its first lora columns."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import attend_cases as AC
+    from repro_torch.models import attention
+
+    h = cfg.n_heads
+    if cfg.mla is not None:
+        lora = cfg.mla.kv_lora_rank
+        w = lora + cfg.mla.qk_rope_dim
+        return SimpleNamespace(h=h, hkv=1, hd=w, w=w, hd_v=lora, kw=dict(
+            kv_idx=(), scale=attention.mla_scale(cfg), mla_lora=lora))
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    return SimpleNamespace(h=h, hkv=hkv, hd=hd, w=2 * hkv * hd, hd_v=hd,
+                           kw=dict(kv_idx=AC.kv_idx(h, hkv),
+                                   scale=hd ** -0.5, mla_lora=None))
 
 
 # the encoder's callers' shapes (rows x elements): a decode-step ring
@@ -656,9 +704,11 @@ PAGED_LENGTHS = [300, 700, 1100, 2000]
 
 
 def bound_row(by: float, flops: float) -> dict:
-    """The JSON line's bound of work moving ``by`` bytes and doing
-    ``flops`` f32 operations."""
-    t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOPS
+    """The JSON line's bound of an attention kernel's work: ``by`` bytes
+    moved, ``flops`` operations on bf16 operands (q and the decoded rows;
+    the MLA query is rounded to bf16 before the kernel) with f32
+    accumulation, at the card's bf16 tensor-core rate."""
+    t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -679,8 +729,8 @@ def paged_attend_kernel(cfg, gen, phase):
     from repro_torch.models import cache as cache_mod
 
     blk, k, lengths = ATTEND_BLK, ATTEND_K, PAGED_LENGTHS
-    hd, hkv, h = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
-    w = 2 * hkv * hd
+    g = attend_geom(cfg)
+    hd, hkv, h, w = g.hd, g.hkv, g.h, g.w
     n = blk * w
     c = max(n // 128, 8)
     s_ = len(lengths)
@@ -717,7 +767,9 @@ def paged_attend_kernel(cfg, gen, phase):
     maxp = page_ids.shape[1]
     fields = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
               None)
-    kw = dict(k=k, kv_idx=cache_mod.gqa_head_table(cfg, h), scale=hd ** -0.5)
+    kw = dict(k=k, **g.kw)
+    if cfg.mla is None:
+        assert g.kw["kv_idx"] == cache_mod.gqa_head_table(cfg, h)
     errs = []
     for window in (ref.WINDOW_NONE, 700):
         args = (q, *fields, ring, page_ids, lens, window)
@@ -750,37 +802,43 @@ def paged_attend_kernel(cfg, gen, phase):
     assert AC.same_bits(first, decode_attend.decode_attend_paged(*args, **kw)), \
         "decode_attend_paged: two launches differ"
     grid_line(phase, "decode_attend_paged", h, hkv, hd, blk, s_,
-              decode_attend.paged_splits(maxp, blk), k)
+              decode_attend.paged_splits(maxp, blk), k, g.kw["mla_lora"])
     errs.append(split_edges_paged(cfg, gen, phase))
     # yardstick: one library call (SDPA, GQA) on already-decompressed
     # pages gathered per slot; the port never calls it
     lib_fn = sdpa_fn(q, torch.cat(
-        [raw[-1][page_ids.long()].reshape(s_, -1, w), ring], 1))
+        [raw[-1][page_ids.long()].reshape(s_, -1, w), ring], 1),
+        g.kw["mla_lora"])
     ring_rows = sum(L % blk for L in lengths)
     page_bytes = n * (1 + k / 8) + c
     by = (n_live * page_bytes + ring_rows * w * 2 + q.numel() * 2
-          + s_ * h * (hd + 2) * 4)
+          + s_ * h * (g.hd_v + 2) * 4)
     row = dict(
         max_abs_err=max(errs),
         plain_ms=cuda_ms(lambda: ref.paged_decode_attend_plain(*args, **kw),
                          reps=5),
-        **bound_row(by, 4 * s_ * h * hd * sum(lengths)),
+        # each slot's heads score and weigh its own positions: 2 (hd +
+        # hd_v) f32 operations per (head, position)
+        **bound_row(by, 2 * (hd + g.hd_v) * h * sum(lengths)),
         **attend_timing(phase, "decode_attend_paged",
                         lambda: decode_attend.decode_attend_paged(*args, **kw),
                         lib_fn))
     log(phase, f"decode_attend_paged (S={s_}, H={h}/{hkv}, hd={hd}, "
+               f"W={w}, hd_v={g.hd_v}, "
                f"lengths {lengths}, {n_live} live pages) within 1e-4 "
                f"(full + window 700 + codec off + split edges), two "
                f"launches bit for bit: {row}")
     return row, rows, c
 
 
-def grid_line(phase, name, h, hkv, hd, blk, n_seq, nsplit, k):
+def grid_line(phase, name, h, hkv, hd, blk, n_seq, nsplit, k,
+              mla_lora=None):
     """Log a kernel's launch: grid, threads, chunk rows, shared memory per
     CTA, and registers and spills of its k instantiation (ptxas -v)."""
     from repro_torch.kernels import decode_attend
     span = decode_attend.span_rows(blk)
-    geo = decode_attend.geometry(hd, h - (hkv - 1) * (h // hkv), span)
+    geo = decode_attend.geometry(hd, h - (hkv - 1) * (h // hkv), span,
+                                 mla_lora)
     regs = next((r for (_, args), r in ptxas_report(name).items()
                  if args == (k,)), {})
     log(phase, f"{name} launch at H={h}/{hkv}, hd={hd}: nsplit {nsplit} "
@@ -805,10 +863,10 @@ def split_edges_paged(cfg, gen, phase):
     from repro_torch.kernels import decode_attend, ref
 
     blk, k = 256, 5
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    w = 2 * hkv * hd
+    g = attend_geom(cfg)
+    h, hd, w = g.h, g.hd, g.w
     p = decode_attend.span_rows(blk)
-    kw = dict(k=k, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+    kw = dict(k=k, **g.kw)
     pages = (torch.randn((24, blk, w), generator=gen, device="cuda")
              ).to(torch.bfloat16)
     pages[0] = AC.overflowing(gen, (blk, w))
@@ -865,8 +923,8 @@ def split_edges_fixed(cfg, gen, phase):
     from repro_torch.kernels import decode_attend, ref
 
     blk, k, b = 256, 5, 3
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    w = 2 * hkv * hd
+    g = attend_geom(cfg)
+    h, hd, w = g.h, g.hd, g.w
     p = decode_attend.span_rows(blk)
     lengths = AC.edge_lengths(blk)
     nblk = max(lengths) // blk + 1
@@ -891,7 +949,7 @@ def split_edges_fixed(cfg, gen, phase):
                     ).to(torch.bfloat16)
     ring = torch.randn((b, blk, w), generator=gen, device="cuda"
                        ).to(torch.bfloat16)
-    kw = dict(k=k, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+    kw = dict(k=k, **g.kw)
     dev_len = torch.zeros((), dtype=torch.int32, device="cuda")
     worst, n_calls, same = 0.0, 0, 0
     for length in lengths:
@@ -942,13 +1000,14 @@ def _fixed_blocks(gen, nblk, b, blk, w):
     return x.to(torch.bfloat16)
 
 
-def _fixed_case(gen, b, h, hkv, hd, blk, length, k=5):
-    """The kernel's arguments at one attention shape: a store of
-    length // blk + 1 blocks (the last one dead), its ring and q."""
+def _fixed_case(gen, b, h, hkv, hd, blk, length, k=5, w=None):
+    """The kernel's arguments at one attention shape (rows of ``w``
+    columns, 2 * hkv * hd by default): a store of length // blk + 1
+    blocks (the last one dead), its ring and q."""
     import torch
     from repro_torch.core import fixed
 
-    w = 2 * hkv * hd
+    w = 2 * hkv * hd if w is None else w
     nblk = length // blk + 1
     blocks = _fixed_blocks(gen, nblk, b, blk, w)
     n = b * blk * w
@@ -1001,13 +1060,15 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
     errs = []
     for c_ in (cfg, *map(get_config, also)):
         length, window = FIXED_CASES.get(c_.name, (1100, 700))
-        h, hkv, hd = c_.n_heads, c_.n_kv_heads, c_.head_dim
-        blocks, ct, ring, q = _fixed_case(gen, b, h, hkv, hd, blk, length)
+        g = attend_geom(c_)
+        h, hkv, hd = g.h, g.hkv, g.hd
+        blocks, ct, ring, q = _fixed_case(gen, b, h, hkv, hd, blk, length,
+                                          w=g.w)
         cap = ct.esc_pos.shape[-1]
         n_esc = ct.n_escapes.tolist()
         assert n_esc[1] > cap, n_esc                          # overflow
-        assert bool((ct.esc_pos[1] < blk * 2 * hkv * hd).any())
-        kw = dict(k=k, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+        assert bool((ct.esc_pos[1] < blk * g.w).any())
+        kw = dict(k=k, **g.kw)
         store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos,
                  ct.esc_raw, None)
         args = (q, *store, ring, length)
@@ -1019,7 +1080,8 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
                  (False, kw, full), (False, dict(kw, softcap=softcap), win)]
         errs.append(_fixed_check(args, args_raw, cases))
         log(phase, f"decode_attend at {c_.name}'s shapes (B={b}, H={h}/"
-                   f"{hkv}, hd={hd}, block {blk}, length {length}, "
+                   f"{hkv}, hd={hd}, W={g.w}, hd_v={g.hd_v}, block {blk}, "
+                   f"length {length}, "
                    f"{length // blk} live blocks, escapes per block "
                    f"{n_esc[:3]}..., capacity {cap}) within 1e-4: full, "
                    f"window {window}, softcap {softcap}, codec off; "
@@ -1041,9 +1103,11 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
                 *form[0], **form[1])), "decode_attend: two launches differ"
         nblk = store[0].shape[0]
         grid_line(phase, "decode_attend", h, hkv, hd, blk, b,
-                  decode_attend.fixed_splits(length, full, blk)[1], k)
+                  decode_attend.fixed_splits(length, full, blk)[1], k,
+                  g.kw["mla_lora"])
         grid_line(phase, "decode_attend", h, hkv, hd, blk, b,
-                  decode_attend.capacity_splits(nblk, blk), k)
+                  decode_attend.capacity_splits(nblk, blk), k,
+                  g.kw["mla_lora"])
 
         def host_fn():
             return decode_attend.decode_attend(*host_form[0], **host_form[1])
@@ -1053,16 +1117,17 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
                    f"spin, host time per call {host_us(host_fn):.1f} us")
         errs.append(split_edges_fixed(cfg, gen, phase))
         live = length // blk
-        lib_fn = sdpa_fn(q, fixed_rows(blocks, ring, length))
-        n = b * blk * 2 * hkv * hd
+        lib_fn = sdpa_fn(q, fixed_rows(blocks, ring, length),
+                         g.kw["mla_lora"])
+        n = b * blk * g.w
         by = (live * (n * (1 + k / 8) + (1 << k) + 5 * cap)
-              + b * (length - live * blk) * 2 * hkv * hd * 2
-              + q.numel() * 2 + b * h * (hd + 2) * 4)
+              + b * (length - live * blk) * g.w * 2
+              + q.numel() * 2 + b * h * (g.hd_v + 2) * 4)
         row = dict(
             max_abs_err=None,
             plain_ms=cuda_ms(lambda: ref.decode_attend_plain(
                 *timed[0], **timed[1]), reps=5),
-            **bound_row(by, 4 * b * h * hd * length),
+            **bound_row(by, 2 * (hd + g.hd_v) * b * h * length),
             **attend_timing(phase, "decode_attend", lambda: decode_attend
                             .decode_attend(*timed[0], **timed[1]), lib_fn))
     row["max_abs_err"] = max(errs)
@@ -1072,21 +1137,43 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
 
 
 SSM_MATMULS = ("w_zx", "w_bc", "w_dt", "w_out")
+# packed leaves the port reads whole through ``layers.raw_weight`` (one
+# lexi_unpack launch a leaf, or a layer's slice of it), never through
+# decompress_matmul; a MoE layer's expert stacks are read so too
+RAW_READ = ("conv_x", "conv_bc", "w_uk", "w_uv")
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
 def weight_shapes(cfg):
-    """[((K, N), matmuls per decode step)] of the model's weights: wq, wk
-    and wv, wo, w_gate and w_up, w_down per layer, a hybrid's SSM
-    projections (SSM_MATMULS) per layer, and the LM head."""
+    """[((K, N), matmuls per decode step)] of the model's packed weights
+    that go through decompress_matmul: the attention projections per
+    layer (wq, wk and wv, wo; MLA's wq, w_dkv, wo), the dense FFN's
+    w_gate and w_up, w_down or a MoE layer's router and shared experts, a
+    hybrid's SSM projections (SSM_MATMULS), and the LM head.  Leaves that
+    stay raw (too small, or N not a multiple of 32) are left out."""
+    from repro_torch.core import weights
     from repro_torch.models import ssm as ssm_mod
     d, hd, layers = cfg.d_model, cfg.head_dim, cfg.n_layers
-    q, kv, f = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff
-    shapes = [((d, q), layers), ((d, kv), 2 * layers), ((q, d), layers),
-              ((d, f), 2 * layers), ((f, d), layers)]
+    if cfg.mla is None:
+        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        shapes = [((d, q), layers), ((d, kv), 2 * layers), ((q, d), layers)]
+    else:
+        m = cfg.mla
+        shapes = [((d, cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim)),
+                   layers), ((d, m.kv_lora_rank + m.qk_rope_dim), layers),
+                  ((cfg.n_heads * m.v_dim, d), layers)]
+    f = cfg.d_ff
+    if cfg.moe is not None:
+        shapes.append(((d, cfg.moe.n_experts), layers))
+        f = cfg.moe.n_shared * cfg.moe.d_ff
+    if f:
+        shapes += [((d, f), 2 * layers), ((f, d), layers)]
     if cfg.ssm is not None:
         table = ssm_mod.ssm_table(cfg)
         shapes += [(table[name].shape, layers) for name in SSM_MATMULS]
-    return shapes + [((d, cfg.padded_vocab(1)), 1)]
+    shapes.append(((d, cfg.padded_vocab(1)), 1))
+    return [((kk, n), c) for (kk, n), c in shapes
+            if kk * n >= weights.MIN_COMPRESS_SIZE and n % weights.LANES == 0]
 
 
 def weight_case(w, pw, gen):
@@ -2968,12 +3055,14 @@ def tiny_hybrid_cfg():
         ssm=SSMConfig(d_state=16, headdim=8, chunk=16), sub_quadratic=True)
 
 
-def packed_leaf_checks(cfg, params, packed, gen):
-    """Both weight kernels on the hybrid's own packed leaves, at the shapes
-    its runs give them: ``weight_case`` on layer 0 of each stacked matmul
-    leaf and on the LM head (together, ``weight_shapes(cfg)``'s shapes),
-    ``stacked_unpack_check`` on ``conv_x`` (consumed through
-    ``raw_weight``)."""
+def packed_leaf_checks(cfg, params, packed, gen, phase):
+    """Both weight kernels on every packed leaf of ``cfg``'s model, at the
+    shapes its runs give them: ``weight_case`` on layer 0 of each stacked
+    matmul leaf and on the LM head (together, ``weight_shapes(cfg)``'s
+    shapes); ``stacked_unpack_check`` on the leaves read through
+    ``layers.raw_weight`` -- the RAW_READ leaves whole, and a MoE layer's
+    expert stacks as one step decodes them, layer 0's (E, K, N) in one
+    launch, with ``weight_case`` on its expert 0 as well."""
     import torch
     from repro_torch.core import weights
 
@@ -2984,27 +3073,39 @@ def packed_leaf_checks(cfg, params, packed, gen):
         elif isinstance(t, weights.PackedWeight):
             yield path, t
 
-    shapes = set()
+    def matmul_line(name, w, pw, errs):
+        log(phase, f"decompress_matmul on {name} (K={w.shape[0]}, N="
+                   f"{w.shape[1]}, k={pw.k}): max |err| at M=4 "
+                   f"{errs[4]:.3e}, at M=1024 {errs[1024]:.3e}, within "
+                   f"1e-4*(|x|@|W|)+1e-6 of the plain version, two "
+                   f"launches bit for bit; lexi_unpack exact, == plain")
+
+    shapes, n_leaves = set(), 0
     for path, pw in walk(packed):
         w, name = _at(params, path), "/".join(path)
-        if path[-1] == "conv_x":
+        n_leaves += 1
+        expert = path[-2:-1] == ("moe",) and path[-1] in EXPERT_STACKS
+        if path[-1] in RAW_READ or expert:
+            if expert:
+                w, pw, name = w[0], pw[0], name + "[0]"
             stacked_unpack_check(w, pw)
-            log("hybrid", f"lexi_unpack on {name} {tuple(w.shape)} (k="
-                          f"{pw.k}, read through raw_weight), one launch: "
-                          f"exact, and equal to the plain version row by "
-                          f"row")
+            log(phase, f"lexi_unpack on {name} {tuple(w.shape)} (k="
+                       f"{pw.k}, read through raw_weight), one launch: "
+                       f"exact, and equal to the plain version row by row")
+            if expert:
+                errs = {m: e for m, (_, e) in
+                        weight_case(w[0], pw[0], gen).items()}
+                matmul_line(name + "[0]", w[0], pw[0], errs)
+            torch.cuda.empty_cache()
             continue
         if pw.ndim == 3:
             w, pw, name = w[0], pw[0], name + "[0]"
         errs = {m: e for m, (_, e) in weight_case(w, pw, gen).items()}
         shapes.add(tuple(w.shape))
-        log("hybrid", f"decompress_matmul on {name} (K={w.shape[0]}, N="
-                      f"{w.shape[1]}, k={pw.k}): max |err| at M=4 "
-                      f"{errs[4]:.3e}, at M=1024 {errs[1024]:.3e}, within "
-                      f"1e-4*(|x|@|W|)+1e-6 of the plain version, two "
-                      f"launches bit for bit; lexi_unpack exact, == plain")
+        matmul_line(name, w, pw, errs)
         torch.cuda.empty_cache()
     assert shapes == {s_ for s_, _ in weight_shapes(cfg)}, shapes
+    log(phase, f"{cfg.name}: all {n_leaves} packed leaves checked")
 
 
 def hybrid_prefill_slots(cfg, eng, n_tok: int, seed: int):
@@ -3220,7 +3321,7 @@ def hybrid_phase(smi):
     assert isinstance(packed["blocks"]["ssm"]["conv_x"], weights.PackedWeight)
     assert not isinstance(packed["blocks"]["ssm"]["gate_norm"],
                           weights.PackedWeight)
-    packed_leaf_checks(cfg, params, packed, gen)
+    packed_leaf_checks(cfg, params, packed, gen, "hybrid")
     raw3 = g_tok[:3]
     for be in ("unpack", "cuda"):
         run_be = RunConfig(codec=dataclasses.replace(run.codec,
@@ -3283,6 +3384,292 @@ def hybrid_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: MoE and MLA (deepseek-v2-lite-16b), and jamba-tiny-dev
+# ---------------------------------------------------------------------------
+
+def tiny_moe_mla_cfg():
+    """A tiny MoE + MLA model whose 64-wide latent (48 + 16) the card's
+    attention kernels take (the latent width a multiple of 32)."""
+    from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+    return ModelConfig(
+        name="dv", family="moe", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=4, d_ff=0, vocab_size=512, head_dim=16,
+        mla=MLAConfig(kv_lora_rank=48, qk_nope_dim=16, qk_rope_dim=16,
+                      v_dim=16),
+        moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, n_shared=1))
+
+
+def serve_graph_eager(cfg, run, params, reqs, kw):
+    """The mix eagerly and from CUDA graphs: streams, page table, page use,
+    every pool byte (and a hybrid's SSM state) equal.  Returns (the graph
+    engine, the streams, its stats, its launches, pool bytes, SSM bytes,
+    the eager run's stats)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import ServeEngine
+
+    runs = {}
+    for graphs in (False, True):
+        eng = ServeEngine(cfg, run, params=params, cuda_graphs=graphs,
+                          prefix_sharing=False, **kw)
+        ops.reset_launch_counts()
+        results, st = eng.run(reqs)
+        torch.cuda.synchronize()
+        for req, res in zip(reqs, results):
+            assert len(res.tokens) == req.max_new_tokens, (req.uid, res)
+        runs[graphs] = (eng, [r.tokens for r in results], st,
+                        ops.launch_counts())
+    (e_eng, e_tok, e_st, _), (g_eng, g_tok, g_st, g_l) = runs[False], \
+        runs[True]
+    assert g_tok == e_tok, f"{cfg.name}: graph streams != eager"
+    n_pool = same_pools(pool_snapshot(e_eng.state.kv, clone=False),
+                        pool_snapshot(g_eng.state.kv, clone=False))
+    n_ssm = 0 if cfg.ssm is None else same_ssm(e_eng.state.ssm,
+                                               g_eng.state.ssm)
+    check_graph_run(cfg, g_st, g_l)
+    assert all(g_l[n] > 0 for n in SERVE_KERNELS), g_l
+    assert g_st.n_replay_dispatches == 0          # the exact trunk
+    return g_eng, g_tok, g_st, g_l, n_pool, n_ssm, e_st
+
+
+def moe_mla_phase(smi):
+    """MoE and MLA on every serving path: both attention kernels' MLA
+    latent path at deepseek-v2-lite-16b's shapes and the plain path at
+    jamba-tiny-dev's (hd 64); a tiny MoE + MLA model card vs CPU; then
+    full-width deepseek-v2-lite-16b (random weights from seed 0, all 27
+    layers) from CUDA graphs against eager, the fixed loop, a
+    disaggregated fleet and the packed weight plane; full-width
+    jamba-tiny-dev from CUDA graphs against eager.  Returns the kernel
+    launches of its runs from CUDA graphs (replays counted) and of its
+    packed run."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import weights
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DisaggEngine
+    from repro_torch.serve.scheduler import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("deepseek-v2-lite-16b")
+    jamba = get_config("jamba-tiny-dev")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for c_ in (cfg, jamba):
+        g = attend_geom(c_)
+        timed = (paged_attend_kernel(c_, gen, "moe_mla")[0],
+                 fixed_attend_kernel(c_, gen, "moe_mla"))
+        for name, row in zip(ATTEND_KERNELS, timed):
+            log("moe_mla", f"{name} at {c_.name}'s shapes (H {g.h}/{g.hkv}, "
+                           f"q {g.hd} wide, payload {g.w}, out {g.hd_v}): "
+                           f"{row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+                           f"ms ({row['bound_by']}), plain "
+                           f"{row['plain_ms']:.3f} ms, SDPA on the "
+                           f"decompressed rows {row['library_ms']:.4f} ms, "
+                           f"max |err| {row['max_abs_err']:.3e} | {smi}")
+    for packed in (False, True):
+        ops.reset_launch_counts()
+        worst = small_model_diff(packed, tiny_moe_mla_cfg())
+        assert (ops.launch_counts()["decompress_matmul"] > 0) == packed
+        log("moe_mla", f"tiny MoE + MLA model (2 layers, latent 48 + 16, 8 "
+                       f"experts top-2 + 1 shared), "
+                       f"{'packed' if packed else 'raw'} weights, prefill + "
+                       f"10 teacher-forced steps: card vs CPU logits max "
+                       f"|diff| {worst:.2e} (<= 1e-2)")
+
+    blk = HYBRID_BLK
+    run = RunConfig(codec=CodecConfig(cache_block=blk))
+    kw = dict(n_slots=4, max_len=8 * blk, seed=0, device="cuda")
+    reqs = serve_mix(cfg, np.random.default_rng(0))
+    launches = {name: 0 for name in REPLACES}
+    t0 = time.perf_counter()
+    params = engine_params(cfg)
+    torch.cuda.synchronize()
+    w_bytes = weights.weight_plane_bytes(params)
+    log("moe_mla", f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+                   f"{cfg.n_heads} heads, MLA latent {cfg.mla.kv_lora_rank} "
+                   f"+ {cfg.mla.qk_rope_dim} (nope {cfg.mla.qk_nope_dim}, v "
+                   f"{cfg.mla.v_dim}), {cfg.moe.n_experts} experts top-"
+                   f"{cfg.moe.top_k} (d_ff {cfg.moe.d_ff}) + "
+                   f"{cfg.moe.n_shared} shared, vocab {cfg.vocab_size}; "
+                   f"{cfg.param_count()} parameters, {w_bytes[0]} B of bf16 "
+                   f"weights made on the card in "
+                   f"{time.perf_counter() - t0:.1f}s; device memory "
+                   f"{torch.cuda.memory_allocated() >> 20} MiB | {smi}")
+    g_eng, g_tok, g_st, g_l, n_pool, _, e_st = serve_graph_eager(
+        cfg, run, params, reqs, kw)
+    for n in SERVE_KERNELS:
+        launches[n] += g_l[n]
+    log("moe_mla", f"{cfg.name} serve mix (6 requests, 4 slots, block "
+                   f"{blk}, prompts 250-1100, {g_st.n_admit_dispatches} "
+                   f"admissions of one sequence each, no replay) from CUDA "
+                   f"graphs: the eager run's streams "
+                   f"({sum(map(len, g_tok))} tokens), page table, page use "
+                   f"and all {n_pool} B of latent pages and rings bit for "
+                   f"bit; {g_st.eager_steps} eager (= flushing) steps, "
+                   f"{g_st.graph_replays} replayed; graphs "
+                   f"{g_st.tokens_per_s:.2f} tok/s, TTFT mean "
+                   f"{g_st.ttft_mean_s * 1e3:.1f} ms, inter-token "
+                   f"{g_st.inter_token_mean_s * 1e3:.2f} ms; eager "
+                   f"{e_st.tokens_per_s:.2f} tok/s, inter-token "
+                   f"{e_st.inter_token_mean_s * 1e3:.2f} ms | {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = hybrid_prefill_slots(cfg, g_eng, 1000, seed=3)
+    prof = profile_decode(cfg, g_eng, tok, "decode_moe_mla")
+    log("moe_mla", f"{cfg.name} decode step, 4 slots at ~1000 tokens, from "
+                   f"the graph: host {prof['graph']['host_ms']:.3f} ms/step, "
+                   f"device busy {prof['graph']['busy_ms']:.3f} ms/step, "
+                   f"{prof['graph']['tok_s']:.1f} tok/s | {smi}")
+    del g_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fixed loop: 4 x 1000 tokens (one joint MoE dispatch of the 4000
+    # prompt tokens), graph == eager byte for byte
+    prompts = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 1000)), dtype=torch.int32, device="cuda")
+    launches["decode_attend"] += fixed_graphs(cfg, run, params, prompts,
+                                              1000 + 40 + blk, 40, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # disaggregated: 1 prefill -> 1 decode replica over the loopback
+    dis = DisaggEngine(cfg, run, params=params, **kw)
+    ops.reset_launch_counts()
+    res, dst = dis.run(reqs)
+    torch.cuda.synchronize()
+    for n_, c_ in ops.launch_counts().items():
+        launches[n_] += c_ if n_ in SERVE_KERNELS else 0
+    assert [r.tokens for r in res] == g_tok, "disagg streams != monolithic"
+    assert dst.n_transfers == len(reqs)
+    log("moe_mla", f"disagg 1 prefill -> 1 decode (loopback): the monolithic "
+                   f"streams bit for bit; {dst.n_transfers} handoffs of "
+                   f"latent pages ({cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim}"
+                   f" wide); wire {dst.wire_bytes} B of {dst.wire_raw_bytes} "
+                   f"B raw (link_reduction {dst.link_reduction:.4f}); "
+                   f"{dst.tokens_per_s:.2f} tok/s, TTFT mean "
+                   f"{dst.ttft_mean_s * 1e3:.1f} ms, transfer "
+                   f"{dst.transfer_mean_s * 1e3:.1f} ms a handoff | {smi}")
+    del dis
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the packed weight plane: both weight kernels on every one of
+    # deepseek's packed leaves (partial column tiles: N 64 and 576), then
+    # the serve mix's first 3 requests from CUDA graphs; ``unpack`` must
+    # give the raw streams, ``cuda``'s divergences must be near-ties
+    t0 = time.perf_counter()
+    packed = weights.pack_serving_params(params, backend="cuda")
+    torch.cuda.synchronize()
+    p_bytes = weights.weight_plane_bytes(packed)
+    b_ = packed["blocks"]
+    assert isinstance(b_["moe"]["w_gate"], weights.PackedWeight)
+    assert not isinstance(b_["attn"]["kv_norm"], weights.PackedWeight)
+    log("moe_mla", f"packed on the card in {time.perf_counter() - t0:.1f}s: "
+                   f"{p_bytes[0]} B of {p_bytes[1]} B raw "
+                   f"({p_bytes[0] / p_bytes[1]:.3f}); expert stacks "
+                   f"{tuple(b_['moe']['w_gate'].shape)} at k="
+                   f"{b_['moe']['w_gate'].k}; device memory "
+                   f"{torch.cuda.memory_allocated() >> 20} MiB")
+    packed_leaf_checks(cfg, params, packed, gen, "moe_mla")
+    raw3 = g_tok[:3]
+    for be in ("unpack", "cuda"):
+        run_be = RunConfig(codec=dataclasses.replace(run.codec,
+                                                     weight_backend=be))
+        eng = ServeEngine(cfg, run_be, params=packed, compress_weights=True,
+                          prefix_sharing=False, **kw)
+        ops.reset_launch_counts()
+        res, st = eng.run(reqs[:3])
+        torch.cuda.synchronize()
+        pl = ops.launch_counts()
+        got = [r.tokens for r in res]
+        if be == "unpack":
+            assert got == raw3, "unpack backend: streams != raw"
+            assert pl["lexi_unpack"] > 0 and pl["decompress_matmul"] == 0
+            log("moe_mla", f"packed weights (unpack backend), first 3 "
+                           f"requests from CUDA graphs: the raw run's "
+                           f"streams; {st.tokens_per_s:.2f} tok/s | {smi}")
+            del eng
+            continue
+        for name in ("decompress_matmul", "lexi_unpack"):
+            assert pl[name] > 0, pl
+            launches[name] += pl[name]
+        same = sum(a == b for r, g in zip(got, raw3) for a, b in zip(r, g))
+        log("moe_mla", f"packed weights (cuda backend), first 3 requests "
+                       f"from CUDA graphs: {st.weight_bytes_per_step} B per "
+                       f"step of {st.weight_raw_bytes_per_step} B raw "
+                       f"({st.weight_ratio:.3f}); {same}/"
+                       f"{sum(map(len, got))} tokens equal to the raw run; "
+                       f"{st.tokens_per_s:.2f} tok/s; launches "
+                       f"decompress_matmul {pl['decompress_matmul']}, "
+                       f"lexi_unpack {pl['lexi_unpack']} | {smi}")
+        for uid, (ra, rb) in enumerate(zip(raw3, got)):
+            i = next((j for j, (a, b) in enumerate(zip(ra, rb)) if a != b),
+                     None)
+            if i is None:
+                continue
+            prompt = torch.as_tensor(reqs[uid].prompt, dtype=torch.int32,
+                                     device="cuda")[None]
+            forced = torch.as_tensor([ra[:i]], dtype=torch.int32,
+                                     device="cuda")
+            side = [teacher_forced(cfg, run, w, prompt, prompt.shape[1],
+                                   forced, 8 * blk)[i][0]
+                    for w in (params, packed)]
+            m_raw, m_cuda, gap = logit_margins(*side)
+            log("moe_mla", f"raw vs cuda, request {uid} position {i}: top-2 "
+                           f"margin raw {m_raw:.4g} / cuda {m_cuda:.4g}, "
+                           f"largest logit gap {gap:.4g}")
+            assert min(m_raw, m_cuda) <= gap, "packed: margin above the gap"
+        tok = hybrid_prefill_slots(cfg, eng, 1000, seed=3)
+        prof = profile_decode(cfg, eng, tok, "decode_moe_mla_packed")
+        log("moe_mla", f"{cfg.name} packed (cuda) decode step, 4 slots at "
+                       f"~1000 tokens, from the graph: host "
+                       f"{prof['graph']['host_ms']:.3f} ms/step, device busy "
+                       f"{prof['graph']['busy_ms']:.3f} ms/step | {smi}")
+        del eng
+    del packed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # jamba-tiny-dev: the serve mix from graphs against eager
+    reqs = serve_mix(jamba, np.random.default_rng(0))
+    g_eng, g_tok, g_st, g_l, n_pool, n_ssm, e_st = serve_graph_eager(
+        jamba, run, engine_params(jamba), reqs, kw)
+    for n in SERVE_KERNELS:
+        launches[n] += g_l[n]
+    log("moe_mla", f"{jamba.name} ({jamba.n_layers} layers, d="
+                   f"{jamba.d_model}, {jamba.n_heads}/{jamba.n_kv_heads} "
+                   f"heads of {jamba.head_dim}, SSM d_state "
+                   f"{jamba.ssm.d_state}, {jamba.moe.n_experts} experts top-"
+                   f"{jamba.moe.top_k}; {jamba.param_count()} parameters) "
+                   f"serve mix from CUDA graphs: the eager run's streams "
+                   f"({sum(map(len, g_tok))} tokens), page table, page use, "
+                   f"all {n_pool} B of pages and rings and all {n_ssm} B of "
+                   f"SSM state bit for bit; {g_st.eager_steps} eager (= "
+                   f"flushing) steps, {g_st.graph_replays} replayed; "
+                   f"{g_st.tokens_per_s:.2f} tok/s (eager "
+                   f"{e_st.tokens_per_s:.2f}) | {smi}")
+    del g_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("moe_mla", f"phase done in {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def engine_params(cfg):
+    """``cfg``'s seeded random weights on the card (seed 0), as
+    ``ServeEngine(seed=0)`` makes them."""
+    import torch
+    from repro_torch.models import lm, params as PM
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return PM.init_params(lm.lm_table(cfg), gen, device="cuda")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -3314,6 +3701,8 @@ def main() -> int:
         launches[name] += n
     del raw_params, serve_eng
     for name, n in hybrid_phase(smi).items():
+        launches[name] += n
+    for name, n in moe_mla_phase(smi).items():
         launches[name] += n
     kernels = []
     for name, r in rec.items():

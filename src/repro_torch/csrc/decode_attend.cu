@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel repro/kernels/decode_attend.py:decode_attend
 // (_fixed_kernel, with _decode_vals, _split_heads, _block_partial,
-// _accumulate and _live_masks) at tp = 1.
+// _accumulate and _live_masks) at tp = 1, for plain (GQA / MQA / MHA)
+// payloads and MLA latent payloads (mla_lora: lora > 0).
 //
 // What it computes, per sequence b: all B sequences share one length L.
 // Walk the store's blocks below L / blk; each block is ONE LEXI-FW record
@@ -89,13 +90,13 @@ extern "C" int decode_attend_launch(
     const void* q, const void* signman, const void* planes, const void* dicts,
     const void* esc_pos, const void* esc_raw, const void* raw_blocks,
     const void* ring, void* out, void* m, void* l, void* ws, void* counters,
-    int B, int H, int hkv, int hd, int blk, int W, int k, int C, int length,
-    int window, int span, int span0, int nsplit, long long nw, float scale,
-    float softcap, int codec_on, void* stream) {
+    int B, int H, int hkv, int hd, int lora, int blk, int W, int k, int C,
+    int length, int window, int span, int span0, int nsplit, long long nw,
+    float scale, float softcap, int codec_on, void* stream) {
   const Args a = make_args(q, signman, planes, dicts, esc_pos, esc_raw,
                            raw_blocks, ring, out, m, l, ws, counters,
-                           (long long)B * blk * W, nw, H, hkv, hd, blk, W, C,
-                           window, span, nsplit, scale, softcap);
+                           (long long)B * blk * W, nw, H, hkv, hd, lora, blk,
+                           W, C, window, span, nsplit, scale, softcap);
   return launch<Kernel>(
       [](auto kb) { return decode_attend_kernel<decltype(kb)::value>; }, a,
       codec_on, k, B, stream, length, span0);
@@ -107,23 +108,25 @@ extern "C" int decode_attend_dev_launch(
     const void* q, const void* signman, const void* planes, const void* dicts,
     const void* esc_pos, const void* esc_raw, const void* raw_blocks,
     const void* ring, void* out, void* m, void* l, void* ws, void* counters,
-    int B, int H, int hkv, int hd, int blk, int W, int k, int C,
+    int B, int H, int hkv, int hd, int lora, int blk, int W, int k, int C,
     const void* length, int window, int span, int nsplit, long long nw,
     float scale, float softcap, int codec_on, void* stream) {
   const Args a = make_args(q, signman, planes, dicts, esc_pos, esc_raw,
                            raw_blocks, ring, out, m, l, ws, counters,
-                           (long long)B * blk * W, nw, H, hkv, hd, blk, W, C,
-                           window, span, nsplit, scale, softcap);
+                           (long long)B * blk * W, nw, H, hkv, hd, lora, blk,
+                           W, C, window, span, nsplit, scale, softcap);
   return launch<DevKernel>(
       [](auto kb) { return decode_attend_dev_kernel<decltype(kb)::value>; },
       a, codec_on, k, B, stream, (const int*)length);
 }
 
-// The launch geometry both kernels use for (hd, gmax, span): out[0] chunk
-// rows, out[1] threads per (head, row) dot, out[2] dynamic shared memory
-// per CTA in bytes, out[3] threads per CTA.
-extern "C" void decode_attend_geometry(int hd, int gmax, int span, int* out) {
-  const Geometry geo(hd, gmax, span);
+// The launch geometry both kernels use for a CTA's row slice of rw columns
+// (keys dk wide, values dv wide; see decode_attend_body.cuh), gmax heads
+// and span P: out[0] chunk rows, out[1] threads per (head, row) dot,
+// out[2] dynamic shared memory per CTA in bytes, out[3] threads per CTA.
+extern "C" void decode_attend_geometry(int rw, int dk, int dv, int gmax,
+                                       int span, int* out) {
+  const Geometry geo(rw, dk, dv, gmax, span);
   out[0] = geo.tr;
   out[1] = geo.nsub;
   out[2] = geo.total;

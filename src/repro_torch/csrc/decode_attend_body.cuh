@@ -25,15 +25,15 @@
 //
 // Per span, 128 threads, in chunks of tr rows (a power of two dividing P):
 //   1. loads: cp.async copies of the chunk's packed bytes (the span's
-//      signman rows, 2 * hd bytes each at stride W; its k plane words) or
-//      raw bf16 rows into a 3-stage shared-memory ring: chunk i + 2 loads
+//      signman rows, rw bytes each at stride W; its k plane words) or raw
+//      bf16 rows into a 3-stage shared-memory ring: chunk i + 2 loads
 //      while chunk i is decoded and consumed;
 //   2. decode, templated on k (lexi::decode16 of lexi_decode.cuh): each
 //      thread takes 16 elements (one 16-byte signman load, k plane
 //      half-words), spreads four codes at a time
 //      into bytes with one multiply per plane, looks them up in the
 //      record's dictionary (pre-shifted to the exponent field) and writes
-//      bf16 to a tile whose row pitch (2 * hd + 8) keeps the row-per-lane
+//      bf16 to a tile whose row pitch (rw + 8) keeps the row-per-lane
 //      reads below free of bank conflicts;
 //   3. escapes: a block-wide 128-ary lower_bound of the record's sorted
 //      esc_pos from the span's first flat element (one round when no
@@ -53,7 +53,7 @@
 //      outside [0, L) and the window; optional softcap;
 //   5. online softmax per head (one warp per head), then p @ V in f32:
 //      each thread owns one column d for four heads.
-// Merge: each CTA writes its unnormalised partial (acc G x hd, m, l) to a
+// Merge: each CTA writes its unnormalised partial (acc G x dv, m, l) to a
 // workspace, fences, and counts itself in with an atomicAdd on its
 // (sequence, kv head) counter.  The last CTA to arrive merges all nsplit
 // partials in split order (not arrival order, so two launches give the
@@ -62,6 +62,14 @@
 // nothing -- 32 splits at a time (beyond 32 the running sums are rescaled
 // to each block's new max, as the online softmax does), writes (out, m, l)
 // and resets the counter to 0 for the next launch.
+//
+// Row slices.  A CTA reads rw columns of each row from column col0 = kv
+// head * rw: its keys are the slice's first dk columns, its values the dv
+// columns from vo.  Plain attention stores K||V per kv head: rw = 2 * hd,
+// dk = dv = hd, vo = hd.  MLA (lora > 0) stores one latent row c_kv ||
+// k_rope of W = lora + rope columns that every query head shares: one
+// "kv head" (hkv = 1, all H heads in one group), rw = dk = W (the absorbed
+// query is W wide), dv = lora, vo = 0 (v = the row's first lora columns).
 
 #pragma once
 
@@ -99,10 +107,11 @@ struct Args {
   float* out;
   float* m_out;
   float* l_out;
-  float* ws;                // partials: (seq, kv head, split, gmax, hd + 2)
+  float* ws;                // partials: (seq, kv head, split, gmax, dv + 2)
   int* counters;            // arrivals per (seq, kv head), zero between launches
   long long n_rec, nw;
-  int H, hkv, hd, g, gmax, blk, W, C, window, span, nsplit, planes16;
+  int H, hkv, rw, dk, dv, vo, g, gmax, blk, W, C, window, span, nsplit,
+      planes16;
   float scale, softcap;
 };
 
@@ -118,13 +127,13 @@ struct Geometry {
     return at;
   }
 
-  __host__ __device__ Geometry(int hd, int gmax, int span) {
-    tr = 1;                               // 16 KB of bf16 K||V rows, <= P
-    while (tr * 2 <= 4096 / hd && tr * 2 <= span) tr *= 2;
-    pitch = 2 * hd + 8;
+  __host__ __device__ Geometry(int rw, int dk, int dv, int gmax, int span) {
+    tr = 1;                               // 16 KB of bf16 row slices, <= P
+    while (tr * 2 * rw <= 8192 && tr * 2 <= span) tr *= 2;
+    pitch = rw + 8;
     gpad = (gmax + 3) / 4 * 4;
     nsub = 1;
-    while (gmax * tr * nsub * 2 <= kThreads && hd % (nsub * 16) == 0)
+    while (gmax * tr * nsub * 2 <= kThreads && dk % (nsub * 16) == 0)
       nsub *= 2;
     // a raw chunk is tr rows of the padded pitch; a packed one fits in it
     stage_bytes = tr * pitch * 2;
@@ -132,8 +141,8 @@ struct Geometry {
     o_lut = take(off, 256 * 2);            // first: a constant address
     o_stage = take(off, kStages * stage_bytes);
     o_tile = take(off, tr * pitch * 2);
-    o_qs = take(off, gmax * hd * 4);
-    o_acc = take(off, gmax * hd * 4);
+    o_qs = take(off, gmax * dk * 4);
+    o_acc = take(off, gmax * dv * 4);
     o_sc = take(off, gmax * tr * 4);
     o_part = take(off, kThreads * 4);
     o_pt = take(off, tr * gpad * 4);
@@ -210,15 +219,15 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
                                        const int* __restrict__ page_row,
                                        const int sp, const int split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Geometry geo(a.hd, a.gmax, a.span);
+  const Geometry geo(a.rw, a.dk, a.dv, a.gmax, a.span);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kvh = blockIdx.x;
   const int q0 = kvh * a.g;
   const int G = (kvh == a.hkv - 1) ? a.H - q0 : a.g;
-  const int hd = a.hd, D2 = 2 * hd, tr = geo.tr, pitch = geo.pitch;
+  const int dk = a.dk, dv = a.dv, D2 = a.rw, tr = geo.tr, pitch = geo.pitch;
   const int gpad = geo.gpad;
   const int pair = s * a.hkv + kvh;
-  const int stride = a.gmax * (hd + 2);       // one partial's floats
+  const int stride = a.gmax * (dv + 2);       // one partial's floats
   float* part = a.ws + ((long long)pair * a.nsplit + split) * stride;
 
   unsigned char* stage0 = smem + geo.o_stage;
@@ -249,7 +258,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
     const long long rid =
         is_ring ? 0 : (page_row != nullptr ? page_row[bi] : bi);
     const long long rec = rid * a.n_rec;     // the record's element 0
-    const int col0 = kvh * D2;               // this kv head's K||V columns
+    const int col0 = kvh * D2;               // this kv head's row slice
     const int wpr = D2 / 32;                 // plane words per row slice
     const int c_first = (live0 - p0) / tr;
     const int nch = (live1 - 1 - p0) / tr - c_first + 1;
@@ -262,8 +271,8 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
     const int tr_shift = __ffs(tr) - 1;
     const Walk walk_sm(tid, D2 / 16);        // 16-byte signman pieces
     const Walk walk_pl(tid, a.planes16 ? wpr / 4 : wpr);   // plane copies
-    const Walk walk_raw(tid, hd / 4);        // 16-byte pieces of raw rows
-    const Walk walk_pv(tid, hd);             // (4-head group, column)
+    const Walk walk_raw(tid, D2 / 8);        // 16-byte pieces of raw rows
+    const Walk walk_pv(tid, dv);             // (4-head group, column)
 
     // 1. issue chunk i's copies into stage i % kStages
     auto load = [&](int i) {
@@ -306,10 +315,9 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
     }
 
     // the span's dictionary, q, running state, staged escape slots
-    for (int i = tid; i < G * hd; i += kThreads) {
-      qs[i] = bf2f(a.q[((long long)s * a.H + q0) * hd + i]);
-      acc[i] = 0.f;
-    }
+    for (int i = tid; i < G * dk; i += kThreads)
+      qs[i] = bf2f(a.q[((long long)s * a.H + q0) * dk + i]);
+    for (int i = tid; i < G * dv; i += kThreads) acc[i] = 0.f;
     for (int i = tid; i < tr * gpad; i += kThreads) pt[i] = 0.f;
     for (int i = tid; i < G; i += kThreads) {
       mrun[i] = kNegInf;
@@ -327,7 +335,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
       eraw[tid] = e < a.C ? a.esc_raw[rid * a.C + e] : 0;
     }
 
-    const int npairs = G * tr, nsub = geo.nsub, dsub = hd / nsub;
+    const int npairs = G * tr, nsub = geo.nsub, dsub = dk / nsub;
     const int e_win = e_span + kEscWindow;   // first slot not staged
     const float inv_w = 1.f / a.W;
     int e_lo = e_span;                       // first slot of this chunk
@@ -415,7 +423,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
         const int g = pr >> tr_shift, r = pr & (tr - 1);
         float dot = 0.f;
         if (r < rows) {                    // four chains of FMAs, not one
-          const float* qg = qs + g * hd + sub * dsub;
+          const float* qg = qs + g * dk + sub * dsub;
           const uint16_t* kr = kv + r * pitch + sub * dsub;
           float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
           for (int d = 0; d < dsub; d += 8) {
@@ -472,7 +480,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
       // 5b. rescale the accumulator and add p @ V: one column, four heads
       for (Walk w = walk_pv; w.r < gpad / 4; w.next()) {
         const int gb = w.r, d = w.x;
-        const uint16_t* vc = kv + hd + d;
+        const uint16_t* vc = kv + a.vo + d;
         const float* pp = pt + gb * 4;
         float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
         for (int r = 0; r < rows; ++r) {
@@ -487,20 +495,20 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int g = gb * 4 + j;
-          if (g < G) acc[g * hd + d] = acc[g * hd + d] * alpha[g] + av[j];
+          if (g < G) acc[g * dv + d] = acc[g * dv + d] * alpha[g] + av[j];
         }
       }
     }
     __syncthreads();
-    for (int i = tid; i < G * hd; i += kThreads) part[i] = acc[i];
+    for (int i = tid; i < G * dv; i += kThreads) part[i] = acc[i];
     for (int i = tid; i < G; i += kThreads) {
-      part[a.gmax * hd + i] = mrun[i];
-      part[a.gmax * hd + a.gmax + i] = lrun[i];
+      part[a.gmax * dv + i] = mrun[i];
+      part[a.gmax * dv + a.gmax + i] = lrun[i];
     }
   } else {                                  // a dead span loads nothing
     for (int i = tid; i < G; i += kThreads) {
-      part[a.gmax * hd + i] = kNegInf;
-      part[a.gmax * hd + a.gmax + i] = 0.f;
+      part[a.gmax * dv + i] = kNegInf;
+      part[a.gmax * dv + a.gmax + i] = 0.f;
     }
   }
 
@@ -516,9 +524,9 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
   // then rescale the accumulator and add the block's weighted partials.
   // All loads of a step are independent; a dead split's out is never read.
   const float* base = a.ws + (long long)pair * a.nsplit * stride;
-  const int om = a.gmax * hd, ol = om + a.gmax;
+  const int om = a.gmax * dv, ol = om + a.gmax;
   float* wl = wts + kMergeSplits * a.gmax;   // the block's l, then weights
-  for (int i = tid; i < G * hd; i += kThreads) acc[i] = 0.f;
+  for (int i = tid; i < G * dv; i += kThreads) acc[i] = 0.f;
   for (int g = tid; g < G; g += kThreads) {
     mrun[g] = kNegInf;
     lrun[g] = 0.f;
@@ -549,13 +557,13 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
       alpha[g] = al;
     }
     __syncthreads();
-    for (int it0 = tid; it0 < G * hd; it0 += 4 * kThreads) {
+    for (int it0 = tid; it0 < G * dv; it0 += 4 * kThreads) {
       float v[4];
       int gj[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int it = it0 + j * kThreads;
-        gj[j] = it < G * hd ? it / hd : -1;
+        gj[j] = it < G * dv ? it / dv : -1;
         v[j] = gj[j] >= 0 ? acc[it] * alpha[gj[j]] : 0.f;
       }
 #pragma unroll 4
@@ -574,7 +582,7 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
     }
   }
   const long long o0 = (long long)s * a.H + q0;
-  for (int it = tid; it < G * hd; it += kThreads) a.out[o0 * hd + it] = acc[it];
+  for (int it = tid; it < G * dv; it += kThreads) a.out[o0 * dv + it] = acc[it];
   for (int g = tid; g < G; g += kThreads) {
     a.m_out[o0 + g] = mrun[g];
     a.l_out[o0 + g] = lrun[g];
@@ -583,13 +591,15 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
 }
 
 // Host side: the arguments both launchers pass, from the C interface's.
+// hd is the query's width; lora > 0 selects the MLA latent row (see the
+// row slices above), with hkv = 1 and hd = W.
 inline Args make_args(const void* q, const void* signman, const void* planes,
                       const void* dicts, const void* esc_pos,
                       const void* esc_raw, const void* raw, const void* ring,
                       void* out, void* m, void* l, void* ws, void* counters,
                       long long n_rec, long long nw, int H, int hkv, int hd,
-                      int blk, int W, int C, int window, int span, int nsplit,
-                      float scale, float softcap) {
+                      int lora, int blk, int W, int C, int window, int span,
+                      int nsplit, float scale, float softcap) {
   Args a;
   a.q = (const uint16_t*)q;
   a.signman = (const uint8_t*)signman;
@@ -608,7 +618,10 @@ inline Args make_args(const void* q, const void* signman, const void* planes,
   a.nw = nw;
   a.H = H;
   a.hkv = hkv;
-  a.hd = hd;
+  a.rw = lora > 0 ? W : 2 * hd;
+  a.dk = hd;
+  a.dv = lora > 0 ? lora : hd;
+  a.vo = lora > 0 ? 0 : hd;
   a.g = H / hkv;
   a.gmax = H - (hkv - 1) * a.g;
   a.blk = blk;
@@ -617,7 +630,8 @@ inline Args make_args(const void* q, const void* signman, const void* planes,
   a.window = window;
   a.span = span;
   a.nsplit = nsplit;
-  a.planes16 = hd % 64 == 0 && (uintptr_t)planes % 16 == 0;
+  // 16-byte plane copies: every row slice starts on a 4-word boundary
+  a.planes16 = a.rw % 128 == 0 && W % 128 == 0 && (uintptr_t)planes % 16 == 0;
   a.scale = scale;
   a.softcap = softcap;
   return a;
@@ -642,9 +656,12 @@ Kernel kernel_for(int kb, Pick pick) {
 // Returns the dynamic shared memory per CTA, or -1 if the shapes do not fit.
 template <class Kernel>
 int prepare(Kernel kernel, const Args& a) {
-  const Geometry geo(a.hd, a.gmax, a.span);
-  if (a.hd % 16 || a.span < 1 || a.blk % a.span || a.span % geo.tr ||
-      geo.total > kMaxSmem)
+  const Geometry geo(a.rw, a.dk, a.dv, a.gmax, a.span);
+  const bool mla = a.vo == 0;
+  if (a.dk % 16 || a.rw % 32 || a.dv % 16 || a.span < 1 ||
+      a.blk % a.span || a.span % geo.tr || geo.total > kMaxSmem ||
+      (mla ? a.hkv != 1 || a.dk != a.W || a.dv > a.W
+           : a.rw != 2 * a.dk || a.hkv * a.rw != a.W))
     return -1;
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel repro/kernels/decode_attend.py:
 // decode_attend_paged (_paged_kernel, with _decode_vals, _split_heads,
-// _block_partial, _accumulate and _live_masks) at tp = 1.
+// _block_partial, _accumulate and _live_masks) at tp = 1, for plain
+// (GQA / MQA / MHA) payloads and MLA latent payloads (mla_lora: lora > 0).
 //
 // What it computes, per slot s: walk the slot's page-table row over its
 // full pages, decode each LEXI-FW page (k bit-planes -> codes -> the page's
@@ -30,7 +31,10 @@
 // clips) and reads its span's page id from the slot's table row.  A page
 // row is K||V interleaved per kv head, (Hkv, 2, hd), so the CTA's columns
 // are one contiguous 2*hd slice of each row; with hd % 16 == 0 that slice
-// is whole 16-element plane half-words.  Escapes are found through the
+// is whole 16-element plane half-words.  An MLA page row is one latent
+// c_kv || k_rope that all query heads share: one CTA per (slot, span)
+// takes every head and the whole row (keys), whose first lora columns are
+// the values.  Escapes are found through the
 // page's esc_pos field rather than ranked with a popcount over the skipped
 // words, because a CTA sees only 1/Hkv of each row.  The last CTA of each
 // (slot, kv head) merges the splits in split order.
@@ -59,14 +63,14 @@ extern "C" int decode_attend_paged_launch(
     const void* esc_pos, const void* esc_raw, const void* raw_pages,
     const void* ring, const void* page_ids, const void* lengths, void* out,
     void* m, void* l, void* ws, void* counters, int S, int H, int hkv, int hd,
-    int blk, int W, int maxp, int k, int C, int window, int span, int nsplit,
-    float scale, float softcap, int codec_on, void* stream) {
+    int lora, int blk, int W, int maxp, int k, int C, int window, int span,
+    int nsplit, float scale, float softcap, int codec_on, void* stream) {
   if (codec_on && (k < 1 || k > kMaxK)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, signman, planes, dicts, esc_pos, esc_raw,
                            raw_pages, ring, out, m, l, ws, counters,
                            (long long)blk * W, (long long)blk * W / 32, H,
-                           hkv, hd, blk, W, C, window, span, nsplit, scale,
-                           softcap);
+                           hkv, hd, lora, blk, W, C, window, span, nsplit,
+                           scale, softcap);
   const Kernel kernel = kernel_for<Kernel>(codec_on ? k : 0, [](auto kb) {
     return decode_attend_paged_kernel<decltype(kb)::value>;
   });

@@ -6,15 +6,22 @@ paged pool), both built on ``csrc/decode_attend_body.cuh``, and their plain
 PyTorch twins.
 
 The port runs at tp = 1, so the reference's shard arguments (``tp``,
-``ti``) are gone: every sequence owns all its positions.  MLA latent
-payloads are not covered yet (the dense family is the ported path).
+``ti``) are gone: every sequence owns all its positions.
 
 Shared calling convention (as the reference's): q (S, H, hd) bf16 with
-hd % 16 == 0; ring (S, blk, W) bf16 with W = Hkv * 2 * hd (K‖V per kv
-head); window the layer's window (``ref.WINDOW_NONE`` for global layers);
-``kv_idx`` the GQA/MQA/MHA head map min(h // (Hq // Hkv), Hkv - 1)
-(``cache.gqa_head_table``; any other map is refused).  Both return
-unnormalised (out (S, H, hd) f32, m (S, H), l (S, H)).
+hd % 16 == 0; ring (S, blk, W) bf16; window the layer's window
+(``ref.WINDOW_NONE`` for global layers).  Two payloads:
+
+* plain attention (``mla_lora`` None): W = Hkv * 2 * hd (K‖V per kv
+  head); ``kv_idx`` the GQA/MQA/MHA head map min(h // (Hq // Hkv), Hkv -
+  1) (``cache.gqa_head_table``; any other map is refused);
+* MLA latent (``mla_lora`` = lora): each row is one latent c_kv ‖ k_rope
+  of W = hd columns that every query head shares (the absorbed query is
+  W wide); k is the whole row, v its first lora columns; ``kv_idx`` is
+  empty, as the reference's ``_kernel_statics`` passes it.
+
+Both return unnormalised (out (S, H, hd_v) f32, m (S, H), l (S, H)),
+hd_v = hd, or lora for MLA.
 
 ``decode_attend`` (fixed-batch store; S = B sequences at one length):
 signman (nblk, B·blk·W) uint8, planes (nblk, k, B·blk·W/32) int32-held
@@ -96,13 +103,16 @@ def capacity_splits(nblk: int, blk: int) -> int:
     return (nblk + 1) * blk // span_rows(blk)
 
 
-def geometry(hd: int, gmax: int, span: int) -> Dict[str, int]:
-    """What both kernels launch for (hd, gmax, P): chunk rows, threads per
+def geometry(hd: int, gmax: int, span: int,
+             mla_lora: Optional[int] = None) -> Dict[str, int]:
+    """What both kernels launch for (hd, gmax, P) (and an MLA latent of
+    hd columns, ``mla_lora`` of them values): chunk rows, threads per
     (head, row) dot, dynamic shared memory and threads per CTA."""
     from .ops import library
 
     out = (ctypes.c_int * 4)()
-    library().decode_attend_geometry(hd, gmax, span, out)
+    rw, dv = (hd, mla_lora) if mla_lora else (2 * hd, hd)
+    library().decode_attend_geometry(rw, hd, dv, gmax, span, out)
     return dict(zip(("chunk_rows", "dot_threads", "smem_bytes", "threads"),
                     out))
 
@@ -115,7 +125,7 @@ _workspaces: Dict[Tuple[torch.device, int],
 def _workspace(device, stream: int, n_s: int, hkv: int, nsplit: int,
                gmax: int, hd: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The merge workspace for one launch on ``stream``: (n_s, hkv,
-    nsplit, gmax, hd + 2) f32 partials and n_s * hkv int32 counters
+    nsplit, gmax, hd + 2) f32 partials (``hd`` the output width hd_v) and n_s * hkv int32 counters
     (allocated zeroed; every launch leaves them zero).  The kernels of one
     stream run one after another, so they can share it; two streams could
     overlap, so each has its own."""
@@ -135,8 +145,9 @@ def _head_map(h: int, hkv: int) -> Tuple[int, ...]:
     return tuple(min(i // g, hkv - 1) for i in range(h))
 
 
-def _check_attend(q, ring, kv_idx, n_seqs_name: str):
-    """Validate the operands both kernels share; (S, H, hd, blk, W, Hkv)."""
+def _check_attend(q, ring, kv_idx, mla_lora, n_seqs_name: str):
+    """Validate the operands both kernels share; (S, H, hd, blk, W, Hkv,
+    hd_v, lora), lora 0 for plain attention."""
     from .ops import check_cuda
 
     check_cuda(q, torch.bfloat16, 3, "q")
@@ -145,15 +156,26 @@ def _check_attend(q, ring, kv_idx, n_seqs_name: str):
     _, blk, w = ring.shape
     if hd % 16:
         raise ValueError(f"head_dim must be a multiple of 16, got {hd}")
-    if w % (2 * hd):
-        raise ValueError(f"payload width {w} is not Hkv * 2 * {hd}")
-    hkv = w // (2 * hd)
-    if not 1 <= hkv <= h or tuple(kv_idx) != _head_map(h, hkv):
-        raise ValueError(f"unsupported head map {tuple(kv_idx)} for {h} "
-                         f"query heads over {hkv} kv heads")
+    if mla_lora is not None:
+        lora = int(mla_lora)
+        if w != hd or w % 32 or lora % 16 or not 0 < lora <= w:
+            raise ValueError(f"MLA latent: payload width {w} must equal the "
+                             f"query's {hd} (a multiple of 32) and hold "
+                             f"lora {lora} (a multiple of 16)")
+        if tuple(kv_idx):
+            raise ValueError("MLA latent: the head map must be empty")
+        hkv, hd_v = 1, lora
+    else:
+        lora = 0
+        if w % (2 * hd):
+            raise ValueError(f"payload width {w} is not Hkv * 2 * {hd}")
+        hkv, hd_v = w // (2 * hd), hd
+        if not 1 <= hkv <= h or tuple(kv_idx) != _head_map(h, hkv):
+            raise ValueError(f"unsupported head map {tuple(kv_idx)} for {h} "
+                             f"query heads over {hkv} kv heads")
     if ring.shape[0] != n_s:
         raise ValueError(f"q and ring disagree on {n_seqs_name}")
-    return n_s, h, hd, blk, w, hkv
+    return n_s, h, hd, blk, w, hkv, hd_v, lora
 
 
 def _check_codec(signman, planes, dicts, esc_pos, esc_raw, n: int, k: int,
@@ -176,9 +198,10 @@ def _check_codec(signman, planes, dicts, esc_pos, esc_raw, n: int, k: int,
     return esc_pos.shape[1]
 
 
-def _outputs(q):
-    n_s, h, hd = q.shape
-    return (torch.empty((n_s, h, hd), dtype=torch.float32, device=q.device),
+def _outputs(q, hd_v: int):
+    n_s, h, _ = q.shape
+    return (torch.empty((n_s, h, hd_v), dtype=torch.float32,
+                        device=q.device),
             torch.empty((n_s, h), dtype=torch.float32, device=q.device),
             torch.empty((n_s, h), dtype=torch.float32, device=q.device))
 
@@ -194,11 +217,13 @@ def _stream(q) -> int:
 def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
                   ring, length: int, window: int, *, k: int,
                   kv_idx: Sequence[int], scale: float,
-                  softcap: Optional[float] = None):
+                  softcap: Optional[float] = None,
+                  mla_lora: Optional[int] = None):
     """Launch the fixed-batch kernel (CUDA tensors only)."""
     from .ops import check_cuda, library, raise_on_error
 
-    b, h, hd, blk, w, hkv = _check_attend(q, ring, kv_idx, "sequences")
+    b, h, hd, blk, w, hkv, hd_v, lora = _check_attend(
+        q, ring, kv_idx, mla_lora, "sequences")
     codec_on = signman is not None
     n = b * blk * w
     if codec_on:
@@ -220,7 +245,7 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
         if length < 0 or length // blk > nblk:
             raise ValueError(f"length {length} does not fit {nblk} blocks "
                              f"of {blk} and the ring")
-    out, m, l = _outputs(q)
+    out, m, l = _outputs(q, hd_v)
     if b == 0:
         return out, m, l
     window = int(window)
@@ -228,10 +253,10 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
         else fixed_splits(length, window, blk)
     stream = _stream(q)
     ws, cnt = _workspace(q.device, stream, b, hkv, nsplit,
-                         h - (hkv - 1) * (h // hkv), hd)
+                         h - (hkv - 1) * (h // hkv), hd_v)
     common = (_ptr(q), *(_ptr(t) for t in store), _ptr(ring), _ptr(out),
-              _ptr(m), _ptr(l), _ptr(ws), _ptr(cnt), b, h, hkv, hd, blk, w,
-              k, c)
+              _ptr(m), _ptr(l), _ptr(ws), _ptr(cnt), b, h, hkv, hd, lora,
+              blk, w, k, c)
     tail = (n // 32, float(scale), float(softcap or 0.0), int(codec_on),
             stream)
     if on_device:
@@ -248,11 +273,13 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
 def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
                         raw_pages, ring, page_ids, lengths, window: int, *,
                         k: int, kv_idx: Sequence[int], scale: float,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        mla_lora: Optional[int] = None):
     """Launch the paged kernel (CUDA tensors only)."""
     from .ops import check_cuda, library, raise_on_error
 
-    n_s, h, hd, blk, w, hkv = _check_attend(q, ring, kv_idx, "slots")
+    n_s, h, hd, blk, w, hkv, hd_v, lora = _check_attend(
+        q, ring, kv_idx, mla_lora, "slots")
     check_cuda(page_ids, torch.int32, 2, "page_ids")
     check_cuda(lengths, torch.int32, 1, "lengths")
     maxp = page_ids.shape[1]
@@ -269,17 +296,18 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
             raise ValueError("raw pages do not match the ring geometry")
         c = 0
         pool = (None,) * 5 + (raw_pages,)
-    out, m, l = _outputs(q)
+    out, m, l = _outputs(q, hd_v)
     if n_s == 0:
         return out, m, l
     nsplit = paged_splits(maxp, blk)
     stream = _stream(q)
     ws, cnt = _workspace(q.device, stream, n_s, hkv, nsplit,
-                         h - (hkv - 1) * (h // hkv), hd)
+                         h - (hkv - 1) * (h // hkv), hd_v)
     rc = library().decode_attend_paged_launch(
         _ptr(q), *(_ptr(t) for t in pool), _ptr(ring), _ptr(page_ids),
         _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), _ptr(ws), _ptr(cnt),
-        n_s, h, hkv, hd, blk, w, maxp, k, c, int(window), span_rows(blk),
+        n_s, h, hkv, hd, lora, blk, w, maxp, k, c, int(window),
+        span_rows(blk),
         nsplit, float(scale), float(softcap or 0.0), int(codec_on), stream)
     raise_on_error(rc, "decode_attend_paged")
     launches["decode_attend_paged"] += 1

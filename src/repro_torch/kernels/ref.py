@@ -123,46 +123,60 @@ def _stream_ok(lengths: torch.Tensor, maxp: int, blk: int, window: int):
 
 
 def _attend_partials(q, vals, ok, kv_idx: Sequence[int], scale: float,
-                     softcap: Optional[float]):
+                     softcap: Optional[float],
+                     mla_lora: Optional[int] = None):
     """Single-pass masked softmax partials over a gathered payload.
 
     q (S, H, hd) bf16; vals (S, T, W) bf16 with W = Hkv*2*hd (K‖V per kv
-    head); ok (S, T).  Returns unnormalised (out (S,H,hd) f32, m, l)."""
+    head), or with ``mla_lora`` an MLA latent row of W = hd that every
+    head shares (k the row, v its first ``mla_lora`` columns; the
+    reference's ``_split_heads``); ok (S, T).  Returns unnormalised
+    (out (S,H,hd_v) f32, m, l)."""
     s_, t, w = vals.shape
     hd = q.shape[-1]
-    kv = vals.reshape(s_, t, w // (2 * hd), 2, hd)
-    idx = torch.as_tensor(list(kv_idx), device=vals.device)
-    k = kv[..., 0, :].index_select(2, idx).float()          # (S,T,H,hd)
-    v = kv[..., 1, :].index_select(2, idx).float()
-    sc = torch.einsum("shd,sthd->sht", q.float(), k) * scale
+    if mla_lora is not None:
+        k = vals.float()                                      # (S,T,W)
+        sc = torch.einsum("shd,std->sht", q.float(), k) * scale
+    else:
+        kv = vals.reshape(s_, t, w // (2 * hd), 2, hd)
+        idx = torch.as_tensor(list(kv_idx), device=vals.device)
+        k = kv[..., 0, :].index_select(2, idx).float()      # (S,T,H,hd)
+        v = kv[..., 1, :].index_select(2, idx).float()
+        sc = torch.einsum("shd,sthd->sht", q.float(), k) * scale
     if softcap is not None:
         sc = torch.tanh(sc / softcap) * softcap
     okb = ok[:, None, :]
     sc = torch.where(okb, sc, NEG_INF)
     m = sc.max(-1).values
     p = torch.where(okb, torch.exp(sc - m[..., None]), 0.0)
-    out = torch.einsum("sht,sthd->shd", p, v)
+    if mla_lora is not None:
+        out = torch.einsum("sht,std->shd", p, k[..., :mla_lora])
+    else:
+        out = torch.einsum("sht,sthd->shd", p, v)
     return out, m, p.sum(-1)
 
 
 def paged_decode_attend_ref(q, pages_bf16, page_table, lengths, ring, *,
-                            kv_idx, scale, softcap=None, window=WINDOW_NONE):
+                            kv_idx, scale, softcap=None, window=WINDOW_NONE,
+                            mla_lora=None):
     """Oracle for ``decode_attend_paged`` on DEcompressed pages:
     q (S,H,hd); pages (P,blk,W) bf16; page_table (S,maxp) (-1 unmapped);
-    lengths (S,); ring (S,blk,W).  Returns normalised (S,H,hd) f32."""
+    lengths (S,); ring (S,blk,W).  Returns normalised (S,H,hd_v) f32."""
     n_s, maxp = page_table.shape
     _, blk, w = pages_bf16.shape
     gathered = pages_bf16[page_table.clamp(min=0).to(torch.int64)]
     vals = torch.cat([gathered.reshape(n_s, maxp * blk, w), ring], dim=1)
     ok = _stream_ok(lengths, maxp, blk, window)
-    out, _, l = _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+    out, _, l = _attend_partials(q, vals, ok, kv_idx, scale, softcap,
+                                 mla_lora)
     return out / l.clamp(min=1e-30)[..., None]
 
 
 def paged_decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
                               raw_pages, ring, page_ids, lengths, window, *,
                               k: int, kv_idx: Sequence[int], scale: float,
-                              softcap: Optional[float] = None):
+                              softcap: Optional[float] = None,
+                              mla_lora: Optional[int] = None):
     """Plain ``decode_attend_paged``: the kernel's arguments and its
     unnormalised (out, m, l) partials, computed by decompressing every
     page the table names (``core.fixed.decompress``: dictionary LUT, then
@@ -170,7 +184,7 @@ def paged_decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
     [pages ‖ ring].  ``page_ids`` must already be clipped to valid ids."""
     vals, ok = paged_stream(signman, planes, dicts, esc_pos, esc_raw,
                             raw_pages, ring, page_ids, lengths, window, k=k)
-    return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+    return _attend_partials(q, vals, ok, kv_idx, scale, softcap, mla_lora)
 
 
 def paged_stream(signman, planes, dicts, esc_pos, esc_raw, raw_pages, ring,
@@ -208,26 +222,23 @@ def fixed_stream(blocks_bf16, ring, length: int, window: int):
     return vals, _stream_ok(lengths, nb, blk, window)
 
 
-def _fixed_partials(q, blocks_bf16, ring, length: int, window: int, kv_idx,
-                    scale, softcap):
-    vals, ok = fixed_stream(blocks_bf16, ring, length, window)
-    return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
-
-
 def decode_attend_ref(q, blocks_bf16, ring, length: int, *, kv_idx, scale,
-                      softcap=None, window=WINDOW_NONE):
+                      softcap=None, window=WINDOW_NONE, mla_lora=None):
     """Oracle for ``decode_attend`` (fixed-batch store) on DEcompressed
     blocks: q (B,H,hd); blocks (nblk,B,blk,W) bf16; ring (B,blk,W);
-    ``length`` tokens of every sequence.  Returns normalised (B,H,hd) f32."""
-    out, _, l = _fixed_partials(q, blocks_bf16, ring, length, window, kv_idx,
-                                scale, softcap)
+    ``length`` tokens of every sequence.  Returns normalised (B,H,hd_v)
+    f32."""
+    vals, ok = fixed_stream(blocks_bf16, ring, length, window)
+    out, _, l = _attend_partials(q, vals, ok, kv_idx, scale, softcap,
+                                 mla_lora)
     return out / l.clamp(min=1e-30)[..., None]
 
 
 def decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
                         raw_blocks, ring, length, window: int, *, k: int,
                         kv_idx: Sequence[int], scale: float,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        mla_lora: Optional[int] = None):
     """Plain ``decode_attend``: the kernel's arguments and its unnormalised
     (out, m, l) partials, computed by decompressing the store's live blocks
     (``core.fixed.decompress`` of each whole B-sequence block: one
@@ -237,7 +248,7 @@ def decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
     on the host)."""
     vals, ok = fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw,
                                   raw_blocks, ring, int(length), window, k=k)
-    return _attend_partials(q, vals, ok, kv_idx, scale, softcap)
+    return _attend_partials(q, vals, ok, kv_idx, scale, softcap, mla_lora)
 
 
 def fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
@@ -284,7 +295,7 @@ def merge_split_partials(outs, ms, ls):
 
 def split_partials_plain(q, vals, ok, span: int, *, kv_idx, scale,
                          softcap=None, first: int = 0,
-                         nsplit: Optional[int] = None):
+                         nsplit: Optional[int] = None, mla_lora=None):
     """FlashDecoding on a gathered stream (``paged_stream``,
     ``fixed_stream``): the plain partials of each span of ``span``
     positions, spans first .. first + nsplit - 1 (default: every span of
@@ -299,6 +310,6 @@ def split_partials_plain(q, vals, ok, span: int, *, kv_idx, scale,
         lo = (first + j) * span
         in_span = (pos >= lo) & (pos < lo + span)
         parts.append(_attend_partials(q, vals, ok & in_span[None], kv_idx,
-                                      scale, softcap))
+                                      scale, softcap, mla_lora))
     outs, ms, ls = (torch.stack(x) for x in zip(*parts))
     return merge_split_partials(outs, ms, ls), (outs, ms, ls)

@@ -10,6 +10,12 @@ batching (a request stream through ``ServeEngine``).
         [--no-prefix-sharing]
     PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
         --prefill-replicas 1 --decode-replicas 2 --streaming --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --continuous --device cpu
+
+``--arch`` takes every dense, hybrid and MoE config (MLA included:
+deepseek-v2-lite-16b; jamba-tiny-dev, granite-moe-1b-a400m) in all three
+modes; attention-free and encoder-decoder configs are not ported.
 
 Weights are a seeded random init (no checkpoint ships with the repo).
 ``--reduced`` (the default) serves ``make_reduced(cfg)``; ``--no-reduced``
@@ -115,12 +121,11 @@ def _serve_fixed(cfg, run: RunConfig, args) -> int:
     from repro_torch.kernels import ops
     from repro_torch.models import lm, params as PM
     from repro_torch.serve import engine
-    from repro_torch.serve.scheduler import resolve_device
 
     if run.codec.cache:
         run = dataclasses.replace(run, codec=dataclasses.replace(
             run.codec, cache_block=32))
-    device = resolve_device(args.device)
+    device = engine.resolve_device(args.device)
     ops.resolve_decode_backend(run.codec, device)
     if device.type == "cuda":
         # f32 products (prefill attention) stay f32, as in the reference

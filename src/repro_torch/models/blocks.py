@@ -1,6 +1,7 @@
 """Transformer blocks at tp = 1 (ports ``repro/models/blocks.py``): the
-dense family (attention + MLP) and the parallel hybrid (attention ∥ Mamba2
-on the same normed input, + MLP).
+dense family (attention + MLP), the MoE family (attention, plain or MLA, +
+the MoE FFN of ``models/moe.py``) and the parallel hybrid (attention ∥
+Mamba2 on the same normed input, + MLP or MoE).
 
 Collectives dropped: the ``lexi_all_gather`` of the normalised activations
 and the ``psum_scatter`` of the mixer/FFN outputs.  At tp = 1 the
@@ -20,7 +21,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from . import attention, layers, ssm as ssm_mod
+from . import attention, layers, moe as moe_mod, ssm as ssm_mod
 from .params import PDef
 
 
@@ -31,16 +32,14 @@ def mlp_table(cfg: ModelConfig) -> Dict[str, PDef]:
 
 
 def block_table(cfg: ModelConfig) -> Dict:
-    """Parameter table for ONE layer (unstacked): dense, or the parallel
-    hybrid with its ``ssm`` subtable."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks wait for the MoE slice (models/moe.py)")
+    """Parameter table for ONE layer (unstacked): attention (with a
+    hybrid's ``ssm`` subtable beside it), then an ``mlp`` or, for MoE
+    configs, a ``moe`` FFN."""
     if cfg.n_heads == 0:
         raise NotImplementedError(
             f"{cfg.name}: attention-free blocks wait for the mamba2 slice "
             "(a KV-less PagedState)")
-    if cfg.encdec or not cfg.d_ff:
+    if cfg.encdec or (cfg.moe is None and not cfg.d_ff):
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and FFN-less blocks wait for the "
             "enc-dec slice")
@@ -51,6 +50,9 @@ def block_table(cfg: ModelConfig) -> Dict:
     if cfg.post_norm:
         t["ln1b"] = PDef((d,), "ones")
     t["ln2"] = PDef((d,), "ones")
+    if cfg.moe is not None:
+        t["moe"] = moe_mod.moe_table(cfg)
+        return t
     t["mlp"] = mlp_table(cfg)
     if cfg.post_norm:
         t["ln2b"] = PDef((d,), "ones")
@@ -58,7 +60,7 @@ def block_table(cfg: ModelConfig) -> Dict:
 
 
 def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """The FFN sub-block with its residual: x + W_down(swiglu(...))."""
+    """The MLP sub-block with its residual: x + W_down(swiglu(...))."""
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
     act = layers.swiglu(layers.pdot(h, m["w_gate"]),
@@ -69,21 +71,47 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return x + y
 
 
+def ffn(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
+        moe_groups: int = 1) -> torch.Tensor:
+    """The FFN tail of a full-sequence layer with its residual: the MoE
+    FFN where the layer has one (its tokens dispatched in ``moe_groups``
+    groups, see ``moe.moe_forward``; the aux loss is dropped: serving
+    ignores it), else the MLP."""
+    if "moe" in p:
+        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + moe_mod.moe_forward(cfg, run, p["moe"], h,
+                                       groups=moe_groups)[0]
+    return mlp(cfg, p, x)
+
+
+def ffn_decode(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The FFN tail of a decode layer (ports ``serve/engine.py:
+    _ffn_decode``): ``moe.moe_decode`` where the layer has a MoE FFN,
+    else the MLP."""
+    if "moe" in p:
+        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + moe_mod.moe_decode(cfg, p["moe"], h)
+    return mlp(cfg, p, x)
+
+
 def mixer_residual(cfg: ModelConfig, p, x: torch.Tensor,
                    partial: torch.Tensor) -> torch.Tensor:
     """The mixers' f32 sum rounded to bf16, (post-normed,) added to the
-    residual, then the FFN sub-block."""
+    residual; the FFN tail comes after (``ffn`` / ``ffn_decode``)."""
     out = partial.to(torch.bfloat16)
     if cfg.post_norm:
         out = layers.rms_norm(out, p["ln1b"], cfg.norm_eps)
-    return mlp(cfg, p, x + out)
+    return x + out
 
 
 def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
                   positions: torch.Tensor, spec: layers.AttnSpec,
-                  window=None, want_cache: bool = False):
-    """x (B,S,D) -> (x', (k, v) or None, the SSM's final ``SSMState`` or
-    None).  A hybrid's attention and SSM outputs are summed in f32."""
+                  window=None, want_cache: bool = False,
+                  moe_groups: int = 1):
+    """x (B,S,D) -> (x', the decode cache payload or None: (k, v), or an
+    MLA layer's latent (B,S,W); the SSM's final ``SSMState`` or None).  A
+    hybrid's attention and SSM outputs are summed in f32; a MoE FFN
+    dispatches its tokens in ``moe_groups`` groups."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     o, kv = attention.attn_forward(cfg, run, p["attn"], h, positions, spec,
                                    window=window, want_cache=want_cache)
@@ -92,4 +120,5 @@ def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
         o_ssm, st = ssm_mod.ssm_forward(cfg, p["ssm"], h,
                                         want_state=want_cache)
         o = o + o_ssm
-    return mixer_residual(cfg, p, x, o), kv, st
+    x = mixer_residual(cfg, p, x, o)
+    return ffn(cfg, run, p, x, moe_groups), kv, st

@@ -108,6 +108,21 @@ def gqa_head_table(cfg: ModelConfig, hq: int) -> tuple:
                  np.clip(np.arange(hq) // g, 0, cfg.n_kv_heads - 1))
 
 
+def kernel_statics(cfg: ModelConfig, run: RunConfig, q: torch.Tensor,
+                   spec: layers.AttnSpec) -> dict:
+    """The keyword arguments both attention kernels take for q (S,Hq,1,hd)
+    (the reference's ``_kernel_statics``): an MLA payload is the latent
+    that every head shares -- an empty head map, ``mla_lora`` set, the
+    output lora wide (the MLA scale comes in ``spec``)."""
+    mla = cfg.mla is not None
+    return dict(
+        k=run.codec.k,
+        kv_idx=() if mla else gqa_head_table(cfg, q.shape[1]),
+        scale=spec.scale if spec.scale is not None else q.shape[-1] ** -0.5,
+        softcap=spec.softcap,
+        mla_lora=cfg.mla.kv_lora_rank if mla else None)
+
+
 # ---------------------------------------------------------------------------
 # block store: fixed batch (group = B) and prefill side (group = 1)
 # ---------------------------------------------------------------------------
@@ -252,12 +267,12 @@ def attend_cache(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
     """Fixed-batch decode attention: q (B,Hq,1,hd) over the batch-shared
     store (group = B) whose sequences hold ``length`` tokens (post-append;
     a host int, or a 0-d int32 tensor on q's device, which the kernel
-    reads there).  Returns (B,Hq,1,hd) bf16.
+    reads there).  Returns (B,Hq,1,hd_v) bf16 (hd_v = lora for MLA).
 
     ``kernels.ops.decode_attend`` launches the CUDA kernel on CUDA tensors
     and runs its plain version on CPU ones; ``run.codec.decode_backend`` is
     checked against q's device first."""
-    b, hq, _, hd = q.shape
+    b = q.shape[0]
     if kv.group != b:
         raise ValueError(f"attend_cache needs the batch-shared store "
                          f"(group {b}), got group {kv.group}")
@@ -267,10 +282,7 @@ def attend_cache(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
                     kv.esc_raw, kv.raw_blocks))
     out, _, l = kops.decode_attend(
         q[:, :, 0].contiguous(), *fields, kv.ring, length,
-        effective_window(spec, window), k=run.codec.k,
-        kv_idx=gqa_head_table(cfg, hq),
-        scale=spec.scale if spec.scale is not None else hd ** -0.5,
-        softcap=spec.softcap)
+        effective_window(spec, window), **kernel_statics(cfg, run, q, spec))
     return layers.merge_partials(out, l)[:, :, None]
 
 
@@ -468,18 +480,15 @@ def attend_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV, layer: int,
                  spec: layers.AttnSpec, window=None) -> torch.Tensor:
     """Per-slot paged decode attention of ``layer``: q (S,Hq,1,hd),
     ``lengths`` (S,) int32 post-append token counts on q's device.
-    Returns (S,Hq,1,hd) bf16.
+    Returns (S,Hq,1,hd_v) bf16 (hd_v = lora for MLA).
 
     ``kernels.ops.decode_attend_paged`` launches the CUDA kernel on CUDA
     tensors and runs its plain version on CPU ones (``ServeEngine`` checks
     ``run.codec.decode_backend`` against the device once)."""
-    hd = q.shape[-1]
     out, _, l = kops.decode_attend_paged(
         q[:, :, 0].contiguous(), *pkv.layer_fields(layer), pkv.ring[layer],
         pkv.page_ids(), lengths, effective_window(spec, window),
-        k=run.codec.k, kv_idx=gqa_head_table(cfg, q.shape[1]),
-        scale=spec.scale if spec.scale is not None else hd ** -0.5,
-        softcap=spec.softcap)
+        **kernel_statics(cfg, run, q, spec))
     return layers.merge_partials(out, l)[:, :, None]
 
 

@@ -44,6 +44,15 @@ def matmul_f32(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(lead + (w.shape[-1],))
 
 
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched ``x @ w`` of bf16 operands, x (E, T, K), w (E, K, N) -> the
+    f32 products (E, T, N), as ``matmul_f32`` for raw weights: cuBLAS
+    ``aten::bmm.dtype`` on CUDA, both operands upcast on the CPU."""
+    if x.device.type == "cuda":
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
+
+
 def raw_weight(w):
     """A weight for non-matmul consumers: the exact bf16 decode of a
     ``PackedWeight``, a raw tensor as it is."""

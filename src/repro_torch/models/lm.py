@@ -61,14 +61,17 @@ def logits_for(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def lm_forward(cfg: ModelConfig, run: RunConfig, params,
                tokens: torch.Tensor, want_cache: bool = False,
-               cache_fn=None):
+               cache_fn=None, moe_groups: int = 1):
     """Trunk forward: tokens (B, S) -> (final-normed hidden (B, S, D),
-    per-layer ``cache_fn(i, (k, v), ssm_state)`` results or None).
+    per-layer ``cache_fn(i, kv, ssm_state)`` results or None).
 
-    ``cache_fn`` (prefill) turns each layer's rope'd K/V (and, for a
-    hybrid, its final ``SSMState``, else None) into its decode cache right
-    away, so the raw tensors of only one layer are alive at a time.
-    Without ``cache_fn`` the list holds the (kv, ssm_state) pairs."""
+    ``cache_fn`` (prefill) turns each layer's cache payload -- its rope'd
+    (k, v), or an MLA layer's latent (B, S, W) -- (and, for a hybrid, its
+    final ``SSMState``, else None) into its decode cache right away, so
+    the raw tensors of only one layer are alive at a time.  Without
+    ``cache_fn`` the list holds the (kv, ssm_state) pairs.  MoE layers
+    dispatch the B * S tokens in ``moe_groups`` groups (``B``: each
+    sequence on its own)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     spec = attention.base_attn_spec(cfg)
@@ -79,7 +82,8 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
         win: Optional[int] = None if wins is None else int(wins[i])
         x, kv, st = blocks.block_forward(cfg, run, layer_params(params, i),
                                          x, positions, spec, window=win,
-                                         want_cache=want_cache)
+                                         want_cache=want_cache,
+                                         moe_groups=moe_groups)
         if want_cache:
             caches.append(cache_fn(i, kv, st) if cache_fn is not None
                           else (kv, st))

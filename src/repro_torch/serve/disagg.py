@@ -1,6 +1,7 @@
 """Disaggregated prefill serving: prefill replicas feeding decode replicas
 through compressed page transfer (ports ``repro/serve/disagg.py`` at tp =
-1 for the dense family and the parallel attention ∥ SSM hybrids).
+1 for the dense, MoE and MLA families and the parallel attention ∥ SSM
+hybrids; an MLA page is a block of 576-wide latent rows on the wire).
 
 The monolithic ``ServeEngine`` interleaves admission (prefill-heavy,
 bursty) and decode (latency-sensitive, steady) on one set of slots.
@@ -39,10 +40,10 @@ into pages from the decode pool's own free list.
 decode replicas in other OS processes (``launch.disagg_host``) over TCP:
 the same wire bytes, the same streams.
 
-Left out: tp > 1 (and ``local_full_pages``), attention-free (KV-less)
-blobs, and MoE / MLA replicas, which wait for those models.  The reference
-rounds streaming export windows to powers of two to bound its jit cache;
-the port exports exactly the new columns, with the same chunk entries.
+Left out: tp > 1 (and ``local_full_pages``) and attention-free (KV-less)
+blobs.  The reference rounds streaming export windows to powers of two to
+bound its jit cache; the port exports exactly the new columns, with the
+same chunk entries.
 """
 
 from __future__ import annotations

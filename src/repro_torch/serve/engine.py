@@ -1,7 +1,9 @@
 """Serving engine (ports ``repro/serve/engine.py``) at tp = 1: prefill,
-then greedy decode over a LEXI-compressed KV cache (and, for the parallel
-attention ∥ SSM hybrids, each layer's recurrent SSM state), in two
-dataflows that share the per-layer compute (``_attn_block``):
+then greedy decode over a LEXI-compressed KV cache (MLA: the latent
+cache; and, for the parallel attention ∥ SSM hybrids, each layer's
+recurrent SSM state), in two dataflows that share the per-layer compute
+(``_attn_block``, whose FFN tail is the MLP or the MoE decode of
+``blocks.ffn_decode``):
 
 Fixed batch (the reference's original research loop; ``launch/serve.py``
 without ``--continuous``):
@@ -17,7 +19,9 @@ without ``--continuous``):
 Continuous batching (driven by ``serve.scheduler.ServeEngine``):
   admit  — ``prefill_sequences`` runs the trunk over a batch of
            same-length prompts, compressing each sequence's blocks on its
-           own; ``insert_sequences`` copies them into fresh pages;
+           own (and dispatching a MoE layer's tokens per sequence, as the
+           reference's vmapped B = 1 admission prefills do);
+           ``insert_sequences`` copies them into fresh pages;
   step   — ``paged_decode_step``: every active slot appends at its own
            length (the ring flushes into a fresh page when full) and
            attends through its page table; one greedy token per slot
@@ -124,23 +128,32 @@ def kv_payload(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         .reshape(b, s, hkv * 2 * hd)
 
 
+def cache_payload(cfg: ModelConfig, kv) -> torch.Tensor:
+    """A layer's prefill cache output -> its (B, S, W) cache payload: the
+    MLA latent as it is, else ``kv_payload(k, v)``."""
+    return kv if cfg.mla is not None else kv_payload(*kv)
+
+
 def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
              stores: List[cache_mod.KVBlocks],
-             ssm: Optional[SSMState] = None) -> torch.Tensor:
-    """tokens (B, S) -> last-position logits (B,1,Vp); layer i's K/V fills
-    the empty block store ``stores[i]`` in place, and a hybrid's final SSM
-    state layer i of ``ssm`` (L, B, ...).
+             ssm: Optional[SSMState] = None,
+             moe_groups: int = 1) -> torch.Tensor:
+    """tokens (B, S) -> last-position logits (B,1,Vp); layer i's cache
+    payload (K/V, or MLA's latent) fills the empty block store
+    ``stores[i]`` in place, and a hybrid's final SSM state layer i of
+    ``ssm`` (L, B, ...); MoE layers dispatch in ``moe_groups`` groups.
 
-    Each layer's K/V is compressed inside the layer loop (``lm_forward``'s
-    ``cache_fn``), so raw K/V of one layer only is alive at a time."""
+    Each layer's payload is compressed inside the layer loop
+    (``lm_forward``'s ``cache_fn``), so the raw payload of one layer only
+    is alive at a time."""
     def to_blocks(i, kv, st):
         if st is not None:
             ssm_mod.write_state(ssm_mod.take(ssm, i), st)
         return cache_mod.fill_from_prefill(cfg, run, stores[i],
-                                           kv_payload(*kv))
+                                           cache_payload(cfg, kv))
 
     x, _ = lm.lm_forward(cfg, run, params, tokens, want_cache=True,
-                         cache_fn=to_blocks)
+                         cache_fn=to_blocks, moe_groups=moe_groups)
     return lm.logits_for(cfg, params, x[:, -1:])
 
 
@@ -151,9 +164,21 @@ def _empty_ssm(cfg: ModelConfig, batch: int, device) -> Optional[SSMState]:
     return ssm_mod.empty_state(cfg, (cfg.n_layers, batch), device)
 
 
+def resolve_device(device) -> torch.device:
+    """The serving device: CUDA unless the caller asks for the CPU; a
+    CUDA request on a machine without a GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to serve on "
+                           "the CPU")
+    return dev
+
+
 def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
-                device="cpu") -> DecodeState:
-    """Zeroed fixed-batch state: one batch-shared store per layer."""
+                device="cuda") -> DecodeState:
+    """Zeroed fixed-batch state: one batch-shared store per layer, on the
+    card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     return DecodeState(
         kv=[cache_mod.empty_kv(cfg, run, batch, max_len, group=batch,
                                device=device)
@@ -164,7 +189,9 @@ def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
 def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
             max_len: int) -> Tuple[torch.Tensor, DecodeState]:
     """Fixed batch: tokens (B, S) -> (last-position logits (B,1,Vp),
-    DecodeState) with room for ``max_len`` tokens per sequence."""
+    DecodeState) with room for ``max_len`` tokens per sequence.  A MoE
+    layer dispatches the B * S tokens jointly, as the reference's
+    ``prefill`` does."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
@@ -179,24 +206,35 @@ def prefill_sequences(cfg: ModelConfig, run: RunConfig, params,
                       tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, PrefilledSequences]:
     """Continuous batching: tokens (B, S) -> (last-position logits
-    (B,1,Vp), each sequence's blocks compressed on its own)."""
+    (B,1,Vp), each sequence's blocks compressed on its own).  Every
+    sequence is its own B = 1 prefill, as the reference's vmapped admission
+    runs it: a MoE layer dispatches each sequence's tokens on their own,
+    with its own capacity."""
     b, s = tokens.shape
     stores = [cache_mod.empty_kv(cfg, run, b, s, device=tokens.device)
               for _ in range(cfg.n_layers)]
     ssm = _empty_ssm(cfg, b, tokens.device)
-    logits = _prefill(cfg, run, params, tokens, stores, ssm)
+    logits = _prefill(cfg, run, params, tokens, stores, ssm, moe_groups=b)
     return logits, PrefilledSequences(kv=stores, length=s, ssm=ssm)
+
+
+def decode_spec(cfg: ModelConfig) -> layers.AttnSpec:
+    """The decode attention spec: the config's, with MLA's scale."""
+    spec = attention.base_attn_spec(cfg)
+    if cfg.mla is not None:
+        spec = spec._replace(scale=attention.mla_scale(cfg))
+    return spec
 
 
 def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
                 attend, sst: Optional[SSMState] = None,
                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer's decode step around its cache: x (B,1,D), ``pos`` (B,)
-    rope positions; ``attend(q, new_vals)`` appends the new K/V and returns
-    the merged attention (B,Hq,1,hd) bf16.  A hybrid's ``sst`` (this
-    layer's state buffers) steps beside attention, its output summed in
-    f32, and takes the new state in place (only ``active``'s rows if
-    given)."""
+    rope positions; ``attend(q, new_vals)`` appends the new K/V (MLA: the
+    latent) and returns the merged attention (B,Hq,1,hd_v) bf16.  A
+    hybrid's ``sst`` (this layer's state buffers) steps beside attention,
+    its output summed in f32, and takes the new state in place (only
+    ``active``'s rows if given).  Then the FFN tail: MLP or MoE."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos)
     o = attention.decode_out(cfg, p["attn"], attend(q, new_vals))
@@ -204,7 +242,7 @@ def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
         o_ssm, new = ssm_mod.ssm_decode_step(cfg, p["ssm"], h, sst)
         ssm_mod.write_state(sst, new, active)
         o = o + o_ssm
-    return blocks.mixer_residual(cfg, p, x, o)
+    return blocks.ffn_decode(cfg, p, blocks.mixer_residual(cfg, p, x, o))
 
 
 def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
@@ -233,7 +271,7 @@ def _fixed_forward(cfg: ModelConfig, run: RunConfig, params,
     flush) but not advanced.  Without a flush it has the same shapes and
     addresses at every length (``FixedDecoder`` captures it)."""
     x = lm.embed_tokens(cfg, params["embed"], tokens)      # (B,1,D)
-    spec = attention.base_attn_spec(cfg)
+    spec = decode_spec(cfg)
     wins = attention.layer_windows(cfg)
     post = state.length_dev + 1
     for i in range(cfg.n_layers):
@@ -353,9 +391,11 @@ def generate(cfg: ModelConfig, run: RunConfig, params, prompts: torch.Tensor,
 
 def empty_paged_state(cfg: ModelConfig, run: RunConfig, n_slots: int,
                       max_len: int, n_pages: Optional[int] = None,
-                      device="cpu") -> PagedState:
+                      device="cuda") -> PagedState:
     """Zeroed paged state with a page pool sized for ``n_slots`` (and a
-    hybrid's SSM state for every slot, allocated once)."""
+    hybrid's SSM state for every slot, allocated once), on the card unless
+    the caller asks for the CPU."""
+    device = resolve_device(device)
     return PagedState(
         kv=cache_mod.empty_paged_kv(cfg, run, n_slots, max_len,
                                     n_pages=n_pages, device=device),
@@ -402,7 +442,7 @@ def _paged_forward(cfg: ModelConfig, run: RunConfig, params,
     flush it has the same shapes and addresses every step
     (``PagedDecoder`` captures it)."""
     x = lm.embed_tokens(cfg, params["embed"], tokens)      # (S,1,D)
-    spec = attention.base_attn_spec(cfg)
+    spec = decode_spec(cfg)
     wins = attention.layer_windows(cfg)
     for i in range(cfg.n_layers):
         x = paged_decode_block(

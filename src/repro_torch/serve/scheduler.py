@@ -294,16 +294,6 @@ def _host_fields(wire: cache_mod.PageWire, ring: bool = False
     return kv
 
 
-def resolve_device(device) -> torch.device:
-    """The serving device: CUDA unless the caller asks for the CPU; a
-    CUDA request on a machine without a GPU raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to serve on "
-                           "the CPU")
-    return dev
-
-
 class ServeEngine:
     """Continuous-batching inference engine (one GPU)."""
 
@@ -329,7 +319,7 @@ class ServeEngine:
         the engine's metrics, refreshed by ``sync_metrics``."""
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
-        self.device = resolve_device(device)
+        self.device = engine.resolve_device(device)
         self.cuda_graphs = engine.resolve_graphs(cuda_graphs, self.device)
         if self.device.type == "cuda":
             # f32 products (prefill attention) stay f32, as in the reference

@@ -261,7 +261,7 @@ def test_empty_state_matches_reference(codec_on):
     jcfg = dataclasses.replace(jcfg, n_layers=2)
     tcfg = dataclasses.replace(tcfg, n_layers=2)
     jst = jengine.empty_state(jcfg, jrun, B, 30, 1)
-    tst = tengine.empty_state(tcfg, trun, B, 30)
+    tst = tengine.empty_state(tcfg, trun, B, 30, device="cpu")
     assert int(jst.length) == tst.length == 0 and len(tst.kv) == 2
     for i, tkv in enumerate(tst.kv):
         assert tkv.group == B

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig, SSMConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import RunConfig, SSMConfig
 from repro_torch.core import fixed, weights
 from repro_torch.core.collectives import CodecConfig
 from repro_torch.kernels import decode_attend, decompress_matmul, lexi_unpack
@@ -1586,3 +1587,234 @@ def test_hybrid_masked_ssm_update_in_graph(cuda):
         assert torch.equal(decs[0].tok, decs[1].tok)
     assert decs[0].counts.replays >= 3 and decs[0].counts.captures == 1
     assert list(sts[0].lengths) == [14, 11]
+
+
+# ---------------------------------------------------------------------------
+# MLA latent payloads in both attention kernels; MoE models on the card
+# ---------------------------------------------------------------------------
+
+# (query heads, lora, rope): deepseek-v2-lite-16b's latent, and a small one
+MLA_SHAPES = [(16, 512, 64), (4, 48, 16)]
+MLA_IDS = ["deepseek", "small"]
+
+
+def _mla_kw(lora, softcap=None):
+    return dict(k=5, kv_idx=(), scale=(128 + 64) ** -0.5, softcap=softcap,
+                mla_lora=lora)
+
+
+@pytest.mark.parametrize("blk", [16, 256])
+@pytest.mark.parametrize("shape", MLA_SHAPES, ids=MLA_IDS)
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_decode_attend_paged_mla_matches_plain(cuda, shape, codec_on, blk):
+    """The paged kernel's MLA latent path (k the whole row of lora + rope
+    columns, v its first lora columns, every query head on one row, out
+    lora wide: hd_v != hd) on a pool with escapes on both sides of a span
+    boundary and one past the capacity, slot lengths at the split's edges;
+    full, windowed, last span only, soft-capped: within 1e-4 of the plain
+    version, one launch per call, a second launch bit for bit."""
+    h, lora, rope = shape
+    w = lora + rope
+    gen = torch.Generator(device=cuda).manual_seed(h + lora + blk)
+    lengths = AC.edge_lengths(blk)
+    s_, n_pages = len(lengths), 16
+    maxp = max(lengths) // blk + 1
+    pages = _bf16(gen, (n_pages, blk, w))
+    pages[0] = AC.overflowing(gen, (blk, w))
+    pages[1] = AC.with_escapes(AC.dict_filled(gen, (blk, w)),
+                               AC.escape_rows(blk))
+    table = torch.randint(0, n_pages, (s_, maxp), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    longest = max(range(s_), key=lambda i: lengths[i])
+    table[longest, :2] = torch.tensor([0, 1], dtype=torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if codec_on:
+        ct = fixed.compress_many(pages, k=5)
+        assert int(ct.n_escapes[0]) > ct.esc_pos.shape[-1]
+        pool = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+                None)
+    else:
+        pool = (None,) * 5 + (pages,)
+    q, ring = _bf16(gen, (s_, h, w)), _bf16(gen, (s_, blk, w))
+    for window, softcap in WINDOWS:
+        args = (q, *pool, ring, table, lens, window)
+        kw = _mla_kw(lora, softcap)
+        before = decode_attend.launches["decode_attend_paged"]
+        got = ops.decode_attend_paged(*args, **kw)
+        assert decode_attend.launches["decode_attend_paged"] == before + 1
+        assert got[0].shape == (s_, h, lora)
+        AC.attend_close(got, ref.paged_decode_attend_plain(*args, **kw))
+        assert AC.same_bits(got, ops.decode_attend_paged(*args, **kw))
+
+
+@pytest.mark.parametrize("blk", [16, 256])
+@pytest.mark.parametrize("shape", MLA_SHAPES, ids=MLA_IDS)
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+def test_fixed_decode_attend_mla_matches_plain(cuda, shape, codec_on, blk):
+    """The fixed-batch kernel's MLA latent path: 3 sequences share each
+    block's dictionary and side channel (escapes in sequence 0, escapes on
+    both sides of a span boundary then overflow in sequence 2), lengths at
+    the split's edges, host- and device-length launches; within 1e-4 of
+    the plain version, bit for bit on a second launch."""
+    h, lora, rope = shape
+    w, b = lora + rope, 3
+    gen = torch.Generator(device=cuda).manual_seed(h + lora + blk + 1)
+    lengths = AC.edge_lengths(blk)
+    blocks = _edge_blocks(gen, b, blk, w, max(lengths) // blk + 1)
+    nblk = blocks.shape[0]
+    n = b * blk * w
+    if codec_on:
+        ct = fixed.compress_many(blocks.reshape(nblk, n), k=5,
+                                 esc_capacity=max(n // 128, 8))
+        assert int(ct.n_escapes[1]) > ct.esc_pos.shape[-1]
+        store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+                 None)
+    else:
+        store = (None,) * 5 + (blocks,)
+    q, ring = _bf16(gen, (b, h, w)), _bf16(gen, (b, blk, w))
+    dev_len = torch.zeros((), dtype=torch.int32, device=cuda)
+    for length in lengths:
+        dev_len.fill_(length)
+        for window, softcap in WINDOWS:
+            kw = _mla_kw(lora, softcap)
+            want = ref.decode_attend_plain(q, *store, ring, length, window,
+                                           **kw)
+            for form in (length, dev_len):
+                args = (q, *store, ring, form, window)
+                got = ops.decode_attend(*args, **kw)
+                assert got[0].shape == (b, h, lora)
+                AC.attend_close(got, want)
+                assert AC.same_bits(got, ops.decode_attend(*args, **kw))
+
+
+def test_mla_kernels_refuse_bad_latents(cuda):
+    """The MLA launch checks: the payload as wide as the query, a multiple
+    of 32 wide, lora a multiple of 16 inside it, no head map."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, ring = _bf16(gen, (2, 4, 64)), _bf16(gen, (2, 16, 64))
+    table = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    pages = _bf16(gen, (2, 16, 64))
+    pool = (None,) * 5 + (pages,)
+    for bad in (dict(mla_lora=40), dict(mla_lora=80),
+                dict(mla_lora=48, kv_idx=(0, 0, 0, 0))):
+        kw = dict(_mla_kw(48), **bad)
+        with pytest.raises(ValueError, match="MLA"):
+            decode_attend.decode_attend_paged(q, *pool, ring, table, lens,
+                                              ref.WINDOW_NONE, **kw)
+    with pytest.raises(ValueError, match="MLA"):
+        decode_attend.decode_attend_paged(
+            _bf16(gen, (2, 4, 48)), *pool, ring, table, lens,
+            ref.WINDOW_NONE, **_mla_kw(32))
+
+
+TINY_MOE_MLA = ModelConfig(
+    name="dv", family="moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+    d_ff=0, vocab_size=512, head_dim=16,
+    mla=MLAConfig(kv_lora_rank=48, qk_nope_dim=16, qk_rope_dim=16,
+                  v_dim=16),
+    moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, n_shared=1))
+TINY_JAMBA = dataclasses.replace(
+    TINY_HYBRID, name="jl", d_ff=0,
+    moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, n_shared=1,
+                  capacity_factor=4.0))
+
+
+def test_moe_mla_model_on_card_matches_cpu(cuda):
+    """The tiny MoE + MLA model, card against CPU from the same weights:
+    the per-sequence prefill, then 10 paged steps fed the CPU's greedy
+    tokens (block 4: flushes at 12, 16, 20): logits within 1e-2 at every
+    step (f32 sums in another order; a routing choice near a tie may go
+    the other way, which moves the logits by far less); the paged kernel
+    launched once per layer and step on the latent pages."""
+    run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
+    params = PM.init_params(lm.lm_table(TINY_MOE_MLA),
+                            torch.Generator().manual_seed(3))
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 512, (2, 9)), dtype=torch.int32)
+    logits, states = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = PM.to_device(params, dev)
+        st = engine.empty_paged_state(TINY_MOE_MLA, run, 2, 48, device=dev)
+        lg, d = engine.prefill_sequences(TINY_MOE_MLA, run, p, prompt.to(dev))
+        engine.insert_sequences(TINY_MOE_MLA, run, st, d, [0, 1])
+        logits[dev], states[dev] = [lg.float().cpu()], (st, p)
+    assert states["cuda"][0].kv.ring.shape[-1] == 64       # the latent
+    ops.reset_launch_counts()
+    for _ in range(10):
+        feed = engine.greedy_token(logits["cpu"][-1])
+        for dev in ("cpu", "cuda"):
+            st, p = states[dev]
+            logits[dev].append(engine.paged_decode_step(
+                TINY_MOE_MLA, run, p, st, feed.to(dev)).float().cpu())
+    assert ops.launch_counts()["decode_attend_paged"] == 2 * 10
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert torch.isfinite(b).all()
+        assert float((a - b).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+@pytest.mark.parametrize("model", [TINY_MOE_MLA, TINY_JAMBA],
+                         ids=["moe_mla", "jamba"])
+def test_moe_graph_streams_match_eager(cuda, model, codec_on):
+    """A tiny MoE + MLA model and a tiny jamba-like hybrid (attention ∥
+    SSM, MoE FFN) through ServeEngine from CUDA graphs and eagerly: the
+    same streams, page tables, pool bytes and SSM state bit for bit; every
+    flushing step eager, the rest replayed (the MoE decode's gathers and
+    batched products captured)."""
+    codec = dataclasses.replace(
+        CodecConfig() if codec_on else CodecConfig.off(), cache_block=4)
+    run = RunConfig(codec=codec)
+    params = PM.init_params(lm.lm_table(model),
+                            torch.Generator(device=cuda).manual_seed(1),
+                            device=cuda)
+    got = {}
+    for graphs in (False, True):
+        eng = ServeEngine(model, run, n_slots=2, max_len=48, params=params,
+                          cuda_graphs=graphs)
+        assert not eng.prefix_sharing
+        results, st = eng.run(_tiny_requests())
+        torch.cuda.synchronize()
+        assert [len(r.tokens) for r in results] == [5, 6, 9, 4]
+        assert st.n_replay_dispatches == 0          # the exact trunk
+        if graphs:
+            assert st.graph_captures == 1 and st.graph_replays > 0
+            assert st.eager_steps == st.flush_steps
+        got[graphs] = ([r.tokens for r in results], _pool_bits(eng.state.kv),
+                       [] if eng.state.ssm is None
+                       else _ssm_bits(eng.state.ssm))
+    assert got[True][0] == got[False][0]
+    for key in got[False][1]:
+        assert torch.equal(got[True][1][key], got[False][1][key]), key
+    for a, b in zip(got[True][2], got[False][2]):
+        assert torch.equal(a, b)
+
+
+def test_moe_mla_generate_graph_matches_eager(cuda):
+    """The tiny MoE + MLA model's fixed loop (one joint MoE dispatch at
+    prefill) from a CUDA graph against the eager loop: the same tokens,
+    latent block stores and rings."""
+    run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
+    params = PM.init_params(lm.lm_table(TINY_MOE_MLA),
+                            torch.Generator(device=cuda).manual_seed(3),
+                            device=cuda)
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 512, (3, 6)), dtype=torch.int32, device=cuda)
+    outs, states = [], []
+    for graphs in (False, True):
+        logits, st = engine.prefill(TINY_MOE_MLA, run, params, prompts, 24)
+        dec = engine.FixedDecoder(TINY_MOE_MLA, run, params, st,
+                                  engine.greedy_token(logits), graphs)
+        toks = [dec.tok.clone()]
+        for _ in range(11):
+            dec.step()
+            toks.append(dec.tok.clone())
+        outs.append(torch.cat(toks, 1))
+        states.append([getattr(kv, f).contiguous().view(torch.uint8).cpu()
+                       for kv in st.kv for f in ("signman", "planes",
+                                                 "ring")])
+        if graphs:
+            assert dec.counts.replays == 8 and dec.counts.eager == 3
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*states):
+        assert torch.equal(a, b)

@@ -189,8 +189,8 @@ def test_static_step_matches_indexed_step(params, codec_on):
     page table and page use bit for bit."""
     run = _run(codec_on)
     rng = np.random.default_rng(1)
-    new = engine.empty_paged_state(CFG, run, 3, 40)
-    old = engine.empty_paged_state(CFG, run, 3, 40)
+    new = engine.empty_paged_state(CFG, run, 3, 40, device="cpu")
+    old = engine.empty_paged_state(CFG, run, 3, 40, device="cpu")
     _admit(run, params, (new, old), [0, 2],
            torch.as_tensor(rng.integers(0, 512, (2, 6)), dtype=torch.int32))
 
@@ -283,7 +283,8 @@ def test_paged_decoder_graph_split(params, fake_graphs, codec_on):
     and a readmission after the capture."""
     run = _run(codec_on)
     rng = np.random.default_rng(4)
-    states = [engine.empty_paged_state(CFG, run, 3, 48) for _ in range(2)]
+    states = [engine.empty_paged_state(CFG, run, 3, 48, device="cpu")
+              for _ in range(2)]
     decs = [engine.PagedDecoder(CFG, run, st, graphs=g)
             for st, g in zip(states, (False, True))]
     _admit(run, params, states, [0, 1],

@@ -160,7 +160,7 @@ def test_teacher_forced_logits(served):
     jadmit = jax.jit(jcl.shmap(admit, mesh, (P(), P()), P()))
     jstep = jax.jit(jcl.shmap(step, mesh, (P(), P(), P()), P()))
     lj, jst = jadmit(jp, jnp.asarray(prompts))
-    tst = tengine.empty_paged_state(tcfg, trun, 2, MAXLEN)
+    tst = tengine.empty_paged_state(tcfg, trun, 2, MAXLEN, device="cpu")
     lt, d = tengine.prefill_sequences(tcfg, trun, served["params"],
                                       torch.as_tensor(prompts))
     tengine.insert_sequences(tcfg, trun, tst, d, [0, 1])

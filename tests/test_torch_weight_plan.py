@@ -147,8 +147,9 @@ def test_plan_small_shapes():
 
 def _weight_shapes(cfg):
     """The 2-D (per layer) shapes of the leaves that pack: from the
-    port's parameter table where the family is ported, else the dense
-    projections the config's widths define."""
+    port's parameter table where the family is ported (a MoE layer's
+    (E, D, F) expert stacks by their (D, F) slices; MLA's projections),
+    else the dense projections the config's widths define."""
     try:
         table = lm.lm_table(cfg)
     except NotImplementedError:
@@ -162,10 +163,11 @@ def _weight_shapes(cfg):
         if isinstance(t, PM.PDef):
             stacked = path[:1] == ("blocks",)
             per_layer = t.shape[1:] if stacked else t.shape
-            if len(per_layer) == 2 and "embed" not in path[-1] \
-                    and per_layer[0] * per_layer[1] >= \
-                    weights.MIN_COMPRESS_SIZE and per_layer[1] % 32 == 0:
-                shapes.add(tuple(per_layer))
+            sl = per_layer[-2:]                  # an expert stack's slice
+            if len(per_layer) >= 2 and "embed" not in path[-1] \
+                    and sl[0] * sl[1] >= weights.MIN_COMPRESS_SIZE \
+                    and sl[1] % 32 == 0:
+                shapes.add(tuple(sl))
             return
         for key, v in t.items():
             walk(v, path + (key,))
@@ -179,8 +181,14 @@ def test_plan_workspace_is_a_small_share_of_w(name):
     """The f32 partials of splits 1.. stay within 1/8 of the packed W's
     bytes, at every decode M, code width and weight shape of the config;
     the counters are one int per (column tile, M-group)."""
-    shapes = _weight_shapes(get_config(name))
+    cfg = get_config(name)
+    shapes = _weight_shapes(cfg)
     assert shapes
+    if cfg.moe is not None and cfg.n_heads:       # expert slices counted
+        assert (cfg.d_model, cfg.moe.d_ff) in shapes
+    if cfg.mla is not None:                       # the latent projection
+        m = cfg.mla
+        assert (cfg.d_model, m.kv_lora_rank + m.qk_rope_dim) in shapes
     for kk, n in sorted(shapes):
         if n % 32:
             continue
