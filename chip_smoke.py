@@ -231,13 +231,29 @@ non-zero:
                profiled, ``..._packed{,_graph}.txt``); last, jamba-tiny-dev
                (8 layers, attention ∥ Mamba2, 8 experts top-2) eagerly and
                from graphs (streams, pool bytes and SSM state equal).
-  13. the card's line, the ``kernels`` JSON line (launches from the runs
-     from CUDA graphs, the replays counted; the disagg, hybrid and
-     moe_mla phases' runs added), then the result line.
+  13. tp — tensor parallelism: full-width qwen3-4b at tp = 2 as two
+     ranks (``launch.mesh.spawn``) on the one card over gloo (NCCL
+     refuses two ranks on one device, so the activations' packed wire
+     buffers cross host memory: a check of function, not of link speed),
+     from seed 0's weights (the tp = 1 weights padded for tp, each rank's
+     shard).  The mix (6 whole-trunk prompts of 256-1024 tokens) raw and
+     packed (``cuda`` weight backend) and the fixed loop (4 x 508 + 6
+     steps, a flush at 510); both ranks' streams equal; against the
+     parent's tp = 1 runs of the same weights, each first divergence
+     teacher-forced and a near-tie; per prefill the activation gathers'
+     wire bytes against raw bf16, the escape overflows, the compressed
+     all-gather's ms against a raw one on this transport, ms per prefill
+     and per decode step, the launches.  The kernels phase holds both
+     attention kernels' shard path on every shard of tp 2 and 4 and
+     times one tp = 2 shard (``tp_attend_kernels``: rows 1t and 6t).
+  14. the card's line, the ``kernels`` JSON line (launches from the runs
+     from CUDA graphs, the replays counted; the disagg, hybrid, moe_mla
+     and tp phases' runs added), then the result line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -696,7 +712,98 @@ def kernels_phase(cfg):
     rec.update(weight_kernels(cfg, gen))
     rec["decode_attend"] = fixed_attend_kernel(cfg, gen, "kernels",
                                                also=("gemma2-9b",))
+    tp_attend_kernels(cfg, gen, "kernels")
     return rec
+
+
+TP_SHARD = (2, 0)          # the timed shard: rank 0 of tp = 2
+
+
+def tp_attend_kernels(cfg, gen, phase):
+    """Both attention kernels' tensor-parallel shard path (``tp``, ``ti``)
+    at ``cfg``'s heads: every shard of tp = 2 and 4 against the plain
+    versions (``attend_cases.tp_paged_checks`` / ``tp_fixed_checks``:
+    lengths 0 .. 3 blk tp + 5, window 5, softcap, escapes on both sides of
+    a span boundary and past the capacity, 1 and 64 slots, two launches
+    bit for bit), then one tp = 2 shard timed at the main path's shapes
+    (the paged kernel on PAGED_LENGTHS, the fixed one on 4 x 1100 tokens,
+    device-length launch) beside SDPA on that shard's decompressed rows,
+    the plain version and the bound.  Logs rows ``1t`` and ``6t``."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import attend_cases as AC
+    from repro_torch.kernels import decode_attend, ref
+
+    g = attend_geom(cfg)
+    t0 = time.perf_counter()
+    err_p, n_p = AC.tp_paged_checks(gen, g.h, g.hd, g.w, g.kw)
+    err_f, n_f = AC.tp_fixed_checks(gen, g.h, g.hd, g.w, g.kw)
+    log(phase, f"tp shard path at {cfg.name}'s heads (H={g.h}/{g.hkv}, "
+               f"hd={g.hd}, W={g.w}), every shard of tp 2 and 4: "
+               f"decode_attend_paged {n_p} calls (lengths "
+               f"{AC.tp_lengths(ATTEND_BLK, 2)} at tp 2, 1 slot, 64 "
+               f"slots) and decode_attend {n_f} calls (both launch forms) "
+               f"within 1e-4 of the plain versions, each launched twice "
+               f"bit for bit; max |err| {err_p:.3e} / {err_f:.3e} "
+               f"({time.perf_counter() - t0:.1f}s)")
+
+    tp, ti = TP_SHARD
+    blk, k = ATTEND_BLK, ATTEND_K
+    kw = dict(k=k, **g.kw, tp=tp, ti=ti)
+    # paged: 4 slots of PAGED_LENGTHS global tokens, this shard's pages
+    loc = [ref.local_length(L, tp, ti) for L in PAGED_LENGTHS]
+    n_live = sum(L // blk for L in loc)
+    pages = _pages(gen, n_live + 2, blk, g.w)
+    ct = fixed.compress_many(pages, k=k)
+    q, ring, page_ids, _ = paged_case(gen, g.h, g.hd, n_live + 2, blk, g.w,
+                                      loc)
+    lens = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    fields = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+              None)
+    args = (q, *fields, ring, page_ids, lens, ref.WINDOW_NONE)
+    err = AC.attend_close(decode_attend.decode_attend_paged(*args, **kw),
+                          ref.paged_decode_attend_plain(*args, **kw))
+    s_, n = len(loc), blk * g.w
+    c = ct.esc_pos.shape[-1]
+    lib_fn = sdpa_fn(q, torch.cat([fixed.decompress(ct)[page_ids.long()]
+                                   .reshape(s_, -1, g.w), ring], 1))
+    by = (n_live * (n * (1 + k / 8) + c) + sum(L % blk for L in loc) * g.w
+          * 2 + q.numel() * 2 + s_ * g.h * (g.hd_v + 2) * 4)
+    row = dict(max_abs_err=err, launches=None, plain_ms=cuda_ms(
+        lambda: ref.paged_decode_attend_plain(*args, **kw), reps=5),
+        **bound_row(by, 2 * (g.hd + g.hd_v) * g.h * sum(loc)),
+        **attend_timing(phase, "decode_attend_paged tp=2 shard 0",
+                        lambda: decode_attend.decode_attend_paged(
+                            *args, **kw), lib_fn))
+    log(phase, f"1t decode_attend_paged, shard {ti} of tp {tp} (S={s_}, "
+               f"global lengths {PAGED_LENGTHS}, shard rows {loc}, "
+               f"{n_live} live pages): {row}")
+    # fixed: 4 sequences of 1100 global tokens, this shard's blocks
+    b, length = 4, 1100
+    loc_len = ref.local_length(length, tp, ti)
+    blocks, ct, ring, q = _fixed_case(gen, b, g.h, g.hkv, g.hd, blk,
+                                      loc_len, w=g.w)
+    store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+             None)
+    dev_len = torch.tensor(length, dtype=torch.int32, device="cuda")
+    fargs = (q, *store, ring, dev_len, ref.WINDOW_NONE)
+    err = AC.attend_close(decode_attend.decode_attend(*fargs, **kw),
+                          ref.decode_attend_plain(*fargs, **kw))
+    live = loc_len // blk
+    cap = ct.esc_pos.shape[-1]
+    nf = b * blk * g.w
+    by = (live * (nf * (1 + k / 8) + (1 << k) + 5 * cap)
+          + b * (loc_len - live * blk) * g.w * 2 + q.numel() * 2
+          + b * g.h * (g.hd_v + 2) * 4)
+    row = dict(max_abs_err=err, launches=None, plain_ms=cuda_ms(
+        lambda: ref.decode_attend_plain(*fargs, **kw), reps=5),
+        **bound_row(by, 2 * (g.hd + g.hd_v) * b * g.h * loc_len),
+        **attend_timing(phase, "decode_attend tp=2 shard 0",
+                        lambda: decode_attend.decode_attend(*fargs, **kw),
+                        sdpa_fn(q, fixed_rows(blocks, ring, loc_len))))
+    log(phase, f"6t decode_attend, shard {ti} of tp {tp} (B={b}, global "
+               f"length {length}, shard rows {loc_len}, device-length "
+               f"launch): {row}")
 
 
 ATTEND_BLK, ATTEND_K = 256, 5
@@ -3661,6 +3768,314 @@ def moe_mla_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor parallelism, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_BLK = 256
+# prompts of whole trunks (power-of-two multiples of tp: no replayed
+# tail), so the phase's decode steps are few: two ranks on one card run
+# every collective through host memory (see ``tp_phase``)
+TP_MIX = ((512, 4), (256, 3), (1024, 3), (512, 3), (256, 2), (512, 4))
+TP_FIXED = (4, 508, 6)         # fixed loop: B, prompt, steps (flush at 510)
+
+
+def tp_mix(cfg):
+    """The tp phase's requests: 6 prompts of 256 .. 1024 tokens over 4
+    slots, from seed 1."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [dict(uid=i, prompt=rng.integers(0, cfg.vocab_size, (s,))
+                 .astype(np.int32), max_new_tokens=b)
+            for i, (s, b) in enumerate(TP_MIX)]
+
+
+def tp_fixed_prompts(cfg):
+    import numpy as np
+    b, s, _ = TP_FIXED
+    return np.random.default_rng(2).integers(0, cfg.vocab_size, (b, s)) \
+        .astype(np.int32)
+
+
+def tp_teacher_forced(cfg, run, params, reqs, streams, tg=None):
+    """Each request's prompt prefilled whole (``prefill_sequences``, one
+    sequence) and ``streams[i]`` fed through paged decode steps: the
+    whole-vocab logits that predict each stream position (at tp > 1 the
+    ranks' vocab shards gathered), and the compressed gathers' wire and
+    raw bytes of each prefill (this rank's parts)."""
+    import torch
+    from repro_torch.core import collectives as cl
+    from repro_torch.serve import engine
+
+    out, wires = [], []
+    clock = dict(prefill_s=0.0, prefills=0, decode_s=0.0, steps=0)
+    for r, toks in zip(reqs, streams):
+        prompt = torch.as_tensor(r["prompt"][None], device="cuda")
+        st = engine.empty_paged_state(cfg, run, 1, len(r["prompt"])
+                                      + len(toks) + TP_BLK, device="cuda",
+                                      tp=cl.world(tg))
+        w0, r0 = cl.wire.wire_bytes, cl.wire.raw_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, d = engine.prefill_sequences(cfg, run, params, prompt, tg)
+        engine.insert_sequences(cfg, run, st, d, [0], cl.world(tg))
+        rows = [cl.all_gather(logits[:, -1], tg, axis=-1)]
+        torch.cuda.synchronize()
+        clock["prefill_s"] += time.perf_counter() - t0
+        clock["prefills"] += 1
+        wires.append((cl.wire.wire_bytes - w0, cl.wire.raw_bytes - r0))
+        t0 = time.perf_counter()
+        for t in toks[:-1]:
+            lg = engine.paged_decode_step(
+                cfg, run, params, st, torch.tensor([[t]], dtype=torch.int32,
+                                                   device="cuda"), tg)
+            rows.append(cl.all_gather(lg[:, -1], tg, axis=-1))
+        torch.cuda.synchronize()
+        clock["decode_s"] += time.perf_counter() - t0
+        clock["steps"] += len(toks) - 1
+        out.append(torch.cat(rows).float().cpu())
+    return out, wires, clock
+
+
+def tp_rank_job(tg, cfg, want_streams):
+    """One rank of the tp phase (spawned; ``tg`` its gloo TPGroup on the
+    card): qwen3-4b at tp = 2 from seed 0 (the tp = 1 weights padded, this
+    rank's shard), the mix served raw and packed (``cuda`` weight
+    backend), the fixed loop, the tp = 1 streams teacher-forced, and the
+    compressed all-gather timed against a raw one on this transport."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import collectives as cl
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = RunConfig(codec=CodecConfig(cache_block=TP_BLK))
+    reqs = tp_mix(cfg)
+    res = {}
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, run, tp=tg.world, group=tg, n_slots=4,
+                      max_len=4 * TP_BLK * tg.world, seed=0, device="cuda")
+    res["init_s"] = time.perf_counter() - t0
+    for name, e in (("raw", eng), ("packed", None)):
+        if e is None:
+            t0 = time.perf_counter()
+            e = ServeEngine(cfg, dataclasses.replace(
+                run, codec=dataclasses.replace(run.codec,
+                                               weight_backend="cuda")),
+                tp=tg.world, group=tg, n_slots=4,
+                max_len=4 * TP_BLK * tg.world, params=eng.params,
+                compress_weights=True, device="cuda")
+            torch.cuda.synchronize()
+            res["pack_s"] = time.perf_counter() - t0
+        cl.wire.reset()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, st = e.run([Request(**r) for r in reqs])
+        torch.cuda.synchronize()
+        res[name] = dict(streams=[list(r.tokens) for r in results],
+                         wall_s=time.perf_counter() - t0,
+                         steps=st.decode_steps,
+                         launches=ops.launch_counts(),
+                         wire=dict(cl.wire.__dict__),
+                         tok_s=st.tokens_per_s,
+                         weight_bytes=st.weight_bytes_per_step,
+                         weight_raw=st.weight_raw_bytes_per_step)
+        if name == "packed":
+            del e
+    # the fixed loop (engine.prefill + decode_step), eager at tp > 1
+    b, s, n = TP_FIXED
+    prompts = torch.as_tensor(tp_fixed_prompts(cfg), device="cuda")
+    ops.reset_launch_counts()
+    cl.wire.reset()
+    t0 = time.perf_counter()
+    toks = engine.generate(cfg, run, eng.params, prompts, n,
+                           s + n + TP_BLK * tg.world, tg)
+    torch.cuda.synchronize()
+    res["fixed"] = dict(tokens=toks.cpu().numpy(), launches=ops.launch_counts(),
+                        wall_s=time.perf_counter() - t0,
+                        wire=dict(cl.wire.__dict__))
+    # the tp = 1 streams teacher-forced through this path
+    cl.wire.reset()
+    logits, wires, clock = tp_teacher_forced(cfg, run, eng.params, reqs,
+                                             want_streams, tg)
+    res["forced"] = [x.numpy() for x in logits]
+    res["prefill_wire"] = wires
+    res["clock"] = clock
+    res["overflows"] = cl.wire.overflows
+    res["parts"] = cl.wire.parts
+    # compress + gather + decompress against a raw all-gather of the same
+    # activation (a 512-token prefill's normed input, this rank's half)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = (torch.randn((1, 256, cfg.d_model), generator=gen, device="cuda")
+         * 0.5).to(torch.bfloat16)
+    same = torch.equal(cl.compressed_all_gather(h, tg, run.codec,
+                                                gather_axis=1),
+                       cl.all_gather(h, tg, axis=1))
+    timing = {}
+    for label, fn in (("compressed", lambda: cl.compressed_all_gather(
+            h, tg, run.codec, gather_axis=1)),
+                      ("raw", lambda: cl.all_gather(h, tg, axis=1))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        timing[label] = (time.perf_counter() - t0) / 20 * 1e3
+    ct = cl._compress(h, run.codec)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        cl.pack_wire(cl._compress(h, run.codec))
+    torch.cuda.synchronize()
+    timing["compress"] = (time.perf_counter() - t0) / 20 * 1e3
+    res["gather_ms"] = dict(timing, same=same, shape=list(h.shape),
+                            wire_bytes=ct.wire_bytes(),
+                            raw_bytes=h.numel() * 2)
+    return res
+
+
+def tp_phase(cfg, smi):
+    """Tensor parallelism on the card: full-width qwen3-4b at tp = 2 as two
+    ranks (``launch.mesh.spawn``) on the one card, joined over gloo --
+    NCCL refuses two ranks on one device, so the activations' packed wire
+    buffers cross host memory: a check of function, not of link speed.
+    The parent serves the mix and the fixed loop at tp = 1 from the same
+    weights first.  Both ranks must emit the same streams (raw, packed,
+    fixed); against tp = 1 the streams may part at near-ties (the sums
+    run in another order): at each request's first divergence both paths
+    are teacher-forced with the tp = 1 stream and the top-2 margin must be
+    within the largest logit gap.  Prints the activation gathers' wire
+    bytes per prefill against raw bf16, the escape overflows, the
+    compressed gather's time against a raw gather, and the launches.
+    Returns rank 0's launches of the served runs and the fixed loop."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.launch import mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    log("tp", f"{cfg.name} at tp = 2: two ranks on {torch.cuda.device_count()}"
+              f" card(s) over gloo (one device: NCCL refuses two ranks on "
+              f"one device), CUDA tensors staged through host memory | "
+              f"{smi}")
+    run = RunConfig(codec=CodecConfig(cache_block=TP_BLK))
+    reqs = tp_mix(cfg)
+    eng = ServeEngine(cfg, run, n_slots=4, max_len=4 * TP_BLK * 2, seed=0,
+                      device="cuda")
+    results, st1 = eng.run([Request(**r) for r in reqs])
+    want = [list(r.tokens) for r in results]
+    b, s, n = TP_FIXED
+    prompts = torch.as_tensor(tp_fixed_prompts(cfg), device="cuda")
+    want_fixed = engine.generate(cfg, run, eng.params, prompts, n,
+                                 s + n + TP_BLK).cpu().numpy()
+    forced1, _, clock1 = tp_teacher_forced(cfg, run, eng.params, reqs, want)
+    log("tp", f"tp = 1 reference: mix {st1.tokens_per_s:.1f} tok/s, fixed "
+              f"loop {b} x {s} + {n} ({time.perf_counter() - t_phase:.1f}s)")
+    del eng, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(tp_rank_job, 2, backend="gloo", device="cuda",
+                       args=(cfg, want))
+    log("tp", f"2 ranks done in {time.perf_counter() - t0:.1f}s (init "
+              f"{ranks[0]['init_s']:.1f}s, pack {ranks[0]['pack_s']:.1f}s)")
+    r0, r1 = ranks
+    for key in ("raw", "packed"):
+        assert r0[key]["streams"] == r1[key]["streams"], key
+    assert np.array_equal(r0["fixed"]["tokens"], r1["fixed"]["tokens"])
+    for key in ("raw", "packed"):
+        got = r0[key]["streams"]
+        for i, rq in enumerate(reqs):
+            assert len(got[i]) == rq["max_new_tokens"], (key, i)
+            assert all(0 <= t < cfg.vocab_size for t in got[i])
+
+    # tp = 2 against tp = 1: first divergences, teacher-forced
+    got = r0["raw"]["streams"]
+    n_tok = sum(len(w) for w in want)
+    same = sum(int(a == b) for g_, w in zip(got, want)
+               for a, b in zip(g_, w))
+    gaps = []
+    for i, (g_, w) in enumerate(zip(got, want)):
+        a, b_ = torch.as_tensor(r0["forced"][i]), forced1[i]
+        v = cfg.vocab_size
+        gap = float((a[:, :v] - b_[:, :v]).abs().max())
+        gaps.append(gap)
+        diff = [j for j, (x, y) in enumerate(zip(g_, w)) if x != y]
+        if not diff:
+            continue
+        j = diff[0]
+        m2, m1, _ = logit_margins(a[j, :v], b_[j, :v])
+        tie = min(m1, m2) <= gap
+        log("tp", f"uid {i} first divergence at token {j} (tp 2 "
+                  f"{g_[j]}, tp 1 {w[j]}): teacher-forced top-2 margin tp 2"
+                  f" {m2:.4g} / tp 1 {m1:.4g}, largest logit gap {gap:.4g}: "
+                  f"{'near-tie' if tie else 'MARGIN ABOVE THE GAP'}")
+        assert tie, (i, j, m1, m2, gap)
+    fsame = int((r0["fixed"]["tokens"] == want_fixed).sum())
+    log("tp", f"streams: both ranks equal (raw, packed, fixed); "
+              f"tp 2 == tp 1 on {same}/{n_tok} served tokens and "
+              f"{fsame}/{want_fixed.size} fixed-loop tokens; teacher-forced "
+              f"logit gap tp 2 vs tp 1 max {max(gaps):.4g} over the mix")
+    pk_same = sum(int(a == b) for g_, w in zip(r0["packed"]["streams"], got)
+                  for a, b in zip(g_, w))
+    log("tp", f"packed (cuda weight backend: decompress_matmul's f32 sums "
+              f"in its own order) == raw on {pk_same}/{n_tok} tokens")
+    for key in ("raw", "packed"):
+        r = r0[key]
+        log("tp", f"{key}: {r['tok_s']:.2f} tok/s (wall {r['wall_s']:.2f}s "
+                  f"for {r['steps']} decode steps, gloo through host), "
+                  f"weights {r['weight_bytes']} B / {r['weight_raw']} B raw "
+                  f"per rank and step, compressed gathers {r['wire']}, "
+                  f"launches {r['launches']}")
+    f = r0["fixed"]
+    log("tp", f"fixed loop {b} x {s} + {n} steps: {f['wall_s']:.2f}s, "
+              f"launches {f['launches']}, gathers {f['wire']}")
+    for i, ((wb, rb), rq) in enumerate(zip(r0["prefill_wire"], reqs)):
+        log("tp", f"prefill of {len(rq['prompt'])} tokens: activation "
+                  f"gathers put {wb} B on the wire for {rb} B of raw bf16 "
+                  f"({rb / max(wb, 1):.4f}x) on rank 0 "
+                  f"(rank 1: {r1['prefill_wire'][i][0]} B)")
+    for name, c in (("tp 2 (rank 0, gloo through host)", r0["clock"]),
+                    ("tp 1 (eager)", clock1)):
+        log("tp", f"{name}: {c['prefill_s'] / c['prefills'] * 1e3:.1f} ms "
+                  f"per one-sequence prefill of 256-1024 tokens (mean of "
+                  f"{c['prefills']}), {c['decode_s'] / c['steps'] * 1e3:.1f}"
+                  f" ms per one-slot decode step (mean of {c['steps']}) | "
+                  f"{smi}")
+    gm = r0["gather_ms"]
+    log("tp", f"escape overflows in the activation gathers: "
+              f"{r0['overflows']} of {r0['parts']} parts (rank 0), "
+              f"{r1['overflows']} of {r1['parts']} (rank 1)")
+    log("tp", f"all-gather of {gm['shape']} bf16 per rank over gloo "
+              f"(host-staged, one card): compress + gather + decompress "
+              f"{gm['compressed']:.3f} ms ({gm['wire_bytes']} B on the "
+              f"wire) vs raw {gm['raw']:.3f} ms ({gm['raw_bytes']} B); "
+              f"compress alone {gm['compress']:.3f} ms; results equal: "
+              f"{gm['same']} | {smi}")
+    assert gm["same"]
+    for key in ("decode_attend_paged", "exp_histogram", "lexi_pack",
+                "lexi_unpack"):
+        assert r0["raw"]["launches"][key] > 0, (key, r0["raw"]["launches"])
+    assert r0["packed"]["launches"]["decompress_matmul"] > 0
+    assert r0["fixed"]["launches"]["decode_attend"] > 0
+    log("tp", f"phase done in {time.perf_counter() - t_phase:.1f}s")
+    launches = dict(r0["raw"]["launches"])
+    for part in (r0["packed"]["launches"], f["launches"]):
+        for k_, v_ in part.items():
+            launches[k_] += v_
+    return launches
+
+
 def engine_params(cfg):
     """``cfg``'s seeded random weights on the card (seed 0), as
     ``ServeEngine(seed=0)`` makes them."""
@@ -3703,6 +4118,8 @@ def main() -> int:
     for name, n in hybrid_phase(smi).items():
         launches[name] += n
     for name, n in moe_mla_phase(smi).items():
+        launches[name] += n
+    for name, n in tp_phase(cfg, smi).items():
         launches[name] += n
     kernels = []
     for name, r in rec.items():

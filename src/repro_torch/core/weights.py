@@ -17,9 +17,18 @@ slice), so one ``ops.histogram`` and one ``ops.pack`` encode the leaf,
 each slice with its own dictionary.  Escapes are counted from the
 histograms and the encode LUTs, with no pass over the elements.
 
+Tensor parallelism (the PartitionSpec half of the reference's
+``pack_serving_params``): the reference packs each WHOLE leaf -- one
+dictionary and one code width per slice, from the slice's histogram over
+every shard -- and shards the packed fields like the raw leaf.  A rank
+here holds only its shard, so it sums its slices' histograms with the
+other ranks' (an exact integer psum), picks k and the dictionaries from
+the sums, and packs its shard with them: its fields are the reference's
+shard byte for byte.  A leaf stays raw when its tp-local column count
+breaks the 32-lane alignment; the size threshold is on the whole leaf.
+
 Left out until training is ported: ``compress_params``,
-``fsdp_gather_params`` and ``MaybeCompressed``; and the PartitionSpec half
-of ``pack_serving_params`` (one GPU holds every parameter).
+``fsdp_gather_params`` and ``MaybeCompressed``.
 """
 
 from __future__ import annotations
@@ -106,15 +115,17 @@ def unpack_weight(pw: PackedWeight) -> torch.Tensor:
     return rows.reshape(pw.shape)
 
 
-def _leaf_eligible(path: Tuple[str, ...], x) -> bool:
+def _leaf_eligible(path: Tuple[str, ...], x,
+                   shape: Optional[Tuple[int, ...]] = None) -> bool:
     """Bulk 2-D matmul operands only.  Raw stays raw when:
 
     - it is an embedding table (consumed by gather, not matmul),
     - it is not bf16 or is under 2-D, counted per layer for a leaf of a
       stacked subtree: a stacked norm scale or bias (L, d) is 1-D in each
       layer and is consumed by a norm or an add, not a matmul,
-    - it is small (the dictionary costs more than the packing saves),
-    - its column count breaks the 32-lane bit-plane alignment, or
+    - it is small (the dictionary costs more than the packing saves;
+      judged on the whole leaf's ``shape``, default x's),
+    - its (local) column count breaks the 32-lane bit-plane alignment, or
     - (checked at pack time) a 2-D slice needs escape symbols.
 
     The reference judges the whole stacked leaf, so it packs an (L, d)
@@ -126,22 +137,26 @@ def _leaf_eligible(path: Tuple[str, ...], x) -> bool:
     per_layer = x.ndim - (1 if path[:1] and path[0] in STACKED else 0)
     if x.dtype != torch.bfloat16 or x.ndim < 2 or per_layer < 2:
         return False
-    if x.shape[-2] * x.shape[-1] < MIN_COMPRESS_SIZE:
+    shape = tuple(x.shape) if shape is None else tuple(shape)
+    if shape[-2] * shape[-1] < MIN_COMPRESS_SIZE:
         return False
     return x.shape[-1] % LANES == 0
 
 
-def _pack_leaf(x: torch.Tensor, max_k: int):
+def _pack_leaf(x: torch.Tensor, max_k: int, tg=None):
     """Pack one leaf on its device at the smallest escape-free code width
     k in 4..max_k, the same k for every stack slice.  Returns
     ``((signman, planes, dict_syms), k)``, or None if even max_k would need
-    escapes (the leaf then stays raw)."""
+    escapes (the leaf then stays raw).  With ``tg`` (a sharded leaf at
+    tp > 1) the histograms are summed over the ranks first, so k and the
+    dictionaries are the whole leaf's."""
+    from repro_torch.core import collectives as cl
     from repro_torch.core import fixed
     from repro_torch.kernels import ops as kops
 
     lead, (kk, n) = tuple(x.shape[:-2]), x.shape[-2:]
     rows = x.reshape(math.prod(lead), kk * n).contiguous()
-    hist = kops.histogram(rows)                       # (L, 256), one launch
+    hist = cl.psum(kops.histogram(rows), tg)          # (L, 256), one launch
     for k in range(4, max_k + 1):
         dict_syms, enc_lut = fixed.build_dictionary(hist, k)
         n_escapes = (hist * (enc_lut == fixed.esc_index(k))).sum(-1)
@@ -155,28 +170,53 @@ def _pack_leaf(x: torch.Tensor, max_k: int):
 
 
 def pack_serving_params(params: Any, *, k: int = WEIGHT_K,
-                        backend: str = "torch") -> Any:
+                        backend: str = "torch", table: Any = None,
+                        tg=None) -> Any:
     """Whole-model serving store: eligible leaves -> :class:`PackedWeight`
     (escape-free LEXI-FW layout at the smallest code width <= ``k``) with
     the concrete matmul ``backend``; everything else raw.  Idempotent:
-    already-packed leaves keep their fields and take ``backend``."""
+    already-packed leaves keep their fields and take ``backend``.
+
+    At tp > 1 ``params`` is a rank's shard, ``table`` its parameter table
+    (``models.lm.lm_table(cfg, tp)``, whose specs say which dim each leaf
+    is sharded on) and ``tg`` the rank's ``TPGroup``: every rank must call
+    this together (the sharded leaves' histograms are summed over the
+    group)."""
+    from repro_torch.core import collectives as cl
     from repro_torch.kernels import ops as kops
 
-    def walk(t, path):
+    tp = cl.world(tg)
+
+    def whole(t, d):
+        """(the whole leaf's shape, the group to sum histograms over)."""
+        if tp == 1 or d is None or "model" not in d.spec:
+            return tuple(t.shape), None
+        i = d.spec.index("model")
+        return tuple(t.shape[:i]) + (t.shape[i] * tp,) \
+            + tuple(t.shape[i + 1:]), tg
+
+    def walk(t, path, d):
         if isinstance(t, dict):
-            return {key: walk(v, path + (key,)) for key, v in t.items()}
+            return {key: walk(v, path + (key,),
+                              None if d is None else d[key])
+                    for key, v in t.items()}
         if isinstance(t, PackedWeight):
             kops.check_weight_backend(backend, t.device)
             return dataclasses.replace(t, backend=backend)
-        packed: Optional[tuple] = (_pack_leaf(t, k)
-                                   if _leaf_eligible(path, t) else None)
+        shape, group = whole(t, d)
+        packed: Optional[tuple] = (_pack_leaf(t, k, group)
+                                   if _leaf_eligible(path, t, shape)
+                                   else None)
         if packed is None:
             return t
         kops.check_weight_backend(backend, t.device)
         fields, leaf_k = packed
         return PackedWeight(*fields, k=leaf_k, backend=backend)
 
-    return walk(params, ())
+    if tp > 1 and table is None:
+        raise ValueError("pack_serving_params at tp > 1 needs the "
+                         "parameter table (which dims are sharded)")
+    return walk(params, (), table)
 
 
 def leaves(params: Any):

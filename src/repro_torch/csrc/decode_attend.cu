@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas kernel repro/kernels/decode_attend.py:decode_attend
 // (_fixed_kernel, with _decode_vals, _split_heads, _block_partial,
-// _accumulate and _live_masks) at tp = 1, for plain (GQA / MQA / MHA)
-// payloads and MLA latent payloads (mla_lora: lora > 0).
+// _accumulate and _live_masks), its tp, ti shard path included, for plain
+// (GQA / MQA / MHA) payloads and MLA latent payloads (mla_lora: lora > 0).
+// On shard ti of tp the store holds the sequence's interleaved positions
+// p % tp == ti; L below counts them (see decode_attend_body.cuh).
 //
 // What it computes, per sequence b: all B sequences share one length L.
 // Walk the store's blocks below L / blk; each block is ONE LEXI-FW record
@@ -57,13 +59,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // holds every span of the store's capacity (span0 = 0), so one launch --
 // and one captured CUDA graph -- serves every length.  The host cannot
 // check that length, so it is clamped to the capacity (nsplit * span =
-// (nblk + 1) * blk rows, less one so that L / blk <= nblk): a length past
-// it reads no record beyond the store.
+// (nblk + 1) * blk rows, less one so that rows / blk <= nblk): a length
+// past it reads no record beyond the store.
 template <int KB>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     decode_attend_dev_kernel(Args a, const int* __restrict__ length) {
   const int b = blockIdx.y, split = blockIdx.z;
-  const int L = min(*length, a.nsplit * a.span - 1);
+  // the largest global length whose local rows (shard ti of tp) stay
+  // below the capacity: (cap - 1) * tp + ti
+  const int L = min(*length, (a.nsplit * a.span - 1) * a.tp + a.ti);
   attend<KB>(a, b, L, (long long)b * a.blk * a.W, nullptr, split, split);
 }
 
@@ -92,11 +96,13 @@ extern "C" int decode_attend_launch(
     const void* ring, void* out, void* m, void* l, void* ws, void* counters,
     int B, int H, int hkv, int hd, int lora, int blk, int W, int k, int C,
     int length, int window, int span, int span0, int nsplit, long long nw,
-    float scale, float softcap, int codec_on, void* stream) {
+    float scale, float softcap, int codec_on, int tp, int ti,
+    void* stream) {
   const Args a = make_args(q, signman, planes, dicts, esc_pos, esc_raw,
                            raw_blocks, ring, out, m, l, ws, counters,
                            (long long)B * blk * W, nw, H, hkv, hd, lora, blk,
-                           W, C, window, span, nsplit, scale, softcap);
+                           W, C, window, span, nsplit, scale, softcap, tp,
+                           ti);
   return launch<Kernel>(
       [](auto kb) { return decode_attend_kernel<decltype(kb)::value>; }, a,
       codec_on, k, B, stream, length, span0);
@@ -110,11 +116,13 @@ extern "C" int decode_attend_dev_launch(
     const void* ring, void* out, void* m, void* l, void* ws, void* counters,
     int B, int H, int hkv, int hd, int lora, int blk, int W, int k, int C,
     const void* length, int window, int span, int nsplit, long long nw,
-    float scale, float softcap, int codec_on, void* stream) {
+    float scale, float softcap, int codec_on, int tp, int ti,
+    void* stream) {
   const Args a = make_args(q, signman, planes, dicts, esc_pos, esc_raw,
                            raw_blocks, ring, out, m, l, ws, counters,
                            (long long)B * blk * W, nw, H, hkv, hd, lora, blk,
-                           W, C, window, span, nsplit, scale, softcap);
+                           W, C, window, span, nsplit, scale, softcap, tp,
+                           ti);
   return launch<DevKernel>(
       [](auto kb) { return decode_attend_dev_kernel<decltype(kb)::value>; },
       a, codec_on, k, B, stream, (const int*)length);

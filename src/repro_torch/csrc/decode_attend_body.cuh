@@ -15,8 +15,15 @@
 // slots esc_pos/esc_raw[rid * C ...] (ascending flat positions, sentinel
 // >= n_rec), or raw[rid * n_rec + j] with the codec off.
 //
+// Tensor parallelism.  Shard ti of tp holds the interleaved global
+// positions p % tp == ti: its stream row (local slot) sl holds position
+// sl * tp + ti, and a sequence of global length L gives it
+// max((L - 1 - ti) / tp + 1, 0) rows.  The body turns L and the window
+// into local slots first (the reference's _live_masks), so everything
+// below counts stream rows; at tp = 1 they are the positions.
+//
 // Split-KV (FlashDecoding).  The grid is (kv head, sequence, split): the
-// CTA of split j owns stream positions [sp * P, sp * P + P), sp = span0 +
+// CTA of split j owns stream rows [sp * P, sp * P + P), sp = span0 +
 // j.  P (the span) divides blk, so a span lies inside one record (one
 // dictionary, one escape search) or inside the ring.  The grid comes only
 // from host-known shapes (the page table's width, or the fixed store's
@@ -111,7 +118,7 @@ struct Args {
   int* counters;            // arrivals per (seq, kv head), zero between launches
   long long n_rec, nw;
   int H, hkv, rw, dk, dv, vo, g, gmax, blk, W, C, window, span, nsplit,
-      planes16;
+      planes16, tp, ti;
   float scale, softcap;
 };
 
@@ -210,12 +217,12 @@ __device__ __forceinline__ int block_lower_bound(const int* __restrict__ pos,
   return lo;
 }
 
-// The CTA's whole computation for stream span `sp` of sequence s (length
-// L), partial index `split`; see the comment at the top of the file.
+// The CTA's whole computation for stream span `sp` of sequence s (global
+// length L), partial index `split`; see the comment at the top of the file.
 // KB = 0: the records are raw bf16 (codec off); KB = k otherwise.
 template <int KB>
 __device__ __forceinline__ void attend(const Args& a, const int s,
-                                       const int L, const long long off,
+                                       int L, const long long off,
                                        const int* __restrict__ page_row,
                                        const int sp, const int split) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -246,8 +253,16 @@ __device__ __forceinline__ void attend(const Args& a, const int s,
   float* wts = (float*)(smem + geo.o_wts);
   int* flag = (int*)(smem + geo.o_flag);
 
-  const int p0 = sp * a.span;              // the span's first position
-  const int lo = L - 1 - a.window;         // live positions are > lo
+  // Shard ti of tp holds the global positions p = sl * tp + ti at its
+  // local slots sl (tp = 1: sl = p).  From here on L counts this shard's
+  // slots below the global length Lg, and the live slots are > lo: the
+  // first slot whose position is > Lg - 1 - window is
+  // ceil((Lg - window - ti) / tp).
+  const int Lg = L;
+  L = Lg > a.ti ? (Lg - 1 - a.ti) / a.tp + 1 : 0;
+  const int w0 = Lg - a.window - a.ti;
+  const int lo = (w0 > 0 ? (w0 + a.tp - 1) / a.tp : 0) - 1;
+  const int p0 = sp * a.span;              // the span's first slot
   const int live0 = max(p0, lo + 1), live1 = min(p0 + a.span, L);
 
   if (live0 < live1) {
@@ -599,7 +614,8 @@ inline Args make_args(const void* q, const void* signman, const void* planes,
                       void* out, void* m, void* l, void* ws, void* counters,
                       long long n_rec, long long nw, int H, int hkv, int hd,
                       int lora, int blk, int W, int C, int window, int span,
-                      int nsplit, float scale, float softcap) {
+                      int nsplit, float scale, float softcap, int tp,
+                      int ti) {
   Args a;
   a.q = (const uint16_t*)q;
   a.signman = (const uint8_t*)signman;
@@ -634,6 +650,8 @@ inline Args make_args(const void* q, const void* signman, const void* planes,
   a.planes16 = a.rw % 128 == 0 && W % 128 == 0 && (uintptr_t)planes % 16 == 0;
   a.scale = scale;
   a.softcap = softcap;
+  a.tp = tp;
+  a.ti = ti;
   return a;
 }
 
@@ -658,7 +676,8 @@ template <class Kernel>
 int prepare(Kernel kernel, const Args& a) {
   const Geometry geo(a.rw, a.dk, a.dv, a.gmax, a.span);
   const bool mla = a.vo == 0;
-  if (a.dk % 16 || a.rw % 32 || a.dv % 16 || a.span < 1 ||
+  if (a.dk % 16 || a.rw % 32 || a.dv % 16 || a.span < 1 || a.tp < 1 ||
+      a.ti < 0 || a.ti >= a.tp ||
       a.blk % a.span || a.span % geo.tr || geo.total > kMaxSmem ||
       (mla ? a.hkv != 1 || a.dk != a.W || a.dv > a.W
            : a.rw != 2 * a.dk || a.hkv * a.rw != a.W))

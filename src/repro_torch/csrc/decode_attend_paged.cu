@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel repro/kernels/decode_attend.py:
 // decode_attend_paged (_paged_kernel, with _decode_vals, _split_heads,
-// _block_partial, _accumulate and _live_masks) at tp = 1, for plain
+// _block_partial, _accumulate and _live_masks), its tp, ti shard path
+// included (a slot's pages hold its positions p % tp == ti), for plain
 // (GQA / MQA / MHA) payloads and MLA latent payloads (mla_lora: lora > 0).
 //
 // What it computes, per slot s: walk the slot's page-table row over its
@@ -64,13 +65,14 @@ extern "C" int decode_attend_paged_launch(
     const void* ring, const void* page_ids, const void* lengths, void* out,
     void* m, void* l, void* ws, void* counters, int S, int H, int hkv, int hd,
     int lora, int blk, int W, int maxp, int k, int C, int window, int span,
-    int nsplit, float scale, float softcap, int codec_on, void* stream) {
+    int nsplit, float scale, float softcap, int codec_on, int tp, int ti,
+    void* stream) {
   if (codec_on && (k < 1 || k > kMaxK)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, signman, planes, dicts, esc_pos, esc_raw,
                            raw_pages, ring, out, m, l, ws, counters,
                            (long long)blk * W, (long long)blk * W / 32, H,
                            hkv, hd, lora, blk, W, C, window, span, nsplit,
-                           scale, softcap);
+                           scale, softcap, tp, ti);
   const Kernel kernel = kernel_for<Kernel>(codec_on ? k : 0, [](auto kb) {
     return decode_attend_paged_kernel<decltype(kb)::value>;
   });

@@ -105,3 +105,125 @@ def attend_close(got, want) -> float:
     assert bool((m_k[~live] == ref.NEG_INF).all())
     assert bool((o_k[~live] == 0).all())
     return float((a - b).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel shard path (tp, ti) of both kernels
+# ---------------------------------------------------------------------------
+
+def tp_lengths(blk: int, tp: int) -> List[int]:
+    """Global lengths 0 .. 3 blk tp + 5 at the edges a shard of ``tp``
+    meets: fewer tokens than shards, around a span (P tp positions) and a
+    block (blk tp) of every shard, and a ragged tail."""
+    p = decode_attend.span_rows(blk)
+    return sorted({0, 1, tp - 1, tp, tp + 1, p * tp - 1, p * tp,
+                   p * tp + 1, blk * tp - 1, blk * tp, blk * tp + 1,
+                   2 * blk * tp, 3 * blk * tp + 5})
+
+
+TP_MASKS = ((ref.WINDOW_NONE, None), (5, None), (ref.WINDOW_NONE, 50.0))
+
+
+def tp_paged_checks(gen: torch.Generator, h: int, hd: int, w: int, kw,
+                    blk: int = 256, k: int = 5, tps=(2, 4)):
+    """``decode_attend_paged`` against its plain version on every shard of
+    each tp in ``tps``: slots at ``tp_lengths`` (then 1 slot, then 64
+    slots of ragged lengths), no window, window 5 and softcap 50; a page
+    with escapes on rows P - 1 and P (both sides of the first span
+    boundary) and one past its capacity, both live in the longest slot.
+    Every call within 1e-4 and bit for bit on a second launch.  Returns
+    (largest |error|, calls)."""
+    from repro_torch.core import fixed
+
+    dev = gen.device
+    p = decode_attend.span_rows(blk)
+    pages = torch.randn((24, blk, w), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+    pages[0] = overflowing(gen, (blk, w))
+    pages[1] = with_escapes(dict_filled(gen, (blk, w)), escape_rows(blk))
+    ct = fixed.compress_many(pages, k=k)
+    assert int(ct.n_escapes[0]) > ct.esc_pos.shape[-1]
+    assert set(escape_rows(blk)) <= set(
+        (ct.esc_pos[1][:int(ct.n_escapes[1])] // w).tolist())
+    pool = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+            None)
+    worst, n_calls = 0.0, 0
+    for tp in tps:
+        top = 3 * blk * tp + 5
+        for lengths in (tp_lengths(blk, tp), [top],
+                        [(i * 97 + 300) % (top + 1) for i in range(64)]):
+            s_ = len(lengths)
+            maxp = ref.local_length(max(lengths), tp, 0) // blk + 1
+            table = torch.randint(0, 24, (s_, maxp), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            longest = max(range(s_), key=lambda i: lengths[i])
+            table[longest, :2] = torch.tensor([1, 0], dtype=torch.int32)
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            q = torch.randn((s_, h, hd), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            ring = torch.randn((s_, blk, w), generator=gen, device=dev
+                               ).to(torch.bfloat16)
+            for ti in range(tp):
+                for window, softcap in TP_MASKS:
+                    args = (q, *pool, ring, table, lens, window)
+                    kw2 = dict(kw, k=k, softcap=softcap, tp=tp, ti=ti)
+                    got = decode_attend.decode_attend_paged(*args, **kw2)
+                    worst = max(worst, attend_close(
+                        got, ref.paged_decode_attend_plain(*args, **kw2)))
+                    assert same_bits(got, decode_attend.decode_attend_paged(
+                        *args, **kw2)), "paged tp: launches differ"
+                    n_calls += 1
+    return worst, n_calls
+
+
+def tp_fixed_checks(gen: torch.Generator, h: int, hd: int, w: int, kw,
+                    blk: int = 256, k: int = 5, b: int = 3, tps=(2, 4)):
+    """``decode_attend`` against its plain version on every shard of each
+    tp in ``tps``, B = ``b`` sequences at each of ``tp_lengths``, in both
+    launch forms (the length from the host, and on the device with the
+    store's capacity as the grid); no window, window 5, softcap 50;
+    block 1 holds escapes on rows P - 1 and P of sequence ``b - 1`` and
+    more than its side channel holds.  Every call within 1e-4 and bit for
+    bit on a second launch.  Returns (largest |error|, calls)."""
+    from repro_torch.core import fixed
+
+    dev = gen.device
+    p = decode_attend.span_rows(blk)
+    worst, n_calls = 0.0, 0
+    dev_len = torch.zeros((), dtype=torch.int32, device=dev)
+    for tp in tps:
+        lengths = tp_lengths(blk, tp)
+        nblk = ref.local_length(max(lengths), tp, 0) // blk + 1
+        blocks = torch.randn((nblk, b, blk, w), generator=gen, device=dev
+                             ).to(torch.bfloat16)
+        blocks[1] = dict_filled(gen, (b, blk, w))
+        blocks[1, -1] = with_escapes(blocks[1, -1], escape_rows(blk))
+        over = list(range(min(p + 3, blk - 2), blk))
+        blocks[1, -1, over] = torch.exp2(torch.randint(
+            -90, -50, (len(over), w), generator=gen, device=dev).float()
+        ).to(torch.bfloat16)
+        n = b * blk * w
+        ct = fixed.compress_many(blocks.reshape(nblk, n), k=k,
+                                 esc_capacity=max(n // 128, 8))
+        assert int(ct.n_escapes[1]) > ct.esc_pos.shape[-1]
+        store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos,
+                 ct.esc_raw, None)
+        q = torch.randn((b, h, hd), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        ring = torch.randn((b, blk, w), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+        for ti in range(tp):
+            for length in lengths:
+                dev_len.fill_(length)
+                for window, softcap in TP_MASKS:
+                    kw2 = dict(kw, k=k, softcap=softcap, tp=tp, ti=ti)
+                    want = ref.decode_attend_plain(
+                        q, *store, ring, length, window, **kw2)
+                    for form in (length, dev_len):
+                        args = (q, *store, ring, form, window)
+                        got = decode_attend.decode_attend(*args, **kw2)
+                        worst = max(worst, attend_close(got, want))
+                        assert same_bits(got, decode_attend.decode_attend(
+                            *args, **kw2)), "fixed tp: launches differ"
+                        n_calls += 1
+    return worst, n_calls

@@ -5,8 +5,14 @@ and ``csrc/decode_attend_paged.cu`` (replaces ``decode_attend_paged``, the
 paged pool), both built on ``csrc/decode_attend_body.cuh``, and their plain
 PyTorch twins.
 
-The port runs at tp = 1, so the reference's shard arguments (``tp``,
-``ti``) are gone: every sequence owns all its positions.
+Both take the reference's shard arguments: ``tp`` and ``ti`` (keywords,
+default 1 and 0).  Shard ``ti`` of ``tp`` holds the interleaved global
+positions p % tp == ti of each sequence: stream row (local slot) sl holds
+position sl * tp + ti, so a sequence of global length L gives it
+``ref.local_length(L, tp, ti)`` rows; the live and window masks test the
+global positions against the global L (``ref.stream_mask``).  A shard that
+holds no live position of a sequence returns m = ``ref.NEG_INF``, l = 0
+for it, as an empty slot does.
 
 Shared calling convention (as the reference's): q (S, H, hd) bf16 with
 hd % 16 == 0; ring (S, blk, W) bf16; window the layer's window
@@ -84,14 +90,17 @@ def paged_splits(maxp: int, blk: int) -> int:
     return (maxp + 1) * blk // span_rows(blk)
 
 
-def fixed_splits(length: int, window: int, blk: int) -> Tuple[int, int]:
+def fixed_splits(length: int, window: int, blk: int, tp: int = 1,
+                 ti: int = 0) -> Tuple[int, int]:
     """(first span, splits) of the fixed-batch kernel at the host-side
-    ``length``: the spans from the first one holding a position inside the
-    window (positions > length - 1 - window) to the last one below length;
-    one dead split when nothing is live."""
+    ``length`` on shard ``ti`` of ``tp``: the spans from the first one
+    holding a row whose position is inside the window (positions >
+    length - 1 - window) to the last one below the shard's rows; one dead
+    split when nothing is live."""
     p = span_rows(blk)
-    end = -(-length // p)
-    first = min(max(0, length - window) // p, end)
+    end = -(-ref.local_length(length, tp, ti) // p)
+    w0 = length - window - ti            # first live row: ceil(w0 / tp)
+    first = min((-(-w0 // tp) if w0 > 0 else 0) // p, end)
     return first, max(1, end - first)
 
 
@@ -214,11 +223,18 @@ def _stream(q) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _check_shard(tp: int, ti: int) -> Tuple[int, int]:
+    tp, ti = int(tp), int(ti)
+    if tp < 1 or not 0 <= ti < tp:
+        raise ValueError(f"shard {ti} of tp {tp} does not exist")
+    return tp, ti
+
+
 def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
                   ring, length: int, window: int, *, k: int,
                   kv_idx: Sequence[int], scale: float,
                   softcap: Optional[float] = None,
-                  mla_lora: Optional[int] = None):
+                  mla_lora: Optional[int] = None, tp: int = 1, ti: int = 0):
     """Launch the fixed-batch kernel (CUDA tensors only)."""
     from .ops import check_cuda, library, raise_on_error
 
@@ -237,20 +253,21 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
             raise ValueError("raw blocks do not match the ring geometry")
         c, nblk = 0, raw_blocks.shape[0]
         store = (None,) * 5 + (raw_blocks,)
+    tp, ti = _check_shard(tp, ti)
     on_device = isinstance(length, torch.Tensor)
     if on_device:
         check_cuda(length, torch.int32, 0, "length")
     else:
         length = int(length)
-        if length < 0 or length // blk > nblk:
+        if length < 0 or ref.local_length(length, tp, ti) // blk > nblk:
             raise ValueError(f"length {length} does not fit {nblk} blocks "
-                             f"of {blk} and the ring")
+                             f"of {blk} and the ring (shard {ti} of {tp})")
     out, m, l = _outputs(q, hd_v)
     if b == 0:
         return out, m, l
     window = int(window)
     span0, nsplit = (0, capacity_splits(nblk, blk)) if on_device \
-        else fixed_splits(length, window, blk)
+        else fixed_splits(length, window, blk, tp, ti)
     stream = _stream(q)
     ws, cnt = _workspace(q.device, stream, b, hkv, nsplit,
                          h - (hkv - 1) * (h // hkv), hd_v)
@@ -258,7 +275,7 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
               _ptr(m), _ptr(l), _ptr(ws), _ptr(cnt), b, h, hkv, hd, lora,
               blk, w, k, c)
     tail = (n // 32, float(scale), float(softcap or 0.0), int(codec_on),
-            stream)
+            tp, ti, stream)
     if on_device:
         rc = library().decode_attend_dev_launch(
             *common, _ptr(length), window, span_rows(blk), nsplit, *tail)
@@ -274,10 +291,12 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
                         raw_pages, ring, page_ids, lengths, window: int, *,
                         k: int, kv_idx: Sequence[int], scale: float,
                         softcap: Optional[float] = None,
-                        mla_lora: Optional[int] = None):
+                        mla_lora: Optional[int] = None, tp: int = 1,
+                        ti: int = 0):
     """Launch the paged kernel (CUDA tensors only)."""
     from .ops import check_cuda, library, raise_on_error
 
+    tp, ti = _check_shard(tp, ti)
     n_s, h, hd, blk, w, hkv, hd_v, lora = _check_attend(
         q, ring, kv_idx, mla_lora, "slots")
     check_cuda(page_ids, torch.int32, 2, "page_ids")
@@ -308,7 +327,8 @@ def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
         _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), _ptr(ws), _ptr(cnt),
         n_s, h, hkv, hd, lora, blk, w, maxp, k, c, int(window),
         span_rows(blk),
-        nsplit, float(scale), float(softcap or 0.0), int(codec_on), stream)
+        nsplit, float(scale), float(softcap or 0.0), int(codec_on), tp, ti,
+        stream)
     raise_on_error(rc, "decode_attend_paged")
     launches["decode_attend_paged"] += 1
     return out, m, l

@@ -210,27 +210,30 @@ def decode_attend(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
                   ring, length: int, window: int, *, k: int,
                   kv_idx: Sequence[int], scale: float,
                   softcap: Optional[float] = None,
-                  mla_lora: Optional[int] = None):
-    """Fixed-batch decompress + attend -> unnormalised (out, m, l); see
-    ``kernels.decode_attend`` for the calling convention."""
+                  mla_lora: Optional[int] = None, tp: int = 1, ti: int = 0):
+    """Fixed-batch decompress + attend -> unnormalised (out, m, l) of shard
+    ``ti`` of ``tp``; see ``kernels.decode_attend`` for the calling
+    convention."""
     fn = _attend.plain if q.device.type == "cpu" else _attend.decode_attend
     return fn(q, signman, planes, dicts, esc_pos, esc_raw, raw_blocks, ring,
               length, window, k=k, kv_idx=kv_idx, scale=scale,
-              softcap=softcap, mla_lora=mla_lora)
+              softcap=softcap, mla_lora=mla_lora, tp=tp, ti=ti)
 
 
 def decode_attend_paged(q, signman, planes, dicts, esc_pos, esc_raw,
                         raw_pages, ring, page_ids, lengths, window: int, *,
                         k: int, kv_idx: Sequence[int], scale: float,
                         softcap: Optional[float] = None,
-                        mla_lora: Optional[int] = None):
-    """Paged decompress + attend -> unnormalised (out, m, l); see
-    ``kernels.decode_attend`` for the calling convention."""
+                        mla_lora: Optional[int] = None, tp: int = 1,
+                        ti: int = 0):
+    """Paged decompress + attend -> unnormalised (out, m, l) of shard
+    ``ti`` of ``tp``; see ``kernels.decode_attend`` for the calling
+    convention."""
     fn = _attend.plain_paged if q.device.type == "cpu" \
         else _attend.decode_attend_paged
     return fn(q, signman, planes, dicts, esc_pos, esc_raw, raw_pages, ring,
               page_ids, lengths, window, k=k, kv_idx=kv_idx, scale=scale,
-              softcap=softcap, mla_lora=mla_lora)
+              softcap=softcap, mla_lora=mla_lora, tp=tp, ti=ti)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -357,14 +360,16 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "exp_histogram_launch": [_P] * 4 + [_I, _LL, _I, _LL, _I, _P],
     "lexi_pack_launch": [_P] * 4 + [_I, _LL, _I, _I, _I, _P],
-    "decode_attend_paged_launch": [_P] * 15 + [_I] * 13 + [_F, _F, _I, _P],
+    "decode_attend_paged_launch": [_P] * 15 + [_I] * 13
+                                  + [_F, _F, _I, _I, _I, _P],
     "lexi_unpack_launch": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     "decompress_matmul_launch": [_P] * 7 + [ctypes.POINTER(_I), _P],
     "decompress_matmul_smem": [_I] * 4,
     "decompress_matmul_prefill_smem": [_I] * 3,
-    "decode_attend_launch": [_P] * 13 + [_I] * 14 + [_LL, _F, _F, _I, _P],
+    "decode_attend_launch": [_P] * 13 + [_I] * 14
+                            + [_LL, _F, _F, _I, _I, _I, _P],
     "decode_attend_dev_launch": [_P] * 13 + [_I] * 9 + [_P] + [_I] * 3
-                                + [_LL, _F, _F, _I, _P],
+                                + [_LL, _F, _F, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -97,29 +97,44 @@ def decompress_matmul_ref(x: torch.Tensor, signman: torch.Tensor,
 # decode attention: the fixed-batch store and the paged pool
 # ---------------------------------------------------------------------------
 
+def local_length(lengths, tp: int = 1, ti: int = 0):
+    """Slots shard ``ti`` of ``tp`` holds of a sequence of ``lengths``
+    tokens: it owns the interleaved global positions p % tp == ti, so
+    max((L - 1 - ti) // tp + 1, 0) of them (L at tp = 1)."""
+    return ((lengths - 1 - ti) // tp + 1).clamp(min=0) \
+        if isinstance(lengths, torch.Tensor) \
+        else max((int(lengths) - 1 - ti) // tp + 1, 0)
+
+
 def stream_mask(lengths: torch.Tensor, i: int, blk: int, window: int,
-                ring: bool) -> torch.Tensor:
+                ring: bool, tp: int = 1, ti: int = 0) -> torch.Tensor:
     """Live mask (S, blk) for page column ``i`` (or the ring) of each
-    slot's stream at tp = 1: column i is live iff i < L // blk, ring row j
-    iff (L // blk) * blk + j < L; every position must also satisfy
-    pos > L - 1 - window."""
+    slot's stream on shard ``ti`` of ``tp`` (the reference's
+    ``_live_masks``): local slot sl holds global position pos = sl * tp +
+    ti; with loc = the shard's slots (``local_length``), column i is live
+    iff i < loc // blk, ring row j iff (loc // blk) * blk + j < loc; every
+    position must also satisfy pos < L and pos > L - 1 - window."""
     L = lengths.to(torch.int64)[:, None]
-    nfull = L // blk
+    loc = local_length(L, tp, ti)
+    nfull = loc // blk
     j = torch.arange(blk, device=lengths.device)[None]
     if ring:
-        pos = nfull * blk + j
-        live = pos < L
+        sl = nfull * blk + j
+        live = sl < loc
     else:
-        pos = (i * blk + j).expand(L.shape[0], -1)
+        sl = (i * blk + j).expand(L.shape[0], -1)
         live = (i < nfull).expand(-1, blk)
+    pos = sl * tp + ti
     return live & (pos < L) & (pos > L - 1 - window)
 
 
-def _stream_ok(lengths: torch.Tensor, maxp: int, blk: int, window: int):
+def _stream_ok(lengths: torch.Tensor, maxp: int, blk: int, window: int,
+               tp: int = 1, ti: int = 0):
     """Live mask (S, maxp*blk + blk) over [pages ‖ ring]."""
-    return torch.cat([stream_mask(lengths, i, blk, window, False)
+    return torch.cat([stream_mask(lengths, i, blk, window, False, tp, ti)
                       for i in range(maxp)]
-                     + [stream_mask(lengths, 0, blk, window, True)], dim=1)
+                     + [stream_mask(lengths, 0, blk, window, True, tp, ti)],
+                     dim=1)
 
 
 def _attend_partials(q, vals, ok, kv_idx: Sequence[int], scale: float,
@@ -158,15 +173,16 @@ def _attend_partials(q, vals, ok, kv_idx: Sequence[int], scale: float,
 
 def paged_decode_attend_ref(q, pages_bf16, page_table, lengths, ring, *,
                             kv_idx, scale, softcap=None, window=WINDOW_NONE,
-                            mla_lora=None):
+                            mla_lora=None, tp=1, ti=0):
     """Oracle for ``decode_attend_paged`` on DEcompressed pages:
     q (S,H,hd); pages (P,blk,W) bf16; page_table (S,maxp) (-1 unmapped);
-    lengths (S,); ring (S,blk,W).  Returns normalised (S,H,hd_v) f32."""
+    lengths (S,); ring (S,blk,W); shard ``ti`` of ``tp``.  Returns
+    normalised (S,H,hd_v) f32."""
     n_s, maxp = page_table.shape
     _, blk, w = pages_bf16.shape
     gathered = pages_bf16[page_table.clamp(min=0).to(torch.int64)]
     vals = torch.cat([gathered.reshape(n_s, maxp * blk, w), ring], dim=1)
-    ok = _stream_ok(lengths, maxp, blk, window)
+    ok = _stream_ok(lengths, maxp, blk, window, tp, ti)
     out, _, l = _attend_partials(q, vals, ok, kv_idx, scale, softcap,
                                  mla_lora)
     return out / l.clamp(min=1e-30)[..., None]
@@ -176,22 +192,26 @@ def paged_decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
                               raw_pages, ring, page_ids, lengths, window, *,
                               k: int, kv_idx: Sequence[int], scale: float,
                               softcap: Optional[float] = None,
-                              mla_lora: Optional[int] = None):
+                              mla_lora: Optional[int] = None, tp: int = 1,
+                              ti: int = 0):
     """Plain ``decode_attend_paged``: the kernel's arguments and its
     unnormalised (out, m, l) partials, computed by decompressing every
     page the table names (``core.fixed.decompress``: dictionary LUT, then
     the escape side channel by position) and one masked softmax over
-    [pages ‖ ring].  ``page_ids`` must already be clipped to valid ids."""
+    [pages ‖ ring].  ``page_ids`` must already be clipped to valid ids.
+    A shard that holds no live position returns m = NEG_INF, l = 0."""
     vals, ok = paged_stream(signman, planes, dicts, esc_pos, esc_raw,
-                            raw_pages, ring, page_ids, lengths, window, k=k)
+                            raw_pages, ring, page_ids, lengths, window, k=k,
+                            tp=tp, ti=ti)
     return _attend_partials(q, vals, ok, kv_idx, scale, softcap, mla_lora)
 
 
 def paged_stream(signman, planes, dicts, esc_pos, esc_raw, raw_pages, ring,
-                 page_ids, lengths, window, *, k: int):
+                 page_ids, lengths, window, *, k: int, tp: int = 1,
+                 ti: int = 0):
     """The paged kernel's stream, gathered: (vals (S, maxp*blk + blk, W)
     bf16, every page the table names decompressed, then the ring; ok
-    (S, maxp*blk + blk) live mask)."""
+    (S, maxp*blk + blk) live mask of shard ``ti`` of ``tp``)."""
     from repro_torch.core import fixed
 
     n_s, maxp = page_ids.shape
@@ -207,28 +227,31 @@ def paged_stream(signman, planes, dicts, esc_pos, esc_raw, raw_pages, ring,
     else:
         pages = raw_pages[pid]
     vals = torch.cat([pages.reshape(n_s, maxp * blk, w), ring], dim=1)
-    return vals, _stream_ok(lengths, maxp, blk, window)
+    return vals, _stream_ok(lengths, maxp, blk, window, tp, ti)
 
 
-def fixed_stream(blocks_bf16, ring, length: int, window: int):
+def fixed_stream(blocks_bf16, ring, length: int, window: int, tp: int = 1,
+                 ti: int = 0):
     """A fixed-batch stream, gathered: blocks (nb, B, blk, W) bf16
-    decompressed, then the ring (B, blk, W); every sequence at ``length``.
-    Returns (vals (B, nb*blk + blk, W), ok (B, nb*blk + blk))."""
+    decompressed, then the ring (B, blk, W); every sequence at ``length``
+    (shard ``ti`` of ``tp`` holds its slots).  Returns (vals (B, nb*blk +
+    blk, W), ok (B, nb*blk + blk))."""
     nb, b, blk, w = blocks_bf16.shape
     vals = torch.cat([blocks_bf16.transpose(0, 1).reshape(b, nb * blk, w),
                       ring], dim=1)
     lengths = torch.full((b,), int(length), dtype=torch.int32,
                          device=ring.device)
-    return vals, _stream_ok(lengths, nb, blk, window)
+    return vals, _stream_ok(lengths, nb, blk, window, tp, ti)
 
 
 def decode_attend_ref(q, blocks_bf16, ring, length: int, *, kv_idx, scale,
-                      softcap=None, window=WINDOW_NONE, mla_lora=None):
+                      softcap=None, window=WINDOW_NONE, mla_lora=None, tp=1,
+                      ti=0):
     """Oracle for ``decode_attend`` (fixed-batch store) on DEcompressed
     blocks: q (B,H,hd); blocks (nblk,B,blk,W) bf16; ring (B,blk,W);
-    ``length`` tokens of every sequence.  Returns normalised (B,H,hd_v)
-    f32."""
-    vals, ok = fixed_stream(blocks_bf16, ring, length, window)
+    ``length`` tokens of every sequence; shard ``ti`` of ``tp``.  Returns
+    normalised (B,H,hd_v) f32."""
+    vals, ok = fixed_stream(blocks_bf16, ring, length, window, tp, ti)
     out, _, l = _attend_partials(q, vals, ok, kv_idx, scale, softcap,
                                  mla_lora)
     return out / l.clamp(min=1e-30)[..., None]
@@ -238,27 +261,30 @@ def decode_attend_plain(q, signman, planes, dicts, esc_pos, esc_raw,
                         raw_blocks, ring, length, window: int, *, k: int,
                         kv_idx: Sequence[int], scale: float,
                         softcap: Optional[float] = None,
-                        mla_lora: Optional[int] = None):
+                        mla_lora: Optional[int] = None, tp: int = 1,
+                        ti: int = 0):
     """Plain ``decode_attend``: the kernel's arguments and its unnormalised
     (out, m, l) partials, computed by decompressing the store's live blocks
     (``core.fixed.decompress`` of each whole B-sequence block: one
     dictionary, escapes by position across the batch) and one masked
-    softmax over [blocks ‖ ring].  ``length``: a host int or, as the
-    kernel's device-length launch takes it, a 0-d int32 tensor (read here
-    on the host)."""
+    softmax over [blocks ‖ ring], on shard ``ti`` of ``tp``.  ``length``:
+    a host int or, as the kernel's device-length launch takes it, a 0-d
+    int32 tensor (read here on the host)."""
     vals, ok = fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw,
-                                  raw_blocks, ring, int(length), window, k=k)
+                                  raw_blocks, ring, int(length), window, k=k,
+                                  tp=tp, ti=ti)
     return _attend_partials(q, vals, ok, kv_idx, scale, softcap, mla_lora)
 
 
 def fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
-                       ring, length: int, window: int, *, k: int):
+                       ring, length: int, window: int, *, k: int, tp: int = 1,
+                       ti: int = 0):
     """The fixed-batch kernel's stream, gathered (``fixed_stream``) from
     its arguments: the store's live blocks decompressed, then the ring."""
     from repro_torch.core import fixed
 
     b, blk, w = ring.shape
-    nb = int(length) // blk                       # live full blocks
+    nb = local_length(length, tp, ti) // blk      # live full blocks
     if nb == 0:
         blocks = ring.new_zeros((0, b, blk, w))
     elif signman is not None:
@@ -269,7 +295,7 @@ def fixed_store_stream(signman, planes, dicts, esc_pos, esc_raw, raw_blocks,
             shape=(b, blk, w), k=k))
     else:
         blocks = raw_blocks[:nb]
-    return fixed_stream(blocks, ring, length, window)
+    return fixed_stream(blocks, ring, length, window, tp, ti)
 
 
 # ---------------------------------------------------------------------------

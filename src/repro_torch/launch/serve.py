@@ -1,6 +1,7 @@
-"""Serving demo on one GPU (ports ``repro/launch/serve.py``): fixed batch
-(prefill a prompt batch, decode greedily; the default) or continuous
-batching (a request stream through ``ServeEngine``).
+"""Serving demo (ports ``repro/launch/serve.py``): fixed batch (prefill a
+prompt batch, decode greedily; the default) or continuous batching (a
+request stream through ``ServeEngine``), on one GPU or, with ``--tp N``,
+tensor-parallel over N ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --batch 4 --prompt-len 64 --new-tokens 32
@@ -12,6 +13,8 @@ batching (a request stream through ``ServeEngine``).
         --prefill-replicas 1 --decode-replicas 2 --streaming --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --continuous --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 \
+        --dist-backend gloo --device cpu [--continuous [--compress-weights]]
 
 ``--arch`` takes every dense, hybrid and MoE config (MLA included:
 deepseek-v2-lite-16b; jamba-tiny-dev, granite-moe-1b-a400m) in all three
@@ -26,6 +29,14 @@ run decodes from full compressed blocks.  ``--disagg`` serves the
 continuous mode's stream through prefill -> decode replicas in one
 process, joined by the loopback page transport (multi-process serving:
 ``repro_torch.launch.disagg_host``).
+
+``--tp N`` spawns N ranks (``launch.mesh.spawn``), joined over
+``--dist-backend``: ``nccl`` (one card per rank) or ``gloo`` (CPU tensors,
+or CUDA tensors staged through host memory, e.g. two ranks on one card,
+which NCCL refuses).  Each rank serves the same requests on its shard of
+the weights (the seed's tp = 1 weights padded for tp, ``models.params.
+pad_for_tp``); rank 0 prints.  The dense family only; ``--disagg`` stays
+at tp = 1.
 """
 
 from __future__ import annotations
@@ -97,7 +108,22 @@ def main(argv=None) -> int:
                          "repro_torch.launch.disagg_host")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (one process each)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default=None,
+                    help="--tp > 1: the process group's backend (nccl: "
+                         "one card per rank; gloo: CPU, or ranks sharing "
+                         "a card); required with --tp > 1")
     args = ap.parse_args(argv)
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.tp > 1:
+        if args.dist_backend is None:
+            ap.error("--tp > 1 needs --dist-backend nccl or gloo")
+        if args.disagg:
+            ap.error("--disagg runs at tp = 1 (disaggregated serving at "
+                     "tp > 1 is not ported yet)")
 
     codec = (CodecConfig() if args.codec == "full" else CodecConfig.off())
     run = RunConfig(codec=dataclasses.replace(
@@ -106,14 +132,57 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
+    if args.compress_weights and not (args.continuous or args.disagg):
+        ap.error("--compress-weights needs --continuous or --disagg")
+    if args.tp > 1:
+        return _spawn_ranks(cfg, run, args)
     if args.continuous or args.disagg:
         return _serve_continuous(cfg, run, args)
-    if args.compress_weights:
-        ap.error("--compress-weights needs --continuous or --disagg")
     return _serve_fixed(cfg, run, args)
 
 
-def _serve_fixed(cfg, run: RunConfig, args) -> int:
+def _spawn_ranks(cfg, run: RunConfig, args) -> int:
+    """Serve on ``--tp`` spawned ranks (rank 0 prints)."""
+    import torch
+    from repro_torch.launch import mesh
+
+    device = args.device
+    if torch.device(device).type == "cuda" and args.dist_backend == "nccl" \
+            and torch.cuda.device_count() < args.tp:
+        raise SystemExit(f"--dist-backend nccl needs one card per rank: "
+                         f"{args.tp} ranks, {torch.cuda.device_count()} "
+                         "cards (two ranks may share a card over gloo)")
+    codes = mesh.spawn(_rank, args.tp, backend=args.dist_backend,
+                       device=device, args=(cfg, run, args))
+    return max(codes)
+
+
+def _rank(tg, cfg, run: RunConfig, args) -> int:
+    """One rank of ``--tp``: its card (rank modulo the cards), then the
+    mode's loop; only rank 0 prints."""
+    import contextlib
+    import io
+
+    quiet = tg.rank != 0
+    with contextlib.redirect_stdout(io.StringIO()) if quiet \
+            else contextlib.nullcontext():
+        if args.continuous:
+            return _serve_continuous(cfg, run, args, tg)
+        return _serve_fixed(cfg, run, args, tg)
+
+
+def _rank_device(args, tg):
+    """The rank's device: ``--device``; a CUDA device is card rank modulo
+    the cards."""
+    import torch
+
+    dev = torch.device(args.device)
+    if tg is None or dev.type != "cuda":
+        return dev
+    return torch.device("cuda", tg.rank % torch.cuda.device_count())
+
+
+def _serve_fixed(cfg, run: RunConfig, args, tg=None) -> int:
     """Prefill ``--batch`` prompts and decode them greedily in lockstep,
     once to warm up (kernel build, allocator) and once timed."""
     import numpy as np
@@ -125,22 +194,30 @@ def _serve_fixed(cfg, run: RunConfig, args) -> int:
     if run.codec.cache:
         run = dataclasses.replace(run, codec=dataclasses.replace(
             run.codec, cache_block=32))
-    device = engine.resolve_device(args.device)
+    device = engine.resolve_device(_rank_device(args, tg))
     ops.resolve_decode_backend(run.codec, device)
     if device.type == "cuda":
         # f32 products (prefill attention) stay f32, as in the reference
         torch.backends.cuda.matmul.allow_tf32 = False
     b, s, n = args.batch, args.prompt_len, args.new_tokens
-    max_len = s + n + run.codec.cache_block
+    tp = 1 if tg is None else tg.world
+    if s % tp:
+        raise SystemExit(f"--prompt-len {s} must be a multiple of --tp {tp} "
+                         "in fixed-batch mode")
+    max_len = s + n + run.codec.cache_block * tp
     params = PM.init_params(
         lm.lm_table(cfg), torch.Generator(device=device).manual_seed(run.seed),
         device=device)
+    if tp > 1:
+        params = PM.shard_params(PM.pad_for_tp(params, cfg, tp),
+                                 lm.lm_table(cfg, tp), tp, tg.rank)
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
                               dtype=torch.int32, device=device)
 
     def serve():
-        return engine.generate(cfg, run, params, prompts, n, max_len).cpu()
+        return engine.generate(cfg, run, params, prompts, n, max_len,
+                               tg).cpu()
 
     t0 = time.perf_counter()
     serve()
@@ -156,18 +233,20 @@ def _serve_fixed(cfg, run: RunConfig, args) -> int:
     print(f"[serve] stats: {b} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s), decode backend "
           f"{ops.resolve_decode_backend(run.codec, device)}, codec {codec}, "
-          f"cache block {run.codec.cache_block}")
+          f"cache block {run.codec.cache_block}, tp {tp}")
     print("[serve] sample continuations:", out[:2, :12].tolist())
     return 0
 
 
-def _serve_continuous(cfg, run: RunConfig, args) -> int:
+def _serve_continuous(cfg, run: RunConfig, args, tg=None) -> int:
     """Request-stream mode; with --disagg the stream runs through prefill
     -> decode replicas joined by compressed page transfer."""
     from repro_torch.serve.scheduler import (ServeEngine, demo_serving_setup,
                                              format_stats)
+    tp = 1 if tg is None else tg.world
     run, max_len, reqs = demo_serving_setup(
-        run, cfg.vocab_size, args.prompt_len, args.new_tokens, args.requests)
+        run, cfg.vocab_size, args.prompt_len, args.new_tokens, args.requests,
+        tp=tp)
     stops = ([tuple(int(t) for t in args.stop_seq.split(","))]
              if args.stop_seq else None)
     if args.disagg:
@@ -182,13 +261,14 @@ def _serve_continuous(cfg, run: RunConfig, args) -> int:
         results, st = eng.run(reqs)
         print("[serve] disagg:", format_disagg_stats(st))
     else:
-        eng = ServeEngine(cfg, run, n_slots=args.slots, max_len=max_len,
-                          seed=run.seed, eos_id=args.eos_id, stop_seqs=stops,
+        eng = ServeEngine(cfg, run, tp=tp, group=tg, n_slots=args.slots,
+                          max_len=max_len, seed=run.seed, eos_id=args.eos_id,
+                          stop_seqs=stops,
                           prefix_sharing=not args.no_prefix_sharing,
                           compress_weights=args.compress_weights,
-                          device=args.device)
+                          device=_rank_device(args, tg))
         results, st = eng.run(reqs)
-        print("[serve] continuous:", format_stats(st))
+        print(f"[serve] continuous (tp {tp}):", format_stats(st))
     print("[serve] sample continuations:",
           [(r.tokens[:6], r.stop_reason) for r in results[:2]])
     return 0

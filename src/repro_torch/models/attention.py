@@ -1,9 +1,22 @@
-"""Attention at tp = 1 (ports ``repro/models/attention.py``): GQA / MQA /
-MHA, and MLA (multi-head latent attention, deepseek-v2).
+"""Attention (ports ``repro/models/attention.py``): GQA / MQA / MHA, and
+MLA (multi-head latent attention, deepseek-v2).
 
-At one GPU every kv-head layout is the reference's "col" regime with one
-shard: all heads are local.  Collectives dropped: the row-parallel psums,
-the decode q/k/v all_gathers and the ``axis_index`` head slicing.
+Tensor parallelism (dense attention; a ``launch.mesh.TPGroup`` ``tg`` of
+tp ranks, None at tp = 1): query heads are padded to a multiple of tp
+(``cfg.padded_heads``) and column-sharded, hq/tp per rank, with the
+reference's two kv regimes (``kv_mode``):
+
+* ``col`` (n_kv % tp == 0): k/v projections column-sharded too, n_kv/tp
+  kv heads per rank; its query heads group over them;
+* ``row`` (n_kv % tp != 0, e.g. MQA): k/v projections row-parallel (the
+  rank's slice of d_model) summed in f32 over the group, so every rank
+  holds every kv head; each local query head picks its kv head.
+
+Prefill's attention output is a partial o-projection (rows of ``wo`` per
+rank) that the block reduce-scatters.  Decode gathers q (and, in ``col``,
+the new k/v) to full heads -- the cache is sequence-sharded and holds
+every head -- and ``decode_out`` applies the rank's heads' ``wo`` rows to
+the merged attention.  MLA runs at tp = 1 only.
 
 MLA: the cache stores one latent row per token, c_kv ‖ k_rope (lora +
 rope wide, shared by every head; LEXI compresses the latent).  Prefill
@@ -22,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import collectives as cl
 from repro_torch.kernels.ref import WINDOW_NONE   # global layers' window
 from . import layers
 from .layers import (AttnSpec, apply_rope, matmul_f32, pdot, raw_weight,
@@ -53,10 +67,18 @@ def mla_scale(cfg: ModelConfig) -> float:
     return (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim) ** -0.5
 
 
-def attn_table(cfg: ModelConfig) -> Dict[str, PDef]:
+def kv_mode(cfg: ModelConfig, tp: int) -> str:
+    return "col" if cfg.n_kv_heads % tp == 0 else "row"
+
+
+def attn_table(cfg: ModelConfig, tp: int = 1) -> Dict[str, PDef]:
     d, hd = cfg.d_model, cfg.head_dim
-    hq, nkv = cfg.n_heads, cfg.n_kv_heads
+    hq, nkv = cfg.padded_heads(tp), cfg.n_kv_heads
     if cfg.mla is not None:
+        if tp > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA at tp > 1 waits for its slice (ROADMAP.md, "
+                "queue 1, item 3)")
         m = cfg.mla
         return {
             "wq": PDef((d, hq * (m.qk_nope_dim + m.qk_rope_dim))),
@@ -66,16 +88,19 @@ def attn_table(cfg: ModelConfig) -> Dict[str, PDef]:
             "w_uv": PDef((m.kv_lora_rank, hq * m.v_dim)),
             "wo": PDef((hq * m.v_dim, d)),
         }
+    col, row, rep = (None, "model"), ("model", None), ()
+    kv = col if kv_mode(cfg, tp) == "col" else row
     t: Dict[str, PDef] = {
-        "wq": PDef((d, hq * hd)),
-        "wk": PDef((d, nkv * hd)),
-        "wv": PDef((d, nkv * hd)),
-        "wo": PDef((hq * hd, d)),
+        "wq": PDef((d, hq * hd), spec=col),
+        "wk": PDef((d, nkv * hd), spec=kv),
+        "wv": PDef((d, nkv * hd), spec=kv),
+        "wo": PDef((hq * hd, d), spec=row),
     }
     if cfg.qkv_bias:
-        t["bq"] = PDef((hq * hd,), "zeros")
-        t["bk"] = PDef((nkv * hd,), "zeros")
-        t["bv"] = PDef((nkv * hd,), "zeros")
+        bkv = ("model",) if kv is col else rep
+        t["bq"] = PDef((hq * hd,), "zeros", spec=("model",))
+        t["bk"] = PDef((nkv * hd,), "zeros", spec=bkv)
+        t["bv"] = PDef((nkv * hd,), "zeros", spec=bkv)
     if cfg.qk_norm:
         t["q_norm"] = PDef((hd,), "ones")
         t["k_norm"] = PDef((hd,), "ones")
@@ -93,18 +118,54 @@ def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(b, s, n, hd).transpose(1, 2)
 
 
+def _row_kv(cfg: ModelConfig, p, x: torch.Tensor, tg):
+    """``row`` mode's k and v (…, nkv * hd) bf16: the rank's d_model slice
+    of x times its rows of wk / wv, summed in f32 over the group, biased
+    in f32, then rounded."""
+    dsh = cfg.d_model // tg.world
+    xs = x[..., tg.rank * dsh:(tg.rank + 1) * dsh]
+    k, v = cl.psum(torch.stack([matmul_f32(xs, p["wk"]),
+                                matmul_f32(xs, p["wv"])]), tg)
+    if cfg.qkv_bias:
+        k, v = k + p["bk"].float(), v + p["bv"].float()
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def _local_q_kv_index(cfg: ModelConfig, tg) -> torch.Tensor:
+    """``row`` mode: the kv head of each of the rank's query heads (pad
+    heads clip onto the last kv head)."""
+    hq_loc = cfg.padded_heads(tg.world) // tg.world
+    g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
+    return torch.as_tensor(np.clip(
+        (tg.rank * hq_loc + np.arange(hq_loc)) // g, 0,
+        cfg.n_kv_heads - 1))
+
+
 def project_qkv(cfg: ModelConfig, p, xg: torch.Tensor,
-                positions: torch.Tensor) -> QKV:
-    """xg (B,S,D) -> rope'd q and k, and v, per head."""
-    hd = cfg.head_dim
-    q = _heads(pdot(xg, p["wq"], p.get("bq")), cfg.n_heads, hd)
-    k = _heads(pdot(xg, p["wk"], p.get("bk")), cfg.n_kv_heads, hd)
-    v = _heads(pdot(xg, p["wv"], p.get("bv")), cfg.n_kv_heads, hd)
+                positions: torch.Tensor, tg=None):
+    """xg (B,S,D) (the full sequence) -> (QKV for the rank's query heads:
+    rope'd q and k, and v; the cache payload's (k, v): the rank's kv
+    heads in ``col`` mode, every kv head in ``row`` mode)."""
+    hd, tp = cfg.head_dim, cl.world(tg)
+    hq_loc = cfg.padded_heads(tp) // tp
+    q = _heads(pdot(xg, p["wq"], p.get("bq")), hq_loc, hd)
+    if kv_mode(cfg, tp) == "col":
+        nkv = cfg.n_kv_heads // tp
+        k = _heads(pdot(xg, p["wk"], p.get("bk")), nkv, hd)
+        v = _heads(pdot(xg, p["wv"], p.get("bv")), nkv, hd)
+    else:
+        k, v = _row_kv(cfg, p, xg, tg)
+        k = _heads(k, cfg.n_kv_heads, hd)
+        v = _heads(v, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-    return QKV(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if kv_mode(cfg, tp) == "col":
+        return QKV(q, k, v), (k, v)
+    idx = _local_q_kv_index(cfg, tg).to(k.device)
+    return QKV(q, k.index_select(1, idx), v.index_select(1, idx)), (k, v)
 
 
 def project_qkv_mla(cfg: ModelConfig, p, xg: torch.Tensor,
@@ -131,16 +192,17 @@ def project_qkv_mla(cfg: ModelConfig, p, xg: torch.Tensor,
 
 def attn_forward(cfg: ModelConfig, run: RunConfig, p, xg: torch.Tensor,
                  positions: torch.Tensor, spec: AttnSpec, window=None,
-                 want_cache: bool = False):
+                 want_cache: bool = False, tg=None):
     """Full-sequence attention: xg (B,S,D) -> (o-projection (B,S,D) f32,
-    the decode cache's payload or None: (k, v), or MLA's latent)."""
+    the decode cache's payload or None: (k, v), or MLA's latent).  At
+    tp > 1 the o-projection is the rank's partial (its heads' rows of
+    ``wo``) and (k, v) as ``project_qkv`` returns them."""
     if cfg.mla is not None:
         qkv, latent = project_qkv_mla(cfg, p, xg, positions)
         spec = spec._replace(scale=mla_scale(cfg))
         cache = latent
     else:
-        qkv = project_qkv(cfg, p, xg, positions)
-        cache = (qkv.k, qkv.v)
+        qkv, cache = project_qkv(cfg, p, xg, positions, tg)
     b, hq, s, _ = qkv.q.shape
     out = layers.flash_attention(
         qkv.q, qkv.k, qkv.v, positions, positions, spec, window=window,
@@ -173,34 +235,56 @@ def decode_qkv_mla(cfg: ModelConfig, p, h: torch.Tensor,
     return q_full, new_vals
 
 
-def decode_qkv(cfg: ModelConfig, p, h: torch.Tensor, pos: torch.Tensor):
+def decode_qkv(cfg: ModelConfig, p, h: torch.Tensor, pos: torch.Tensor,
+               tg=None):
     """h (B,1,D), pos (B,) rope positions -> (q (B,Hq,1,hd), new_vals
     (B, W)) with the new token's K‖V laid out (Hkv, 2, hd) per row (MLA:
-    ``decode_qkv_mla``)."""
+    ``decode_qkv_mla``).  At tp > 1 q (and in ``col`` mode k and v) are
+    gathered from the ranks to full heads: every rank gets all of them."""
     if cfg.mla is not None:
         return decode_qkv_mla(cfg, p, h, pos)
-    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    hd, tp = cfg.head_dim, cl.world(tg)
+    hq_loc = cfg.padded_heads(tp) // tp
     b = h.shape[0]
-    q = pdot(h, p["wq"], p.get("bq")).reshape(b, 1, cfg.n_heads, hd) \
+    col = kv_mode(cfg, tp) == "col"
+    q = pdot(h, p["wq"], p.get("bq")).reshape(b, 1, hq_loc, hd) \
         .transpose(1, 2)
-    k = pdot(h, p["wk"], p.get("bk")).reshape(b, 1, nkv, hd).transpose(1, 2)
-    v = pdot(h, p["wv"], p.get("bv")).reshape(b, 1, nkv, hd).transpose(1, 2)
+    if col:
+        nkv = cfg.n_kv_heads // tp
+        k = pdot(h, p["wk"], p.get("bk")).reshape(b, 1, nkv, hd) \
+            .transpose(1, 2)
+        v = pdot(h, p["wv"], p.get("bv")).reshape(b, 1, nkv, hd) \
+            .transpose(1, 2)
+    else:
+        k, v = _row_kv(cfg, p, h, tg)
+        k = k.reshape(b, 1, cfg.n_kv_heads, hd).transpose(1, 2)
+        v = v.reshape(b, 1, cfg.n_kv_heads, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_tables(pos.reshape(b, 1), hd, cfg.rope_theta)
     cos, sin = cos[:, None], sin[:, None]                # (B,1,1,hd/2)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if cl.world(tg) > 1:                 # one exchange for q (and k, v)
+        parts = cl.gather_many((q, k, v) if col else (q,), tg)
+        q = cl.fold_parts(parts[0], 1)
+        if col:
+            k, v = cl.fold_parts(parts[1], 1), cl.fold_parts(parts[2], 1)
     new_vals = torch.stack([k[:, :, 0], v[:, :, 0]], dim=2)  # (B,Hkv,2,hd)
     return q, new_vals.reshape(b, -1)
 
 
-def decode_out(cfg: ModelConfig, p, merged: torch.Tensor) -> torch.Tensor:
-    """merged (B,Hq,1,hd_v) -> o-projection (B,1,D) f32.  MLA first maps
+def decode_out(cfg: ModelConfig, p, merged: torch.Tensor,
+               tg=None) -> torch.Tensor:
+    """merged (B,Hq,1,hd_v) -> o-projection (B,1,D) f32: at tp > 1 the
+    rank's partial, its heads through its rows of ``wo``.  MLA first maps
     each head's attended latent (hd_v = lora) through its W_uv slice, in
     f32, rounded to bf16."""
     b = merged.shape[0]
+    tp = cl.world(tg)
+    if tp > 1:
+        hq_loc = merged.shape[1] // tp
+        merged = merged[:, tg.rank * hq_loc:(tg.rank + 1) * hq_loc]
     if cfg.mla is not None:
         m = cfg.mla
         w_uv = raw_weight(p["w_uv"]).reshape(m.kv_lora_rank, cfg.n_heads,

@@ -1,17 +1,26 @@
-"""Transformer blocks at tp = 1 (ports ``repro/models/blocks.py``): the
-dense family (attention + MLP), the MoE family (attention, plain or MLA, +
-the MoE FFN of ``models/moe.py``) and the parallel hybrid (attention ∥
-Mamba2 on the same normed input, + MLP or MoE).
+"""Transformer blocks (ports ``repro/models/blocks.py``): the dense family
+(attention + MLP), the MoE family (attention, plain or MLA, + the MoE FFN
+of ``models/moe.py``) and the parallel hybrid (attention ∥ Mamba2 on the
+same normed input, + MLP or MoE).
 
-Collectives dropped: the ``lexi_all_gather`` of the normalised activations
-and the ``psum_scatter`` of the mixer/FFN outputs.  At tp = 1 the
-reference's gather still round-trips activations through
-``fixed.compress``/``decompress``, which is the identity as long as no
-escape overflows its side channel; the port has no such round trip (the
-tests check that the reference's gathers saw no overflow on their inputs).
-The mixer outputs are summed in f32 (attention's o-projection plus, for a
-hybrid, the SSM's output projection) and the sum is rounded to bf16 before
-the residual add, as the reference's bf16 reduce-scatter does.
+Tensor parallelism (the dense family; ``tg`` a ``launch.mesh.TPGroup``):
+boundary activations are sequence-sharded (B, S/tp, D) in prefill, and
+each mixer and FFN entry gathers the normed activations with
+``collectives.compressed_all_gather`` -- the paper's codec at the link
+port: LEXI-packed on the wire -- and reduce-scatters its f32 partial,
+rounded to bf16, back to the sequence shards with a raw
+``psum_scatter`` (a sum cannot cross compressed).  The MLP is column-
+(w_gate, w_up) then row-parallel (w_down).  Decode activations are
+replicated (B, 1, D) and the partials are psum'd in bf16.
+
+At tp = 1 the port drops the collectives.  The reference's gather still
+round-trips activations through ``fixed.compress``/``decompress`` there,
+which is the identity as long as no escape overflows its side channel;
+the port has no such round trip (the tests check that the reference's
+gathers saw no overflow on their inputs).  The mixer outputs are summed
+in f32 (attention's o-projection plus, for a hybrid, the SSM's output
+projection) and the sum is rounded to bf16 before the residual add, as
+the reference's bf16 reduce-scatter does.
 """
 
 from __future__ import annotations
@@ -21,20 +30,33 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import collectives as cl
 from . import attention, layers, moe as moe_mod, ssm as ssm_mod
 from .params import PDef
 
 
 def mlp_table(cfg: ModelConfig) -> Dict[str, PDef]:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": PDef((d, f)), "w_up": PDef((d, f)),
-            "w_down": PDef((f, d))}
+    col, row = (None, "model"), ("model", None)
+    return {"w_gate": PDef((d, f), spec=col), "w_up": PDef((d, f), spec=col),
+            "w_down": PDef((f, d), spec=row)}
 
 
-def block_table(cfg: ModelConfig) -> Dict:
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise for a config whose tp > 1 path is not ported yet."""
+    if tp > 1 and (cfg.moe is not None or cfg.ssm is not None
+                   or cfg.mla is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism covers the dense family; MoE, "
+            "SSM and MLA at tp > 1 wait for their slice (ROADMAP.md, queue "
+            "1, item 3)")
+
+
+def block_table(cfg: ModelConfig, tp: int = 1) -> Dict:
     """Parameter table for ONE layer (unstacked): attention (with a
     hybrid's ``ssm`` subtable beside it), then an ``mlp`` or, for MoE
-    configs, a ``moe`` FFN."""
+    configs, a ``moe`` FFN; ``spec``s for ``tp`` ranks."""
+    check_tp(cfg, tp)
     if cfg.n_heads == 0:
         raise NotImplementedError(
             f"{cfg.name}: attention-free blocks wait for the mamba2 slice "
@@ -44,7 +66,8 @@ def block_table(cfg: ModelConfig) -> Dict:
             f"{cfg.name}: encoder-decoder and FFN-less blocks wait for the "
             "enc-dec slice")
     d = cfg.d_model
-    t: Dict = {"ln1": PDef((d,), "ones"), "attn": attention.attn_table(cfg)}
+    t: Dict = {"ln1": PDef((d,), "ones"),
+               "attn": attention.attn_table(cfg, tp)}
     if cfg.ssm is not None:
         t["ssm"] = ssm_mod.ssm_table(cfg)
     if cfg.post_norm:
@@ -59,46 +82,70 @@ def block_table(cfg: ModelConfig) -> Dict:
     return t
 
 
-def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """The MLP sub-block with its residual: x + W_down(swiglu(...))."""
+def _gather(h: torch.Tensor, run: RunConfig, tg,
+            groups: int = 1) -> torch.Tensor:
+    """A prefill mixer's or FFN's entry: the sequence-sharded normed
+    activations gathered, LEXI-compressed on the wire (each of ``groups``
+    groups of sequences on its own)."""
+    return cl.compressed_all_gather(h, tg, run.codec, gather_axis=1,
+                                    groups=groups)
+
+
+def _reduce(y: torch.Tensor, tg, prefill: bool) -> torch.Tensor:
+    """A bf16 partial back to the block's layout: reduce-scattered over
+    the sequence in prefill, summed in decode (raw: it sums)."""
+    if prefill:
+        return cl.psum_scatter(y, tg, 1)
+    return cl.psum(y, tg)
+
+
+def mlp(cfg: ModelConfig, p, x: torch.Tensor, run: RunConfig = None,
+        tg=None, prefill: bool = False, groups: int = 1) -> torch.Tensor:
+    """The MLP sub-block with its residual: x + W_down(swiglu(...)); at
+    tp > 1 (``run``'s codec for the gather) column- then row-parallel."""
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if prefill and cl.world(tg) > 1:
+        h = _gather(h, run, tg, groups)
     m = p["mlp"]
     act = layers.swiglu(layers.pdot(h, m["w_gate"]),
                         layers.pdot(h, m["w_up"]))
-    y = layers.matmul_f32(act, m["w_down"]).to(torch.bfloat16)
+    y = _reduce(layers.matmul_f32(act, m["w_down"]).to(torch.bfloat16), tg,
+                prefill)
     if cfg.post_norm:
         y = layers.rms_norm(y, p["ln2b"], cfg.norm_eps)
     return x + y
 
 
 def ffn(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
-        moe_groups: int = 1) -> torch.Tensor:
+        groups: int = 1, tg=None) -> torch.Tensor:
     """The FFN tail of a full-sequence layer with its residual: the MoE
-    FFN where the layer has one (its tokens dispatched in ``moe_groups``
+    FFN where the layer has one (its tokens dispatched in ``groups``
     groups, see ``moe.moe_forward``; the aux loss is dropped: serving
     ignores it), else the MLP."""
     if "moe" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + moe_mod.moe_forward(cfg, run, p["moe"], h,
-                                       groups=moe_groups)[0]
-    return mlp(cfg, p, x)
+                                       groups=groups)[0]
+    return mlp(cfg, p, x, run, tg, prefill=True, groups=groups)
 
 
-def ffn_decode(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def ffn_decode(cfg: ModelConfig, p, x: torch.Tensor, tg=None) -> torch.Tensor:
     """The FFN tail of a decode layer (ports ``serve/engine.py:
     _ffn_decode``): ``moe.moe_decode`` where the layer has a MoE FFN,
     else the MLP."""
     if "moe" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + moe_mod.moe_decode(cfg, p["moe"], h)
-    return mlp(cfg, p, x)
+    return mlp(cfg, p, x, tg=tg)
 
 
 def mixer_residual(cfg: ModelConfig, p, x: torch.Tensor,
-                   partial: torch.Tensor) -> torch.Tensor:
-    """The mixers' f32 sum rounded to bf16, (post-normed,) added to the
-    residual; the FFN tail comes after (``ffn`` / ``ffn_decode``)."""
-    out = partial.to(torch.bfloat16)
+                   partial: torch.Tensor, tg=None,
+                   prefill: bool = False) -> torch.Tensor:
+    """The mixers' f32 sum rounded to bf16 (at tp > 1 reduced over the
+    ranks, see ``_reduce``), (post-normed,) added to the residual; the FFN
+    tail comes after (``ffn`` / ``ffn_decode``)."""
+    out = _reduce(partial.to(torch.bfloat16), tg, prefill)
     if cfg.post_norm:
         out = layers.rms_norm(out, p["ln1b"], cfg.norm_eps)
     return x + out
@@ -107,18 +154,25 @@ def mixer_residual(cfg: ModelConfig, p, x: torch.Tensor,
 def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
                   positions: torch.Tensor, spec: layers.AttnSpec,
                   window=None, want_cache: bool = False,
-                  moe_groups: int = 1):
+                  groups: int = 1, tg=None):
     """x (B,S,D) -> (x', the decode cache payload or None: (k, v), or an
     MLA layer's latent (B,S,W); the SSM's final ``SSMState`` or None).  A
-    hybrid's attention and SSM outputs are summed in f32; a MoE FFN
-    dispatches its tokens in ``moe_groups`` groups."""
+    hybrid's attention and SSM outputs are summed in f32.  The B
+    sequences run as ``groups`` separate prefills: a MoE FFN dispatches
+    each group's tokens on its own, and at tp > 1 the gathers compress
+    each group's activations on their own.  At tp > 1 x is the rank's
+    sequence shard (B, S/tp, D) and (k, v) the rank's cache payload heads
+    (``attention.project_qkv``)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cl.world(tg) > 1:
+        h = _gather(h, run, tg, groups)
     o, kv = attention.attn_forward(cfg, run, p["attn"], h, positions, spec,
-                                   window=window, want_cache=want_cache)
+                                   window=window, want_cache=want_cache,
+                                   tg=tg)
     st = None
     if "ssm" in p:
         o_ssm, st = ssm_mod.ssm_forward(cfg, p["ssm"], h,
                                         want_state=want_cache)
         o = o + o_ssm
-    x = mixer_residual(cfg, p, x, o)
-    return ffn(cfg, run, p, x, moe_groups), kv, st
+    x = mixer_residual(cfg, p, x, o, tg, prefill=True)
+    return ffn(cfg, run, p, x, groups, tg), kv, st

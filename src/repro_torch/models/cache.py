@@ -1,4 +1,4 @@
-"""LEXI-compressed KV caches at tp = 1 (ports ``repro/models/cache.py``).
+"""LEXI-compressed KV caches (ports ``repro/models/cache.py``).
 
 Two stores, as in the reference:
 
@@ -36,8 +36,16 @@ Likewise the fixed-batch store's length is a host int kept by the caller
 (beside a device copy that indexes the ring), so flushes are decided on
 the host.
 
-Collectives dropped at tp = 1: none remain in the cache (the interleaved
-per-shard ownership degenerates to "shard 0 owns every position").
+Tensor parallelism, as in the reference: the caches are sequence-sharded,
+interleaved.  Rank ``ti`` of ``tp`` owns the global positions p % tp ==
+ti of every sequence, at its local slot p // tp, for every kv head (the
+cache payload is full width on every rank).  A rank appends only the
+tokens it owns, its pages hold its slots, its page table and page use are
+its own (page ids may differ between ranks), and decode attention runs
+the kernels' ``tp, ti`` path over the rank's slots; the partials of the
+ranks merge with one pmax and two psums (``merge_shards``, the
+reference's ``layers.merge_partials``).  At tp = 1 a rank owns every
+position.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import collectives as cl
 from repro_torch.core import fixed, packing
 from repro_torch.core.collectives import CodecConfig
 from repro_torch.kernels import ops as kops
@@ -98,6 +107,29 @@ def effective_window(spec: layers.AttnSpec, window) -> int:
 
 
 stream_mask = kops.ref.stream_mask     # the kernel's live/window mask
+local_length = kops.ref.local_length   # slots a rank holds of a sequence
+
+
+def local_full_pages(length: int, ti: int, blk: int, tp: int) -> int:
+    """Full pages rank ``ti`` of ``tp`` holds of a sequence of ``length``
+    tokens (interleaved ownership)."""
+    return local_length(int(length), tp, ti) // blk
+
+
+def merge_shards(out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 tg=None) -> torch.Tensor:
+    """The ranks' unnormalised attention partials (out (..., hd) f32, m,
+    l) merged and normalised -> bf16 (the reference's
+    ``layers.merge_partials``: m_g = pmax m, w = e^(m - m_g), psum of
+    out * w over psum of l * w; here one gather of every rank's partials,
+    then the same sums in the same order on every rank)."""
+    if cl.world(tg) == 1:
+        return layers.merge_partials(out, l)
+    outs, ms, ls = cl.gather_many((out, m, l), tg)   # one exchange
+    w = torch.exp(ms - ms.max(0).values)
+    num = cl.sum_parts(outs * w[..., None])
+    den = cl.sum_parts(ls * w)
+    return (num / den.clamp(min=1e-30)[..., None]).to(torch.bfloat16)
 
 
 def gqa_head_table(cfg: ModelConfig, hq: int) -> tuple:
@@ -159,19 +191,21 @@ class KVBlocks:
         return self._stored.shape[1]
 
 
-def n_blocks(run: RunConfig, max_len: int) -> int:
-    """Capacity in blocks per sequence (prefill + decode growth room)."""
-    return max_len // run.codec.cache_block + 2
+def n_blocks(run: RunConfig, max_len: int, tp: int = 1) -> int:
+    """Capacity in blocks per sequence and rank (prefill + decode growth
+    room): a rank holds max_len // tp slots."""
+    return (max_len // tp) // run.codec.cache_block + 2
 
 
 def empty_kv(cfg: ModelConfig, run: RunConfig, n_seqs: int, max_len: int,
-             group: int = 1, device="cpu") -> KVBlocks:
+             group: int = 1, device="cpu", tp: int = 1) -> KVBlocks:
     """Zeroed store of ``n_seqs`` sequences compressed in groups of
-    ``group`` (``n_seqs`` for the fixed-batch store)."""
+    ``group`` (``n_seqs`` for the fixed-batch store), one rank's of
+    ``tp``."""
     if group < 1 or n_seqs % group:
         raise ValueError(f"group {group} does not divide {n_seqs} sequences")
     blk, w, n, npad, c, k = _page_geometry(cfg, run, group)
-    nblk = n_blocks(run, max_len)
+    nblk = n_blocks(run, max_len, tp)
     lead = (n_seqs // group, nblk)
     ring = torch.zeros((n_seqs, blk, w), dtype=torch.bfloat16, device=device)
     if run.codec.cache:
@@ -222,9 +256,10 @@ def load_block(kv: KVBlocks, idx: int, codec: CodecConfig) -> torch.Tensor:
 
 def fill_from_prefill(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
                       vals: torch.Tensor) -> KVBlocks:
-    """Load B prefilled sequences, vals (B, S, W), into the block store:
-    the full blocks through one ``store_block``, the partial tail into the
-    ring (in place)."""
+    """Load B prefilled sequences, vals (B, S, W) (at tp > 1 the rank's
+    S/tp interleaved slots), into the block store: the full blocks
+    through one ``store_block``, the partial tail into the ring (in
+    place)."""
     b, s, w = vals.shape
     blk = run.codec.cache_block
     nfull = s // blk
@@ -240,7 +275,8 @@ def fill_from_prefill(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
 
 def append_token(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
                  new_vals: torch.Tensor, length: int,
-                 length_dev: Optional[torch.Tensor] = None) -> None:
+                 length_dev: Optional[torch.Tensor] = None, tp: int = 1,
+                 ti: int = 0) -> None:
     """Append one token's K/V (B, W) of every sequence at position
     ``length`` (a host int): a ring write at ``length % blk``; when that
     fills the ring, the ring is compressed into block ``length // blk``
@@ -250,8 +286,18 @@ def append_token(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
     does not fill the ring replays at every length; the host int decides
     the flush.  As in the reference the
     ring is not cleared after a flush: rows past the length are dead by
-    the live mask."""
+    the live mask.  At tp > 1 only the owner of the position, rank
+    ``length % tp``, writes: at its slot ``length // tp`` (a host
+    decision; the tp > 1 loop runs no CUDA graph)."""
     blk = run.codec.cache_block
+    if tp > 1:
+        if length % tp != ti:
+            return
+        loc = length // tp
+        kv.ring[:, loc % blk] = new_vals.to(torch.bfloat16)
+        if loc % blk == blk - 1:
+            store_block(kv, loc // blk, kv.ring, run.codec)
+        return
     if length_dev is None:
         length_dev = torch.tensor(length, dtype=torch.int32,
                                   device=kv.ring.device)
@@ -263,7 +309,7 @@ def append_token(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
 
 def attend_cache(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
                  q: torch.Tensor, length, spec: layers.AttnSpec,
-                 window=None) -> torch.Tensor:
+                 window=None, tg=None) -> torch.Tensor:
     """Fixed-batch decode attention: q (B,Hq,1,hd) over the batch-shared
     store (group = B) whose sequences hold ``length`` tokens (post-append;
     a host int, or a 0-d int32 tensor on q's device, which the kernel
@@ -271,7 +317,8 @@ def attend_cache(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
 
     ``kernels.ops.decode_attend`` launches the CUDA kernel on CUDA tensors
     and runs its plain version on CPU ones; ``run.codec.decode_backend`` is
-    checked against q's device first."""
+    checked against q's device first.  At tp > 1 each rank attends its
+    slots (the kernels' ``tp, ti`` path) and ``merge_shards`` merges."""
     b = q.shape[0]
     if kv.group != b:
         raise ValueError(f"attend_cache needs the batch-shared store "
@@ -280,10 +327,11 @@ def attend_cache(cfg: ModelConfig, run: RunConfig, kv: KVBlocks,
     fields = tuple(None if f is None else f[0] for f in
                    (kv.signman, kv.planes, kv.dict_syms, kv.esc_pos,
                     kv.esc_raw, kv.raw_blocks))
-    out, _, l = kops.decode_attend(
+    out, m, l = kops.decode_attend(
         q[:, :, 0].contiguous(), *fields, kv.ring, length,
-        effective_window(spec, window), **kernel_statics(cfg, run, q, spec))
-    return layers.merge_partials(out, l)[:, :, None]
+        effective_window(spec, window), **kernel_statics(cfg, run, q, spec),
+        tp=cl.world(tg), ti=cl.rank(tg))
+    return merge_shards(out, m, l, tg)[:, :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +389,8 @@ class PagedKV:
                       self.esc_pos, self.esc_raw, self.raw_pages))
 
 
-def max_pages_per_slot(run: RunConfig, max_len: int) -> int:
-    return max_len // run.codec.cache_block + 2
+def max_pages_per_slot(run: RunConfig, max_len: int, tp: int = 1) -> int:
+    return (max_len // tp) // run.codec.cache_block + 2
 
 
 def page_bytes(cfg: ModelConfig, run: RunConfig) -> Tuple[int, int]:
@@ -359,10 +407,12 @@ def page_bytes(cfg: ModelConfig, run: RunConfig) -> Tuple[int, int]:
 
 def empty_paged_kv(cfg: ModelConfig, run: RunConfig, n_slots: int,
                    max_len: int, n_pages: Optional[int] = None,
-                   device="cpu") -> PagedKV:
+                   device="cpu", tp: int = 1) -> PagedKV:
+    """One rank's zeroed pool (of ``tp``): pages, rings and tables for
+    ``n_slots`` sequences of up to ``max_len`` tokens."""
     blk, w, n, npad, c, k = _page_geometry(cfg, run)
     L = cfg.n_layers
-    maxp = max_pages_per_slot(run, max_len)
+    maxp = max_pages_per_slot(run, max_len, tp)
     if n_pages is not None and n_pages < n_slots * maxp:
         raise ValueError(
             f"page pool oversubscription unsupported: n_pages={n_pages} < "
@@ -401,7 +451,9 @@ class AppendPlan(NamedTuple):
     graph of a step reads each step's values; the flush part is host-side
     and runs only in an eager step."""
     rows: torch.Tensor             # (S,) int64 flat ring row of every slot
-    active: torch.Tensor           # (S,) bool: the slot appends this step
+    # (S,) bool: the slot appends this step, to this rank's ring (at
+    # tp > 1: only where the rank owns the position)
+    active: torch.Tensor
     pos: torch.Tensor              # (S,) int32 lengths before the step
     post: torch.Tensor             # (S,) int32 lengths after it
     flush_slots: np.ndarray        # (nf,) int64 slots whose ring fills
@@ -409,23 +461,28 @@ class AppendPlan(NamedTuple):
 
 
 def stage_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
-                 active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+                 active: np.ndarray, tp: int = 1,
+                 ti: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """The host part of a step's appends: decide where each slot's token
     goes and which active rings fill (host arithmetic only), allocate the
     filling rings' pages, map them into the page table, and stage the
     step's per-slot values into ``pkv.step`` (one copy from host memory).
     Returns (flush slots, their pages).  Mirrors the reference's in-graph
-    ``append_token_paged`` bookkeeping at tp = 1."""
+    ``append_token_paged`` bookkeeping: on rank ``ti`` of ``tp`` a slot
+    writes only where it owns the position (``length % tp == ti``), at
+    its slot ``length // tp``."""
     blk = run.codec.cache_block
     lengths = np.asarray(lengths, np.int64)
     active = np.asarray(active, bool)
-    r = lengths % blk
-    flush = np.flatnonzero(active & (r == blk - 1))
+    write = active & (lengths % tp == ti)
+    loc = lengths // tp
+    r = loc % blk
+    flush = np.flatnonzero(write & (r == blk - 1))
     pages = _alloc_pages(pkv, len(flush))
     if len(flush):
-        pkv.page_table[flush, lengths[flush] // blk] = pages
+        pkv.page_table[flush, loc[flush] // blk] = pages
         pkv.touch()
-    host = np.stack([np.arange(len(lengths)) * blk + r, active, lengths,
+    host = np.stack([np.arange(len(lengths)) * blk + r, write, lengths,
                      lengths + active]).astype(np.int32)
     pkv.step.copy_(torch.from_numpy(host), non_blocking=True)
     return flush, pages.astype(np.int64)
@@ -441,9 +498,9 @@ def device_plan(pkv: PagedKV, flush_slots=(), flush_pages=()) -> AppendPlan:
 
 
 def plan_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
-                active: np.ndarray) -> AppendPlan:
+                active: np.ndarray, tp: int = 1, ti: int = 0) -> AppendPlan:
     """``stage_append`` then ``device_plan``: one eager step's plan."""
-    return device_plan(pkv, *stage_append(run, pkv, lengths, active))
+    return device_plan(pkv, *stage_append(run, pkv, lengths, active, tp, ti))
 
 
 def append_token_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
@@ -477,33 +534,38 @@ def append_token_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
 
 def attend_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV, layer: int,
                  q: torch.Tensor, lengths: torch.Tensor,
-                 spec: layers.AttnSpec, window=None) -> torch.Tensor:
+                 spec: layers.AttnSpec, window=None, tg=None) -> torch.Tensor:
     """Per-slot paged decode attention of ``layer``: q (S,Hq,1,hd),
     ``lengths`` (S,) int32 post-append token counts on q's device.
     Returns (S,Hq,1,hd_v) bf16 (hd_v = lora for MLA).
 
     ``kernels.ops.decode_attend_paged`` launches the CUDA kernel on CUDA
     tensors and runs its plain version on CPU ones (``ServeEngine`` checks
-    ``run.codec.decode_backend`` against the device once)."""
-    out, _, l = kops.decode_attend_paged(
+    ``run.codec.decode_backend`` against the device once).  At tp > 1
+    each rank attends its slots and ``merge_shards`` merges."""
+    out, m, l = kops.decode_attend_paged(
         q[:, :, 0].contiguous(), *pkv.layer_fields(layer), pkv.ring[layer],
         pkv.page_ids(), lengths, effective_window(spec, window),
-        **kernel_statics(cfg, run, q, spec))
-    return layers.merge_partials(out, l)[:, :, None]
+        **kernel_statics(cfg, run, q, spec), tp=cl.world(tg),
+        ti=cl.rank(tg))
+    return merge_shards(out, m, l, tg)[:, :, None]
 
 
 def paged_insert_many(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,
                       kvbs: List[KVBlocks], slots: np.ndarray,
-                      seq_len: int) -> None:
+                      seq_len: int, tp: int = 1) -> None:
     """Copy B prefilled single-sequence stores (``kvbs[layer]``, group 1,
     leading axis B) into slots ``slots``: each sequence's full blocks
     become fresh pages byte for byte (the block layout IS the page
-    layout), its partial tail becomes the slot's ring row.  Pages are allocated once for all
-    layers, sequence-major, lowest free ids first (in place)."""
+    layout), its partial tail becomes the slot's ring row.  Pages are
+    allocated once for all layers, sequence-major, lowest free ids first
+    (in place).  At tp > 1 ``seq_len`` is a multiple of tp and the stores
+    hold the rank's seq_len / tp slots."""
     blk = run.codec.cache_block
     slots = np.asarray(slots, np.int64)
     nb = len(slots)
-    nfull = seq_len // blk
+    assert seq_len % tp == 0, (seq_len, tp)
+    nfull = (seq_len // tp) // blk
     maxp = pkv.page_table.shape[1]
     assert nfull <= maxp, (nfull, maxp)
     pages = _alloc_pages(pkv, nb * nfull).reshape(nb, nfull)
@@ -578,22 +640,23 @@ class PageWire(NamedTuple):
 _WIRE_FIELDS = _FIELDS + ("raw_pages",)
 
 
-def export_n_cols(length: int, blk: int) -> int:
-    """Full page columns of a sequence of ``length`` tokens (the
-    reference's ``export_n_cols`` at tp = 1)."""
-    return max(int(length), 0) // blk
+def export_n_cols(length: int, blk: int, tp: int = 1) -> int:
+    """Page columns of a wire payload of a sequence of ``length`` tokens:
+    the most full pages any of the ``tp`` ranks holds."""
+    return max(local_full_pages(length, t, blk, tp) for t in range(tp))
 
 
 def export_sequence(pkv: PagedKV, slot: int, n_cols: int, length: int,
-                    col0: int = 0) -> PageWire:
+                    col0: int = 0, tp: int = 1, ti: int = 0) -> PageWire:
     """Gather slot ``slot``'s pages ``[col0, col0 + n_cols)`` and its ring
     into transfer layout (one gather per field from the host table's
     ids, no decompression).  Columns at or past the sequence's full pages
-    (``length // block``) are zeroed, so the payload is deterministic."""
+    on this rank (``local_full_pages``) are zeroed, so the payload is
+    deterministic."""
     blk = pkv.ring.shape[2]
     maxp = pkv.page_table.shape[1]
     cols = col0 + np.arange(n_cols)
-    valid = (cols < length // blk) & (cols < maxp)
+    valid = (cols < local_full_pages(length, ti, blk, tp)) & (cols < maxp)
     row = pkv.page_table[slot]
     pid = np.where(valid, np.maximum(row[np.clip(cols, 0, maxp - 1)], 0), 0)
     dev = pkv.ring.device
@@ -612,21 +675,21 @@ def export_sequence(pkv: PagedKV, slot: int, n_cols: int, length: int,
 
 
 def import_sequence(pkv: PagedKV, slot: int, wire: PageWire, length: int,
-                    col0: int = 0) -> None:
+                    col0: int = 0, tp: int = 1, ti: int = 0) -> None:
     """Scatter a :class:`PageWire` into slot ``slot`` of this pool, the
     inverse of ``export_sequence`` up to page ids: fresh pages come from
     this pool's free list (``_alloc_pages``, lowest free ids first, as the
     reference's stable argsort), the fields are byte-copied into them, and
     the row maps them in column order.  Wire columns land at ``[col0,
     col0 + n_cols)``; the row below ``col0`` is kept (prefix reuse maps
-    shared pages there first); columns at or past ``length // block`` are
-    dropped.  The host checks capacity: a dry pool raises before any
-    device write."""
+    shared pages there first); columns at or past the rank's full pages
+    (``local_full_pages``) are dropped.  The host checks capacity: a dry
+    pool raises before any device write."""
     lead = wire.signman if pkv.signman is not None else wire.raw_pages
     n_cols = lead.shape[1]
     blk = pkv.ring.shape[2]
     maxp = pkv.page_table.shape[1]
-    nfull = length // blk
+    nfull = local_full_pages(length, ti, blk, tp)
     n_valid = max(min(n_cols, nfull - col0), 0)
     assert col0 + n_valid <= maxp, (col0, n_valid, maxp)
     pages = _alloc_pages(pkv, n_valid)

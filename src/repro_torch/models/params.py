@@ -4,14 +4,17 @@ package's parameter tree (ports ``repro/models/params.py``).
 A table is a nested dict with ``PDef`` leaves.  The port keeps the JAX
 package's layouts — stacked ``(L, ...)`` block leaves, ``wq`` (D, Hq*hd),
 ``embed`` (Vp, D), ``lm_head`` (D, Vp) over the padded vocabulary — so a
-bridged tree and the reference compare leaf for leaf.  Mesh sharding specs
-are dropped: this slice runs on one GPU.
+bridged tree and the reference compare leaf for leaf.  A leaf's ``spec``
+names the dims the tensor-parallel ("model") axis shards, as the
+reference's PartitionSpecs do; ``shard_params`` cuts a whole tree into
+rank ``ti``'s local tensors (FSDP's "data" axis is not ported: serving
+runs one replica).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,9 @@ class PDef:
     shape: Tuple[int, ...]
     init: str = "normal"              # normal | zeros | ones | normal:<std>
     dtype: torch.dtype = torch.bfloat16
+    # "model" on each dim the tensor-parallel axis shards, else None; ()
+    # = replicated
+    spec: Tuple[Optional[str], ...] = ()
 
 
 Table = Dict[str, Any]   # nested dict with PDef leaves
@@ -36,8 +42,42 @@ def tmap(fn: Callable[[PDef], Any], table: Table) -> Any:
 
 
 def stack(table: Table, n: int) -> Table:
-    """Prepend a layer dimension to every leaf."""
-    return tmap(lambda d: dataclasses.replace(d, shape=(n,) + d.shape), table)
+    """Prepend a layer dimension (never sharded) to every leaf."""
+    return tmap(lambda d: dataclasses.replace(
+        d, shape=(n,) + d.shape, spec=(None,) + d.spec if d.spec else ()),
+        table)
+
+
+def shard_dim(d: PDef) -> Optional[int]:
+    """The dim of ``d`` the model axis shards, or None (replicated)."""
+    dims = [i for i, sp in enumerate(d.spec) if sp == "model"]
+    return dims[0] if dims else None
+
+
+def local_shape(d: PDef, tp: int) -> Tuple[int, ...]:
+    """``d``'s shape on one of ``tp`` ranks."""
+    i = shard_dim(d)
+    if i is None or tp == 1:
+        return d.shape
+    if d.shape[i] % tp:
+        raise ValueError(f"dim {i} of {d.shape} does not split over tp {tp}")
+    return d.shape[:i] + (d.shape[i] // tp,) + d.shape[i + 1:]
+
+
+def shard_params(params: Any, table: Table, tp: int, ti: int) -> Any:
+    """Rank ``ti``'s local tensors of a whole parameter tree (torch
+    tensors or array-likes, e.g. the reference's numpy tree): each leaf
+    cut along its table entry's sharded dim into ``tp`` contiguous
+    chunks, chunk ``ti`` kept (a copy); replicated leaves as they are.
+    The padded query heads of the reference's ``row`` kv mode come with
+    the tree, as the reference initialised them."""
+    if isinstance(table, PDef):
+        t = params if isinstance(params, torch.Tensor) else _to_tensor(params)
+        i = shard_dim(table)
+        if i is None or tp == 1:
+            return t
+        return torch.chunk(t, tp, dim=i)[ti].clone()
+    return {k: shard_params(params[k], v, tp, ti) for k, v in table.items()}
 
 
 def init_params(table: Table, generator: torch.Generator,
@@ -58,6 +98,38 @@ def init_params(table: Table, generator: torch.Generator,
         return (a * std).to(d.dtype)
 
     return tmap(one, table)
+
+
+def pad_for_tp(params: Any, cfg, tp: int) -> Any:
+    """A tp = 1 parameter tree (``lm.lm_table(cfg)``) as the whole tree of
+    ``lm.lm_table(cfg, tp)``: the vocabulary padded to
+    ``cfg.padded_vocab(tp)`` with zero rows of ``embed`` (and zero columns
+    of ``lm_head``), the query heads padded to ``cfg.padded_heads(tp)``
+    with zero columns of ``wq`` (and ``bq``) and zero rows of ``wo``.  The
+    padded vocab ids are masked in the logits and a zero head adds
+    nothing, so the model is the same at every tp."""
+    vp1, vp = cfg.padded_vocab(1), cfg.padded_vocab(tp)
+    extra = (cfg.padded_heads(tp) - cfg.n_heads) * cfg.head_dim
+
+    def pad(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        if n == 0:
+            return t
+        shape = list(t.shape)
+        shape[dim] = n
+        return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+    out = dict(params)
+    out["embed"] = pad(params["embed"], 0, vp - vp1)
+    if "lm_head" in params:
+        out["lm_head"] = pad(params["lm_head"], 1, vp - vp1)
+    if extra and cfg.n_heads:
+        attn = dict(params["blocks"]["attn"])
+        attn["wq"] = pad(attn["wq"], 2, extra)
+        attn["wo"] = pad(attn["wo"], 1, extra)
+        if "bq" in attn:
+            attn["bq"] = pad(attn["bq"], 1, extra)
+        out["blocks"] = dict(params["blocks"], attn=attn)
+    return out
 
 
 def _to_tensor(a) -> torch.Tensor:

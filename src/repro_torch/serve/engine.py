@@ -1,5 +1,5 @@
-"""Serving engine (ports ``repro/serve/engine.py``) at tp = 1: prefill,
-then greedy decode over a LEXI-compressed KV cache (MLA: the latent
+"""Serving engine (ports ``repro/serve/engine.py``): prefill, then greedy
+decode over a LEXI-compressed KV cache (MLA: the latent
 cache; and, for the parallel attention ∥ SSM hybrids, each layer's
 recurrent SSM state), in two dataflows that share the per-layer compute
 (``_attn_block``, whose FFN tail is the MLP or the MoE decode of
@@ -55,9 +55,21 @@ host-side page table (see ``models.cache``) — so ring-flush decisions and
 page allocation cost no device sync; the device sees them through
 tensors that stay put (the fixed store's device length, the pool's page
 table and step buffer), refreshed in place.  State updates happen in
-place.  Collectives
-dropped at tp = 1: every psum/pmax/pmin of the decode block, the logits
-broadcast and ``greedy_token``'s cross-shard argmax.
+place.
+
+Tensor parallelism (the dense family; ``tg`` a ``launch.mesh.TPGroup``,
+one process per rank, every rank running the same loop): prefill runs the
+sequence-sharded trunk (``lm.lm_forward``), then reshards each layer's
+K/V into the cache's interleaved slots -- one all-to-all of the rank's kv
+heads in ``col`` mode (``_interleave_heads_a2a``), a slice of the full
+payload in ``row`` mode (``_interleave_slice``) -- and broadcasts the last
+position's hidden state from rank tp - 1 (a psum where the other ranks
+add zeros).  Decode steps psum the mixer and MLP partials in bf16, merge
+the ranks' attention partials (``cache.merge_shards``) and pick the
+greedy token over the vocab shards (``greedy_token``: pmax, then pmin of
+the candidate ids).  Every rank gets the same tokens.  Decode at tp > 1
+runs eagerly: a gloo collective cannot be captured in a CUDA graph.  At
+tp = 1 every collective is dropped.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import collectives as cl
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention, blocks, cache as cache_mod, layers
 from repro_torch.models import lm, ssm as ssm_mod
@@ -115,9 +128,20 @@ class PagedState:
     ssm: Optional[SSMState] = None
 
 
-def greedy_token(logits: torch.Tensor) -> torch.Tensor:
-    """(B, 1, V) -> (B, 1) int32 argmax (first maximum on ties)."""
-    return logits.argmax(-1).to(torch.int32)
+def greedy_token(logits: torch.Tensor, tg=None) -> torch.Tensor:
+    """(B, 1, V) -> (B, 1) int32 argmax (first maximum on ties).  At
+    tp > 1 ``logits`` are the rank's vocab shard: the largest logit over
+    the ranks (pmax), then the smallest id that reaches it (pmin), so ties
+    go to the lowest id, on every rank."""
+    if cl.world(tg) == 1:
+        return logits.argmax(-1).to(torch.int32)
+    v_loc = logits.shape[-1]
+    loc_max = logits.max(-1).values
+    loc_idx = logits.argmax(-1).to(torch.int32) + tg.rank * v_loc
+    maxes, idxs = cl.gather_many((loc_max, loc_idx), tg)   # one exchange
+    cand = torch.where(maxes >= maxes.max(0).values, idxs,
+                       torch.full_like(idxs, 1 << 30))
+    return cand.min(0).values
 
 
 def kv_payload(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -128,20 +152,62 @@ def kv_payload(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         .reshape(b, s, hkv * 2 * hd)
 
 
-def cache_payload(cfg: ModelConfig, kv) -> torch.Tensor:
+def _interleave_heads_a2a(vals: torch.Tensor, tg) -> torch.Tensor:
+    """(B, S, W/tp) payload of the rank's kv heads -> (B, S/tp, W) of the
+    rank's interleaved slots (positions c * tp + rank), every kv head:
+    one all-to-all (slot c's part for rank j goes to rank j; the parts
+    received from the ranks, in rank order, are the kv heads in order)."""
+    b, s, wl = vals.shape
+    tp = tg.world
+    chunks = vals.reshape(b, s // tp, tp, wl).permute(2, 0, 1, 3)
+    got = cl.exchange_parts(chunks.contiguous(), tg)  # (src rank, B, S/tp, .)
+    return got.permute(1, 2, 0, 3).reshape(b, s // tp, tp * wl)
+
+
+def _interleave_slice(vals: torch.Tensor, tg) -> torch.Tensor:
+    """(B, S, W) replicated payload -> the rank's interleaved slots (B,
+    S/tp, W)."""
+    b, s, w = vals.shape
+    return vals.reshape(b, s // tg.world, tg.world, w)[:, :, tg.rank]
+
+
+def cache_payload(cfg: ModelConfig, kv, tg=None) -> torch.Tensor:
     """A layer's prefill cache output -> its (B, S, W) cache payload: the
-    MLA latent as it is, else ``kv_payload(k, v)``."""
-    return kv if cfg.mla is not None else kv_payload(*kv)
+    MLA latent as it is, else ``kv_payload(k, v)``; at tp > 1 the rank's
+    interleaved slots of it (B, S/tp, W)."""
+    if cfg.mla is not None:
+        return kv
+    vals = kv_payload(*kv)
+    if cl.world(tg) == 1:
+        return vals
+    if attention.kv_mode(cfg, tg.world) == "col":
+        return _interleave_heads_a2a(vals, tg)
+    return _interleave_slice(vals, tg)
+
+
+def _last_hidden(x: torch.Tensor, tg) -> torch.Tensor:
+    """The last position's hidden state (B, 1, D): at tp > 1 it lies on
+    rank tp - 1, whose value every rank gets through an f32 psum where the
+    other ranks add zeros (exact)."""
+    xl = x[:, -1:]
+    if cl.world(tg) == 1:
+        return xl
+    mine = xl.float() if tg.rank == tg.world - 1 else torch.zeros_like(
+        xl, dtype=torch.float32)
+    return cl.psum(mine, tg).to(torch.bfloat16)
 
 
 def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
              stores: List[cache_mod.KVBlocks],
              ssm: Optional[SSMState] = None,
-             moe_groups: int = 1) -> torch.Tensor:
+             groups: int = 1, tg=None) -> torch.Tensor:
     """tokens (B, S) -> last-position logits (B,1,Vp); layer i's cache
     payload (K/V, or MLA's latent) fills the empty block store
     ``stores[i]`` in place, and a hybrid's final SSM state layer i of
-    ``ssm`` (L, B, ...); MoE layers dispatch in ``moe_groups`` groups.
+    ``ssm`` (L, B, ...); the B sequences run as ``groups`` separate
+    prefills (``lm.lm_forward``).
+    At tp > 1 the logits are the rank's vocab shard and the stores take
+    the rank's interleaved slots.
 
     Each layer's payload is compressed inside the layer loop
     (``lm_forward``'s ``cache_fn``), so the raw payload of one layer only
@@ -150,11 +216,11 @@ def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
         if st is not None:
             ssm_mod.write_state(ssm_mod.take(ssm, i), st)
         return cache_mod.fill_from_prefill(cfg, run, stores[i],
-                                           cache_payload(cfg, kv))
+                                           cache_payload(cfg, kv, tg))
 
     x, _ = lm.lm_forward(cfg, run, params, tokens, want_cache=True,
-                         cache_fn=to_blocks, moe_groups=moe_groups)
-    return lm.logits_for(cfg, params, x[:, -1:])
+                         cache_fn=to_blocks, groups=groups, tg=tg)
+    return lm.logits_for(cfg, params, _last_hidden(x, tg), tg)
 
 
 def _empty_ssm(cfg: ModelConfig, batch: int, device) -> Optional[SSMState]:
@@ -175,46 +241,52 @@ def resolve_device(device) -> torch.device:
 
 
 def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
-                device="cuda") -> DecodeState:
-    """Zeroed fixed-batch state: one batch-shared store per layer, on the
-    card unless the caller asks for the CPU."""
+                device="cuda", tp: int = 1) -> DecodeState:
+    """Zeroed fixed-batch state: one batch-shared store per layer (one
+    rank's of ``tp``), on the card unless the caller asks for the CPU."""
     device = resolve_device(device)
     return DecodeState(
         kv=[cache_mod.empty_kv(cfg, run, batch, max_len, group=batch,
-                               device=device)
+                               device=device, tp=tp)
             for _ in range(cfg.n_layers)],
         length=0, ssm=_empty_ssm(cfg, batch, device))
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
-            max_len: int) -> Tuple[torch.Tensor, DecodeState]:
+            max_len: int, tg=None) -> Tuple[torch.Tensor, DecodeState]:
     """Fixed batch: tokens (B, S) -> (last-position logits (B,1,Vp),
     DecodeState) with room for ``max_len`` tokens per sequence.  A MoE
     layer dispatches the B * S tokens jointly, as the reference's
-    ``prefill`` does."""
+    ``prefill`` does.  At tp > 1 (S % tp == 0) the logits are the rank's
+    vocab shard and the state the rank's."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
-    state = empty_state(cfg, run, b, max_len, device=tokens.device)
-    logits = _prefill(cfg, run, params, tokens, state.kv, state.ssm)
+    state = empty_state(cfg, run, b, max_len, device=tokens.device,
+                        tp=cl.world(tg))
+    logits = _prefill(cfg, run, params, tokens, state.kv, state.ssm, tg=tg)
     state.length = s
     state.length_dev.fill_(s)
     return logits, state
 
 
 def prefill_sequences(cfg: ModelConfig, run: RunConfig, params,
-                      tokens: torch.Tensor
+                      tokens: torch.Tensor, tg=None
                       ) -> Tuple[torch.Tensor, PrefilledSequences]:
     """Continuous batching: tokens (B, S) -> (last-position logits
     (B,1,Vp), each sequence's blocks compressed on its own).  Every
     sequence is its own B = 1 prefill, as the reference's vmapped admission
     runs it: a MoE layer dispatches each sequence's tokens on their own,
-    with its own capacity."""
+    with its own capacity, and at tp > 1 each sequence's activations are
+    compressed on their own in the gathers.  At tp > 1 each rank keeps its
+    slots."""
     b, s = tokens.shape
-    stores = [cache_mod.empty_kv(cfg, run, b, s, device=tokens.device)
+    stores = [cache_mod.empty_kv(cfg, run, b, s, device=tokens.device,
+                                 tp=cl.world(tg))
               for _ in range(cfg.n_layers)]
     ssm = _empty_ssm(cfg, b, tokens.device)
-    logits = _prefill(cfg, run, params, tokens, stores, ssm, moe_groups=b)
+    logits = _prefill(cfg, run, params, tokens, stores, ssm, groups=b,
+                      tg=tg)
     return logits, PrefilledSequences(kv=stores, length=s, ssm=ssm)
 
 
@@ -228,28 +300,32 @@ def decode_spec(cfg: ModelConfig) -> layers.AttnSpec:
 
 def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
                 attend, sst: Optional[SSMState] = None,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                active: Optional[torch.Tensor] = None,
+                tg=None) -> torch.Tensor:
     """One layer's decode step around its cache: x (B,1,D), ``pos`` (B,)
     rope positions; ``attend(q, new_vals)`` appends the new K/V (MLA: the
     latent) and returns the merged attention (B,Hq,1,hd_v) bf16.  A
     hybrid's ``sst`` (this layer's state buffers) steps beside attention,
     its output summed in f32, and takes the new state in place (only
-    ``active``'s rows if given).  Then the FFN tail: MLP or MoE."""
+    ``active``'s rows if given).  Then the FFN tail: MLP or MoE.  At
+    tp > 1 the partials are psum'd in bf16 (``blocks.mixer_residual``,
+    ``blocks.ffn_decode``)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos)
-    o = attention.decode_out(cfg, p["attn"], attend(q, new_vals))
+    q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos, tg)
+    o = attention.decode_out(cfg, p["attn"], attend(q, new_vals), tg)
     if sst is not None:
         o_ssm, new = ssm_mod.ssm_decode_step(cfg, p["ssm"], h, sst)
         ssm_mod.write_state(sst, new, active)
         o = o + o_ssm
-    return blocks.ffn_decode(cfg, p, blocks.mixer_residual(cfg, p, x, o))
+    return blocks.ffn_decode(cfg, p, blocks.mixer_residual(cfg, p, x, o, tg),
+                             tg)
 
 
 def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
                  kv: cache_mod.KVBlocks, length: int,
                  length_dev: torch.Tensor, post: torch.Tensor,
                  spec: layers.AttnSpec, window=None,
-                 sst: Optional[SSMState] = None) -> torch.Tensor:
+                 sst: Optional[SSMState] = None, tg=None) -> torch.Tensor:
     """One layer's fixed-batch decode step: the new token at position
     ``length`` (host int, for the flush; ``length_dev`` the same on the
     device) of every sequence, ``post`` = length + 1 on the device; ``kv``
@@ -257,20 +333,22 @@ def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
     pos = length_dev.expand(x.shape[0])
 
     def attend(q, new_vals):
-        cache_mod.append_token(cfg, run, kv, new_vals, length, length_dev)
+        cache_mod.append_token(cfg, run, kv, new_vals, length, length_dev,
+                               tp=cl.world(tg), ti=cl.rank(tg))
         return cache_mod.attend_cache(cfg, run, kv, q, post, spec,
-                                      window=window)
+                                      window=window, tg=tg)
 
-    return _attn_block(cfg, p, x, pos, attend, sst)
+    return _attn_block(cfg, p, x, pos, attend, sst, tg=tg)
 
 
 def _fixed_forward(cfg: ModelConfig, run: RunConfig, params,
-                   state: DecodeState, tokens: torch.Tensor) -> torch.Tensor:
+                   state: DecodeState, tokens: torch.Tensor,
+                   tg=None) -> torch.Tensor:
     """The device work of one fixed-batch step: tokens (B, 1) -> logits,
     ``state.length_dev`` advanced; the host length is read (to decide the
     flush) but not advanced.  Without a flush it has the same shapes and
     addresses at every length (``FixedDecoder`` captures it)."""
-    x = lm.embed_tokens(cfg, params["embed"], tokens)      # (B,1,D)
+    x = lm.embed_tokens(cfg, params["embed"], tokens, tg)  # (B,1,D)
     spec = decode_spec(cfg)
     wins = attention.layer_windows(cfg)
     post = state.length_dev + 1
@@ -279,29 +357,35 @@ def _fixed_forward(cfg: ModelConfig, run: RunConfig, params,
                          state.kv[i], state.length, state.length_dev, post,
                          spec, window=None if wins is None else int(wins[i]),
                          sst=None if state.ssm is None
-                         else ssm_mod.take(state.ssm, i))
+                         else ssm_mod.take(state.ssm, i), tg=tg)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     state.length_dev.copy_(post)
-    return lm.logits_for(cfg, params, x)
+    return lm.logits_for(cfg, params, x, tg)
 
 
 def decode_step(cfg: ModelConfig, run: RunConfig, params, state: DecodeState,
-                tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, 1) -> logits (B, 1, Vp); every sequence advances one
-    token (state updated in place)."""
-    logits = _fixed_forward(cfg, run, params, state, tokens)
+                tokens: torch.Tensor, tg=None) -> torch.Tensor:
+    """tokens (B, 1) -> logits (B, 1, Vp) (at tp > 1 the rank's vocab
+    shard); every sequence advances one token (state updated in place)."""
+    logits = _fixed_forward(cfg, run, params, state, tokens, tg)
     state.length += 1
     return logits
 
 
-def resolve_graphs(cuda_graphs: Optional[bool], device) -> bool:
-    """Whether decode replays CUDA graphs: by default on a CUDA device and
-    not on the CPU; ``True`` on the CPU raises."""
+def resolve_graphs(cuda_graphs: Optional[bool], device, tp: int = 1) -> bool:
+    """Whether decode replays CUDA graphs: by default on a CUDA device at
+    tp = 1, not on the CPU and not at tp > 1 (a gloo collective cannot be
+    captured; graphs at tp > 1 wait for NCCL on several cards, ROADMAP.md
+    queue 1, item 3); ``True`` on the CPU or at tp > 1 raises."""
     on_cuda = torch.device(device).type == "cuda"
     if cuda_graphs is None:
-        return on_cuda
+        return on_cuda and tp == 1
     if cuda_graphs and not on_cuda:
         raise ValueError("cuda_graphs=True needs a CUDA device")
+    if cuda_graphs and tp > 1:
+        raise ValueError("cuda_graphs=True at tp > 1: a collective between "
+                         "the ranks cannot be captured yet (ROADMAP.md, "
+                         "queue 1, item 3)")
     return bool(cuda_graphs)
 
 
@@ -324,16 +408,21 @@ class FixedDecoder:
     captured ``decode_step`` + greedy, captured at the first such step."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, params,
-                 state: DecodeState, tok: torch.Tensor, graphs: bool):
+                 state: DecodeState, tok: torch.Tensor, graphs: bool,
+                 tg=None):
+        if graphs and cl.world(tg) > 1:
+            raise ValueError("FixedDecoder: no CUDA graphs at tp > 1")
         self.cfg, self.run, self.params, self.state = cfg, run, params, state
         self.tok = tok.to(torch.int32).clone()
         self.graphs = graphs
         self.graph = None
+        self.tg = tg
         self.counts = StepCounts()
 
     def _body(self) -> None:
         self.tok.copy_(greedy_token(_fixed_forward(
-            self.cfg, self.run, self.params, self.state, self.tok)))
+            self.cfg, self.run, self.params, self.state, self.tok, self.tg),
+            self.tg))
 
     def _warmup(self) -> None:
         """One step on the capture stream, then the state put back: the
@@ -355,7 +444,7 @@ class FixedDecoder:
 
     def step(self) -> None:
         st, blk = self.state, self.run.codec.cache_block
-        if (st.length + 1) // blk > st.kv[0].nblk:
+        if (st.length // cl.world(self.tg) + 1) // blk > st.kv[0].nblk:
             raise ValueError(f"length {st.length + 1} does not fit the "
                              f"store's blocks of {blk} and the ring")
         if self.graphs and self.state.length % blk != blk - 1:
@@ -373,15 +462,16 @@ class FixedDecoder:
 
 
 def generate(cfg: ModelConfig, run: RunConfig, params, prompts: torch.Tensor,
-             new_tokens: int, max_len: int) -> torch.Tensor:
+             new_tokens: int, max_len: int, tg=None) -> torch.Tensor:
     """The reference launcher's fixed-batch loop: prefill, then
     ``new_tokens`` greedy decode steps (``FixedDecoder``: from a CUDA
-    graph on the card, eagerly on the CPU).  prompts (B, S) ->
-    (B, new_tokens + 1) int32: the greedy token after the prompt and after
-    each step."""
-    logits, state = prefill(cfg, run, params, prompts, max_len)
-    dec = FixedDecoder(cfg, run, params, state, greedy_token(logits),
-                       resolve_graphs(None, prompts.device))
+    graph on the card at tp = 1, eagerly on the CPU or at tp > 1).
+    prompts (B, S) -> (B, new_tokens + 1) int32: the greedy token after
+    the prompt and after each step (the same on every rank)."""
+    logits, state = prefill(cfg, run, params, prompts, max_len, tg)
+    dec = FixedDecoder(cfg, run, params, state, greedy_token(logits, tg),
+                       resolve_graphs(None, prompts.device, cl.world(tg)),
+                       tg)
     outs = [dec.tok.clone()]
     for _ in range(new_tokens):
         dec.step()
@@ -391,14 +481,14 @@ def generate(cfg: ModelConfig, run: RunConfig, params, prompts: torch.Tensor,
 
 def empty_paged_state(cfg: ModelConfig, run: RunConfig, n_slots: int,
                       max_len: int, n_pages: Optional[int] = None,
-                      device="cuda") -> PagedState:
+                      device="cuda", tp: int = 1) -> PagedState:
     """Zeroed paged state with a page pool sized for ``n_slots`` (and a
-    hybrid's SSM state for every slot, allocated once), on the card unless
-    the caller asks for the CPU."""
+    hybrid's SSM state for every slot, allocated once), one rank's of
+    ``tp``, on the card unless the caller asks for the CPU."""
     device = resolve_device(device)
     return PagedState(
         kv=cache_mod.empty_paged_kv(cfg, run, n_slots, max_len,
-                                    n_pages=n_pages, device=device),
+                                    n_pages=n_pages, device=device, tp=tp),
         lengths=np.zeros((n_slots,), np.int32),
         active=np.zeros((n_slots,), bool),
         ssm=_empty_ssm(cfg, n_slots, device))
@@ -418,7 +508,7 @@ def paged_decode_block(cfg: ModelConfig, run: RunConfig, p, layer: int,
                        x: torch.Tensor, kv: cache_mod.PagedKV,
                        plan: cache_mod.AppendPlan, spec: layers.AttnSpec,
                        window=None,
-                       sst: Optional[SSMState] = None) -> torch.Tensor:
+                       sst: Optional[SSMState] = None, tg=None) -> torch.Tensor:
     """One layer's decode step at per-slot positions.  x (S,1,D); the
     plan's ``pos`` (S,) are the rope positions, ``post`` (S,) the lengths
     including the new token.  Inactive slots leave their cache and SSM
@@ -427,38 +517,39 @@ def paged_decode_block(cfg: ModelConfig, run: RunConfig, p, layer: int,
     def attend(q, new_vals):
         cache_mod.append_token_paged(cfg, run, kv, layer, new_vals, plan)
         return cache_mod.attend_paged(cfg, run, kv, layer, q, plan.post,
-                                      spec, window=window)
+                                      spec, window=window, tg=tg)
 
-    return _attn_block(cfg, p, x, plan.pos, attend, sst, plan.active)
+    return _attn_block(cfg, p, x, plan.pos, attend, sst, plan.active, tg)
 
 
 def _paged_forward(cfg: ModelConfig, run: RunConfig, params,
                    kv: cache_mod.PagedKV, plan: cache_mod.AppendPlan,
                    tokens: torch.Tensor,
-                   ssm: Optional[SSMState] = None) -> torch.Tensor:
+                   ssm: Optional[SSMState] = None, tg=None) -> torch.Tensor:
     """The device work of one paged step: tokens (S, 1) -> logits (S, 1,
     Vp).  Every value it reads comes through ``plan`` (views of the
     pool's step buffer) and the pool's persistent tensors, so without a
     flush it has the same shapes and addresses every step
     (``PagedDecoder`` captures it)."""
-    x = lm.embed_tokens(cfg, params["embed"], tokens)      # (S,1,D)
+    x = lm.embed_tokens(cfg, params["embed"], tokens, tg)  # (S,1,D)
     spec = decode_spec(cfg)
     wins = attention.layer_windows(cfg)
     for i in range(cfg.n_layers):
         x = paged_decode_block(
             cfg, run, lm.layer_params(params, i), i, x, kv, plan, spec,
             window=None if wins is None else int(wins[i]),
-            sst=None if ssm is None else ssm_mod.take(ssm, i))
+            sst=None if ssm is None else ssm_mod.take(ssm, i), tg=tg)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm.logits_for(cfg, params, x)
+    return lm.logits_for(cfg, params, x, tg)
 
 
 def paged_decode_step(cfg: ModelConfig, run: RunConfig, params,
-                      state: PagedState, tokens: torch.Tensor
+                      state: PagedState, tokens: torch.Tensor, tg=None
                       ) -> torch.Tensor:
-    """tokens (S, 1) -> logits (S, 1, Vp); every active slot advances one
-    token at its own position (state updated in place)."""
-    dec = PagedDecoder(cfg, run, state, graphs=False)
+    """tokens (S, 1) -> logits (S, 1, Vp) (at tp > 1 the rank's vocab
+    shard); every active slot advances one token at its own position
+    (state updated in place)."""
+    dec = PagedDecoder(cfg, run, state, graphs=False, tg=tg)
     dec.tok.copy_(tokens)
     return dec.forward(params)
 
@@ -476,18 +567,26 @@ class PagedDecoder:
     admission between steps are visible to the graph."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, state: PagedState,
-                 graphs: bool):
+                 graphs: bool, tg=None):
+        if graphs and cl.world(tg) > 1:
+            raise ValueError("PagedDecoder: no CUDA graphs at tp > 1")
         self.cfg, self.run, self.state = cfg, run, state
         self.tok = torch.zeros((len(state.lengths), 1), dtype=torch.int32,
                                device=state.kv.ring.device)
         self.graphs = graphs
         self.graph, self.params = None, None
+        self.tg = tg
         self.counts = StepCounts()
+
+    def _stage(self, lengths, active):
+        return cache_mod.stage_append(self.run, self.state.kv, lengths,
+                                      active, cl.world(self.tg),
+                                      cl.rank(self.tg))
 
     def _body(self, plan: cache_mod.AppendPlan) -> None:
         self.tok.copy_(greedy_token(_paged_forward(
             self.cfg, self.run, self.params, self.state.kv, plan, self.tok,
-            self.state.ssm)))
+            self.state.ssm), self.tg))
 
     def _capture(self, params, active: np.ndarray) -> None:
         """Capture the step.  Its warm-up runs the step with no slot
@@ -498,8 +597,7 @@ class PagedDecoder:
         tok = self.tok.clone()
 
         def warmup():
-            cache_mod.stage_append(self.run, kv, st.lengths,
-                                   np.zeros_like(active))
+            self._stage(st.lengths, np.zeros_like(active))
             self._body(cache_mod.device_plan(kv))
             self.tok.copy_(tok)
 
@@ -507,7 +605,7 @@ class PagedDecoder:
             lambda: self._body(cache_mod.device_plan(kv)), warmup,
             self.tok.device)
         self.counts.captures += 1
-        cache_mod.stage_append(self.run, kv, st.lengths, active)
+        self._stage(st.lengths, active)
 
     def forward(self, params, active: Optional[np.ndarray] = None
                 ) -> Optional[torch.Tensor]:
@@ -517,7 +615,7 @@ class PagedDecoder:
         its logits (S, 1, Vp); ``tok`` unchanged)."""
         st = self.state
         act = st.active if active is None else active
-        flush = cache_mod.stage_append(self.run, st.kv, st.lengths, act)
+        flush = self._stage(st.lengths, act)
         logits = None
         if self.graphs and not len(flush[0]):
             if self.graph is None or params is not self.params:
@@ -527,7 +625,7 @@ class PagedDecoder:
         else:
             logits = _paged_forward(self.cfg, self.run, params, st.kv,
                                     cache_mod.device_plan(st.kv, *flush),
-                                    self.tok, st.ssm)
+                                    self.tok, st.ssm, self.tg)
             self.counts.eager += 1
             self.counts.flush += bool(len(flush[0]))
         st.lengths += act.astype(np.int32)
@@ -537,7 +635,7 @@ class PagedDecoder:
         """``forward``, with its greedy tokens left in ``tok``."""
         logits = self.forward(params, active)
         if logits is not None:
-            self.tok.copy_(greedy_token(logits))
+            self.tok.copy_(greedy_token(logits, self.tg))
 
     def decode(self, params, tokens: torch.Tensor, n_steps: int
                ) -> torch.Tensor:
@@ -567,11 +665,13 @@ class PagedDecoder:
 
 
 def insert_sequences(cfg: ModelConfig, run: RunConfig, state: PagedState,
-                     d: PrefilledSequences, slots) -> PagedState:
+                     d: PrefilledSequences, slots, tp: int = 1) -> PagedState:
     """Insert a prefilled batch (``prefill_sequences``' output, B sequences
-    of ``d.length`` tokens) into free slots ``slots`` (in place)."""
+    of ``d.length`` tokens, the rank's slots of them at tp > 1) into free
+    slots ``slots`` (in place)."""
     slots = np.asarray(slots, np.int64)
-    cache_mod.paged_insert_many(cfg, run, state.kv, d.kv, slots, d.length)
+    cache_mod.paged_insert_many(cfg, run, state.kv, d.kv, slots, d.length,
+                                tp)
     if state.ssm is not None:
         idx = torch.as_tensor(slots, device=state.ssm.h.device)
         for dst, src in zip(state.ssm, d.ssm):
@@ -583,7 +683,7 @@ def insert_sequences(cfg: ModelConfig, run: RunConfig, state: PagedState,
 
 def paged_replay_steps(cfg: ModelConfig, run: RunConfig, params,
                        state: PagedState, tokens: torch.Tensor,
-                       feed: np.ndarray) -> torch.Tensor:
+                       feed: np.ndarray, tg=None) -> torch.Tensor:
     """Replay K known tokens per slot through the decode path, eagerly.
 
     ``tokens`` (K, S, 1) are fed where ``feed`` (K, S) is True; slots not
@@ -591,7 +691,7 @@ def paged_replay_steps(cfg: ModelConfig, run: RunConfig, params,
     Returns the per-step greedy tokens (K, S, 1); the scheduler reads a
     slot's first generated token from the step that consumed its last
     prompt token."""
-    return PagedDecoder(cfg, run, state, graphs=False).replay(
+    return PagedDecoder(cfg, run, state, graphs=False, tg=tg).replay(
         params, tokens, feed)
 
 
@@ -610,7 +710,8 @@ def map_shared_slot(state: PagedState, slot: int, page_ids: np.ndarray,
     return state
 
 
-def export_slot(state: PagedState, slot: int, n_cols: int, col0: int = 0
+def export_slot(state: PagedState, slot: int, n_cols: int, col0: int = 0,
+                tp: int = 1, ti: int = 0
                 ) -> Tuple[cache_mod.PageWire, Optional[SSMState], int]:
     """One slot's cache payload for a handoff or a spill: (the
     ``cache.export_sequence`` of page columns ``[col0, col0 + n_cols)``
@@ -622,7 +723,7 @@ def export_slot(state: PagedState, slot: int, n_cols: int, col0: int = 0
     if state.ssm is not None:
         ssm_slot = SSMState(*(t[:, slot] for t in state.ssm))
     return cache_mod.export_sequence(state.kv, slot, n_cols, length,
-                                     col0), ssm_slot, length
+                                     col0, tp, ti), ssm_slot, length
 
 
 def restore_ssm(state: PagedState, slot: int, ssm_slot: SSMState
@@ -636,12 +737,13 @@ def restore_ssm(state: PagedState, slot: int, ssm_slot: SSMState
 
 def import_slot(state: PagedState, slot: int, kv_wire: cache_mod.PageWire,
                 length: int, col0: int = 0,
-                ssm_slot: Optional[SSMState] = None) -> PagedState:
+                ssm_slot: Optional[SSMState] = None, tp: int = 1,
+                ti: int = 0) -> PagedState:
     """Import an exported sequence into free slot ``slot``: pages from
     this pool's free list, fields byte-copied (``cache.import_sequence``;
     ``col0`` > 0 keeps the row below it), a hybrid's ``ssm_slot`` scattered
     into the slot, the slot active at ``length``."""
-    cache_mod.import_sequence(state.kv, slot, kv_wire, length, col0)
+    cache_mod.import_sequence(state.kv, slot, kv_wire, length, col0, tp, ti)
     if ssm_slot is not None:
         restore_ssm(state, slot, ssm_slot)
     state.lengths[slot] = length

@@ -1,5 +1,5 @@
 """Continuous-batching request scheduler over the paged LEXI-compressed
-cache (ports ``repro/serve/scheduler.py`` at tp = 1).
+cache (ports ``repro/serve/scheduler.py``).
 
 ``ServeEngine`` owns the parameters and one ``PagedState``;
 ``RequestScheduler`` is the admission queue.  The loop:
@@ -80,9 +80,20 @@ runs split across replicas (``serve.disagg``): a prefill replica drives
 replica ``_decode_window`` on slots seeded by imports, its ``PageCache``
 ``remote_fetch`` wired to the transport's stores.
 
-Dropped with the mesh at one GPU: the shard_map wrappers and the
-leading per-shard axis of every state leaf (a column's page-id vector has
-one entry; a snapshot's SSM leaves are (L, ...)).
+Tensor parallelism (``ServeEngine(tp=N, group=...)``, the dense family):
+one process per rank, each running this same loop on the same requests;
+the ranks agree on every decision because every input to one is the same
+on all of them (the greedy tokens are, see ``engine.greedy_token``).  A
+rank holds its shard of the weights and its interleaved slots of every
+sequence (``models.cache``): its own page table and page use, on which it
+alone acts, while the host arithmetic that sizes admissions and the pool
+valve is over all ranks (``_lfp``, ``_page_growth``; ``_ensure_free_pages``
+takes the largest page use of the ranks).  Trunk buckets are
+power-of-two multiples of tp, prompts hold at least tp tokens, and one
+prefix column covers ``cache_block * tp`` tokens.  A column's index entry
+holds this rank's page id; a spilled column's payloads are every rank's,
+shard-major (gathered at the spill), as the reference's.  MoE, SSM and
+MLA configs and CUDA graphs at tp > 1 are refused.
 """
 
 from __future__ import annotations
@@ -97,9 +108,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import collectives as cl
 from repro_torch.core import weights as weights_mod
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import cache as cache_mod
+from repro_torch.models import blocks, cache as cache_mod
 from repro_torch.models import lm, params as PM
 from repro_torch.models.ssm import SSMState
 from . import engine
@@ -233,14 +245,15 @@ class _LoopState:
 class RequestScheduler:
     """FIFO admission queue with capacity validation.
 
-    Any prompt length >= 1 admits: the trunk is bucketed to a power of
-    two and the leftover tokens replay through exact decode steps.
-    Same-bucket requests may admit ahead of a different-bucket request
-    queued earlier in the same admission round.
+    Any prompt length >= tp admits: the trunk is bucketed to a power of
+    two times tp and the leftover tokens replay through exact decode
+    steps.  Same-bucket requests may admit ahead of a different-bucket
+    request queued earlier in the same admission round.
     """
 
-    def __init__(self, max_len: int):
+    def __init__(self, max_len: int, tp: int = 1):
         self.max_len = max_len
+        self.tp = tp
         self.queue: deque[Request] = deque()
         # wired by the owning engine: the root request span opens at
         # submit, and submit_t feeds TTFT (first token - submit)
@@ -250,8 +263,9 @@ class RequestScheduler:
 
     def submit(self, req: Request) -> None:
         s = len(req.prompt)
-        if s < 1:
-            raise ValueError("prompt must hold at least one token")
+        if s < max(self.tp, 1):
+            raise ValueError(f"prompt length {s} must be >= tp={self.tp} "
+                             "(and hold at least one token)")
         if s + req.max_new_tokens > self.max_len:
             raise ValueError(
                 f"request needs {s + req.max_new_tokens} tokens > "
@@ -275,9 +289,9 @@ class RequestScheduler:
 def _host_fields(wire: cache_mod.PageWire, ring: bool = False
                  ) -> Dict[str, np.ndarray]:
     """A ``PageWire``'s page fields (and with ``ring`` its ring) on the
-    host in the transport's ``(tp, L, ...)`` layout (tp = 1), with the
-    reference's dtypes: planes as uint32, raw bf16 as uint16 bits (the
-    same bytes)."""
+    host in the transport's ``(tp, L, ...)`` layout (one rank: a leading
+    axis of 1), with the reference's dtypes: planes as uint32, raw bf16
+    as uint16 bits (the same bytes)."""
     kv = {}
     for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
               "raw_pages") + (("ring",) if ring else ()):
@@ -295,10 +309,12 @@ def _host_fields(wire: cache_mod.PageWire, ring: bool = False
 
 
 class ServeEngine:
-    """Continuous-batching inference engine (one GPU)."""
+    """Continuous-batching inference engine: one replica, on one GPU or,
+    with ``tp`` > 1, one rank of a tensor-parallel group."""
 
-    def __init__(self, cfg: ModelConfig, run: RunConfig, *,
-                 n_slots: int = 4, max_len: int = 256, params=None,
+    def __init__(self, cfg: ModelConfig, run: RunConfig, *, tp: int = 1,
+                 group=None, n_slots: int = 4, max_len: int = 256,
+                 params=None,
                  seed: int = 0, eos_id: Optional[int] = None,
                  stop_seqs: Optional[Sequence[Sequence[int]]] = None,
                  max_fuse_steps: int = 32, prefix_sharing: bool = True,
@@ -316,11 +332,26 @@ class ServeEngine:
         {digest: payload}`` is its remote tier.  ``tracer`` records the
         request and engine-lane spans (shared by a disaggregated fleet,
         whose replicas it tells apart by ``name``); ``registry`` holds
-        the engine's metrics, refreshed by ``sync_metrics``."""
+        the engine's metrics, refreshed by ``sync_metrics``.
+
+        ``tp`` > 1 needs ``group``, this process's ``launch.mesh.TPGroup``
+        of ``tp`` ranks; ``params`` is then the rank's shard
+        (``models.params.shard_params``), and without it every rank
+        builds the seed's tp = 1 weights, pads them for tp
+        (``models.params.pad_for_tp``: zero padded vocab and query heads,
+        so the model is the same at every tp) and keeps its shard."""
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
+        if tp > 1 and (group is None or group.world != tp):
+            raise ValueError(f"tp={tp} needs the rank's TPGroup of {tp} "
+                             f"ranks, got {group}")
+        blocks.check_tp(cfg, tp)
+        self.tp = tp
+        self.group = group if tp > 1 else None
+        self.rank = cl.rank(self.group)
         self.device = engine.resolve_device(device)
-        self.cuda_graphs = engine.resolve_graphs(cuda_graphs, self.device)
+        self.cuda_graphs = engine.resolve_graphs(cuda_graphs, self.device,
+                                                 tp)
         if self.device.type == "cuda":
             # f32 products (prefill attention) stay f32, as in the reference
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -336,10 +367,14 @@ class ServeEngine:
                                    and cfg.moe is None and cfg.mla is None)
         self.decode_backend = kernel_ops.resolve_decode_backend(
             run.codec, self.device)
-        self.table = lm.lm_table(cfg)
+        self.table = lm.lm_table(cfg, tp)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = PM.init_params(self.table, gen, device=self.device)
+            params = PM.init_params(lm.lm_table(cfg), gen,
+                                    device=self.device)
+            if tp > 1:
+                params = PM.shard_params(PM.pad_for_tp(params, cfg, tp),
+                                         self.table, tp, self.rank)
         self.params = params
         # serving weight plane: pack bulk 2-D leaves into the escape-free
         # LEXI-FW layout (idempotent on packed leaves)
@@ -348,22 +383,23 @@ class ServeEngine:
             run.codec, self.device)
         if self.compress_weights:
             self.params = weights_mod.pack_serving_params(
-                self.params, backend=self.weight_backend)
+                self.params, backend=self.weight_backend, table=self.table,
+                tg=self.group)
         self._weight_bytes = weights_mod.weight_plane_bytes(self.params)
         # telemetry: host clocks read at window boundaries that exist
         # anyway, never a device sync; the registry is per engine
         self.name = name
         self.tracer = tracer if tracer is not None else Tracer(False)
         self.registry = MetricsRegistry()
-        self.scheduler = RequestScheduler(max_len)
+        self.scheduler = RequestScheduler(max_len, tp)
         self.scheduler.tracer = self.tracer
         self.scheduler.pid = name
         self.state = engine.empty_paged_state(cfg, run, n_slots, max_len,
-                                              device=self.device)
+                                              device=self.device, tp=tp)
         self.decoder = engine.PagedDecoder(cfg, run, self.state,
-                                           self.cuda_graphs)
-        # tokens of one full page column (tp = 1: one block)
-        self.blk_tokens = run.codec.cache_block
+                                           self.cuda_graphs, self.group)
+        # tokens of one full page column (every rank's slots of it)
+        self.blk_tokens = run.codec.cache_block * tp
         self._n_pages = self.state.kv.page_used.shape[0]
         self._maxp = self.state.kv.page_table.shape[1]
         # host-side page lifecycle: the tiered PageCache owns the prefix
@@ -399,25 +435,28 @@ class ServeEngine:
         return min(k, self.max_fuse_steps)
 
     def _bucket_of(self, prompt_len: int) -> int:
-        """Trunk bucket: the largest power of two that fits the prompt.
-        Leftover tokens replay through decode steps, which for pure
-        attention are exact at prompt positions, so bucketing never
-        changes streams.  Routed and recurrent layers (MoE, SSM, MLA) are
-        not bit-equal between a decode step and the batched prefill at the
-        same position, so those families take the exact trunk: the whole
-        prompt at tp = 1 (every distinct length is its own batch)."""
+        """Trunk bucket: the largest power-of-two multiple of tp that fits
+        the prompt.  Leftover tokens replay through decode steps, which
+        for pure attention are exact at prompt positions, so bucketing
+        never changes streams.  Routed and recurrent layers (MoE, SSM,
+        MLA) are not bit-equal between a decode step and the batched
+        prefill at the same position, so those families take the exact
+        trunk: the whole prompt at tp = 1 (every distinct length is its
+        own batch; they do not run at tp > 1)."""
         c = self.cfg
         if c.moe is not None or c.ssm is not None or c.mla is not None:
             return prompt_len
-        b = 1
+        b = self.tp
         while b * 2 <= prompt_len:
             b *= 2
         return b
 
     def _pages_for_length(self, length: int) -> int:
-        """Pages one sequence of ``length`` tokens holds (all layers) —
-        host arithmetic mirroring the flush rule, no device sync."""
-        return self._lfp(length) * self.cfg.n_layers
+        """Pages one sequence of ``length`` tokens holds (all layers,
+        summed over the ranks) — host arithmetic mirroring the flush rule,
+        no device sync."""
+        return sum(self._lfp(length, t) for t in range(self.tp)) \
+            * self.cfg.n_layers
 
     def _req_eos(self, req: Request) -> Optional[int]:
         return req.eos_id if req.eos_id is not None else self.eos_id
@@ -442,12 +481,14 @@ class ServeEngine:
 
     def _shared_page_overcount(self) -> int:
         """Pages the per-slot sum counts more than once because they are
-        prefix-shared: (ref - 1) per indexed column, times the layers."""
+        prefix-shared: (ref - 1) per indexed column, times the ranks and
+        the layers."""
         over = sum(max(r - 1, 0) for r in self._prefix_ref.values())
-        return over * self.cfg.n_layers
+        return over * self.tp * self.cfg.n_layers
 
     def _pages_in_use(self) -> int:
-        """Pages in use, summed over layers (the host's page use)."""
+        """This rank's pages in use, summed over layers (the host's page
+        use)."""
         return int(self.state.kv.page_used.sum()) * self.cfg.n_layers
 
     # -- prefix index ------------------------------------------------------
@@ -614,12 +655,15 @@ class ServeEngine:
                 continue
             c0 = min(c for _, c in pend)
             wire, _, _ = engine.export_slot(
-                self.state, s, max(c for _, c in pend) + 1 - c0, col0=c0)
+                self.state, s, max(c for _, c in pend) + 1 - c0, col0=c0,
+                tp=self.tp, ti=self.rank)
             kv = _host_fields(wire)
-            for key, c in pend:
-                self.cache.spill(key, [
-                    transport.page_payload(kv, codec_on, 0, l, c - c0)
-                    for l in range(self.cfg.n_layers)])
+            mine = [[transport.page_payload(kv, codec_on, 0, l, c - c0)
+                     for l in range(self.cfg.n_layers)] for _, c in pend]
+            # every rank's payloads, shard-major, as the reference spills
+            ranks = cl.gather_objects(mine, self.group)
+            for j, (key, _) in enumerate(pend):
+                self.cache.spill(key, [p for r in ranks for p in r[j]])
                 done.add(key)
         if tr.enabled and self.cache.spilled_pages != p0:
             tr.emit("cache_spill", cat="cache", pid=self.name,
@@ -663,14 +707,19 @@ class ServeEngine:
             engine.release_slots(self.state, mask, free_mask=free)
         self._slot_busy[mask] = False
 
-    def _lfp(self, length: int) -> int:
-        """Full page columns of a sequence of ``length`` tokens (host
-        arithmetic mirroring the flush rule)."""
-        return max(length, 0) // self.run_cfg.codec.cache_block
+    def _lfp(self, length: int, t: Optional[int] = None) -> int:
+        """Full page columns rank ``t`` (default: this rank) holds of a
+        sequence of ``length`` tokens (host arithmetic mirroring the flush
+        rule)."""
+        return cache_mod.local_full_pages(
+            length, self.rank if t is None else t,
+            self.run_cfg.codec.cache_block, self.tp)
 
     def _page_growth(self, l0: int, l1: int) -> int:
-        """New full pages when a slot grows from l0 to l1 tokens."""
-        return self._lfp(l1) - self._lfp(l0)
+        """New full pages, on the rank that gains the most, when a slot
+        grows from l0 to l1 tokens."""
+        return max(self._lfp(l1, t) - self._lfp(l0, t)
+                   for t in range(self.tp))
 
     def _evict_pages(self, ids: List[np.ndarray]) -> None:
         """Free the pages of evicted hot columns (page use only: a
@@ -690,7 +739,8 @@ class ServeEngine:
         eviction only clears page use."""
         if need <= 0 or not self.cache.lru:
             return
-        free = self._n_pages - int(self.state.kv.page_used.sum())
+        free = self._n_pages - cl.host_max(
+            int(self.state.kv.page_used.sum()), self.group)
         ids = []
         while free + len(ids) < need and self.cache.lru:
             ids.append(self.cache.evict_lru()[1])
@@ -775,10 +825,10 @@ class ServeEngine:
         kv = transport.empty_page_fields(codec_on, 1, n_layers, len(warm),
                                          blk, w, k, esc_cap, npad)
         for c, payloads in enumerate(warm):
-            for l in range(n_layers):
+            for l in range(n_layers):   # this rank's (shard-major) payloads
                 transport.scatter_page_payload(
-                    kv, codec_on, 0, l, c, payloads[l], blk=blk, w=w, k=k,
-                    esc_cap=esc_cap, npad=npad)
+                    kv, codec_on, 0, l, c, payloads[self.rank * n_layers + l],
+                    blk=blk, w=w, k=k, esc_cap=esc_cap, npad=npad)
 
         def dev(a, dtype=None):
             t = torch.from_numpy(a[0])
@@ -824,7 +874,8 @@ class ServeEngine:
                                    base_cols * self.blk_tokens)
         if warm:
             engine.import_slot(self.state, s, self._warm_wire(warm),
-                               m * self.blk_tokens, col0=h)
+                               m * self.blk_tokens, col0=h, tp=self.tp,
+                               ti=self.rank)
         ls.shared_hits += m
         ls.slot_req[s] = req
         self._slot_busy[s] = True
@@ -878,9 +929,10 @@ class ServeEngine:
                                   dtype=torch.int32, device=self.device)
         t0 = tr.now()
         logits, d = engine.prefill_sequences(self.cfg, self.run_cfg,
-                                             self.params, prompts)
-        engine.insert_sequences(self.cfg, self.run_cfg, self.state, d, slots)
-        toks = engine.greedy_token(logits).cpu().numpy()
+                                             self.params, prompts, self.group)
+        engine.insert_sequences(self.cfg, self.run_cfg, self.state, d, slots,
+                                self.tp)
+        toks = engine.greedy_token(logits, self.group).cpu().numpy()
         ls.admit_dispatches += 1
         now = time.perf_counter()
         ls.admit_window_s.append(now - w0)
@@ -1213,19 +1265,20 @@ class ServeEngine:
 # ---------------------------------------------------------------------------
 
 def demo_serving_setup(run: RunConfig, vocab_size: int, prompt_len: int,
-                       new_tokens: int, n_requests: int, seed: int = 0):
+                       new_tokens: int, n_requests: int, seed: int = 0,
+                       tp: int = 1):
     """(run', max_len, requests) for a demo request stream, as the
-    reference builds it at tp = 1: the cache block shrinks to a quarter of
-    the prompt (at least 4), two base prompts (full and half length)
-    cycle, and even-numbered requests get twice the token budget.  The
-    repeats share their base's prefix pages (``shared_page_hits``,
-    ``cache_hot_hits``) unless sharing is off."""
+    reference builds it: the cache block shrinks to a quarter of a rank's
+    share of the prompt (at least 4), two base prompts (full and half
+    length, a multiple of tp) cycle, and even-numbered requests get twice
+    the token budget.  The repeats share their base's prefix pages
+    (``shared_page_hits``, ``cache_hot_hits``) unless sharing is off."""
     rng = np.random.default_rng(seed)
-    blk = max(4, prompt_len // 4)
+    blk = max(4, (prompt_len // tp) // 4)
     run = dataclasses.replace(
         run, codec=dataclasses.replace(run.codec, cache_block=blk))
-    max_len = prompt_len + 2 * new_tokens + blk
-    lens = [prompt_len, max(1, prompt_len // 2)]
+    max_len = prompt_len + 2 * new_tokens + blk * tp
+    lens = [prompt_len, max(tp, prompt_len // 2 // tp * tp)]
     bases = [rng.integers(0, vocab_size, (n,)).astype(np.int32)
              for n in lens]
     reqs = [Request(uid=i, prompt=bases[i % len(bases)],

@@ -1323,9 +1323,9 @@ def test_host_sync_in_captured_step_raises(cuda, monkeypatch):
     caller: no eager fallback."""
     real = engine.greedy_token
 
-    def reading(logits):
+    def reading(logits, tg=None):
         float(logits.max())
-        return real(logits)
+        return real(logits, tg)
 
     run = RunConfig(codec=dataclasses.replace(CodecConfig(), cache_block=4))
     eng = ServeEngine(TINY, run, n_slots=2, max_len=48, seed=1)
@@ -1818,3 +1818,84 @@ def test_moe_mla_generate_graph_matches_eager(cuda):
     assert torch.equal(outs[0], outs[1])
     for a, b in zip(*states):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: both attention kernels' shard path (tp, ti), and the
+# collectives of a one-rank group on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("heads", [(8, 2), (4, 1)], ids=["gqa", "mqa"])
+def test_decode_attend_paged_tp_shards_match_plain(cuda, heads, tp):
+    """Every shard ti of tp: lengths 0 .. 3 blk tp + 5, window 5, softcap,
+    escapes on both sides of a span boundary and past the capacity, 1 and
+    64 slots; within 1e-4 of the plain version, two launches bit for
+    bit."""
+    h, hkv = heads
+    hd, blk = 32, 16
+    gen = torch.Generator(device=cuda).manual_seed(tp * 10 + h)
+    kw = dict(kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5, mla_lora=None)
+    worst, n = AC.tp_paged_checks(gen, h, hd, 2 * hkv * hd, kw, blk=blk,
+                                  tps=(tp,))
+    assert n == 3 * tp * len(AC.TP_MASKS) and worst < 1e-4
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("heads", [(8, 2), (4, 1)], ids=["gqa", "mqa"])
+def test_decode_attend_tp_shards_match_plain(cuda, heads, tp):
+    """The fixed-batch kernel on every shard of tp, both launch forms
+    (host and device length), the same cases as the paged test."""
+    h, hkv = heads
+    hd, blk = 32, 16
+    gen = torch.Generator(device=cuda).manual_seed(tp * 20 + h)
+    kw = dict(kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5, mla_lora=None)
+    worst, n = AC.tp_fixed_checks(gen, h, hd, 2 * hkv * hd, kw, blk=blk,
+                                  tps=(tp,))
+    assert n > 0 and worst < 1e-4
+
+
+def test_decode_attend_tp1_args_are_the_tp1_path(cuda):
+    """tp = 1, ti = 0 passed explicitly gives the bits of the default
+    launch (the shard arithmetic is the identity there)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h, hkv, hd, blk = 8, 2, 32, 16
+    w = 2 * hkv * hd
+    kw = dict(k=5, kv_idx=AC.kv_idx(h, hkv), scale=hd ** -0.5)
+    pages = _bf16(gen, (6, blk, w), spread=9)
+    ct = fixed.compress_many(pages, k=5)
+    pool = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw, None)
+    q = _bf16(gen, (3, h, hd))
+    ring = _bf16(gen, (3, blk, w))
+    table = torch.randint(0, 6, (3, 4), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    lens = torch.tensor([5, 40, 63], dtype=torch.int32, device=cuda)
+    for window in (ref.WINDOW_NONE, 7):
+        args = (q, *pool, ring, table, lens, window)
+        assert AC.same_bits(decode_attend.decode_attend_paged(*args, **kw),
+                            decode_attend.decode_attend_paged(
+                                *args, **kw, tp=1, ti=0))
+    with pytest.raises(ValueError, match="shard"):
+        decode_attend.decode_attend_paged(q, *pool, ring, table, lens,
+                                          ref.WINDOW_NONE, **kw, tp=2, ti=2)
+
+
+def test_one_rank_group_collectives_are_identity_on_card(cuda):
+    """A world-1 TPGroup on the card: every collective returns its input
+    (the compressed ones too: no round trip at one rank)."""
+    from repro_torch.core import collectives as cl
+    from repro_torch.launch import mesh
+
+    tg = mesh.solo(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _bf16(gen, (4, 6, 64), spread=30)
+    for y in (cl.psum(x, tg), cl.pmax(x, tg), cl.pmin(x, tg),
+              cl.all_gather(x, tg, axis=1), cl.psum_scatter(x, tg, 1),
+              cl.all_to_all(x, tg, 0, 1), cl.ppermute(x, tg, [(0, 0)]),
+              cl.compressed_all_gather(x, tg, gather_axis=1),
+              cl.compressed_psum(x, tg), cl.compressed_all_to_all(x, tg),
+              cl.compressed_ppermute(x, tg, [(0, 0)])):
+        assert y is x
+    assert cl.host_max(7, tg) == 7
+    assert torch.equal(cl.all_gather(x, tg, axis=1, tiled=False),
+                       x.unsqueeze(1))

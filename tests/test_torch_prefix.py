@@ -204,8 +204,8 @@ def test_evict_spill_restore_identity(ref_run):
     imported = []
     real = tengine.import_slot
 
-    def watch(state, slot, wire, length, col0=0):
-        out = real(state, slot, wire, length, col0)
+    def watch(state, slot, wire, length, col0=0, **shard):
+        out = real(state, slot, wire, length, col0, **shard)
         imported.append((slot, state.kv.page_table[slot].copy()))
         return out
 
