@@ -70,35 +70,41 @@ def _cases(n: int):
     return out
 
 
-def _ref(op: str, xs: np.ndarray, kw, n: int) -> np.ndarray:
-    """The reference's collective under shmap: per-rank outputs
+def _ref_one(op: str, x, kw):
+    """The reference's collective on this shard's ``x`` (inside shmap)."""
+    codec = jcl.CodecConfig()
+    if op == "all_gather":
+        return jcl.compressed_all_gather(x, "model", codec, **kw)
+    if op == "psum":
+        return jcl.compressed_psum(x, "model", codec, **kw)
+    if op == "all_to_all":
+        return jcl.compressed_all_to_all(x, "model", codec, **kw)
+    if op == "ppermute":
+        return jcl.compressed_ppermute(x, "model", tuple(kw["perm"]), codec)
+    if op == "psum_plain":
+        return jax.lax.psum(x, "model")
+    if op == "psum_scatter":
+        return jax.lax.psum_scatter(x, "model", scatter_dimension=kw["axis"],
+                                    tiled=True)
+    if op == "pmax":
+        return jax.lax.pmax(x, "model")
+    return jax.lax.pmin(x, "model")
+
+
+def _ref(calls, n: int):
+    """The reference's collectives under one shmap on n devices: for each
+    (op, per-rank inputs (n, ...), keywords), the per-rank outputs
     stacked."""
     mesh_ = jax.make_mesh((n,), ("model",))
-    codec = jcl.CodecConfig()
 
-    def body(x):
-        x = x[0]
-        if op == "all_gather":
-            y = jcl.compressed_all_gather(x, "model", codec, **kw)
-        elif op == "psum":
-            y = jcl.compressed_psum(x, "model", codec, **kw)
-        elif op == "all_to_all":
-            y = jcl.compressed_all_to_all(x, "model", codec, **kw)
-        elif op == "ppermute":
-            y = jcl.compressed_ppermute(x, "model", tuple(kw["perm"]), codec)
-        elif op == "psum_plain":
-            y = jax.lax.psum(x, "model")
-        elif op == "psum_scatter":
-            y = jax.lax.psum_scatter(x, "model", scatter_dimension=kw["axis"],
-                                     tiled=True)
-        elif op == "pmax":
-            y = jax.lax.pmax(x, "model")
-        else:
-            y = jax.lax.pmin(x, "model")
-        return y[None]
+    def body(*xs):
+        return tuple(_ref_one(op, x[0], kw)[None]
+                     for (op, _, kw), x in zip(calls, xs))
 
-    f = jax.jit(jcl.shmap(body, mesh_, P("model"), P("model")))
-    return np.asarray(f(jnp.asarray(xs)))
+    spec = tuple(P("model") for _ in calls)
+    f = jax.jit(jcl.shmap(body, mesh_, spec, spec))
+    return [np.asarray(y) for y in f(*(jnp.asarray(xs)
+                                      for _, xs, _ in calls))]
 
 
 def _ref_wire(x: np.ndarray, codec=jcl.CodecConfig()) -> np.ndarray:
@@ -126,7 +132,12 @@ def world(request):
                      codec=OFF))
     got = mesh.spawn(tp_jobs.collectives, n, backend="gloo",
                      args=(jobs,))
-    return n, cases, got
+    want = _ref([(op, xs, kw) for _, op, xs, kw in cases]
+                # the psum cases' reduce-scattered parts (their wire)
+                + [("psum_scatter", xs, dict(axis=kw.get("scatter_axis", 0)))
+                   for name, op, xs, kw in cases
+                   if op == "psum" and "no-divisible" not in name], n)
+    return n, cases, got, want
 
 
 CASE_NAMES = [c[0] for c in _cases(2)]
@@ -134,10 +145,9 @@ CASE_NAMES = [c[0] for c in _cases(2)]
 
 @pytest.mark.parametrize("name", CASE_NAMES)
 def test_matches_reference_bit_for_bit(world, name):
-    n, cases, got = world
+    n, cases, got, wants = world
     i = CASE_NAMES.index(name)
-    _, op, xs, kw = cases[i]
-    want = _ref(op, xs, kw, n)
+    want = wants[i]
     for r in range(n):
         y = got[r][i]["y"]
         y = y[1].view(ml_dtypes.bfloat16) if isinstance(y, tuple) else y
@@ -156,9 +166,11 @@ def test_wire_bytes_are_the_reference_compress(world, name):
     ``fixed.compress`` of its part: the whole shard (all_gather,
     ppermute), its reduce-scattered chunk (psum) or each destination's
     slice (all_to_all)."""
-    n, cases, got = world
+    n, cases, got, wants = world
     i = CASE_NAMES.index(name)
     _, op, xs, kw = cases[i]
+    psums = [c[0] for c in cases
+             if c[1] == "psum" and "no-divisible" not in c[0]]
     for r in range(n):
         wires = got[r][i]["wire"]
         if op in ("all_gather", "ppermute"):
@@ -167,9 +179,7 @@ def test_wire_bytes_are_the_reference_compress(world, name):
             if name == "psum-no-divisible-axis":
                 assert wires == [], "a plain psum moves nothing compressed"
                 continue
-            ax = kw.get("scatter_axis", 0)
-            summed = _ref("psum_scatter", xs, dict(axis=ax), n)
-            parts = [summed[r]]
+            parts = [wants[len(cases) + psums.index(name)][r]]
         else:
             sa = kw.get("split_axis", 0)
             xm = np.moveaxis(xs[r], sa, 0)
@@ -183,9 +193,8 @@ def test_wire_bytes_are_the_reference_compress(world, name):
 
 
 def test_codec_off_is_the_plain_gather(world):
-    n, cases, got = world
-    _, _, xs, kw = cases[0]
-    want = _ref("all_gather", xs, kw, n)
+    n, cases, got, wants = world
+    want = wants[0]
     for r in range(n):
         y = got[r][-1]["y"][1].view(ml_dtypes.bfloat16)
         assert (y.view(np.uint8) == want[r].view(np.uint8)).all()
