@@ -102,7 +102,8 @@ non-zero:
                an eager step without a flush.
   7. fixed   — the fixed-batch loop (``engine.prefill`` +
                ``engine.decode_step``, the launcher's default mode) on the
-               serve phase's weights: 4 prompts of 1000 tokens, 40 greedy
+               serve phase's weights (their first 12 layers,
+               ``PREFIX_LAYERS``): 4 prompts of 1000 tokens, 40 greedy
                steps at block 256, so the rings flush at 1024.  Each
                layer's ``decode_attend`` launches once per step; the
                flushed block of layers 0 and 35 decodes bit for bit to its
@@ -121,8 +122,9 @@ non-zero:
                the paged loop in turns on the same sequences.
   8. weights — the serve phase's full-width weights packed on the card
                (time, each packed leaf's k, ``weight_plane_bytes``); the
-               packed fields of ``blocks.mlp.w_gate`` and ``lm_head``
-               byte-identical to the same leaves packed on the CPU; then
+               packed fields of ``blocks.mlp.w_gate`` (its first 4 layers)
+               and ``lm_head`` byte-identical to the same leaves packed on
+               the CPU; then
                the launcher's tail-free demo mix (6 requests over 4 slots,
                prompts 1024/512, budgets 32/16) served three ways: raw
                weights, ``weight_backend="unpack"`` (streams must equal the
@@ -142,7 +144,8 @@ non-zero:
                graph, as in phase 6
                (``chiprun_out/profile_decode_packed{,_graph}.txt``).
   9. prefix  — prefix sharing and the tiered PageCache on the serve
-               phase's raw weights, block 256, 4 slots of 4096 tokens (72
+               phase's raw weights (their first 12 of 36 layers,
+               ``PREFIX_LAYERS``), block 256, 4 slots of 4096 tokens (72
                pool columns): a 20-request mix (``prefix_mix``: 4
                2048-token system prompts in 3 rounds with seeded user
                tails of 64-448 tokens, 6 unrelated 2048-token prompts that
@@ -162,8 +165,9 @@ non-zero:
                TTFT, admissions, hits, spilled and fetched pages and
                bytes, evicted columns, and ms per column spilled and
                imported.
-  10. disagg — disaggregated serving on the serve phase's raw weights,
-               block 256, 4 slots of 2048 tokens per replica, on the
+  10. disagg — disaggregated serving on qwen3-4b's first 12 layers
+               (``PREFIX_LAYERS``, full width, seed 0's weights), block
+               256, 4 slots of 2048 tokens per replica, on the
                launcher's tail-free demo mix (repeated prompts: wire
                dedup and import prefix hits) and the serve phase's mix
                (rings cross half full), each four ways from CUDA graphs:
@@ -188,7 +192,8 @@ non-zero:
                ms (100 Gb/s chiplet link, not measured), export and import
                ms per column, transfer ms per handoff, tok/s and TTFT.
   11. hybrid — the parallel attention ∥ SSM hybrid, full-width
-               zamba2-1.2b (26 layers, d 2048, 16/16 heads, hd 128, SSM
+               zamba2-1.2b (9 of its 26 layers, ``HYBRID_LAYERS``; d 2048,
+               16/16 heads, hd 128, SSM
                d_inner 4096 = 64 heads x 64, d_state 64; random weights
                from seed 0), block 256: both attention kernels at its
                shapes (MHA, W 4096) within 1e-4 of their plain versions
@@ -215,9 +220,10 @@ non-zero:
                MLA shapes (16 heads on one 576-wide latent row, values its
                first 512 columns) and at jamba-tiny-dev's (16/8 heads, hd
                64); a tiny MoE + MLA model on the card against the CPU, raw
-               and packed (1e-2); then deepseek-v2-lite-16b (27 layers, d
-               2048, 64 experts top-6 + 2 shared, 32.4 GB of random bf16
-               weights from seed 0, depth not cut), block 256, 4 slots:
+               and packed (1e-2); then deepseek-v2-lite-16b (9 of its 27
+               layers, ``MOE_MLA_LAYERS``; d 2048, 64 experts top-6 + 2
+               shared, random bf16 weights from seed 0), block 256, 4
+               slots:
                the serve mix eagerly and from CUDA graphs (streams, page
                table, pool bytes equal; exact trunks), 8 profiled decode
                steps of 4 fresh 1000-token slots
@@ -2284,11 +2290,14 @@ def weights_phase(cfg, serve_eng, tok, smi):
                    f"lexi_pack {pack_launches['lexi_pack']} launches): k per "
                    f"packed leaf {ks}; weight_plane_bytes {stored} B stored / "
                    f"{raw} B raw ({stored / raw:.4f})")
-    for path in (("blocks", "mlp", "w_gate"), ("lm_head",)):
+    # the stacked leaf's first 4 layers (each slice has its own
+    # dictionary; a CPU pack of all 36 takes ≈ 50 s on the card's host)
+    for path, n in ((("blocks", "mlp", "w_gate"), 4), (("lm_head",), None)):
         t0 = time.perf_counter()
         cpu = _at(weights.pack_serving_params(
-            _nest(path, _at(params, path).cpu())), path)
+            _nest(path, _at(params, path)[:n].cpu())), path)
         card = _at(packed, path)
+        card = card if n is None else card[:n]
         assert isinstance(cpu, weights.PackedWeight) and cpu.k == card.k
         for f in ("signman", "planes", "dict_syms"):
             assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
@@ -2987,9 +2996,10 @@ def describe_disagg_path(uid, pos):
 
 
 def disagg_phase(cfg, params, smi):
-    """Disaggregated prefill -> decode serving on full-width qwen3-4b (the
-    serve phase's raw weights, block 256, 4 slots of 2048 tokens per
-    replica), on two mixes, each four ways: (a) 1 prefill -> 1 decode
+    """Disaggregated prefill -> decode serving on full-width ``cfg`` (raw
+    ``params``; the decode host process draws the same from the seed at
+    ``cfg``'s depth), block 256, 4 slots of 2048 tokens per replica, on
+    two mixes, each four ways: (a) 1 prefill -> 1 decode
     replica over the loopback transport, (b) the same with streaming
     export, (c) 1 prefill -> 2 decode replicas, (d) the decode replica in
     a second OS process on the card (``launch.disagg_host``), over TCP,
@@ -3016,7 +3026,8 @@ def disagg_phase(cfg, params, smi):
     kw = dict(n_slots=4, max_len=DISAGG_MAX_LEN, params=params,
               seed=DISAGG_SEED, device="cuda")
     launches = {name: 0 for name in SERVE_KERNELS}
-    host_flags = ["--model", cfg.name, "--no-reduced", "--codec", "on",
+    host_flags = ["--model", cfg.name, "--no-reduced", "--layers",
+                  str(cfg.n_layers), "--codec", "on",
                   "--cache-block", str(DISAGG_BLK), "--slots", "4",
                   "--max-len", str(DISAGG_MAX_LEN), "--seed",
                   str(DISAGG_SEED), "--device", "cuda"]
@@ -3089,7 +3100,7 @@ def disagg_phase(cfg, params, smi):
             log("disagg", f"decode host (pid {proc.pid}, port {port}) up in "
                           f"{time.perf_counter() - t0:.1f}s; its weights, "
                           f"drawn from seed {DISAGG_SEED} on the card, equal"
-                          f" the serve phase's (param_digest {mine})")
+                          f" the driver's (param_digest {mine})")
             tr = SocketTransport(timeout=600.0)
             dis = DisaggEngine(cfg, run, transport=tr, streaming=True,
                                decode_addrs=[f"127.0.0.1:{port}"], **kw)
@@ -3257,8 +3268,9 @@ def ssm_step_ms(cfg, eng) -> float:
 
 
 def hybrid_phase(smi):
-    """The parallel attention ∥ SSM hybrid: full-width zamba2-1.2b (random
-    weights from seed 0) through every serving path of the dense family.
+    """The parallel attention ∥ SSM hybrid: full-width zamba2-1.2b at
+    HYBRID_LAYERS of its 26 layers (random weights from seed 0) through
+    every serving path of the dense family.
     Returns the kernel launches of its runs from CUDA graphs (replays
     counted) and of its packed run."""
     import dataclasses
@@ -3274,7 +3286,8 @@ def hybrid_phase(smi):
     from repro_torch.serve.scheduler import Request, ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = get_config("zamba2-1.2b")
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              n_layers=HYBRID_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(11)
     paged_attend_kernel(cfg, gen, "hybrid")
     fixed_attend_kernel(cfg, gen, "hybrid")
@@ -3544,8 +3557,9 @@ def moe_mla_phase(smi):
     """MoE and MLA on every serving path: both attention kernels' MLA
     latent path at deepseek-v2-lite-16b's shapes and the plain path at
     jamba-tiny-dev's (hd 64); a tiny MoE + MLA model card vs CPU; then
-    full-width deepseek-v2-lite-16b (random weights from seed 0, all 27
-    layers) from CUDA graphs against eager, the fixed loop, a
+    full-width deepseek-v2-lite-16b (random weights from seed 0, at
+    MOE_MLA_LAYERS of its 27 layers) from CUDA graphs against eager, the
+    fixed loop, a
     disaggregated fleet and the packed weight plane; full-width
     jamba-tiny-dev from CUDA graphs against eager.  Returns the kernel
     launches of its runs from CUDA graphs (replays counted) and of its
@@ -3563,7 +3577,8 @@ def moe_mla_phase(smi):
     from repro_torch.serve.scheduler import ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=MOE_MLA_LAYERS)
     jamba = get_config("jamba-tiny-dev")
     gen = torch.Generator(device="cuda").manual_seed(12)
     for c_ in (cfg, jamba):
@@ -3979,7 +3994,8 @@ def tp_phase(cfg, smi):
                                  s + n + TP_BLK).cpu().numpy()
     forced1, _, clock1 = tp_teacher_forced(cfg, run, eng.params, reqs, want)
     log("tp", f"tp = 1 reference: mix {st1.tokens_per_s:.1f} tok/s, fixed "
-              f"loop {b} x {s} + {n} ({time.perf_counter() - t_phase:.1f}s)")
+              f"loop {b} x {s} + {n} ({time.perf_counter() - t_phase:.1f}s) "
+              f"| {smi}")
     del eng, results
     gc.collect()
     torch.cuda.empty_cache()
@@ -3987,8 +4003,9 @@ def tp_phase(cfg, smi):
     t0 = time.perf_counter()
     ranks = mesh.spawn(tp_rank_job, 2, backend="gloo", device="cuda",
                        args=(cfg, want))
-    log("tp", f"2 ranks done in {time.perf_counter() - t0:.1f}s (init "
-              f"{ranks[0]['init_s']:.1f}s, pack {ranks[0]['pack_s']:.1f}s)")
+    log("tp", f"2 ranks done in {time.perf_counter() - t0:.1f}s (rank 0: "
+              f"engine with seeded weights {ranks[0]['init_s']:.1f}s, the "
+              f"packed engine {ranks[0]['pack_s']:.1f}s) | {smi}")
     r0, r1 = ranks
     for key in ("raw", "packed"):
         assert r0[key]["streams"] == r1[key]["streams"], key
@@ -4036,10 +4053,10 @@ def tp_phase(cfg, smi):
                   f"for {r['steps']} decode steps, gloo through host), "
                   f"weights {r['weight_bytes']} B / {r['weight_raw']} B raw "
                   f"per rank and step, compressed gathers {r['wire']}, "
-                  f"launches {r['launches']}")
+                  f"launches {r['launches']} | {smi}")
     f = r0["fixed"]
     log("tp", f"fixed loop {b} x {s} + {n} steps: {f['wall_s']:.2f}s, "
-              f"launches {f['launches']}, gathers {f['wire']}")
+              f"launches {f['launches']}, gathers {f['wire']} | {smi}")
     for i, ((wb, rb), rq) in enumerate(zip(r0["prefill_wire"], reqs)):
         log("tp", f"prefill of {len(rq['prompt'])} tokens: activation "
                   f"gathers put {wb} B on the wire for {rb} B of raw bf16 "
@@ -4068,12 +4085,31 @@ def tp_phase(cfg, smi):
         assert r0["raw"]["launches"][key] > 0, (key, r0["raw"]["launches"])
     assert r0["packed"]["launches"]["decompress_matmul"] > 0
     assert r0["fixed"]["launches"]["decode_attend"] > 0
-    log("tp", f"phase done in {time.perf_counter() - t_phase:.1f}s")
+    log("tp", f"phase done in {time.perf_counter() - t_phase:.1f}s | {smi}")
     launches = dict(r0["raw"]["launches"])
     for part in (r0["packed"]["launches"], f["launches"]):
         for k_, v_ in part.items():
             launches[k_] += v_
     return launches
+
+
+# Depth (layers) of three earlier paths' models, width kept: cut so that
+# the whole run, the tp phase included, fits its time limit on a slower
+# host (one run took 1201.7 s at full depth where another took 845.8).
+PREFIX_LAYERS = 12             # qwen3-4b's 36: the fixed, prefix and
+#                                disagg phases
+HYBRID_LAYERS = 9              # zamba2-1.2b's 26
+MOE_MLA_LAYERS = 9             # deepseek-v2-lite-16b's 27
+
+
+def first_layers(cfg, params, n_layers: int):
+    """``cfg`` cut to its first ``n_layers`` layers, and views of those
+    layers of ``params`` (stacked block leaves)."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n_layers]
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            dict(params, blocks=take(params["blocks"])))
 
 
 def engine_params(cfg):
@@ -4100,27 +4136,47 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
+
     smi = device_phase()
     build_phase()
+    mark("device + build")
     cfg = get_config("qwen3-4b")
     rec = kernels_phase(cfg)
+    mark("kernels")
     small_phase()
     _, serve_eng, tok, served = serve_phase(cfg, smi)
+    mark("small + serve")
     # launches on the main path's runs from CUDA graphs (replays counted)
     launches = graphs_phase(cfg, serve_eng, tok, served, smi)
-    launches["decode_attend"] = fixed_phase(cfg, serve_eng.params, smi)
+    mark("graphs")
+    launches["decode_attend"] = fixed_phase(
+        *first_layers(cfg, serve_eng.params, PREFIX_LAYERS), smi)
+    mark("fixed")
     raw_params = serve_eng.params
     launches.update(weights_phase(cfg, serve_eng, tok, smi))
-    prefix_phase(cfg, raw_params, smi)
-    for name, n in disagg_phase(cfg, raw_params, smi).items():
+    mark("weights")
+    prefix_phase(*first_layers(cfg, raw_params, PREFIX_LAYERS), smi)
+    mark("prefix")
+    cfg_d = dataclasses.replace(cfg, n_layers=PREFIX_LAYERS)
+    for name, n in disagg_phase(cfg_d, engine_params(cfg_d), smi).items():
         launches[name] += n
+    mark("disagg")
     del raw_params, serve_eng
     for name, n in hybrid_phase(smi).items():
         launches[name] += n
+    mark("hybrid")
     for name, n in moe_mla_phase(smi).items():
         launches[name] += n
+    mark("moe_mla")
     for name, n in tp_phase(cfg, smi).items():
         launches[name] += n
+    mark("tp")
+    log("time", ", ".join(f"{name} {t - t0:.1f}s" for (_, t0), (name, t)
+                          in zip(marks, marks[1:])) + f" | {smi}")
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(

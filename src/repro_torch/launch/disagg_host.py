@@ -75,6 +75,8 @@ def build_cfg_run(args):
         cfg = make_reduced(get_config(args.model), tp=1)
     else:
         cfg = get_config(args.model)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     codec = (CodecConfig(cache_block=args.cache_block) if args.codec == "on"
              else dataclasses.replace(CodecConfig.off(),
                                       cache_block=args.cache_block))
@@ -312,6 +314,8 @@ def run_selftest(args) -> int:
                   "--device", args.device]
     if not args.reduced:
         model_args += ["--no-reduced"]
+    if args.layers is not None:
+        model_args += ["--layers", str(args.layers)]
     if args.compress_weights:
         model_args += ["--compress-weights"]
     if args.eos_id is not None:
@@ -343,6 +347,9 @@ def main(argv=None) -> int:
                     default=True,
                     help="a named arch at make_reduced's size (default) "
                          "or its published width (--no-reduced)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the model at this depth (its first layers' "
+                         "shapes, the width kept)")
     ap.add_argument("--codec", default="on", choices=["on", "off"])
     ap.add_argument("--cache-block", type=int, default=8)
     ap.add_argument("--decode-backend", default="auto",
