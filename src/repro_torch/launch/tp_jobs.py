@@ -1,9 +1,11 @@
 """What the ranks of a spawned tensor-parallel group run
 (``launch.mesh.spawn(fn, world, ...)`` calls ``fn(group, *args)`` on each
 rank): serving through ``ServeEngine(tp=...)``, the fixed-batch loop, and
-the compressed collectives on given inputs.  ``launch/serve.py --tp N``,
-``chip_smoke.py`` and the CPU tests spawn these.  The module imports torch
-and the port only, so a spawned rank never imports more.
+the compressed collectives on given inputs, each on weights or inputs
+handed in, for a check against another implementation (the CPU tests
+hold them against the JAX reference).  The module imports torch and the
+port only, so a spawned rank never imports more.  (``launch/serve.py
+--tp N`` and ``chip_smoke.py`` spawn their own rank functions.)
 
 Every job takes plain picklable data (configs, numpy arrays, dicts) and
 returns plain data; bf16 arrays travel as their uint16 bits.
