@@ -102,8 +102,8 @@ non-zero:
                an eager step without a flush.
   7. fixed   — the fixed-batch loop (``engine.prefill`` +
                ``engine.decode_step``, the launcher's default mode) on the
-               serve phase's weights (their first 12 layers,
-               ``PREFIX_LAYERS``): 4 prompts of 1000 tokens, 40 greedy
+               serve phase's weights (all 36 layers): 4 prompts of 1000
+               tokens, 40 greedy
                steps at block 256, so the rings flush at 1024.  Each
                layer's ``decode_attend`` launches once per step; the
                flushed block of layers 0 and 35 decodes bit for bit to its
@@ -192,8 +192,7 @@ non-zero:
                ms (100 Gb/s chiplet link, not measured), export and import
                ms per column, transfer ms per handoff, tok/s and TTFT.
   11. hybrid — the parallel attention ∥ SSM hybrid, full-width
-               zamba2-1.2b (9 of its 26 layers, ``HYBRID_LAYERS``; d 2048,
-               16/16 heads, hd 128, SSM
+               zamba2-1.2b (26 layers, d 2048, 16/16 heads, hd 128, SSM
                d_inner 4096 = 64 heads x 64, d_state 64; random weights
                from seed 0), block 256: both attention kernels at its
                shapes (MHA, W 4096) within 1e-4 of their plain versions
@@ -220,9 +219,9 @@ non-zero:
                MLA shapes (16 heads on one 576-wide latent row, values its
                first 512 columns) and at jamba-tiny-dev's (16/8 heads, hd
                64); a tiny MoE + MLA model on the card against the CPU, raw
-               and packed (1e-2); then deepseek-v2-lite-16b (9 of its 27
-               layers, ``MOE_MLA_LAYERS``; d 2048, 64 experts top-6 + 2
-               shared, random bf16 weights from seed 0), block 256, 4
+               and packed (1e-2); then deepseek-v2-lite-16b (27 layers,
+               d 2048, 64 experts top-6 + 2 shared, random bf16 weights
+               from seed 0), block 256, 4
                slots:
                the serve mix eagerly and from CUDA graphs (streams, page
                table, pool bytes equal; exact trunks), 8 profiled decode
@@ -244,12 +243,19 @@ non-zero:
      from seed 0's weights (the tp = 1 weights padded for tp, each rank's
      shard).  The mix (6 whole-trunk prompts of 256-1024 tokens) raw and
      packed (``cuda`` weight backend) and the fixed loop (4 x 508 + 6
-     steps, a flush at 510); both ranks' streams equal; against the
-     parent's tp = 1 runs of the same weights, each first divergence
-     teacher-forced and a near-tie; per prefill the activation gathers'
-     wire bytes against raw bf16, the escape overflows, the compressed
-     all-gather's ms against a raw one on this transport, ms per prefill
-     and per decode step, the launches.  The kernels phase holds both
+     steps, a flush at 510); both ranks' streams equal; each rank's
+     packed shards (their tp = 2 shapes, ``weight_shapes(cfg, 2)``)
+     through both weight kernels against their plain versions
+     (``packed_leaf_checks``: decompress_matmul at M 4 and 1024,
+     lexi_unpack on every stacked shard); the parent's tp = 1 streams
+     of the same weights teacher-forced through tp = 2's raw and packed
+     paged paths and its fixed loop: every logit gap within
+     ``TP_GAP_FACTOR`` times the tp = 1 reorder gap (tp = 1's raw against
+     its packed weights on the same tokens), each first divergence a
+     near-tie; per prefill the activation gathers' wire bytes against
+     raw bf16, the escape overflows, the compressed all-gather's ms
+     against a raw one on this transport, ms per prefill and per decode
+     step, the launches.  The kernels phase holds both
      attention kernels' shard path on every shard of tp 2 and 4 and
      times one tp = 2 shard (``tp_attend_kernels``: rows 1t and 6t).
   14. the card's line, the ``kernels`` JSON line (launches from the runs
@@ -1257,36 +1263,50 @@ RAW_READ = ("conv_x", "conv_bc", "w_uk", "w_uv")
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
-def weight_shapes(cfg):
+def weight_shapes(cfg, tp: int = 1):
     """[((K, N), matmuls per decode step)] of the model's packed weights
-    that go through decompress_matmul: the attention projections per
-    layer (wq, wk and wv, wo; MLA's wq, w_dkv, wo), the dense FFN's
-    w_gate and w_up, w_down or a MoE layer's router and shared experts, a
-    hybrid's SSM projections (SSM_MATMULS), and the LM head.  Leaves that
-    stay raw (too small, or N not a multiple of 32) are left out."""
+    that go through decompress_matmul, on one rank of ``tp``: the
+    attention projections per layer (wq, wk and wv, wo; MLA's wq, w_dkv,
+    wo), the dense FFN's w_gate and w_up, w_down or a MoE layer's router
+    and shared experts, a hybrid's SSM projections (SSM_MATMULS), and the
+    LM head.  At tp > 1 (the dense family) a column-parallel leaf keeps N /
+    tp columns and a row-parallel one K / tp rows: wq (over the query
+    heads padded for tp), wk and wv in the ``col`` kv mode (K / tp in the
+    ``row`` mode), w_gate, w_up and the LM head (over the vocabulary padded
+    for tp) are column-parallel, wo and w_down row-parallel.  Leaves that
+    stay raw (the whole leaf too small, or the rank's N not a multiple of
+    32) are left out."""
     from repro_torch.core import weights
     from repro_torch.models import ssm as ssm_mod
     d, hd, layers = cfg.d_model, cfg.head_dim, cfg.n_layers
+    col, row = (1, tp), (tp, 1)            # (K, N) divisors
     if cfg.mla is None:
-        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-        shapes = [((d, q), layers), ((d, kv), 2 * layers), ((q, d), layers)]
+        q, kv = cfg.padded_heads(tp) * hd, cfg.n_kv_heads * hd
+        kv_split = col if cfg.n_kv_heads % tp == 0 else row
+        shapes = [((d, q), layers, col), ((d, kv), 2 * layers, kv_split),
+                  ((q, d), layers, row)]
     else:
+        assert tp == 1, "MLA at tp > 1 is not served"
         m = cfg.mla
         shapes = [((d, cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim)),
-                   layers), ((d, m.kv_lora_rank + m.qk_rope_dim), layers),
-                  ((cfg.n_heads * m.v_dim, d), layers)]
+                   layers, col), ((d, m.kv_lora_rank + m.qk_rope_dim),
+                                  layers, col),
+                  ((cfg.n_heads * m.v_dim, d), layers, row)]
     f = cfg.d_ff
     if cfg.moe is not None:
-        shapes.append(((d, cfg.moe.n_experts), layers))
+        assert tp == 1, "MoE at tp > 1 is not served"
+        shapes.append(((d, cfg.moe.n_experts), layers, col))
         f = cfg.moe.n_shared * cfg.moe.d_ff
     if f:
-        shapes += [((d, f), 2 * layers), ((f, d), layers)]
+        shapes += [((d, f), 2 * layers, col), ((f, d), layers, row)]
     if cfg.ssm is not None:
+        assert tp == 1, "SSM at tp > 1 is not served"
         table = ssm_mod.ssm_table(cfg)
-        shapes += [(table[name].shape, layers) for name in SSM_MATMULS]
-    shapes.append(((d, cfg.padded_vocab(1)), 1))
-    return [((kk, n), c) for (kk, n), c in shapes
-            if kk * n >= weights.MIN_COMPRESS_SIZE and n % weights.LANES == 0]
+        shapes += [(table[name].shape, layers, col) for name in SSM_MATMULS]
+    shapes.append(((d, cfg.padded_vocab(tp)), 1, col))
+    return [((kk // dk, n // dn), c) for (kk, n), c, (dk, dn) in shapes
+            if kk * n >= weights.MIN_COMPRESS_SIZE
+            and (n // dn) % weights.LANES == 0]
 
 
 def weight_case(w, pw, gen):
@@ -3173,14 +3193,18 @@ def tiny_hybrid_cfg():
         ssm=SSMConfig(d_state=16, headdim=8, chunk=16), sub_quadratic=True)
 
 
-def packed_leaf_checks(cfg, params, packed, gen, phase):
+def packed_leaf_checks(cfg, params, packed, gen, phase, tp: int = 1,
+                       stacks: bool = False):
     """Both weight kernels on every packed leaf of ``cfg``'s model, at the
     shapes its runs give them: ``weight_case`` on layer 0 of each stacked
-    matmul leaf and on the LM head (together, ``weight_shapes(cfg)``'s
-    shapes); ``stacked_unpack_check`` on the leaves read through
+    matmul leaf and on the LM head (together, ``weight_shapes(cfg, tp)``'s
+    shapes: at tp > 1 ``params`` and ``packed`` are one rank's shards);
+    ``stacked_unpack_check`` on the leaves read through
     ``layers.raw_weight`` -- the RAW_READ leaves whole, and a MoE layer's
     expert stacks as one step decodes them, layer 0's (E, K, N) in one
-    launch, with ``weight_case`` on its expert 0 as well."""
+    launch, with ``weight_case`` on its expert 0 as well -- and, with
+    ``stacks``, on every stacked matmul leaf whole.  Returns the worst
+    max |err| of decompress_matmul over the leaves, by M."""
     import torch
     from repro_torch.core import weights
 
@@ -3198,7 +3222,7 @@ def packed_leaf_checks(cfg, params, packed, gen, phase):
                    f"1e-4*(|x|@|W|)+1e-6 of the plain version, two "
                    f"launches bit for bit; lexi_unpack exact, == plain")
 
-    shapes, n_leaves = set(), 0
+    shapes, n_leaves, worst = set(), 0, {4: 0.0, 1024: 0.0}
     for path, pw in walk(packed):
         w, name = _at(params, path), "/".join(path)
         n_leaves += 1
@@ -3214,16 +3238,24 @@ def packed_leaf_checks(cfg, params, packed, gen, phase):
                 errs = {m: e for m, (_, e) in
                         weight_case(w[0], pw[0], gen).items()}
                 matmul_line(name + "[0]", w[0], pw[0], errs)
+                worst = {m: max(worst[m], errs[m]) for m in worst}
             torch.cuda.empty_cache()
             continue
         if pw.ndim == 3:
+            if stacks:
+                stacked_unpack_check(w, pw)
+                log(phase, f"lexi_unpack on {name} {tuple(w.shape)} (k="
+                           f"{pw.k}), one launch: exact, and equal to the "
+                           f"plain version layer by layer")
             w, pw, name = w[0], pw[0], name + "[0]"
         errs = {m: e for m, (_, e) in weight_case(w, pw, gen).items()}
+        worst = {m: max(worst[m], errs[m]) for m in worst}
         shapes.add(tuple(w.shape))
         matmul_line(name, w, pw, errs)
         torch.cuda.empty_cache()
-    assert shapes == {s_ for s_, _ in weight_shapes(cfg)}, shapes
+    assert shapes == {s_ for s_, _ in weight_shapes(cfg, tp)}, shapes
     log(phase, f"{cfg.name}: all {n_leaves} packed leaves checked")
+    return worst
 
 
 def hybrid_prefill_slots(cfg, eng, n_tok: int, seed: int):
@@ -3268,8 +3300,8 @@ def ssm_step_ms(cfg, eng) -> float:
 
 
 def hybrid_phase(smi):
-    """The parallel attention ∥ SSM hybrid: full-width zamba2-1.2b at
-    HYBRID_LAYERS of its 26 layers (random weights from seed 0) through
+    """The parallel attention ∥ SSM hybrid: full-width zamba2-1.2b (26
+    layers, random weights from seed 0) through
     every serving path of the dense family.
     Returns the kernel launches of its runs from CUDA graphs (replays
     counted) and of its packed run."""
@@ -3286,8 +3318,7 @@ def hybrid_phase(smi):
     from repro_torch.serve.scheduler import Request, ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
-                              n_layers=HYBRID_LAYERS)
+    cfg = get_config("zamba2-1.2b")
     gen = torch.Generator(device="cuda").manual_seed(11)
     paged_attend_kernel(cfg, gen, "hybrid")
     fixed_attend_kernel(cfg, gen, "hybrid")
@@ -3557,8 +3588,8 @@ def moe_mla_phase(smi):
     """MoE and MLA on every serving path: both attention kernels' MLA
     latent path at deepseek-v2-lite-16b's shapes and the plain path at
     jamba-tiny-dev's (hd 64); a tiny MoE + MLA model card vs CPU; then
-    full-width deepseek-v2-lite-16b (random weights from seed 0, at
-    MOE_MLA_LAYERS of its 27 layers) from CUDA graphs against eager, the
+    full-width deepseek-v2-lite-16b (random weights from seed 0, all 27
+    layers) from CUDA graphs against eager, the
     fixed loop, a
     disaggregated fleet and the packed weight plane; full-width
     jamba-tiny-dev from CUDA graphs against eager.  Returns the kernel
@@ -3577,8 +3608,7 @@ def moe_mla_phase(smi):
     from repro_torch.serve.scheduler import ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
-                              n_layers=MOE_MLA_LAYERS)
+    cfg = get_config("deepseek-v2-lite-16b")
     jamba = get_config("jamba-tiny-dev")
     gen = torch.Generator(device="cuda").manual_seed(12)
     for c_ in (cfg, jamba):
@@ -3852,12 +3882,34 @@ def tp_teacher_forced(cfg, run, params, reqs, streams, tg=None):
     return out, wires, clock
 
 
-def tp_rank_job(tg, cfg, want_streams):
+def tp_fixed_forced(cfg, run, params, prompts, tokens, max_len, tg=None):
+    """The fixed loop (``engine.prefill`` + ``engine.decode_step``) with
+    ``tokens`` (B, T) fed in place of its own greedy picks: the whole-vocab
+    logits (B, T, Vp) that predict each of them (at tp > 1 the ranks'
+    vocab shards gathered)."""
+    import torch
+    from repro_torch.core import collectives as cl
+    from repro_torch.serve import engine
+
+    feed = torch.as_tensor(tokens, dtype=torch.int32, device="cuda")
+    logits, st = engine.prefill(cfg, run, params, prompts, max_len, tg)
+    rows = [cl.all_gather(logits[:, -1], tg, axis=-1)]
+    for j in range(feed.shape[1] - 1):
+        logits = engine.decode_step(cfg, run, params, st, feed[:, j:j + 1],
+                                    tg)
+        rows.append(cl.all_gather(logits[:, -1], tg, axis=-1))
+    return torch.stack(rows, 1).float().cpu()
+
+
+def tp_rank_job(tg, cfg, want_streams, want_fixed):
     """One rank of the tp phase (spawned; ``tg`` its gloo TPGroup on the
     card): qwen3-4b at tp = 2 from seed 0 (the tp = 1 weights padded, this
     rank's shard), the mix served raw and packed (``cuda`` weight
-    backend), the fixed loop, the tp = 1 streams teacher-forced, and the
-    compressed all-gather timed against a raw one on this transport."""
+    backend), both weight kernels on this rank's packed shards
+    (``packed_leaf_checks``), the fixed loop, the tp = 1 streams
+    teacher-forced through the raw and the packed paged path and the
+    fixed loop, and the compressed all-gather timed against a raw one on
+    this transport."""
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import collectives as cl
@@ -3871,7 +3923,7 @@ def tp_rank_job(tg, cfg, want_streams):
     reqs = tp_mix(cfg)
     res = {}
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, run, tp=tg.world, group=tg, n_slots=4,
+    eng = ServeEngine(cfg, run, group=tg, n_slots=4,
                       max_len=4 * TP_BLK * tg.world, seed=0, device="cuda")
     res["init_s"] = time.perf_counter() - t0
     for name, e in (("raw", eng), ("packed", None)):
@@ -3880,7 +3932,7 @@ def tp_rank_job(tg, cfg, want_streams):
             e = ServeEngine(cfg, dataclasses.replace(
                 run, codec=dataclasses.replace(run.codec,
                                                weight_backend="cuda")),
-                tp=tg.world, group=tg, n_slots=4,
+                group=tg, n_slots=4,
                 max_len=4 * TP_BLK * tg.world, params=eng.params,
                 compress_weights=True, device="cuda")
             torch.cuda.synchronize()
@@ -3899,19 +3951,30 @@ def tp_rank_job(tg, cfg, want_streams):
                          weight_bytes=st.weight_bytes_per_step,
                          weight_raw=st.weight_raw_bytes_per_step)
         if name == "packed":
+            ops.reset_launch_counts()
+            forced, _, _ = tp_teacher_forced(cfg, e.run_cfg, e.params, reqs,
+                                             want_streams, tg)
+            res["forced_packed"] = [x.numpy() for x in forced]
+            res["forced_packed_launches"] = ops.launch_counts()
+            gen = torch.Generator(device="cuda").manual_seed(13 + tg.rank)
+            res["leaf_errs"] = packed_leaf_checks(
+                cfg, eng.params, e.params, gen, f"tp rank {tg.rank}",
+                tp=tg.world, stacks=True)
             del e
     # the fixed loop (engine.prefill + decode_step), eager at tp > 1
     b, s, n = TP_FIXED
     prompts = torch.as_tensor(tp_fixed_prompts(cfg), device="cuda")
+    max_len = s + n + TP_BLK * tg.world
     ops.reset_launch_counts()
     cl.wire.reset()
     t0 = time.perf_counter()
-    toks = engine.generate(cfg, run, eng.params, prompts, n,
-                           s + n + TP_BLK * tg.world, tg)
+    toks = engine.generate(cfg, run, eng.params, prompts, n, max_len, tg)
     torch.cuda.synchronize()
     res["fixed"] = dict(tokens=toks.cpu().numpy(), launches=ops.launch_counts(),
                         wall_s=time.perf_counter() - t0,
                         wire=dict(cl.wire.__dict__))
+    res["fixed_forced"] = tp_fixed_forced(cfg, run, eng.params, prompts,
+                                          want_fixed, max_len, tg).numpy()
     # the tp = 1 streams teacher-forced through this path
     cl.wire.reset()
     logits, wires, clock = tp_teacher_forced(cfg, run, eng.params, reqs,
@@ -3953,27 +4016,81 @@ def tp_rank_job(tg, cfg, want_streams):
     return res
 
 
+# tp = 2's logits may differ from tp = 1's by at most this many times the
+# tp = 1 reorder gap: the largest teacher-forced logit difference between
+# tp = 1's raw weights and its packed ones (``cuda`` weight backend: the
+# same products, their f32 sums in another order), read in the same run on
+# the same prompts and tokens.  tp = 2 changes the rounding of each
+# row-parallel product (each rank's partial rounded to bf16, then summed)
+# where the packed weights change its summation order: either moves a
+# product by about one bf16 unit in the last place, and the model's layers
+# amplify both alike.  A wrong shard, merge or sum moves the logits by
+# their own size instead.
+TP_GAP_FACTOR = 4.0
+
+
+def tp_held_to_tp1(label, cfg, got, want, forced2, forced1, bound):
+    """tp = 2 against tp = 1 on sequences whose tp = 1 streams ``want``
+    were teacher-forced through both (``forced2`` / ``forced1``: per
+    sequence, the logits that predict each position): every sequence's
+    largest logit gap within ``bound``, and at each sequence's first
+    divergence of ``got`` from ``want`` a near-tie (a top-2 margin of
+    either within that sequence's gap).  Logs each divergence; returns
+    (tokens equal, tokens, largest gap)."""
+    import numpy as np
+    import torch
+
+    v = cfg.vocab_size
+    same = n_tok = 0
+    top = 0.0
+    for i, (g_, w) in enumerate(zip(got, want)):
+        g_, w = list(g_), list(w)
+        a = torch.as_tensor(np.asarray(forced2[i]))[:, :v]
+        b_ = torch.as_tensor(np.asarray(forced1[i]))[:, :v]
+        assert a.shape == b_.shape == (len(w), v), (label, i, a.shape)
+        gap = float((a - b_).abs().max())
+        top = max(top, gap)
+        assert gap <= bound, (label, i, gap, bound)
+        same += sum(int(x == y) for x, y in zip(g_, w))
+        n_tok += len(w)
+        diff = [j for j, (x, y) in enumerate(zip(g_, w)) if x != y]
+        if not diff:
+            continue
+        j = diff[0]
+        m2, m1, _ = logit_margins(a[j], b_[j])
+        tie = min(m1, m2) <= gap
+        log("tp", f"{label} {i} first divergence at token {j} (tp 2 "
+                  f"{g_[j]}, tp 1 {w[j]}): teacher-forced top-2 margin tp 2"
+                  f" {m2:.4g} / tp 1 {m1:.4g}, its largest logit gap "
+                  f"{gap:.4g} (bound {bound:.4g}): "
+                  f"{'near-tie' if tie else 'MARGIN ABOVE THE GAP'}")
+        assert tie, (label, i, j, m1, m2, gap)
+    return same, n_tok, top
+
+
 def tp_phase(cfg, smi):
     """Tensor parallelism on the card: full-width qwen3-4b at tp = 2 as two
     ranks (``launch.mesh.spawn``) on the one card, joined over gloo --
     NCCL refuses two ranks on one device, so the activations' packed wire
     buffers cross host memory: a check of function, not of link speed.
     The parent serves the mix and the fixed loop at tp = 1 from the same
-    weights first.  Both ranks must emit the same streams (raw, packed,
-    fixed); against tp = 1 the streams may part at near-ties (the sums
-    run in another order): at each request's first divergence both paths
-    are teacher-forced with the tp = 1 stream and the top-2 margin must be
-    within the largest logit gap.  Prints the activation gathers' wire
-    bytes per prefill against raw bf16, the escape overflows, the
-    compressed gather's time against a raw gather, and the launches.
-    Returns rank 0's launches of the served runs and the fixed loop."""
+    weights first, and teacher-forces those streams through its raw and
+    its packed weights: their largest logit gap is the reorder gap that
+    bounds tp = 2's (``TP_GAP_FACTOR``).  Both ranks must emit the same
+    streams (raw, packed, fixed); each rank's packed shards go through both
+    weight kernels against their plain versions; against tp = 1 (raw and
+    packed paged paths, the fixed loop) every teacher-forced logit gap is
+    within the bound and the streams part only at near-ties.  Prints the
+    activation gathers' wire bytes per prefill against raw bf16, the
+    escape overflows, the compressed gather's time against a raw gather,
+    and the launches.  Returns rank 0's launches of the served runs and
+    the fixed loop."""
     import gc
     import numpy as np
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.collectives import CodecConfig
     from repro_torch.launch import mesh
-    from repro_torch.kernels import ops
     from repro_torch.serve import engine
     from repro_torch.serve.scheduler import Request, ServeEngine
 
@@ -3990,19 +4107,38 @@ def tp_phase(cfg, smi):
     want = [list(r.tokens) for r in results]
     b, s, n = TP_FIXED
     prompts = torch.as_tensor(tp_fixed_prompts(cfg), device="cuda")
+    max_len = s + n + TP_BLK
     want_fixed = engine.generate(cfg, run, eng.params, prompts, n,
-                                 s + n + TP_BLK).cpu().numpy()
+                                 max_len).cpu().numpy()
     forced1, _, clock1 = tp_teacher_forced(cfg, run, eng.params, reqs, want)
+    fixed1 = tp_fixed_forced(cfg, run, eng.params, prompts, want_fixed,
+                             max_len).numpy()
+    pk = ServeEngine(cfg, dataclasses.replace(run, codec=dataclasses.replace(
+        run.codec, weight_backend="cuda")), n_slots=4, max_len=4 * TP_BLK * 2,
+        params=eng.params, compress_weights=True, device="cuda")
+    forced1_pk, _, _ = tp_teacher_forced(cfg, pk.run_cfg, pk.params, reqs,
+                                         want)
+    fixed1_pk = tp_fixed_forced(cfg, pk.run_cfg, pk.params, prompts,
+                                want_fixed, max_len).numpy()
+    v = cfg.vocab_size
+    gap1 = max([float((a[:, :v] - b_[:, :v]).abs().max())
+                for a, b_ in zip(forced1, forced1_pk)]
+               + [float(np.abs(fixed1[..., :v] - fixed1_pk[..., :v]).max())])
+    assert 0 < gap1 < float("inf"), gap1
+    bound = TP_GAP_FACTOR * gap1
     log("tp", f"tp = 1 reference: mix {st1.tokens_per_s:.1f} tok/s, fixed "
-              f"loop {b} x {s} + {n} ({time.perf_counter() - t_phase:.1f}s) "
-              f"| {smi}")
-    del eng, results
+              f"loop {b} x {s} + {n}; its streams teacher-forced through its "
+              f"raw and its packed (cuda) weights: largest logit gap "
+              f"{gap1:.6g} (the reorder gap), so tp = 2 is held within "
+              f"{TP_GAP_FACTOR:g} x {gap1:.6g} = {bound:.6g} "
+              f"({time.perf_counter() - t_phase:.1f}s) | {smi}")
+    del eng, pk, results
     gc.collect()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     ranks = mesh.spawn(tp_rank_job, 2, backend="gloo", device="cuda",
-                       args=(cfg, want))
+                       args=(cfg, want, want_fixed))
     log("tp", f"2 ranks done in {time.perf_counter() - t0:.1f}s (rank 0: "
               f"engine with seeded weights {ranks[0]['init_s']:.1f}s, the "
               f"packed engine {ranks[0]['pack_s']:.1f}s) | {smi}")
@@ -4015,38 +4151,35 @@ def tp_phase(cfg, smi):
         for i, rq in enumerate(reqs):
             assert len(got[i]) == rq["max_new_tokens"], (key, i)
             assert all(0 <= t < cfg.vocab_size for t in got[i])
+    shard_shapes = [k for k, _ in weight_shapes(cfg, 2)]
+    for rank, r in enumerate(ranks):
+        errs = r["leaf_errs"]
+        log("tp", f"rank {rank}: decompress_matmul at its packed shards' "
+                  f"(K, N) {shard_shapes} within 1e-4*(|x|@|W|)+1e-6 of "
+                  f"the plain version, worst max |err| at M=4 "
+                  f"{errs[4]:.3e}, at M=1024 {errs[1024]:.3e}; lexi_unpack "
+                  f"exact on every stacked shard")
 
-    # tp = 2 against tp = 1: first divergences, teacher-forced
-    got = r0["raw"]["streams"]
-    n_tok = sum(len(w) for w in want)
-    same = sum(int(a == b) for g_, w in zip(got, want)
-               for a, b in zip(g_, w))
-    gaps = []
-    for i, (g_, w) in enumerate(zip(got, want)):
-        a, b_ = torch.as_tensor(r0["forced"][i]), forced1[i]
-        v = cfg.vocab_size
-        gap = float((a[:, :v] - b_[:, :v]).abs().max())
-        gaps.append(gap)
-        diff = [j for j, (x, y) in enumerate(zip(g_, w)) if x != y]
-        if not diff:
-            continue
-        j = diff[0]
-        m2, m1, _ = logit_margins(a[j, :v], b_[j, :v])
-        tie = min(m1, m2) <= gap
-        log("tp", f"uid {i} first divergence at token {j} (tp 2 "
-                  f"{g_[j]}, tp 1 {w[j]}): teacher-forced top-2 margin tp 2"
-                  f" {m2:.4g} / tp 1 {m1:.4g}, largest logit gap {gap:.4g}: "
-                  f"{'near-tie' if tie else 'MARGIN ABOVE THE GAP'}")
-        assert tie, (i, j, m1, m2, gap)
-    fsame = int((r0["fixed"]["tokens"] == want_fixed).sum())
-    log("tp", f"streams: both ranks equal (raw, packed, fixed); "
-              f"tp 2 == tp 1 on {same}/{n_tok} served tokens and "
-              f"{fsame}/{want_fixed.size} fixed-loop tokens; teacher-forced "
-              f"logit gap tp 2 vs tp 1 max {max(gaps):.4g} over the mix")
-    pk_same = sum(int(a == b) for g_, w in zip(r0["packed"]["streams"], got)
-                  for a, b in zip(g_, w))
-    log("tp", f"packed (cuda weight backend: decompress_matmul's f32 sums "
-              f"in its own order) == raw on {pk_same}/{n_tok} tokens")
+    # tp = 2 against tp = 1: gaps bounded, first divergences near-ties
+    rows = [("raw uid", r0["raw"]["streams"], want, r0["forced"], forced1),
+            ("packed uid", r0["packed"]["streams"], want,
+             r0["forced_packed"], forced1),
+            ("fixed seq", r0["fixed"]["tokens"], want_fixed,
+             r0["fixed_forced"], fixed1)]
+    for label, got, w, f2, f1 in rows:
+        same, n_tok, gap = tp_held_to_tp1(label, cfg, got, w, f2, f1, bound)
+        log("tp", f"{label.split()[0]}: tp 2 == tp 1 on {same}/{n_tok} "
+                  f"tokens; teacher-forced logit gap tp 2 vs tp 1 max "
+                  f"{gap:.6g} (bound {bound:.6g}, {gap / gap1:.3g} x the "
+                  f"reorder gap)")
+    n_dm = r0["forced_packed_launches"]["decompress_matmul"]
+    assert n_dm > 0, r0["forced_packed_launches"]
+    pk_raw = max(float(np.abs(a - b_).max())
+                 for a, b_ in zip(r0["forced_packed"], r0["forced"]))
+    log("tp", f"tp 2 packed vs tp 2 raw, the same teacher-forced tokens: "
+              f"largest logit gap {pk_raw:.6g} ({n_dm} decompress_matmul "
+              f"launches in the packed run)")
+    log("tp", "streams: both ranks equal (raw, packed, fixed)")
     for key in ("raw", "packed"):
         r = r0[key]
         log("tp", f"{key}: {r['tok_s']:.2f} tok/s (wall {r['wall_s']:.2f}s "
@@ -4093,13 +4226,11 @@ def tp_phase(cfg, smi):
     return launches
 
 
-# Depth (layers) of three earlier paths' models, width kept: cut so that
-# the whole run, the tp phase included, fits its time limit on a slower
-# host (one run took 1201.7 s at full depth where another took 845.8).
-PREFIX_LAYERS = 12             # qwen3-4b's 36: the fixed, prefix and
-#                                disagg phases
-HYBRID_LAYERS = 9              # zamba2-1.2b's 26
-MOE_MLA_LAYERS = 9             # deepseek-v2-lite-16b's 27
+# Depth (layers of qwen3-4b's 36, width kept) of the prefix and disagg
+# phases: cut so that the whole run, the tp phase included, fits its time
+# limit on a slower host (one run took 1201.7 s at full depth where
+# another took 845.8).
+PREFIX_LAYERS = 12
 
 
 def first_layers(cfg, params, n_layers: int):
@@ -4153,8 +4284,7 @@ def main() -> int:
     # launches on the main path's runs from CUDA graphs (replays counted)
     launches = graphs_phase(cfg, serve_eng, tok, served, smi)
     mark("graphs")
-    launches["decode_attend"] = fixed_phase(
-        *first_layers(cfg, serve_eng.params, PREFIX_LAYERS), smi)
+    launches["decode_attend"] = fixed_phase(cfg, serve_eng.params, smi)
     mark("fixed")
     raw_params = serve_eng.params
     launches.update(weights_phase(cfg, serve_eng, tok, smi))

@@ -53,18 +53,27 @@ def mesh_config(*, model: int = 1) -> MeshConfig:
     return MeshConfig(data=1, model=model, pod=1)
 
 
+def rank_device(device, rank: int) -> torch.device:
+    """Where ``rank`` keeps its tensors: ``device``, but a CUDA device
+    without an index is card ``rank`` modulo the cards (one card a rank
+    where there are enough; ranks share cards round-robin where not)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
 def init_tp(rank: int, world: int, *, backend: str, device,
             init_method: str) -> TPGroup:
     """Join the default process group as ``rank`` of ``world`` and return
-    its ``TPGroup``.  A CUDA ``device`` becomes this process's current
-    device first (NCCL binds to it)."""
+    its ``TPGroup``, whose device is ``rank_device(device, rank)``.  A
+    CUDA device becomes this process's current device first (NCCL binds
+    to it)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
-    dev = torch.device(device)
+    dev = rank_device(device, rank)
     if dev.type == "cuda":
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
     torch.distributed.init_process_group(
         backend=backend, init_method=init_method, world_size=world,

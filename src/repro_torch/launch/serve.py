@@ -172,14 +172,11 @@ def _rank(tg, cfg, run: RunConfig, args) -> int:
 
 
 def _rank_device(args, tg):
-    """The rank's device: ``--device``; a CUDA device is card rank modulo
-    the cards."""
+    """The rank's device: its group's (``mesh.rank_device``: a CUDA
+    device is card rank modulo the cards), else ``--device``."""
     import torch
 
-    dev = torch.device(args.device)
-    if tg is None or dev.type != "cuda":
-        return dev
-    return torch.device("cuda", tg.rank % torch.cuda.device_count())
+    return torch.device(args.device) if tg is None else tg.device
 
 
 def _serve_fixed(cfg, run: RunConfig, args, tg=None) -> int:
@@ -261,7 +258,7 @@ def _serve_continuous(cfg, run: RunConfig, args, tg=None) -> int:
         results, st = eng.run(reqs)
         print("[serve] disagg:", format_disagg_stats(st))
     else:
-        eng = ServeEngine(cfg, run, tp=tp, group=tg, n_slots=args.slots,
+        eng = ServeEngine(cfg, run, group=tg, n_slots=args.slots,
                           max_len=max_len, seed=run.seed, eos_id=args.eos_id,
                           stop_seqs=stops,
                           prefix_sharing=not args.no_prefix_sharing,

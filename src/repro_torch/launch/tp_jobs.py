@@ -114,7 +114,7 @@ def _packed_leaves(params) -> Dict[str, Dict[str, np.ndarray]]:
 
 def serve(tg, cfg, run, requests: List[Dict[str, Any]],
           spec: Dict[str, Any]) -> Dict[str, Any]:
-    """``ServeEngine(tp=world)`` on this rank: ``requests`` as dicts of
+    """``ServeEngine(group=tg)`` on this rank: ``requests`` as dicts of
     ``Request`` fields (prompt numpy), ``spec`` the engine's keywords
     (``engine``: n_slots, max_len, seed, prefix_sharing, compress_weights,
     max_fuse_steps, ...), ``params`` (see ``_params_for``), ``device``,
@@ -125,7 +125,7 @@ def serve(tg, cfg, run, requests: List[Dict[str, Any]],
     from repro_torch.serve.scheduler import Request, ServeEngine
 
     device = torch.device(spec.get("device", "cpu"))
-    eng = ServeEngine(cfg, run, tp=tg.world, group=tg, device=device,
+    eng = ServeEngine(cfg, run, group=tg, device=device,
                       params=_params_for(tg, cfg, spec, device),
                       **spec.get("engine", {}))
     res = dict(runs=[])

@@ -80,8 +80,8 @@ runs split across replicas (``serve.disagg``): a prefill replica drives
 replica ``_decode_window`` on slots seeded by imports, its ``PageCache``
 ``remote_fetch`` wired to the transport's stores.
 
-Tensor parallelism (``ServeEngine(tp=N, group=...)``, the dense family):
-one process per rank, each running this same loop on the same requests;
+Tensor parallelism (``ServeEngine(group=...)``, the dense family): one
+process per rank, each running this same loop on the same requests;
 the ranks agree on every decision because every input to one is the same
 on all of them (the greedy tokens are, see ``engine.greedy_token``).  A
 rank holds its shard of the weights and its interleaved slots of every
@@ -312,8 +312,8 @@ class ServeEngine:
     """Continuous-batching inference engine: one replica, on one GPU or,
     with ``tp`` > 1, one rank of a tensor-parallel group."""
 
-    def __init__(self, cfg: ModelConfig, run: RunConfig, *, tp: int = 1,
-                 group=None, n_slots: int = 4, max_len: int = 256,
+    def __init__(self, cfg: ModelConfig, run: RunConfig, *,
+                 tp: Optional[int] = None, group=None, n_slots: int = 4, max_len: int = 256,
                  params=None,
                  seed: int = 0, eos_id: Optional[int] = None,
                  stop_seqs: Optional[Sequence[Sequence[int]]] = None,
@@ -334,15 +334,18 @@ class ServeEngine:
         whose replicas it tells apart by ``name``); ``registry`` holds
         the engine's metrics, refreshed by ``sync_metrics``.
 
-        ``tp`` > 1 needs ``group``, this process's ``launch.mesh.TPGroup``
-        of ``tp`` ranks; ``params`` is then the rank's shard
+        ``group``: this process's ``launch.mesh.TPGroup``; its world is
+        the engine's tp (``tp``, if given, must equal it: without a group
+        it is 1).  At tp > 1 ``params`` is the rank's shard
         (``models.params.shard_params``), and without it every rank
         builds the seed's tp = 1 weights, pads them for tp
         (``models.params.pad_for_tp``: zero padded vocab and query heads,
         so the model is the same at every tp) and keeps its shard."""
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
-        if tp > 1 and (group is None or group.world != tp):
+        if tp is None:
+            tp = cl.world(group)
+        if tp != cl.world(group):
             raise ValueError(f"tp={tp} needs the rank's TPGroup of {tp} "
                              f"ranks, got {group}")
         blocks.check_tp(cfg, tp)

@@ -90,6 +90,8 @@ def _mix(vocab):
 CACHE_STATS = ("cache_hot_hits", "cache_spilled_pages", "cache_spilled_bytes",
                "cache_fetched_pages", "cache_fetched_bytes",
                "cache_reprefill_cols", "cache_evicted_cols")
+
+
 def _pressure_mixes(vocab):
     """Nine 24-token prompts (3 pages a rank each) in waves of two fill
     the pool with retained prefix pages, so the later waves evict the
@@ -98,19 +100,6 @@ def _pressure_mixes(vocab):
     rng = np.random.default_rng(5)
     ps = [rng.integers(0, vocab, (24,)).astype(np.int32) for _ in range(9)]
     return [(p, 2) for p in ps], [(ps[0].copy(), 3)]
-
-
-CACHE_STATS = ("cache_hot_hits", "cache_spilled_pages", "cache_spilled_bytes",
-               "cache_fetched_pages", "cache_fetched_bytes",
-               "cache_reprefill_cols", "cache_evicted_cols")
-def _pressure_mix(vocab):
-    """Nine 24-token prompts (3 pages a rank each) in waves of two fill
-    the pool with retained prefix pages, so later waves evict the first's
-    columns; the first prompt's repeat, in the last wave, then restores
-    them from the warm tier (spilled at release)."""
-    rng = np.random.default_rng(5)
-    ps = [rng.integers(0, vocab, (24,)).astype(np.int32) for _ in range(9)]
-    return [(p, 2) for p in ps] + [(ps[0].copy(), 3)]
 
 
 CASES = {"gqa-codec": ("gqa", True), "gqa-raw": ("gqa", False),
@@ -461,3 +450,38 @@ def test_tp_refusals():
     with pytest.raises(ValueError, match=">= tp"):
         sched.submit(TReq(uid=0, prompt=np.zeros((1,), np.int32),
                           max_new_tokens=2))
+
+
+@pytest.mark.parametrize("cards", [1, 2, 4])
+def test_init_tp_puts_each_rank_on_its_card(cards, monkeypatch):
+    """``init_tp`` on ``device="cuda"`` (no index) puts rank r of 4 on
+    card r modulo the cards and makes it the process's current card, and
+    the launcher's ranks serve on their group's card; an indexed card or
+    the CPU is kept.  The card count, ``set_device`` and the group's
+    rendezvous are stand-ins: no card is needed."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import mesh, serve as launcher
+
+    current, joined = [], []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda **kw: joined.append(kw))
+    for rank in range(4):
+        tg = mesh.init_tp(rank, 4, backend="nccl", device="cuda",
+                          init_method="file:///unused")
+        assert tg.device == torch.device("cuda", rank % cards)
+        assert current[-1] == tg.device
+        assert joined[-1]["rank"] == rank and joined[-1]["world_size"] == 4
+        assert launcher._rank_device(SimpleNamespace(device="cuda"),
+                                     tg) == tg.device
+        tg = mesh.init_tp(rank, 4, backend="nccl", device="cuda:0",
+                          init_method="file:///unused")
+        assert tg.device == torch.device("cuda", 0)
+    n_set = len(current)
+    tg = mesh.init_tp(1, 4, backend="gloo", device="cpu",
+                      init_method="file:///unused")
+    assert tg.device == torch.device("cpu") and len(current) == n_set
+    assert launcher._rank_device(SimpleNamespace(device="cpu"),
+                                 None) == torch.device("cpu")
