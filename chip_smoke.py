@@ -102,11 +102,11 @@ non-zero:
                an eager step without a flush.
   7. fixed   — the fixed-batch loop (``engine.prefill`` +
                ``engine.decode_step``, the launcher's default mode) on the
-               serve phase's weights (all 36 layers): 4 prompts of 1000
-               tokens, 40 greedy
+               serve phase's weights (their first 12 of 36 layers,
+               ``PREFIX_LAYERS``): 4 prompts of 1000 tokens, 40 greedy
                steps at block 256, so the rings flush at 1024.  Each
                layer's ``decode_attend`` launches once per step; the
-               flushed block of layers 0 and 35 decodes bit for bit to its
+               flushed block of layers 0 and 11 decodes bit for bit to its
                ring; the codec off (raw blocks) gives the same tokens.
                The loop as ``generate`` runs it (``engine.FixedDecoder``),
                eagerly and from a CUDA graph: the same tokens, block stores
@@ -4226,10 +4226,10 @@ def tp_phase(cfg, smi):
     return launches
 
 
-# Depth (layers of qwen3-4b's 36, width kept) of the prefix and disagg
-# phases: cut so that the whole run, the tp phase included, fits its time
-# limit on a slower host (one run took 1201.7 s at full depth where
-# another took 845.8).
+# Depth (layers of qwen3-4b's 36, width kept) of the fixed, prefix and
+# disagg phases: cut so that the whole run, the tp phase included, fits
+# its time limit on a slower host (one run took 1201.7 s at full depth
+# where another took 845.8).
 PREFIX_LAYERS = 12
 
 
@@ -4284,7 +4284,8 @@ def main() -> int:
     # launches on the main path's runs from CUDA graphs (replays counted)
     launches = graphs_phase(cfg, serve_eng, tok, served, smi)
     mark("graphs")
-    launches["decode_attend"] = fixed_phase(cfg, serve_eng.params, smi)
+    launches["decode_attend"] = fixed_phase(
+        *first_layers(cfg, serve_eng.params, PREFIX_LAYERS), smi)
     mark("fixed")
     raw_params = serve_eng.params
     launches.update(weights_phase(cfg, serve_eng, tok, smi))
