@@ -236,7 +236,8 @@ non-zero:
                profiled, ``..._packed{,_graph}.txt``); last, jamba-tiny-dev
                (8 layers, attention ∥ Mamba2, 8 experts top-2) eagerly and
                from graphs (streams, pool bytes and SSM state equal).
-  13. tp — tensor parallelism: full-width qwen3-4b at tp = 2 as two
+  13. tp — tensor parallelism: full-width qwen3-4b (its first
+     ``PREFIX_LAYERS`` = 12 of 36 layers) at tp = 2 as two
      ranks (``launch.mesh.spawn``) on the one card over gloo (NCCL
      refuses two ranks on one device, so the activations' packed wire
      buffers cross host memory: a check of function, not of link speed),
@@ -258,15 +259,34 @@ non-zero:
      step, the launches.  The kernels phase holds both
      attention kernels' shard path on every shard of tp 2 and 4 and
      times one tp = 2 shard (``tp_attend_kernels``: rows 1t and 6t).
-  14. the card's line, the ``kernels`` JSON line (launches from the runs
-     from CUDA graphs, the replays counted; the disagg, hybrid, moe_mla
-     and tp phases' runs added), then the result line.
+  14. train — training on the card: full-width qwen1.5-1.8b (24 layers,
+     random weights from seed 0) through ``launch.train.train_loop`` at
+     mesh 2x1 (FSDP: two ranks on the one card over gloo, host-staged),
+     global batch 4 x 512, codec full, remat on, 3 steps: per step loss,
+     grad norm, lr, clip scale and ms, both ranks equal; the FSDP
+     gathers' and the gradient sync's wire bytes against raw bf16 and
+     their escape overflows; each rank's peak device memory against its
+     state; the codec kernels' launches during the steps (each > 0).
+     Step 0 again at mesh 1x1 in this process: loss within 1e-4 and grad
+     norm within 1e-2 relative of 2x1's.  ``exp_histogram`` and
+     ``lexi_pack`` bit for bit against their plain versions and
+     ``lexi_unpack``'s round trip exact at the embedding's FSDP shard
+     (1 x 155.6 M) and the largest block shard, timed beside their
+     bounds and their plain versions (the histogram also beside a
+     ``torch.bincount``).  Then checkpoint/restart through ``launch.train.main`` at
+     the reduced size (2 ranks, 8 steps, a checkpoint every 4, a failure
+     at step 6): LATEST reads step 8, the step-8 checkpoint restored and
+     saved again to the same bytes, stored against raw bytes.
+  15. the card's line, the ``kernels`` JSON line (launches from the runs
+     from CUDA graphs, the replays counted; the disagg, hybrid, moe_mla,
+     tp and train phases' runs added), then the result line.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -4069,7 +4089,8 @@ def tp_held_to_tp1(label, cfg, got, want, forced2, forced1, bound):
 
 
 def tp_phase(cfg, smi):
-    """Tensor parallelism on the card: full-width qwen3-4b at tp = 2 as two
+    """Tensor parallelism on the card: full-width qwen3-4b (main() passes
+    its first ``PREFIX_LAYERS`` layers) at tp = 2 as two
     ranks (``launch.mesh.spawn``) on the one card, joined over gloo --
     NCCL refuses two ranks on one device, so the activations' packed wire
     buffers cross host memory: a check of function, not of link speed.
@@ -4226,10 +4247,286 @@ def tp_phase(cfg, smi):
     return launches
 
 
-# Depth (layers of qwen3-4b's 36, width kept) of the fixed, prefix and
-# disagg phases: cut so that the whole run, the tp phase included, fits
-# its time limit on a slower host (one run took 1201.7 s at full depth
-# where another took 845.8).
+# ---------------------------------------------------------------------------
+# phase 14: training (the dense family at mesh 2x1: FSDP with compressed
+# weight gathers and gradient sync)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-1.8b"
+TRAIN_SHAPE = (4, 512, 3)        # global batch, sequence, steps (warmup 1)
+# 2x1 against 1x1 at step 0: the codec is lossless, so only the order of
+# the sums differs (the gradient's reduce-scatter, the loss over ranks)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-2
+TRAIN_KERNELS = ("exp_histogram", "lexi_pack", "lexi_unpack")
+
+
+def train_job(tg, cfg, steps: int):
+    """One rank of the train phase (``tg`` None: the 1x1 run in this
+    process): ``launch.train.train_loop`` of full-width ``cfg`` from seed
+    0 for ``steps`` steps, with the wire bytes of the FSDP gathers and of
+    the gradient sync counted apart (``optimizer.sync_grads`` wrapped),
+    the codec kernels' launches during the steps and the peak device
+    memory."""
+    import torch
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.core import collectives as cl
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, _ = TRAIN_SHAPE
+    world = 1 if tg is None else tg.world
+    sync = dict(calls=0, wire_bytes=0, raw_bytes=0, parts=0, overflows=0)
+    plain_sync = opt_mod.sync_grads
+
+    def counted_sync(*a, **kw):
+        before = dict(cl.wire.__dict__)
+        out = plain_sync(*a, **kw)
+        for k in sync:
+            sync[k] += cl.wire.__dict__[k] - before[k]
+        return out
+    opt_mod.sync_grads = counted_sync
+    cl.wire.reset()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = launch_train.train_loop(
+        cfg, ShapeConfig("train", s, b, "train"),
+        MeshConfig(world, 1, 1),
+        RunConfig(codec=CodecConfig(), remat=True, warmup_steps=1),
+        steps=steps,
+        ckpt_dir=None, ckpt_every=0, resume=False, log=lambda *_: None,
+        tg=tg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    opt_mod.sync_grads = plain_sync
+    total = {k: v for k, v in cl.wire.__dict__.items() if k != "keep"}
+    gathers = {k: total[k] - sync[k] for k in sync}
+    return dict(history=out["history"], wall_s=wall, gathers=gathers,
+                sync=sync, launches=ops.launch_counts(),
+                peak=torch.cuda.max_memory_allocated(),
+                device=str(torch.cuda.get_device_name()))
+
+
+def train_state_bytes(cfg, data: int) -> int:
+    """A rank's bytes of state at mesh data x 1: bf16 params and grads,
+    f32 master, m and v, each leaf its FSDP shard."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import tree
+    from repro_torch.models import lm
+    n = sum(math.prod(d.shape) // (data if d.fsdp_dim is not None else 1)
+            for d in tree.leaves(lm.lm_table(cfg, data=data,
+                                             run=RunConfig())))
+    return n * (2 + 2 + 4 * 3)
+
+
+def train_codec_kernels(cfg, smi):
+    """exp_histogram and lexi_pack bit for bit against their plain
+    versions, and lexi_unpack's round trip exact, at the train path's
+    largest shards (one compress group each): the embedding's FSDP shard
+    and the largest block leaf's per-layer shard; each timed against its
+    bound and its plain version (the histogram also against a
+    ``torch.bincount``)."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import entropy as E
+    from repro_torch.core import fixed, tree
+    from repro_torch.kernels import lexi_unpack, ops, ref
+    from repro_torch.models import lm
+
+    table = lm.lm_table(cfg, data=2, run=RunConfig())
+    emb = table["embed"]
+    shard = tuple(s // 2 if i == emb.fsdp_dim else s
+                  for i, s in enumerate(emb.shape))
+    blk = max((d for d in tree.leaves(table["blocks"])
+               if d.fsdp_dim is not None), key=lambda d: math.prod(d.shape))
+    bshard = tuple(s // 2 if i == blk.fsdp_dim else s
+                   for i, s in enumerate(blk.shape))[1:]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    k = 5
+    for name, shape in (("embed shard", shard), ("block shard", bshard)):
+        n = math.prod(shape)
+        x = (torch.randn((1, n), generator=gen, device="cuda") * 0.02) \
+            .to(torch.bfloat16)
+        how = codec_check(name, x, k)
+        t = codec_timing(x, k)
+        c = max(n // 128, 8)
+        ct = fixed.compress_many(x, k=k, esc_capacity=c)
+        back = ops.unpack(ct)
+        assert torch.equal(back.view(torch.int16), x.view(torch.int16)), name
+        un = cuda_ms(lambda: ops.unpack_rows(ct.signman, ct.planes,
+                                             ct.dict_syms, k))
+        un_bound = (3 + k / 8) * n / HBM_BYTES_PER_S * 1e3
+        esc = int(ct.n_escapes.max())
+        # the plain versions' times, and a torch.bincount of the exponents
+        # (extracted beforehand) as the histogram's yardstick
+        lut = fixed.build_dictionary(ops.histogram(x), k)[1]
+        keys = E.exponent(E.to_u16(x)).reshape(-1)
+        plain = [cuda_ms(fn, reps=3, warmup=1) for fn in (
+            lambda: ref.histogram_ref(x), lambda: ref.pack_ref(x, lut, k),
+            lambda: lexi_unpack.plain(ct.signman, ct.planes, ct.dict_syms,
+                                      k))]
+        lib = cuda_ms(lambda: torch.bincount(keys, minlength=256))
+        log("train", f"codec kernels at the {name} {shape} (1 x {n}, k={k}"
+                     f"): exact against the plain versions ({how}); "
+                     f"exp_histogram {t['exp_histogram']['ms']:.4f} ms "
+                     f"(bound {t['exp_histogram']['bound_ms']:.4f}, plain "
+                     f"{plain[0]:.3f}, torch.bincount {lib:.4f}), lexi_pack "
+                     f"{t['lexi_pack']['ms']:.4f} ms (bound "
+                     f"{t['lexi_pack']['bound_ms']:.4f}, plain "
+                     f"{plain[1]:.3f}), lexi_unpack {un:.4f} ms (bound "
+                     f"{un_bound:.4f}, plain {plain[2]:.3f}), round trip "
+                     f"through compress_many -> ops.unpack exact ({esc} "
+                     f"escapes, capacity {c}) | {smi}")
+        del x, ct, back, keys
+        torch.cuda.empty_cache()
+
+
+def train_ckpt_phase(smi):
+    """Checkpoint and restart through ``launch.train.main`` at the reduced
+    size (the LEXI-H coder is a Python loop per symbol): two ranks on the
+    card, a failure injected at step 6, recovery from the step-4
+    checkpoint to step 8; then the step-8 checkpoint restored and saved
+    again to the same bytes, and its stored against raw bytes."""
+    import shutil
+    from repro_torch.configs import get_config, make_reduced
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import tree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+
+    d = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    assert launch_train.main([
+        "--arch", TRAIN_ARCH, "--reduced", "--mesh", "2x1", "--steps", "8",
+        "--batch", "4", "--seq", "64", "--ckpt-dir", str(d),
+        "--ckpt-every", "4", "--simulate-failure", "6",
+        "--dist-backend", "gloo"]) == 0
+    assert ckpt.latest_step(str(d)) == 8, ckpt.latest_step(str(d))
+    cfg = make_reduced(get_config(TRAIN_ARCH))
+    like = launch_train.state_like(lm.lm_table(cfg, data=2,
+                                               run=RunConfig()))
+    st = ckpt.restore(str(d), like)
+    again = ckpt.save(str(d / "again"), 8,
+                      tree.map_(lambda x: x.to("cuda"), st))
+    with open(Path(again) / "MANIFEST.json") as fh:
+        files = [e["file"] for e in json.load(fh)["leaves"]]
+    for f in files:
+        assert (Path(again) / f).read_bytes() == \
+            (d / "step_00000008" / f).read_bytes(), f
+    sz = ckpt.stored_size(str(d), 8)
+    log("train", f"checkpoint/restart ({cfg.name} reduced, 2 ranks, 8 "
+                 f"steps, a failure at step 6): LATEST reads step 8; the "
+                 f"step-8 checkpoint restored, moved to the card and saved "
+                 f"again: all {len(files)} leaf files byte-identical (a "
+                 f"restore -> save round trip, bit for bit); stored "
+                 f"{sz['stored_bytes']} B against "
+                 f"{sz['raw_bytes']} B raw "
+                 f"({sz['raw_bytes'] / sz['stored_bytes']:.3f}x) "
+                 f"({time.perf_counter() - t0:.1f}s) | {smi}")
+
+
+def train_phase(smi):
+    """Training on the card: full-width qwen1.5-1.8b (24 layers, seed 0)
+    through ``launch.train.train_loop`` at mesh 2x1 -- two ranks on the one
+    card over gloo (host-staged; NCCL refuses two ranks on one device) --
+    global batch 4 x 512, codec full, remat on, 3 steps: per step loss,
+    grad norm, lr, clip scale and ms, both ranks equal; the FSDP gathers'
+    and the gradient sync's wire bytes against raw bf16, with the escape
+    overflows; each rank's peak device memory against its state; the
+    codec kernels' launches during the steps.  Then step 0 at mesh 1x1 in
+    this process from the same seed and batch: its loss within
+    TRAIN_LOSS_RTOL and its grad norm within TRAIN_GNORM_RTOL of 2x1's.
+    Then the codec kernels at the train path's shapes
+    (``train_codec_kernels``) and the reduced checkpoint/restart
+    (``train_ckpt_phase``).  Returns rank 0's launches during the 2x1
+    steps."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    b, s, steps = TRAIN_SHAPE
+    state = train_state_bytes(cfg, 2)
+    log("train", f"{cfg.name} full width ({cfg.n_layers} layers, d "
+                 f"{cfg.d_model}, vocab {cfg.vocab_size}) at mesh 2x1: two "
+                 f"ranks on {torch.cuda.device_count()} card(s) over gloo, "
+                 f"CUDA tensors staged through host memory; global batch {b}"
+                 f" x {s}, codec full, remat on, {steps} steps; predicted "
+                 f"state per rank {state / 1e9:.2f} GB (bf16 params and "
+                 f"grads, f32 master, m, v; FSDP shards) | {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r0, r1 = mesh.spawn(train_job, 2, backend="gloo", device="cuda",
+                        args=(cfg, steps))
+    log("train", f"2 ranks done in {time.perf_counter() - t0:.1f}s (rank 0 "
+                 f"train_loop {r0['wall_s']:.1f}s: seeded init on the card, "
+                 f"then the steps) | {smi}")
+    for h0, h1 in zip(r0["history"], r1["history"]):
+        assert (h0["loss"], h0["grad_norm"]) == (h1["loss"], h1["grad_norm"])
+        assert all(math.isfinite(h0[k]) for k in ("loss", "grad_norm"))
+        log("train", f"2x1 step {h0['step']}: loss {h0['loss']:.6f} grad "
+                     f"norm {h0['grad_norm']:.6f} lr {h0['lr']:.3e} clip "
+                     f"scale {h0['clip_scale']:.6f} | rank 0 {h0['ms']:.1f} "
+                     f"ms, rank 1 {h1['ms']:.1f} ms (both ranks' loss and "
+                     f"grad norm equal) | {smi}")
+    for r, res in enumerate((r0, r1)):
+        g, sy = res["gathers"], res["sync"]
+        log("train", f"rank {r} over {steps} steps: FSDP gathers "
+                     f"{g['wire_bytes']} B on the wire for {g['raw_bytes']}"
+                     f" B of raw bf16 ({g['raw_bytes'] / g['wire_bytes']:.4f}"
+                     f"x; {g['calls']} gathers, the blocks' counted twice a "
+                     f"step: forward and remat), escape overflows "
+                     f"{g['overflows']}; gradient sync (all-gather half) "
+                     f"{sy['wire_bytes']} B for {sy['raw_bytes']} B "
+                     f"({sy['raw_bytes'] / max(sy['wire_bytes'], 1):.4f}x; "
+                     f"{sy['calls']} calls), overflows {sy['overflows']}; "
+                     f"peak device memory {res['peak'] / 1e9:.2f} GB "
+                     f"(state {state / 1e9:.2f} GB + transients) | {smi}")
+        assert g["overflows"] == 0 and sy["overflows"] == 0
+    launches = {k: r0["launches"][k] for k in TRAIN_KERNELS}
+    log("train", f"codec kernel launches during the 2x1 steps: rank 0 "
+                 f"{launches}, rank 1 "
+                 f"{ {k: r1['launches'][k] for k in TRAIN_KERNELS} }")
+    assert all(v > 0 for v in launches.values()), launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    solo = train_job(None, cfg, 1)
+    h1, h2 = solo["history"][0], r0["history"][0]
+    dl = abs(h1["loss"] - h2["loss"]) / abs(h1["loss"])
+    dg = abs(h1["grad_norm"] - h2["grad_norm"]) / abs(h1["grad_norm"])
+    log("train", f"1x1 step 0 in this process: loss {h1['loss']:.6f} grad "
+                 f"norm {h1['grad_norm']:.6f} {h1['ms']:.1f} ms; against "
+                 f"2x1: loss rel gap {dl:.3e} (limit {TRAIN_LOSS_RTOL:g}), "
+                 f"grad norm rel gap {dg:.3e} (limit {TRAIN_GNORM_RTOL:g});"
+                 f" peak device memory {solo['peak'] / 1e9:.2f} GB; "
+                 f"compressed collectives {solo['gathers']['calls']} | {smi}")
+    assert dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GNORM_RTOL, (dl, dg)
+    del solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_codec_kernels(cfg, smi)
+    train_ckpt_phase(smi)
+    log("train", f"phase done in {time.perf_counter() - t_phase:.1f}s | "
+                 f"{smi}")
+    return launches
+
+
+# Depth (layers of qwen3-4b's 36, width kept) of the fixed, prefix,
+# disagg and tp phases: cut so that the whole run, the train phase
+# included, fits its time limit on a slower host (one run took 1201.7 s
+# at full depth where another took 845.8; with the train phase and the
+# tp and moe_mla phases at full depth, 857.4 s on a host like the
+# 845.8 s one).
 PREFIX_LAYERS = 12
 
 
@@ -4303,9 +4600,13 @@ def main() -> int:
     for name, n in moe_mla_phase(smi).items():
         launches[name] += n
     mark("moe_mla")
-    for name, n in tp_phase(cfg, smi).items():
+    for name, n in tp_phase(dataclasses.replace(
+            cfg, n_layers=PREFIX_LAYERS), smi).items():
         launches[name] += n
     mark("tp")
+    for name, n in train_phase(smi).items():
+        launches[name] += n
+    mark("train")
     log("time", ", ".join(f"{name} {t - t0:.1f}s" for (_, t0), (name, t)
                           in zip(marks, marks[1:])) + f" | {smi}")
     kernels = []

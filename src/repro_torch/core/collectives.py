@@ -31,22 +31,28 @@ exchange (gloo takes CPU tensors only for gather and all-to-all); NCCL
 moves it in place.  Several tensors may share one exchange
 (``gather_many``).
 
-Not ported here: ``sync_gradients`` and the custom-VJP ``lexi_*``
-wrappers (the training slice).  ``CodecConfig``'s class name, field order
-and defaults match the JAX package's, so ``repr(CodecConfig())`` is the
-same string in both packages; only the backend vocabulary differs, as
-documented per field.
+The differentiable wrappers (``lexi_all_gather``, ``lexi_psum``,
+``lexi_all_to_all``, ``lexi_ppermute``) are ``torch.autograd.Function``s
+with the reference's custom VJPs: the all-gather's backward is a raw
+reduce-scatter (it sums), the psum's a compressed psum, the all-to-all's
+a compressed all-to-all with split and concat swapped, the ppermute's a
+compressed ppermute over the inverse permutation.  ``sync_gradients`` is
+the reference's fused data-parallel gradient mean.
+
+``CodecConfig``'s class name, field order and defaults match the JAX
+package's, so ``repr(CodecConfig())`` is the same string in both
+packages; only the backend vocabulary differs, as documented per field.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from . import fixed
+from . import fixed, tree
 from .fixed import DEFAULT_ESC_FRAC, DEFAULT_K
 
 
@@ -468,3 +474,119 @@ def compressed_ppermute(x: torch.Tensor, tg,
         return torch.zeros_like(x)
     return _decompress(unpack_wire(got[src], tuple(x.shape), ct.k,
                                    ct.esc_pos.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# data-parallel gradient sync (fused)
+# ---------------------------------------------------------------------------
+
+def sync_gradients(grads: Any, tg, cfg: CodecConfig = DEFAULT_CODEC) -> Any:
+    """Data-parallel gradient mean of a nested dict of tensors over the
+    group: the leaves flattened (JAX's order) into one bf16 buffer, padded
+    to the group size, summed with the compressed RS + AG schedule (a
+    plain psum with ``cfg.grads`` or ``cfg.enabled`` off), divided by the
+    group size (in f32, rounded to bf16, as XLA divides a bf16 array) and
+    cut back into the leaves, each in its own dtype."""
+    leaves = tree.leaves(grads)
+    flat = torch.cat([leaf.reshape(-1).to(torch.bfloat16)
+                      for leaf in leaves])
+    n = world(tg)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad,))])
+    if cfg.enabled and cfg.grads:
+        total = compressed_psum(flat, tg, cfg)
+    else:
+        total = psum(flat, tg)
+    total = (total.float() / n).to(torch.bfloat16)
+    out, off = [], 0
+    for leaf in leaves:
+        out.append(total[off:off + leaf.numel()].reshape(leaf.shape)
+                   .to(leaf.dtype))
+        off += leaf.numel()
+    return tree.unflatten(grads, out)
+
+
+# ---------------------------------------------------------------------------
+# differentiable wrappers (the reference's custom VJPs)
+# ---------------------------------------------------------------------------
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg, cfg, gather_axis):
+        ctx.tg, ctx.axis = tg, gather_axis
+        return compressed_all_gather(x, tg, cfg, gather_axis=gather_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # transpose of a tiled all-gather = psum_scatter; it sums: raw
+        return psum_scatter(ct.contiguous(), ctx.tg, ctx.axis), None, None, \
+            None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg, cfg):
+        ctx.tg, ctx.cfg = tg, cfg
+        return compressed_psum(x, tg, cfg)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # transpose(psum) = psum: the same compressed RS + AG schedule
+        return compressed_psum(ct.contiguous(), ctx.tg, ctx.cfg), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg, cfg, split_axis, concat_axis):
+        ctx.args = (tg, cfg, split_axis, concat_axis)
+        return compressed_all_to_all(x, tg, cfg, split_axis=split_axis,
+                                     concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        tg, cfg, split_axis, concat_axis = ctx.args
+        # its own transpose with split and concat swapped, compressed too
+        return lexi_all_to_all(ct.contiguous(), tg, cfg, concat_axis,
+                               split_axis), None, None, None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg, perm, cfg):
+        ctx.args = (tg, perm, cfg)
+        return compressed_ppermute(x, tg, perm, cfg)
+
+    @staticmethod
+    def backward(ctx, ct):
+        tg, perm, cfg = ctx.args
+        inv = tuple((d, s) for (s, d) in perm)
+        return lexi_ppermute(ct.contiguous(), tg, inv, cfg), None, None, None
+
+
+def lexi_all_gather(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC,
+                    gather_axis: int = 0) -> torch.Tensor:
+    """Differentiable compressed all-gather (tiled along ``gather_axis``);
+    its backward reduce-scatters the cotangent raw."""
+    return _AllGather.apply(x, tg, cfg, gather_axis)
+
+
+def lexi_psum(x: torch.Tensor, tg,
+              cfg: CodecConfig = DEFAULT_CODEC) -> torch.Tensor:
+    """Differentiable psum whose all-gather half is compressed (see
+    :func:`compressed_psum`); its backward is the same psum."""
+    return _Psum.apply(x, tg, cfg)
+
+
+def lexi_all_to_all(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC,
+                    split_axis: int = 0,
+                    concat_axis: int = 0) -> torch.Tensor:
+    """Differentiable compressed all-to-all (MoE dispatch and return)."""
+    return _AllToAll.apply(x, tg, cfg, split_axis, concat_axis)
+
+
+def lexi_ppermute(x: torch.Tensor, tg, perm: Sequence[Tuple[int, int]],
+                  cfg: CodecConfig = DEFAULT_CODEC) -> torch.Tensor:
+    """Differentiable compressed collective permute (pipeline forwarding);
+    its backward permutes the cotangent back."""
+    return _Ppermute.apply(x, tg, tuple(tuple(p) for p in perm), cfg)

@@ -1,14 +1,18 @@
-"""BF16 field extraction on torch tensors (ports the ``jnp_*`` helpers of
-``repro/core/entropy.py``).
+"""BF16 field extraction (ports the ``jnp_*`` helpers of
+``repro/core/entropy.py`` on torch tensors, and its numpy field helpers,
+which the LEXI-H container of ``core.bitstream`` uses).
 
 BF16 layout: [sign(1) | exponent(8) | mantissa(7)].  torch has no shift
 operators for unsigned 16/32-bit types on the CPU, so 16-bit patterns are
 carried as int32 tensors holding 0..65535; only byte fields are stored
-unsigned (``uint8``).
+unsigned (``uint8``).  The numpy helpers take uint16 patterns.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 EXP_ALPHABET = 256  # 8-bit exponent field
@@ -44,3 +48,28 @@ def combine(sm: torch.Tensor, exp: torch.Tensor) -> torch.Tensor:
     byte.  Ports ``jnp_combine``."""
     s = sm.to(torch.int32)
     return ((s & 0x80) << 8) | (exp.to(torch.int32) << 7) | (s & 0x7F)
+
+
+# ---------------------------------------------------------------------------
+# numpy (host) variants, on uint16 bit patterns
+# ---------------------------------------------------------------------------
+
+def split_fields(u16: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(sign, exponent, mantissa) uint8 arrays from BF16 bit patterns."""
+    sign = (u16 >> 15).astype(np.uint8)
+    exp = ((u16 >> 7) & 0xFF).astype(np.uint8)
+    man = (u16 & 0x7F).astype(np.uint8)
+    return sign, exp, man
+
+
+def signman_byte(u16: np.ndarray) -> np.ndarray:
+    """Pack {sign, mantissa} into one byte: sign<<7 | mantissa."""
+    sign, _, man = split_fields(u16)
+    return ((sign << 7) | man).astype(np.uint8)
+
+
+def combine_fields(sign: np.ndarray, exp: np.ndarray,
+                   man: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`split_fields` -> uint16 BF16 bit patterns."""
+    return ((sign.astype(np.uint16) << 15) | (exp.astype(np.uint16) << 7)
+            | man.astype(np.uint16))

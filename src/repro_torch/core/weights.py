@@ -27,8 +27,12 @@ the sums, and packs its shard with them: its fields are the reference's
 shard byte for byte.  A leaf stays raw when its tp-local column count
 breaks the 32-lane alignment; the size threshold is on the whole leaf.
 
-Left out until training is ported: ``compress_params``,
-``fsdp_gather_params`` and ``MaybeCompressed``.
+The training half (the reference's ``MaybeCompressed`` store): a tree
+compressed at rest with the fixed-width codec, leaf by leaf
+(``compress_params``), decoded exactly (``decompress_params``, through
+``kernels.ops.unpack``), metered (``stored_bytes``, ``param_bytes``), and
+the FSDP gather of a store sharded on dim 0, packed on the wire
+(``fsdp_gather_params``).
 """
 
 from __future__ import annotations
@@ -242,3 +246,84 @@ def weight_plane_bytes(params: Any) -> Tuple[int, int]:
             stored += leaf.numel() * leaf.element_size()
             raw += leaf.numel() * leaf.element_size()
     return stored, raw
+
+
+# ---------------------------------------------------------------------------
+# compressed-at-rest parameters (the reference's training-side store)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MaybeCompressed:
+    """A leaf that is either raw or a :class:`fixed.Compressed`."""
+
+    value: Any           # torch.Tensor | fixed.Compressed
+    compressed: bool
+
+
+def _should_compress(x: torch.Tensor) -> bool:
+    return (x.ndim >= 1 and x.numel() >= MIN_COMPRESS_SIZE
+            and x.dtype in (torch.bfloat16, torch.float32))
+
+
+def compress_params(params: Any, cfg) -> Any:
+    """Tree of tensors -> tree of MaybeCompressed (``cfg`` a
+    ``CodecConfig``: with ``cfg.weights`` off every leaf stays raw).  An
+    f32 leaf is rounded to bf16 first, as in the reference."""
+    from repro_torch.core import fixed, tree
+
+    def one(x):
+        if cfg.weights and _should_compress(x):
+            return MaybeCompressed(
+                fixed.compress(x.to(torch.bfloat16), k=cfg.k,
+                               esc_capacity=cfg.esc_capacity(x.numel())),
+                True)
+        return MaybeCompressed(x, False)
+
+    return tree.map_(one, params)
+
+
+def decompress_params(cparams: Any) -> Any:
+    """Inverse of :func:`compress_params` (exact for the compressed leaves
+    unless an escape overflowed its side channel)."""
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops as kops
+
+    return tree.map_(lambda leaf: kops.unpack(leaf.value)
+                     if leaf.compressed else leaf.value, cparams)
+
+
+def stored_bytes(cparams: Any) -> int:
+    """Device bytes of the compressed store (the paper's Fig-1b metric)."""
+    total = 0
+    for leaf in leaves(cparams):
+        if leaf.compressed:
+            total += leaf.value.wire_bytes()
+        else:
+            total += leaf.value.numel() * leaf.value.element_size()
+    return total
+
+
+def param_bytes(params: Any) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves(params))
+
+
+def fsdp_gather_params(cparams: Any, tg) -> Any:
+    """FSDP weight all-gather with the packed wire format: each rank holds
+    a dim-0 shard of every leaf, compressed or raw; a compressed leaf
+    crosses packed (its ``Compressed`` fields) and is decoded by the
+    receiver, shard by shard, then the shards concatenated; a raw leaf is
+    gathered as it is.  Every rank of ``tg`` calls this together."""
+    from repro_torch.core import collectives as cl, tree
+
+    def one(leaf: MaybeCompressed):
+        if not leaf.compressed:
+            return cl.all_gather(leaf.value, tg, 0)
+        ct = leaf.value
+        if cl.world(tg) == 1:
+            return cl._decompress(ct)
+        got = cl.gather_bytes(cl.pack_wire(ct), tg)
+        parts = cl._decompress(cl.unpack_wire(got, ct.shape, ct.k,
+                                              ct.esc_pos.shape[-1]))
+        return parts.reshape((-1,) + tuple(parts.shape[2:]))
+
+    return tree.map_(one, cparams)

@@ -13,6 +13,11 @@ tensors through host memory for gloo, explicitly, by backend.
 
 ``spawn`` joins its ranks through a rendezvous file in a fresh temporary
 directory, never a fixed port, so several groups can run side by side.
+
+Training runs on a data x model ``Mesh`` (``make_mesh``, the counterpart
+of the reference's ``make_mesh_from_config``): ``axis_group(axes)`` is
+the group a collective over those mesh axes runs on.  Only model = 1 is
+ported: the data axis is the whole world and the model axis one rank.
 """
 
 from __future__ import annotations
@@ -51,6 +56,47 @@ def mesh_config(*, model: int = 1) -> MeshConfig:
     """The serving mesh as data: one replica (data = pod = 1), ``model``
     tensor-parallel ranks."""
     return MeshConfig(data=1, model=model, pod=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A data x model mesh of ranks (``MeshConfig`` sizes, pod = 1) as
+    seen from one rank: ``group`` is that rank in the whole world (None
+    at one rank), ``data_rank`` its index on the data axis."""
+    data: int
+    model: int
+    group: Optional[TPGroup]
+
+    @property
+    def data_rank(self) -> int:
+        return 0 if self.group is None else self.group.rank // self.model
+
+    def size(self, axes: Sequence[str]) -> int:
+        sizes = {"data": self.data, "model": self.model, "pod": 1}
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        return n
+
+    def axis_group(self, axes: Sequence[str]) -> Optional[TPGroup]:
+        """The group of a collective over mesh ``axes``: None (every
+        collective the identity) where they span one rank, else the whole
+        world (at model = 1 every axis of size > 1 is the data axis)."""
+        return None if self.size(axes) == 1 else self.group
+
+
+def make_mesh(mc: MeshConfig, tg: Optional[TPGroup] = None) -> Mesh:
+    """The ``Mesh`` of ``mc`` whose ranks are ``tg``'s world (``tg`` None
+    or a one-rank group at 1 x 1)."""
+    if mc.model > 1 or mc.pod > 1:
+        raise NotImplementedError(
+            f"mesh {mc.data}x{mc.model} (pod {mc.pod}): training at model > 1"
+            " waits for its slice (ROADMAP.md, queue 1, item 4)")
+    world = 1 if tg is None else tg.world
+    if world != mc.data * mc.model:
+        raise ValueError(f"mesh {mc.data}x{mc.model} needs "
+                         f"{mc.data * mc.model} ranks, got {world}")
+    return Mesh(mc.data, mc.model, None if world == 1 else tg)
 
 
 def rank_device(device, rank: int) -> torch.device:

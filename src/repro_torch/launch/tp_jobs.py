@@ -1,7 +1,8 @@
-"""What the ranks of a spawned tensor-parallel group run
-(``launch.mesh.spawn(fn, world, ...)`` calls ``fn(group, *args)`` on each
-rank): serving through ``ServeEngine(tp=...)``, the fixed-batch loop, and
-the compressed collectives on given inputs, each on weights or inputs
+"""What the ranks of a spawned group run (``launch.mesh.spawn(fn, world,
+...)`` calls ``fn(group, *args)`` on each rank): serving through
+``ServeEngine(tp=...)``, the fixed-batch loop, the compressed collectives
+and their differentiable wrappers on given inputs, the fused gradient
+sync, and training steps at data = world, each on weights or inputs
 handed in, for a check against another implementation (the CPU tests
 hold them against the JAX reference).  The module imports torch and the
 port only, so a spawned rank never imports more.  (``launch/serve.py
@@ -22,11 +23,12 @@ from repro_torch.core import collectives as cl
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
-    """numpy -> torch; a ``("bf16", uint16 bits)`` pair -> bf16."""
+    """numpy -> torch (a copy: a job may update it in place); a ``("bf16",
+    uint16 bits)`` pair -> bf16."""
     if isinstance(a, tuple) and a[0] == "bf16":
-        return torch.from_numpy(np.ascontiguousarray(a[1])) \
+        return torch.from_numpy(np.array(a[1], copy=True)) \
             .view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def to_numpy(t: torch.Tensor):
@@ -167,3 +169,100 @@ def fixed(tg, cfg, run, prompts: np.ndarray, new_tokens: int, max_len: int,
                                                 tg)).cpu().numpy())
         res["logits"] = np.stack(out)
     return res
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def lexi_grads(tg, cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Each case's differentiable collective (``op``: all_gather, psum,
+    all_to_all, ppermute; ``kw`` its keywords) on this rank's input
+    ``xs[rank]``, and the gradient of sum(y * ws[rank]) (f32) with
+    respect to the input: the output and the gradient per case."""
+    fns = {"all_gather": cl.lexi_all_gather, "psum": cl.lexi_psum,
+           "all_to_all": cl.lexi_all_to_all,
+           "ppermute": lambda x, tg, codec, perm: cl.lexi_ppermute(
+               x, tg, perm, codec)}
+    out = []
+    for case in cases:
+        x = to_tensor(case["xs"][tg.rank]).requires_grad_()
+        w = to_tensor(case["ws"][tg.rank])
+        y = fns[case["op"]](x, tg, case.get("codec", cl.DEFAULT_CODEC),
+                            **case["kw"])
+        (y.float() * w.float()).sum().backward()
+        out.append(dict(y=to_numpy(y), g=to_numpy(x.grad)))
+    return out
+
+
+def sync_gradients(tg, trees: List[Dict[str, Any]],
+                   codec) -> Dict[str, Any]:
+    """``collectives.sync_gradients`` of this rank's tree ``trees[rank]``
+    (a flat dict of arrays): the synced tree and the packed bytes this
+    rank put on the wire."""
+    grads = {k: to_tensor(v) for k, v in trees[tg.rank].items()}
+    cl.wire.keep = []
+    got = cl.sync_gradients(grads, tg, codec)
+    wire, cl.wire.keep = cl.wire.keep, None
+    return dict(out={k: to_numpy(v) for k, v in got.items()}, wire=wire)
+
+
+def train_steps(tg, cfg, run, mesh_cfg, leaves: List[Any],
+                batches: List[Dict[str, np.ndarray]]) -> Dict[str, Any]:
+    """Training steps at ``mesh_cfg`` (data = world) on the CPU from a
+    whole state (``leaves``: a ``TrainState``'s leaves in JAX's order, see
+    ``to_tensor``), one step per global batch of ``batches``: each step's
+    metrics, step 0's synced gradients (whole leaves, in order) and the
+    compressed collectives' wire counts per step."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import state_like
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as TS
+
+    mesh = mesh_mod.make_mesh(mesh_cfg, tg)
+    table = lm.lm_table(cfg, data=mesh.data, run=run)
+    state = TS.shard_state(tree.unflatten(
+        state_like(table), [to_tensor(a) for a in leaves]), table, mesh)
+    step_fn = TS.make_train_step(cfg, run, mesh, table,
+                                 total_steps=len(batches))
+    dims = lm.lm_fsdp_dims(table)
+    res: Dict[str, Any] = dict(metrics=[], wire=[])
+    for i, b in enumerate(batches):
+        batch = shard_batch({k: to_tensor(v) for k, v in b.items()},
+                            mesh.data_rank, mesh.data)
+        if i == 0:
+            params = tree.map_(lambda x: x.detach().requires_grad_(),
+                               state.params)
+            loss = lm.train_loss(cfg, run, params, batch, mesh, dims)
+            grads = tree.unflatten(params, torch.autograd.grad(
+                loss, tree.leaves(params)))
+            grads = opt_mod.sync_grads(grads, table, mesh, run)
+            grads = tree.map_(lambda g, d: g if d.fsdp_dim is None else
+                              cl.all_gather(g, mesh.group, d.fsdp_dim),
+                              grads, table)
+            res["grads"] = [to_numpy(g) for g in tree.leaves(grads)]
+        cl.wire.reset()
+        state, metrics = step_fn(state, batch)
+        res["metrics"].append({k: float(v) for k, v in metrics.items()})
+        res["wire"].append({k: v for k, v in cl.wire.__dict__.items()
+                            if k != "keep"})
+    return res
+
+
+def fsdp_gather(tg, trees: List[Dict[str, Any]], codec) -> Dict[str, Any]:
+    """``core.weights``' compressed store on this rank's dim-0 shards
+    ``trees[rank]`` (a flat dict of arrays): ``compress_params``, its
+    ``stored_bytes`` and ``param_bytes``, ``decompress_params``, and
+    ``fsdp_gather_params`` over the group."""
+    from repro_torch.core import weights as W
+
+    local = {k: to_tensor(v) for k, v in trees[tg.rank].items()}
+    cp = W.compress_params(local, codec)
+    return dict(
+        gathered={k: to_numpy(v) for k, v in
+                  W.fsdp_gather_params(cp, tg).items()},
+        back={k: to_numpy(v) for k, v in W.decompress_params(cp).items()},
+        stored=W.stored_bytes(cp), raw=W.param_bytes(local))

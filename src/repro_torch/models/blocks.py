@@ -13,6 +13,9 @@ rounded to bf16, back to the sequence shards with a raw
 (w_gate, w_up) then row-parallel (w_down).  Decode activations are
 replicated (B, 1, D) and the partials are psum'd in bf16.
 
+Training (FSDP over the data ranks, model = 1): ``gather_fsdp`` gathers
+a layer's sharded weights before its forward, LEXI-packed on the wire.
+
 At tp = 1 the port drops the collectives.  The reference's gather still
 round-trips activations through ``fixed.compress``/``decompress`` there,
 which is the identity as long as no escape overflows its side channel;
@@ -25,6 +28,7 @@ the reference's bf16 reduce-scatter does.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
@@ -80,6 +84,36 @@ def block_table(cfg: ModelConfig, tp: int = 1) -> Dict:
     if cfg.post_norm:
         t["ln2b"] = PDef((d,), "ones")
     return t
+
+
+# Mesh axes parameter shards live on (and are gathered over); the fsdp
+# strategy, which adds "model", is not ported (ROADMAP queue 1, item 4).
+FSDP_AXES = ("data",)
+
+
+def gather_fsdp(params, dims, run: RunConfig, mesh, in_scan: bool = True):
+    """All-gather the FSDP-sharded leaves of ``params`` over the data
+    ranks of ``mesh`` (a ``launch.mesh.Mesh``), differentiably: with
+    ``codec.weights`` on, a bf16 leaf goes through ``lexi_all_gather``
+    (LEXI-packed on the wire when ``codec.enabled``; the reference's
+    gather is plain otherwise, as ``CodecConfig.weights_only()`` has it),
+    every other leaf through a plain gather; the backward of either is a
+    raw reduce-scatter of the cotangent.  ``dims`` indexes the stacked
+    table, so a layer's leaf (``in_scan``) gathers one dim lower."""
+    tg = mesh.axis_group(FSDP_AXES)
+    plain = dataclasses.replace(run.codec, enabled=False)
+
+    def one(w, d):
+        if isinstance(w, dict):
+            return {k: one(w[k], d[k]) for k in w}
+        if d is None:
+            return w
+        ax = d - 1 if in_scan else d
+        codec = run.codec if run.codec.weights and \
+            w.dtype == torch.bfloat16 else plain
+        return cl.lexi_all_gather(w, tg, codec, gather_axis=ax)
+
+    return one(params, dims)
 
 
 def _gather(h: torch.Tensor, run: RunConfig, tg,

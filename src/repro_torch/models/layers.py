@@ -38,10 +38,35 @@ def matmul_f32(x: torch.Tensor, w) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda":
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _MatmulF32.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         out = torch.mm(x2.float(), w.float())
     return out.reshape(lead + (w.shape[-1],))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``aten::mm.dtype`` (bf16 operands, f32 product) with the gradient
+    it lacks: the reference's transpose of its f32-accumulating dot, the
+    f32 cotangent against the other operand upcast to f32, rounded to the
+    operand's dtype -- what the CPU path's autograd computes."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g, w.float().t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x2.float().t(), g).to(w.dtype)
+        return gx, gw
 
 
 def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,15 @@ at tp > 1, sharded over the ranks (rows of ``embed``, columns of
 is a vocab-sharded lookup whose partials (exactly one nonzero per token)
 are reduce-scattered over the sequence in prefill (the trunk's
 sequence-sharded layout) or summed in decode; logits stay vocab-sharded
-(``serve.engine.greedy_token`` reduces them).  Not ported: the
-seq <-> batch all_to_alls of the fsdp strategy and FSDP weight gathers
-(serving runs one replica).
+(``serve.engine.greedy_token`` reduces them).
+
+Training (model = 1; the megatron strategy): ``lm_table(..., data=D,
+run=run)`` FSDP-shards the table over D data ranks, ``train_forward`` is
+the train path of ``lm_forward`` (each layer's weights gathered, LEXI-
+packed, then its block, both under activation checkpointing) and
+``train_loss`` the rank's share of the global mean next-token loss
+(``chunked_xent``).  Not ported: the fsdp strategy's seq <-> batch
+all_to_alls and training at model > 1.
 """
 
 from __future__ import annotations
@@ -20,10 +26,13 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import collectives as cl
 from . import attention, blocks, layers
-from .params import PDef, stack
+from .params import PDef, apply_fsdp, fsdp_dims, stack
 
 
-def lm_table(cfg: ModelConfig, tp: int = 1) -> Dict:
+def lm_table(cfg: ModelConfig, tp: int = 1, data: int = 1,
+             run: Optional[RunConfig] = None) -> Dict:
+    """The parameter table at ``tp`` model ranks; with ``run`` (training)
+    its leaves FSDP-sharded over ``data`` ranks when ``run.fsdp``."""
     vp = cfg.padded_vocab(tp)
     d = cfg.d_model
     t: Dict = {
@@ -33,7 +42,34 @@ def lm_table(cfg: ModelConfig, tp: int = 1) -> Dict:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = PDef((d, vp), "normal:0.02", spec=(None, "model"))
+    if run is not None and run.tp_strategy == "fsdp":
+        raise NotImplementedError(
+            f"{cfg.name}: the fsdp tp_strategy waits for its slice "
+            "(ROADMAP.md, queue 1, item 4)")
+    if run is not None and run.fsdp and data > 1:
+        t = apply_fsdp_tree(t, data, run)
     return t
+
+
+def apply_fsdp_tree(t: Dict, data: int, run: RunConfig) -> Dict:
+    """FSDP over ``data`` ranks: the stacked blocks never on their layer
+    dim, the embedding and the head on their largest free dim."""
+    out = dict(t)
+    out["blocks"] = apply_fsdp(t["blocks"], data, run.fsdp_min_size,
+                               skip_dim0=True)
+    for key in ("embed", "lm_head"):
+        if key in out:
+            out[key] = apply_fsdp(out[key], data, run.fsdp_min_size)
+    return out
+
+
+def lm_fsdp_dims(table: Dict) -> Dict:
+    """Each leaf's FSDP dim (None: replicated), as a tree beside the
+    params."""
+    return {"blocks": fsdp_dims(table["blocks"]),
+            "embed": table["embed"].fsdp_dim,
+            "lm_head": table["lm_head"].fsdp_dim if "lm_head" in table
+            else None}
 
 
 def layer_params(params, i: int):
@@ -117,3 +153,110 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
             caches.append(cache_fn(i, kv, st) if cache_fn is not None
                           else (kv, st))
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+
+
+# ---------------------------------------------------------------------------
+# training (model = 1)
+# ---------------------------------------------------------------------------
+
+def gathered_embed(params, dims, run: RunConfig, mesh) -> torch.Tensor:
+    """The embedding table, its FSDP shard gathered (compressed)."""
+    e = params["embed"]
+    if dims.get("embed") is not None:
+        e = blocks.gather_fsdp(e, dims["embed"], run, mesh, in_scan=False)
+    return e
+
+
+def gathered_head(cfg: ModelConfig, params, dims, run: RunConfig,
+                  mesh) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return gathered_embed(params, dims, run, mesh).T
+    h = params["lm_head"]
+    if dims.get("lm_head") is not None:
+        h = blocks.gather_fsdp(h, dims["lm_head"], run, mesh, in_scan=False)
+    return h
+
+
+def chunked_xent(cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
+                 head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross entropy in sequence chunks of ``run.loss_chunk``: x (B,S,D)
+    bf16, head (D, Vp), labels (B,S) -> the f32 SUM of the token losses.
+    Padded vocab columns are masked to NEG_INF; the max shift carries no
+    gradient (``detach``, the reference's ``stop_gradient``)."""
+    b, s, _ = x.shape
+    v = head.shape[1]
+    col_ok = torch.arange(v, device=x.device) < cfg.vocab_size
+    c = min(run.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {c}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, c):
+        logits = layers.softcap(layers.matmul_f32(x[:, c0:c0 + c], head),
+                                cfg.final_softcap)
+        logits = torch.where(col_ok, logits, layers.NEG_INF)
+        mx = logits.detach().max(-1).values
+        se = torch.exp(logits - mx[..., None]).sum(-1)
+        idx = labels[:, c0:c0 + c].to(torch.int64).clamp(0, v - 1)
+        tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
+        total = total + (torch.log(se) + mx - tgt).sum()
+    return total
+
+
+def unbind_layers(stacked, n_layers: int) -> list:
+    """The per-layer trees of a stacked block tree, each leaf unbound
+    once (the backward of ``unbind`` is one ``stack``; indexing each
+    layer would allocate a whole-leaf gradient per layer)."""
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
+        return t.unbind(0)
+    return split(stacked)
+
+
+def train_forward(cfg: ModelConfig, run: RunConfig, params,
+                  tokens: torch.Tensor, mesh, dims: Dict) -> torch.Tensor:
+    """The train path of ``lm_forward`` at model = 1: tokens (B, S) ->
+    the final-normed hidden state (B, S, D).  Each layer gathers its
+    FSDP-sharded weights (``blocks.gather_fsdp``) and runs its block;
+    with ``run.remat`` both run under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scan body), so the backward
+    gathers each layer's weights again."""
+    import torch.utils.checkpoint as ckpt
+
+    s = tokens.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    spec = attention.base_attn_spec(cfg)
+    wins = attention.layer_windows(cfg)
+    x = embed_tokens(cfg, gathered_embed(params, dims, run, mesh), tokens)
+
+    def body(p_layer, xb, win):
+        p = blocks.gather_fsdp(p_layer, dims["blocks"], run, mesh)
+        return blocks.block_forward(cfg, run, p, xb, positions, spec,
+                                    window=win)[0]
+
+    for i, p_layer in enumerate(unbind_layers(params["blocks"],
+                                              cfg.n_layers)):
+        win: Optional[int] = None if wins is None else int(wins[i])
+        if run.remat:
+            x = ckpt.checkpoint(body, p_layer, x, win, use_reentrant=False)
+        else:
+            x = body(p_layer, x, win)
+    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def train_loss(cfg: ModelConfig, run: RunConfig, params, batch: Dict,
+               mesh, dims: Dict) -> torch.Tensor:
+    """This data rank's share of the global mean next-token loss: its
+    token-loss sum over the GLOBAL token count.  No collective reduces
+    the loss inside autograd (the reference's rule: the caller sums the
+    ranks' values outside it); the sharded leaves' gradients come from
+    the gathers' reduce-scatters, the replicated ones are summed by
+    ``train.optimizer.sync_grads``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = train_forward(cfg, run, params, tokens, mesh, dims)
+    head = gathered_head(cfg, params, dims, run, mesh)
+    b, s = tokens.shape
+    return chunked_xent(cfg, run, x, head, labels) / (
+        b * s * mesh.size(("data",)))

@@ -5,15 +5,17 @@ A table is a nested dict with ``PDef`` leaves.  The port keeps the JAX
 package's layouts — stacked ``(L, ...)`` block leaves, ``wq`` (D, Hq*hd),
 ``embed`` (Vp, D), ``lm_head`` (D, Vp) over the padded vocabulary — so a
 bridged tree and the reference compare leaf for leaf.  A leaf's ``spec``
-names the dims the tensor-parallel ("model") axis shards, as the
-reference's PartitionSpecs do; ``shard_params`` cuts a whole tree into
-rank ``ti``'s local tensors (FSDP's "data" axis is not ported: serving
-runs one replica).
+names the mesh axis that shards each dim, as the reference's
+PartitionSpecs do: "model" (tensor parallelism; ``shard_params`` cuts a
+whole tree into rank ``ti``'s local tensors) and, in a training table,
+"data" on the dim that ``apply_fsdp`` picks for FSDP (``fsdp_dim``;
+``shard_data`` cuts a whole tree into data rank ``di``'s shards).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -27,9 +29,10 @@ class PDef:
     shape: Tuple[int, ...]
     init: str = "normal"              # normal | zeros | ones | normal:<std>
     dtype: torch.dtype = torch.bfloat16
-    # "model" on each dim the tensor-parallel axis shards, else None; ()
-    # = replicated
+    # the mesh axis ("model" or "data") sharding each dim, else None;
+    # () = replicated
     spec: Tuple[Optional[str], ...] = ()
+    fsdp_dim: Optional[int] = None    # the "data" dim, set by apply_fsdp
 
 
 Table = Dict[str, Any]   # nested dict with PDef leaves
@@ -44,8 +47,60 @@ def tmap(fn: Callable[[PDef], Any], table: Table) -> Any:
 def stack(table: Table, n: int) -> Table:
     """Prepend a layer dimension (never sharded) to every leaf."""
     return tmap(lambda d: dataclasses.replace(
-        d, shape=(n,) + d.shape, spec=(None,) + d.spec if d.spec else ()),
-        table)
+        d, shape=(n,) + d.shape, spec=(None,) + d.spec if d.spec else (),
+        fsdp_dim=None if d.fsdp_dim is None else d.fsdp_dim + 1), table)
+
+
+def spec_of(d: PDef) -> Tuple[Optional[str], ...]:
+    """``d``'s spec with one entry per dim (() = all None)."""
+    return d.spec if d.spec else (None,) * len(d.shape)
+
+
+def spec_axes(d: PDef) -> Tuple[str, ...]:
+    """The mesh axes that shard ``d`` (the reference's ``_spec_axes``)."""
+    return tuple(sp for sp in spec_of(d) if sp is not None)
+
+
+def apply_fsdp(table: Table, data_size: int, min_size: int,
+               skip_dim0: bool = False) -> Table:
+    """Shard the largest eligible replicated dim of every leaf of at least
+    ``min_size`` elements over "data" (ties: the first such dim); a leaf
+    with no replicated dim that ``data_size`` divides stays as it is.
+    ``skip_dim0``: never the leading (layer) dim of a stacked table (the
+    reference's ``lm._fsdp_skip_scan_dim``)."""
+
+    def one(d: PDef) -> PDef:
+        if math.prod(d.shape) < min_size:
+            return d
+        spec = spec_of(d)
+        cands = [(dim, s) for dim, (s, sp) in enumerate(zip(d.shape, spec))
+                 if sp is None and s % data_size == 0 and s > 1
+                 and not (skip_dim0 and dim == 0)]
+        if not cands:
+            return d
+        dim = max(cands, key=lambda c: c[1])[0]
+        return dataclasses.replace(
+            d, spec=tuple("data" if i == dim else sp
+                          for i, sp in enumerate(spec)), fsdp_dim=dim)
+
+    return tmap(one, table)
+
+
+def fsdp_dims(table: Table) -> Any:
+    """The tree of each leaf's FSDP dim (None: replicated over data)."""
+    return tmap(lambda d: d.fsdp_dim, table)
+
+
+def shard_data(params: Any, table: Table, data: int, di: int) -> Any:
+    """Data rank ``di``'s shards of a whole tree: each leaf with an FSDP
+    dim cut there into ``data`` contiguous chunks, chunk ``di`` kept (a
+    copy); the others as they are (replicated)."""
+    if isinstance(table, PDef):
+        t = params if isinstance(params, torch.Tensor) else _to_tensor(params)
+        if table.fsdp_dim is None or data == 1:
+            return t
+        return torch.chunk(t, data, dim=table.fsdp_dim)[di].clone()
+    return {k: shard_data(params[k], v, data, di) for k, v in table.items()}
 
 
 def shard_dim(d: PDef) -> Optional[int]:

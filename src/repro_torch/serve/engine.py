@@ -231,11 +231,11 @@ def _empty_ssm(cfg: ModelConfig, batch: int, device) -> Optional[SSMState]:
 
 
 def resolve_device(device) -> torch.device:
-    """The serving device: CUDA unless the caller asks for the CPU; a
-    CUDA request on a machine without a GPU raises."""
+    """The serving (or training) device: CUDA unless the caller asks for
+    the CPU; a CUDA request on a machine without a GPU raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to serve on "
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
                            "the CPU")
     return dev
 

@@ -1899,3 +1899,76 @@ def test_one_rank_group_collectives_are_identity_on_card(cuda):
     assert cl.host_max(7, tg) == 7
     assert torch.equal(cl.all_gather(x, tg, axis=1, tiled=False),
                        x.unsqueeze(1))
+
+
+# ---------------------------------------------------------------------------
+# training: the codec at the FSDP gathers' largest group, and the train
+# step on the card
+# ---------------------------------------------------------------------------
+
+def test_compress_many_one_group_of_2_27_plus_3(cuda):
+    """One compress group of 2^27 + 3 elements (the embedding's FSDP shard
+    of full-width qwen1.5-1.8b is 151936 x 1024, about 2^27.2): both codec
+    kernels equal their plain versions, and compress_many -> ops.unpack
+    gives the input back, escapes (within capacity) included."""
+    n = (1 << 27) + 3
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    x = (torch.randn((1, n), generator=gen, device=cuda) * 0.02)
+    x[0, ::1_000_003] *= 2.0 ** -60                  # rare exponents
+    x = x.to(torch.bfloat16)
+    _check_codec(x, 5)
+    ct = fixed.compress_many(x, k=5, esc_capacity=n // 128)
+    assert 0 < int(ct.n_escapes[0]) <= n // 128
+    before = ops.launch_counts()["lexi_unpack"]
+    back = ops.unpack(ct)
+    assert ops.launch_counts()["lexi_unpack"] == before + 1
+    assert torch.equal(back.view(torch.int16), x.view(torch.int16))
+
+
+def test_matmul_f32_gradient_matches_cpu(cuda):
+    """``layers.matmul_f32``'s gradient on the card (its autograd Function
+    around ``aten::mm.dtype``) against the CPU path's autograd."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 5, 64), generator=gen).to(torch.bfloat16)
+    w = (torch.randn((64, 96), generator=gen) * 0.1).to(torch.bfloat16)
+    g = torch.randn((2, 5, 96), generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev, copy=True).requires_grad_()
+        wd = w.to(dev, copy=True).requires_grad_()
+        out = layers.matmul_f32(xd, wd)
+        assert out.dtype == torch.float32
+        (out * g.to(dev)).sum().backward()
+        grads.append((out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
+    for a, b in zip(*grads):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                   atol=1e-3)
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Three steps of the reduced qwen1.5-1.8b at mesh 1x1 on the card and
+    on the CPU from the same seeded state and batches: losses within 1e-3
+    relative."""
+    from repro_torch.configs import get_config, make_reduced
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import train_step as TS
+    cfg = make_reduced(get_config("qwen1.5-1.8b"))
+    run = RunConfig(warmup_steps=1)
+    mesh = Mesh(1, 1, None)
+    table = lm.lm_table(cfg, run=run)
+    data = SyntheticLM(cfg.vocab_size, 4, 32, seed=0)
+    losses = {}
+    for dev in ("cpu", cuda):
+        state = tree.map_(lambda t: t.to(dev), TS.init_state(table, seed=0))
+        step = TS.make_train_step(cfg, run, mesh, table, total_steps=3)
+        losses[str(dev)] = []
+        for i in range(3):
+            batch = {k: v.to(dev) for k, v in data.batch_at(i).items()}
+            state, m = step(state, batch)
+            losses[str(dev)].append(float(m["loss"]))
+    for a, b in zip(losses["cpu"], losses["cuda"]):
+        assert abs(a - b) <= 1e-3 * abs(a), losses
