@@ -90,8 +90,8 @@ non-zero:
                card): streams, page table, page use and every byte of the
                pool's pages and rings equal to the eager run's; every
                eager step a flushing one and no other, the rest replayed,
-               the paged kernel launched once per layer and step.  The mix
-               again eagerly without the check (tok/s, TTFT of both).
+               the paged kernel launched once per layer and step; tok/s
+               and TTFT beside the serve phase's eager run's.
                Then 8 decode steps of the 4 fresh slots, eagerly and from
                the graph, under torch.profiler: host ms per step, device
                busy ms per step and share, tokens/s, kernels and host
@@ -219,10 +219,10 @@ non-zero:
                MLA shapes (16 heads on one 576-wide latent row, values its
                first 512 columns) and at jamba-tiny-dev's (16/8 heads, hd
                64); a tiny MoE + MLA model on the card against the CPU, raw
-               and packed (1e-2); then deepseek-v2-lite-16b (27 layers,
-               d 2048, 64 experts top-6 + 2 shared, random bf16 weights
-               from seed 0), block 256, 4
-               slots:
+               and packed (1e-2); then deepseek-v2-lite-16b (its first
+               ``MOE_MLA_LAYERS`` = 9 of 27 layers, d 2048, 64 experts
+               top-6 + 2 shared, random bf16 weights from seed 0), block
+               256, 4 slots:
                the serve mix eagerly and from CUDA graphs (streams, page
                table, pool bytes equal; exact trunks), 8 profiled decode
                steps of 4 fresh 1000-token slots
@@ -258,12 +258,35 @@ non-zero:
      against a raw one on this transport, ms per prefill and per decode
      step, the launches.  The kernels phase holds both
      attention kernels' shard path on every shard of tp 2 and 4 and
-     times one tp = 2 shard (``tp_attend_kernels``: rows 1t and 6t).
-  14. train — training on the card: full-width qwen1.5-1.8b (24 layers,
-     random weights from seed 0) through ``launch.train.train_loop`` at
-     mesh 2x1 (FSDP: two ranks on the one card over gloo, host-staged),
-     global batch 4 x 512, codec full, remat on, 3 steps: per step loss,
-     grad norm, lr, clip scale and ms, both ranks equal; the FSDP
+     times one tp = 2 shard (``tp_attend_kernels``: rows 1t and 6t), and
+     likewise at the hybrids' heads (``hybrid_tp_kernels``: the paged
+     kernel's rows 1zt, zamba2-1.2b, and 1jt, jamba-tiny-dev; the fixed
+     kernel's, which jamba's fixed loop runs, 6jt).
+  14. tp_hybrid — the paper's hybrids at tp = 2, two ranks on the one
+     card over gloo from seed 0's weights (each rank's tp = 2 shard of
+     the tp = 1 tree): a tiny jamba-like model's logits on the card
+     within 1e-2 of the same two ranks on the CPU (prefill + 10 steps,
+     raw and packed); then jamba-tiny-dev (8 layers, attention ∥ Mamba2,
+     8 experts top-2: expert parallelism over the compressed all-to-all)
+     and zamba2-1.2b (26 layers, its 64 SSM heads 32 a rank) at full
+     width and depth: 6 prompts of 255-1023 tokens (3 odd: their tails
+     replay), 16 new tokens each, 4 slots, raw and packed (``cuda``),
+     zamba2's with prefix sharing on and a page-aligned prompt served
+     twice (a snapshot hit on both ranks), jamba's fixed loop 4 x 508 +
+     6.  Both ranks' streams equal; packed against raw, each first
+     divergence a near-tie; each rank's packed expert stacks and SSM
+     shards through both weight kernels; per prefill the all-to-all's
+     dispatch and return and the gathers' wire bytes against raw bf16
+     (0 escape overflows in the all-to-alls), ms per prefill and per
+     decode step, the launches.  tp = 1 is no yardstick for these
+     families (the reference's tp = 2 function differs, ROADMAP.md
+     section 3).
+  15. train — training on the card: full-width qwen1.5-1.8b (its first
+     ``TRAIN_LAYERS`` = 8 of 24 layers, random weights from seed 0)
+     through ``launch.train.train_loop`` at mesh 2x1 (FSDP: two ranks
+     on the one card over gloo, host-staged), global batch 4 x 512,
+     codec full, remat on, 3 steps: per step loss, grad norm, lr, clip
+     scale and ms, both ranks equal; the FSDP
      gathers' and the gradient sync's wire bytes against raw bf16 and
      their escape overflows; each rank's peak device memory against its
      state; the codec kernels' launches during the steps (each > 0).
@@ -277,9 +300,9 @@ non-zero:
      the reduced size (2 ranks, 8 steps, a checkpoint every 4, a failure
      at step 6): LATEST reads step 8, the step-8 checkpoint restored and
      saved again to the same bytes, stored against raw bytes.
-  15. the card's line, the ``kernels`` JSON line (launches from the runs
+  16. the card's line, the ``kernels`` JSON line (launches from the runs
      from CUDA graphs, the replays counted; the disagg, hybrid, moe_mla,
-     tp and train phases' runs added), then the result line.
+     tp, tp_hybrid and train phases' runs added), then the result line.
 """
 
 from __future__ import annotations
@@ -745,7 +768,43 @@ def kernels_phase(cfg):
     rec["decode_attend"] = fixed_attend_kernel(cfg, gen, "kernels",
                                                also=("gemma2-9b",))
     tp_attend_kernels(cfg, gen, "kernels")
+    hybrid_tp_kernels(gen)
     return rec
+
+
+# (model, its paged row, its fixed row: the tp_hybrid phase runs the fixed
+# loop on the MoE model only)
+TPH_ROWS = (("zamba2-1.2b", "1zt", None), ("jamba-tiny-dev", "1jt", "6jt"))
+
+
+def hybrid_tp_kernels(gen):
+    """Both attention kernels' tp shard path at the hybrids' heads
+    (zamba2-1.2b MHA 16/16 of hd 128, jamba-tiny-dev 16/8 of hd 64), the
+    ``tp_hybrid`` phase's: every shard of tp 2 and 4 against the plain
+    versions (``attend_cases.tp_paged_checks``, and ``tp_fixed_checks``
+    where the phase runs the fixed loop), then shard 0 of tp = 2 timed
+    (rows 1zt, 1jt, 6jt)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attend_cases as AC
+
+    for name, paged_tag, fixed_tag in TPH_ROWS:
+        cfg = get_config(name)
+        g = attend_geom(cfg)
+        t0 = time.perf_counter()
+        err, n = AC.tp_paged_checks(gen, g.h, g.hd, g.w, g.kw)
+        msg = f"decode_attend_paged {n} calls"
+        if fixed_tag:
+            err_f, n_f = AC.tp_fixed_checks(gen, g.h, g.hd, g.w, g.kw)
+            msg += (f" and decode_attend {n_f} calls (both launch forms)")
+            err = max(err, err_f)
+        log("kernels", f"tp shard path at {name}'s heads (H={g.h}/{g.hkv}, "
+                       f"hd={g.hd}, W={g.w}), every shard of tp 2 and 4: "
+                       f"{msg} within 1e-4 of the plain versions, each "
+                       f"launched twice bit for bit; max |err| {err:.3e} "
+                       f"({time.perf_counter() - t0:.1f}s)")
+        tp_paged_row(cfg, gen, "kernels", paged_tag)
+        if fixed_tag:
+            tp_fixed_row(cfg, gen, "kernels", fixed_tag)
 
 
 TP_SHARD = (2, 0)          # the timed shard: rank 0 of tp = 2
@@ -761,10 +820,7 @@ def tp_attend_kernels(cfg, gen, phase):
     (the paged kernel on PAGED_LENGTHS, the fixed one on 4 x 1100 tokens,
     device-length launch) beside SDPA on that shard's decompressed rows,
     the plain version and the bound.  Logs rows ``1t`` and ``6t``."""
-    import torch
-    from repro_torch.core import fixed
     from repro_torch.kernels import attend_cases as AC
-    from repro_torch.kernels import decode_attend, ref
 
     g = attend_geom(cfg)
     t0 = time.perf_counter()
@@ -779,10 +835,70 @@ def tp_attend_kernels(cfg, gen, phase):
                f"bit for bit; max |err| {err_p:.3e} / {err_f:.3e} "
                f"({time.perf_counter() - t0:.1f}s)")
 
+    tp_paged_row(cfg, gen, phase, "1t")
+    tp_fixed_row(cfg, gen, phase, "6t")
+
+
+def tp_fixed_row(cfg, gen, phase, tag):
+    """decode_attend's shard 0 of tp = 2 timed at ``cfg``'s heads on the
+    fixed loop's shapes (4 sequences of 1100 global tokens, block 256, k
+    5, the shard's blocks, device-length launch) beside SDPA on that
+    shard's decompressed rows, the plain version and the bound; within
+    1e-4 of the plain version.  Logs row ``tag`` and returns it (launches
+    None)."""
+    import torch
+    from repro_torch.kernels import attend_cases as AC
+    from repro_torch.kernels import decode_attend, ref
+
+    g = attend_geom(cfg)
     tp, ti = TP_SHARD
     blk, k = ATTEND_BLK, ATTEND_K
     kw = dict(k=k, **g.kw, tp=tp, ti=ti)
-    # paged: 4 slots of PAGED_LENGTHS global tokens, this shard's pages
+    # fixed: 4 sequences of 1100 global tokens, this shard's blocks
+    b, length = 4, 1100
+    loc_len = ref.local_length(length, tp, ti)
+    blocks, ct, ring, q = _fixed_case(gen, b, g.h, g.hkv, g.hd, blk,
+                                      loc_len, w=g.w)
+    store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+             None)
+    dev_len = torch.tensor(length, dtype=torch.int32, device="cuda")
+    fargs = (q, *store, ring, dev_len, ref.WINDOW_NONE)
+    err = AC.attend_close(decode_attend.decode_attend(*fargs, **kw),
+                          ref.decode_attend_plain(*fargs, **kw))
+    live = loc_len // blk
+    cap = ct.esc_pos.shape[-1]
+    nf = b * blk * g.w
+    by = (live * (nf * (1 + k / 8) + (1 << k) + 5 * cap)
+          + b * (loc_len - live * blk) * g.w * 2 + q.numel() * 2
+          + b * g.h * (g.hd_v + 2) * 4)
+    row = dict(max_abs_err=err, launches=None, plain_ms=cuda_ms(
+        lambda: ref.decode_attend_plain(*fargs, **kw), reps=5),
+        **bound_row(by, 2 * (g.hd + g.hd_v) * b * g.h * loc_len),
+        **attend_timing(phase, f"decode_attend tp=2 shard 0 ({cfg.name})",
+                        lambda: decode_attend.decode_attend(*fargs, **kw),
+                        sdpa_fn(q, fixed_rows(blocks, ring, loc_len))))
+    log(phase, f"{tag} decode_attend at {cfg.name}'s heads (H={g.h}/"
+               f"{g.hkv}, hd={g.hd}, W={g.w}), shard {ti} of tp {tp} (B={b}, "
+               f"global length {length}, shard rows {loc_len}, "
+               f"device-length launch): {row}")
+    return row
+
+
+def tp_paged_row(cfg, gen, phase, tag):
+    """decode_attend_paged's shard 0 of tp = 2 timed at ``cfg``'s heads on
+    the main path's shapes (4 slots of PAGED_LENGTHS global tokens, block
+    256, k 5, the shard's pages) beside SDPA on that shard's decompressed
+    rows, the plain version and the bound; within 1e-4 of the plain
+    version.  Logs row ``tag`` and returns it (launches None)."""
+    import torch
+    from repro_torch.core import fixed
+    from repro_torch.kernels import attend_cases as AC
+    from repro_torch.kernels import decode_attend, ref
+
+    g = attend_geom(cfg)
+    tp, ti = TP_SHARD
+    blk, k = ATTEND_BLK, ATTEND_K
+    kw = dict(k=k, **g.kw, tp=tp, ti=ti)
     loc = [ref.local_length(L, tp, ti) for L in PAGED_LENGTHS]
     n_live = sum(L // blk for L in loc)
     pages = _pages(gen, n_live + 2, blk, g.w)
@@ -804,38 +920,15 @@ def tp_attend_kernels(cfg, gen, phase):
     row = dict(max_abs_err=err, launches=None, plain_ms=cuda_ms(
         lambda: ref.paged_decode_attend_plain(*args, **kw), reps=5),
         **bound_row(by, 2 * (g.hd + g.hd_v) * g.h * sum(loc)),
-        **attend_timing(phase, "decode_attend_paged tp=2 shard 0",
+        **attend_timing(phase, f"decode_attend_paged tp=2 shard 0 "
+                               f"({cfg.name})",
                         lambda: decode_attend.decode_attend_paged(
                             *args, **kw), lib_fn))
-    log(phase, f"1t decode_attend_paged, shard {ti} of tp {tp} (S={s_}, "
-               f"global lengths {PAGED_LENGTHS}, shard rows {loc}, "
+    log(phase, f"{tag} decode_attend_paged at {cfg.name}'s heads (H="
+               f"{g.h}/{g.hkv}, hd={g.hd}, W={g.w}), shard {ti} of tp {tp} "
+               f"(S={s_}, global lengths {PAGED_LENGTHS}, shard rows {loc}, "
                f"{n_live} live pages): {row}")
-    # fixed: 4 sequences of 1100 global tokens, this shard's blocks
-    b, length = 4, 1100
-    loc_len = ref.local_length(length, tp, ti)
-    blocks, ct, ring, q = _fixed_case(gen, b, g.h, g.hkv, g.hd, blk,
-                                      loc_len, w=g.w)
-    store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
-             None)
-    dev_len = torch.tensor(length, dtype=torch.int32, device="cuda")
-    fargs = (q, *store, ring, dev_len, ref.WINDOW_NONE)
-    err = AC.attend_close(decode_attend.decode_attend(*fargs, **kw),
-                          ref.decode_attend_plain(*fargs, **kw))
-    live = loc_len // blk
-    cap = ct.esc_pos.shape[-1]
-    nf = b * blk * g.w
-    by = (live * (nf * (1 + k / 8) + (1 << k) + 5 * cap)
-          + b * (loc_len - live * blk) * g.w * 2 + q.numel() * 2
-          + b * g.h * (g.hd_v + 2) * 4)
-    row = dict(max_abs_err=err, launches=None, plain_ms=cuda_ms(
-        lambda: ref.decode_attend_plain(*fargs, **kw), reps=5),
-        **bound_row(by, 2 * (g.hd + g.hd_v) * b * g.h * loc_len),
-        **attend_timing(phase, "decode_attend tp=2 shard 0",
-                        lambda: decode_attend.decode_attend(*fargs, **kw),
-                        sdpa_fn(q, fixed_rows(blocks, ring, loc_len))))
-    log(phase, f"6t decode_attend, shard {ti} of tp {tp} (B={b}, global "
-               f"length {length}, shard rows {loc_len}, device-length "
-               f"launch): {row}")
+    return row
 
 
 ATTEND_BLK, ATTEND_K = 256, 5
@@ -1289,11 +1382,13 @@ def weight_shapes(cfg, tp: int = 1):
     attention projections per layer (wq, wk and wv, wo; MLA's wq, w_dkv,
     wo), the dense FFN's w_gate and w_up, w_down or a MoE layer's router
     and shared experts, a hybrid's SSM projections (SSM_MATMULS), and the
-    LM head.  At tp > 1 (the dense family) a column-parallel leaf keeps N /
-    tp columns and a row-parallel one K / tp rows: wq (over the query
-    heads padded for tp), wk and wv in the ``col`` kv mode (K / tp in the
-    ``row`` mode), w_gate, w_up and the LM head (over the vocabulary padded
-    for tp) are column-parallel, wo and w_down row-parallel.  Leaves that
+    LM head.  At tp > 1 a column-parallel leaf keeps N / tp columns and a
+    row-parallel one K / tp rows: wq (over the query heads padded for tp),
+    wk and wv in the ``col`` kv mode (K / tp in the ``row`` mode), w_gate,
+    w_up, the shared experts' ws_gate and ws_up, the SSM's w_zx and w_dt
+    and the LM head (over the vocabulary padded for tp) are
+    column-parallel, wo, w_down, ws_down and the SSM's w_bc and w_out
+    row-parallel; the router is replicated.  Leaves that
     stay raw (the whole leaf too small, or the rank's N not a multiple of
     32) are left out."""
     from repro_torch.core import weights
@@ -1313,16 +1408,17 @@ def weight_shapes(cfg, tp: int = 1):
                                   layers, col),
                   ((cfg.n_heads * m.v_dim, d), layers, row)]
     f = cfg.d_ff
-    if cfg.moe is not None:
-        assert tp == 1, "MoE at tp > 1 is not served"
-        shapes.append(((d, cfg.moe.n_experts), layers, col))
+    if cfg.moe is not None:             # the router is replicated
+        shapes.append(((d, cfg.moe.n_experts), layers, (1, 1)))
         f = cfg.moe.n_shared * cfg.moe.d_ff
     if f:
         shapes += [((d, f), 2 * layers, col), ((f, d), layers, row)]
     if cfg.ssm is not None:
-        assert tp == 1, "SSM at tp > 1 is not served"
-        table = ssm_mod.ssm_table(cfg)
-        shapes += [(table[name].shape, layers, col) for name in SSM_MATMULS]
+        table = ssm_mod.ssm_table(cfg, tp)
+        for name in SSM_MATMULS:
+            sp = table[name].spec
+            shapes.append((table[name].shape, layers,
+                           tuple(tp if a == "model" else 1 for a in sp)))
     shapes.append(((d, cfg.padded_vocab(tp)), 1, col))
     return [((kk // dk, n // dn), c) for (kk, n), c, (dk, dn) in shapes
             if kk * n >= weights.MIN_COMPRESS_SIZE
@@ -1557,14 +1653,16 @@ def small_phase():
                      f"{launched['decompress_matmul']}")
 
 
-def small_model_diff(packed: bool, cfg=None) -> float:
+def small_model_diff(packed: bool, cfg=None, tg=None) -> float:
     """Prefill + 10 teacher-forced paged decode steps of a tiny model (a
     dense one by default) on the card and on the CPU from the same weights
-    and tokens; returns the largest logit gap (<= 1e-2)."""
+    and tokens; returns the largest logit gap (<= 1e-2).  With ``tg`` (a
+    rank of a gloo group) both run at tp = world from the rank's shard of
+    the weights (a 10-token prompt; the whole-vocab logits compared)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ModelConfig, RunConfig
-    from repro_torch.core import weights
+    from repro_torch.core import collectives as cl, weights
     from repro_torch.core.collectives import CodecConfig
     from repro_torch.models import lm, params as PM
     from repro_torch.serve import engine
@@ -1573,30 +1671,41 @@ def small_model_diff(packed: bool, cfg=None) -> float:
         cfg = ModelConfig(name="tiny", family="dense", n_layers=2,
                           d_model=64, n_heads=8, n_kv_heads=4, d_ff=128,
                           vocab_size=512, head_dim=16, qk_norm=True)
+    tp = cl.world(tg)
     run = RunConfig(codec=CodecConfig(cache_block=4))
     params = PM.init_params(lm.lm_table(cfg),
                             torch.Generator().manual_seed(3))
+    table = lm.lm_table(cfg, tp)
+    if tp > 1:
+        params = PM.shard_params(PM.pad_for_tp(params, cfg, tp), table, tp,
+                                 tg.rank)
     if packed:                    # CPU: torch backend; on the card: cuda
-        params = weights.pack_serving_params(params)
+        params = weights.pack_serving_params(params, table=table, tg=tg)
         assert isinstance(params["blocks"]["attn"]["wq"],
                           weights.PackedWeight)
     rng = np.random.default_rng(3)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 9)),
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (2, 9 if tp == 1 else 10)),
                              dtype=torch.int32)
     worst = 0.0
     states, toks = {}, {}
+
+    def whole(lg):
+        return cl.all_gather(lg, tg, axis=-1).float().cpu()
+
     for dev in ("cpu", "cuda"):
         p = PM.to_device(params, dev)
-        st = engine.empty_paged_state(cfg, run, 2, 64, device=dev)
-        logits, d = engine.prefill_sequences(cfg, run, p, prompt.to(dev))
-        engine.insert_sequences(cfg, run, st, d, [0, 1])
-        states[dev], toks[dev] = (st, p), [logits.float().cpu()]
+        st = engine.empty_paged_state(cfg, run, 2, 64, device=dev, tp=tp)
+        logits, d = engine.prefill_sequences(cfg, run, p, prompt.to(dev),
+                                             tg)
+        engine.insert_sequences(cfg, run, st, d, [0, 1], tp)
+        states[dev], toks[dev] = (st, p), [whole(logits)]
     feed = engine.greedy_token(toks["cpu"][0])
     for _ in range(10):                     # crosses two page flushes
         for dev in ("cpu", "cuda"):
             st, p = states[dev]
-            toks[dev].append(engine.paged_decode_step(
-                cfg, run, p, st, feed.to(dev)).float().cpu())
+            toks[dev].append(whole(engine.paged_decode_step(
+                cfg, run, p, st, feed.to(dev), tg)))
         feed = engine.greedy_token(toks["cpu"][-1])
     for a, b in zip(toks["cpu"], toks["cuda"]):
         assert torch.isfinite(b).all()
@@ -1816,45 +1925,42 @@ def check_graph_run(cfg, st, launches):
 def graphs_phase(cfg, serve_eng, tok, served, smi):
     """The serve phase's mix again, from CUDA graphs: streams, page
     tables, page use, every page and the rings equal to the eager run's
-    bit for bit; then eagerly without the flush check, for the mix's
-    timing; then the 4 slots' decode profiled both ways, and one flushing
-    step timed on its own.  Returns the graph run's launch counts."""
+    bit for bit, and its timing beside the eager run's (the serve
+    phase's: its flush check syncs the host once a step, which moved its
+    tok/s by under 2% against a run without it); then the 4 slots' decode
+    profiled both ways, and one flushing step timed on its own.  Returns
+    the graph run's launch counts."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve.scheduler import ServeEngine, format_stats
 
     run, reqs, eager = served["run"], served["reqs"], served["stats"]
-    stats = {}
-    for graphs in (True, False):
-        eng = ServeEngine(cfg, run, n_slots=4, max_len=8 * 256,
-                          params=serve_eng.params, device="cuda",
-                          cuda_graphs=graphs, prefix_sharing=False)
-        ops.reset_launch_counts()
-        results, st = eng.run(reqs)
-        torch.cuda.synchronize()
-        stats[graphs] = st
-        assert [r.tokens for r in results] == served["streams"], graphs
-        if not graphs:
-            continue
-        launches = ops.launch_counts()
-        assert all(launches[name] > 0 for name in SERVE_KERNELS), launches
-        passes = check_graph_run(cfg, st, launches)
-        assert st.eager_steps + st.graph_replays == eager.eager_steps
-        n_bytes = same_pools(served["pool"],
-                             pool_snapshot(eng.state.kv, clone=False))
-        log("graphs", f"raw weights, the serve mix from CUDA graphs: the "
-                      f"eager run's streams ({sum(map(len, served['streams']))}"
-                      f" tokens), page table, page use and all {n_bytes} B of "
-                      f"pages and rings bit for bit; {st.eager_steps} eager "
-                      f"steps = {st.flush_steps} flushing steps, "
-                      f"{st.graph_replays} replayed, 1 capture; "
-                      f"decode_attend_paged {launches['decode_attend_paged']}"
-                      f" launches = {cfg.n_layers} x {passes} passes "
-                      f"(the warm-up's included); launches {launches}")
-        del eng
+    eng = ServeEngine(cfg, run, n_slots=4, max_len=8 * 256,
+                      params=serve_eng.params, device="cuda",
+                      cuda_graphs=True, prefix_sharing=False)
+    ops.reset_launch_counts()
+    results, st = eng.run(reqs)
+    torch.cuda.synchronize()
+    assert [r.tokens for r in results] == served["streams"]
+    launches = ops.launch_counts()
+    assert all(launches[name] > 0 for name in SERVE_KERNELS), launches
+    passes = check_graph_run(cfg, st, launches)
+    assert st.eager_steps + st.graph_replays == eager.eager_steps
+    n_bytes = same_pools(served["pool"],
+                         pool_snapshot(eng.state.kv, clone=False))
+    log("graphs", f"raw weights, the serve mix from CUDA graphs: the "
+                  f"eager run's streams ({sum(map(len, served['streams']))}"
+                  f" tokens), page table, page use and all {n_bytes} B of "
+                  f"pages and rings bit for bit; {st.eager_steps} eager "
+                  f"steps = {st.flush_steps} flushing steps, "
+                  f"{st.graph_replays} replayed, 1 capture; "
+                  f"decode_attend_paged {launches['decode_attend_paged']}"
+                  f" launches = {cfg.n_layers} x {passes} passes "
+                  f"(the warm-up's included); launches {launches}")
+    del eng
     del served["pool"]
     torch.cuda.empty_cache()
-    for graphs, st in sorted(stats.items()):
+    for graphs, st in ((False, eager), (True, st)):
         log("graphs", f"serve mix, {'CUDA graphs' if graphs else 'eager'}: "
                       + format_stats(st).replace("\n", " | "))
         log("graphs", f"serve mix, {'CUDA graphs' if graphs else 'eager'}: "
@@ -3608,8 +3714,8 @@ def moe_mla_phase(smi):
     """MoE and MLA on every serving path: both attention kernels' MLA
     latent path at deepseek-v2-lite-16b's shapes and the plain path at
     jamba-tiny-dev's (hd 64); a tiny MoE + MLA model card vs CPU; then
-    full-width deepseek-v2-lite-16b (random weights from seed 0, all 27
-    layers) from CUDA graphs against eager, the
+    full-width deepseek-v2-lite-16b (random weights from seed 0, its
+    first MOE_MLA_LAYERS of 27 layers) from CUDA graphs against eager, the
     fixed loop, a
     disaggregated fleet and the packed weight plane; full-width
     jamba-tiny-dev from CUDA graphs against eager.  Returns the kernel
@@ -3628,7 +3734,8 @@ def moe_mla_phase(smi):
     from repro_torch.serve.scheduler import ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=MOE_MLA_LAYERS)
     jamba = get_config("jamba-tiny-dev")
     gen = torch.Generator(device="cuda").manual_seed(12)
     for c_ in (cfg, jamba):
@@ -3662,7 +3769,8 @@ def moe_mla_phase(smi):
     params = engine_params(cfg)
     torch.cuda.synchronize()
     w_bytes = weights.weight_plane_bytes(params)
-    log("moe_mla", f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+    log("moe_mla", f"{cfg.name}: {cfg.n_layers} of 27 layers, d="
+                   f"{cfg.d_model}, "
                    f"{cfg.n_heads} heads, MLA latent {cfg.mla.kv_lora_rank} "
                    f"+ {cfg.mla.qk_rope_dim} (nope {cfg.mla.qk_nope_dim}, v "
                    f"{cfg.mla.v_dim}), {cfg.moe.n_experts} experts top-"
@@ -3863,43 +3971,28 @@ def tp_fixed_prompts(cfg):
 
 
 def tp_teacher_forced(cfg, run, params, reqs, streams, tg=None):
-    """Each request's prompt prefilled whole (``prefill_sequences``, one
-    sequence) and ``streams[i]`` fed through paged decode steps: the
-    whole-vocab logits that predict each stream position (at tp > 1 the
-    ranks' vocab shards gathered), and the compressed gathers' wire and
-    raw bytes of each prefill (this rank's parts)."""
+    """``tp_jobs.paged_forced`` on the card under a ``RunProbe``: each
+    request's prompt trunk (a multiple of tp: at tp = 1, and for the
+    dense mix's even prompts, the whole prompt) prefilled into a slot of
+    its own, its tail and ``streams[i][:-1]`` fed through masked paged
+    decode steps.  Returns the whole-vocab logits (len(streams[i]), Vp)
+    that predict each stream position, the compressed collectives' wire
+    and raw bytes of each prefill (this rank's parts) and the prefill
+    and decode clock."""
     import torch
-    from repro_torch.core import collectives as cl
-    from repro_torch.serve import engine
+    from repro_torch.launch import tp_jobs
 
-    out, wires = [], []
-    clock = dict(prefill_s=0.0, prefills=0, decode_s=0.0, steps=0)
-    for r, toks in zip(reqs, streams):
-        prompt = torch.as_tensor(r["prompt"][None], device="cuda")
-        st = engine.empty_paged_state(cfg, run, 1, len(r["prompt"])
-                                      + len(toks) + TP_BLK, device="cuda",
-                                      tp=cl.world(tg))
-        w0, r0 = cl.wire.wire_bytes, cl.wire.raw_bytes
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, d = engine.prefill_sequences(cfg, run, params, prompt, tg)
-        engine.insert_sequences(cfg, run, st, d, [0], cl.world(tg))
-        rows = [cl.all_gather(logits[:, -1], tg, axis=-1)]
-        torch.cuda.synchronize()
-        clock["prefill_s"] += time.perf_counter() - t0
-        clock["prefills"] += 1
-        wires.append((cl.wire.wire_bytes - w0, cl.wire.raw_bytes - r0))
-        t0 = time.perf_counter()
-        for t in toks[:-1]:
-            lg = engine.paged_decode_step(
-                cfg, run, params, st, torch.tensor([[t]], dtype=torch.int32,
-                                                   device="cuda"), tg)
-            rows.append(cl.all_gather(lg[:, -1], tg, axis=-1))
-        torch.cuda.synchronize()
-        clock["decode_s"] += time.perf_counter() - t0
-        clock["steps"] += len(toks) - 1
-        out.append(torch.cat(rows).float().cpu())
-    return out, wires, clock
+    with RunProbe() as probe:
+        out = tp_jobs.paged_forced(tg, cfg, run, params,
+                                   [r["prompt"] for r in reqs], streams,
+                                   "cuda")
+    wires = [tuple(sum(v[f] for v in pf["kinds"].values())
+                   for f in ("wire_bytes", "raw_bytes"))
+             for pf in probe.prefills]
+    clock = dict(prefill_s=sum(pf["ms"] for pf in probe.prefills) / 1e3,
+                 prefills=len(probe.prefills),
+                 decode_s=sum(probe.steps) / 1e3, steps=len(probe.steps))
+    return [torch.from_numpy(x) for x in out], wires, clock
 
 
 def tp_fixed_forced(cfg, run, params, prompts, tokens, max_len, tg=None):
@@ -3966,7 +4059,7 @@ def tp_rank_job(tg, cfg, want_streams, want_fixed):
                          wall_s=time.perf_counter() - t0,
                          steps=st.decode_steps,
                          launches=ops.launch_counts(),
-                         wire=dict(cl.wire.__dict__),
+                         wire=cl.wire.snapshot(),
                          tok_s=st.tokens_per_s,
                          weight_bytes=st.weight_bytes_per_step,
                          weight_raw=st.weight_raw_bytes_per_step)
@@ -3992,7 +4085,7 @@ def tp_rank_job(tg, cfg, want_streams, want_fixed):
     torch.cuda.synchronize()
     res["fixed"] = dict(tokens=toks.cpu().numpy(), launches=ops.launch_counts(),
                         wall_s=time.perf_counter() - t0,
-                        wire=dict(cl.wire.__dict__))
+                        wire=cl.wire.snapshot())
     res["fixed_forced"] = tp_fixed_forced(cfg, run, eng.params, prompts,
                                           want_fixed, max_len, tg).numpy()
     # the tp = 1 streams teacher-forced through this path
@@ -4221,7 +4314,8 @@ def tp_phase(cfg, smi):
         log("tp", f"{name}: {c['prefill_s'] / c['prefills'] * 1e3:.1f} ms "
                   f"per one-sequence prefill of 256-1024 tokens (mean of "
                   f"{c['prefills']}), {c['decode_s'] / c['steps'] * 1e3:.1f}"
-                  f" ms per one-slot decode step (mean of {c['steps']}) | "
+                  f" ms per teacher-forced decode step of the {len(reqs)} "
+                  f"slots, those with tokens left (mean of {c['steps']}) | "
                   f"{smi}")
     gm = r0["gather_ms"]
     log("tp", f"escape overflows in the activation gathers: "
@@ -4248,12 +4342,370 @@ def tp_phase(cfg, smi):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: training (the dense family at mesh 2x1: FSDP with compressed
+# phase 14: the paper's hybrids at tp = 2 (expert-parallel MoE over the
+# compressed all-to-all, column-sharded Mamba2 heads), two ranks on the card
+# ---------------------------------------------------------------------------
+
+TPH_ARCHS = ("jamba-tiny-dev", "zamba2-1.2b")
+TPH_BLK = 256
+# 6 prompts of 255 .. 1023 tokens, 3 odd (their one-token tails replay
+# through decode steps at tp = 2), 16 new tokens each, over 4 slots
+TPH_MIX = ((512, 16), (255, 16), (1023, 16), (768, 16), (385, 16),
+           (640, 16))
+TPH_MAXLEN = 4 * TPH_BLK * 2
+TPH_FIXED = (4, 508, 6)        # jamba's fixed loop: B, prompt, steps
+
+
+def tph_mix(cfg):
+    """The phase's requests from seed 1."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [dict(uid=i, prompt=rng.integers(0, cfg.vocab_size, (s,))
+                 .astype(np.int32), max_new_tokens=b)
+            for i, (s, b) in enumerate(TPH_MIX)]
+
+
+def tiny_jamba_cfg():
+    """The tests' jamba-like model: the tiny hybrid with a MoE FFN (8
+    experts of 64, top-2) in place of its MLP."""
+    from repro_torch.configs.base import MoEConfig
+    return dataclasses.replace(
+        tiny_hybrid_cfg(), name="jl", d_ff=0,
+        moe=MoEConfig(n_experts=8, top_k=2, d_ff=64))
+
+
+class RunProbe:
+    """Inside ``with``: every ``engine.prefill_sequences`` (an admission's
+    batched prefill) and every ``engine.PagedDecoder.forward`` (a decode or
+    replay step) of this process timed between two device syncs, each
+    prefill with the compressed collectives' counts by kind
+    (``collectives.wire.kinds``) it added."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import collectives as cl
+        from repro_torch.serve import engine
+
+        self.prefills, self.steps = [], []
+        self._saved = (engine.prefill_sequences, engine.PagedDecoder.forward)
+        pf, fw = self._saved
+
+        def prefill(cfg, run, params, tokens, tg=None):
+            torch.cuda.synchronize()
+            before, t0 = cl.wire.snapshot()["kinds"], time.perf_counter()
+            out = pf(cfg, run, params, tokens, tg)
+            torch.cuda.synchronize()
+            kinds = {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
+                     for k, v in cl.wire.kinds.items()}
+            self.prefills.append(dict(
+                shape=tuple(tokens.shape), kinds=kinds,
+                ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        def forward(dec, params, active=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fw(dec, params, active)
+            torch.cuda.synchronize()
+            self.steps.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        engine.prefill_sequences = prefill
+        engine.PagedDecoder.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import engine
+        engine.prefill_sequences, engine.PagedDecoder.forward = self._saved
+        return False
+
+
+def tph_model(tg, cfg, gen):
+    """One model of the tp_hybrid phase on this rank: the mix served raw
+    (prefix sharing as the engine decides: on for a hybrid without MoE)
+    and packed (``cuda`` weight backend), each under a ``RunProbe`` with
+    its launches and compressed collectives counted, then, with prefix
+    sharing, request 0 again (a snapshot hit); both weight kernels
+    on this rank's packed shards (``packed_leaf_checks``); each request
+    whose packed stream parts from the raw one teacher-forced through both
+    weight stores up to its first divergence (``tp_teacher_forced``); a MoE
+    model's fixed loop."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import collectives as cl
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    run = RunConfig(codec=CodecConfig(cache_block=TPH_BLK))
+    reqs = tph_mix(cfg)
+    out = {}
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, run, group=tg, n_slots=4, max_len=TPH_MAXLEN,
+                      seed=0, device="cuda")
+    out["init_s"] = time.perf_counter() - t0
+    pk = None
+    for label in ("raw", "packed"):
+        e = eng
+        if label == "packed":
+            t0 = time.perf_counter()
+            pk = e = ServeEngine(cfg, dc.replace(run, codec=dc.replace(
+                run.codec, weight_backend="cuda")), group=tg, n_slots=4,
+                max_len=TPH_MAXLEN, params=eng.params,
+                compress_weights=True, device="cuda")
+            torch.cuda.synchronize()
+            out["pack_s"] = time.perf_counter() - t0
+        cl.wire.reset()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with RunProbe() as probe:
+            results, st = e.run([Request(**r) for r in reqs])
+        torch.cuda.synchronize()
+        out[label] = dict(
+            streams=[list(r.tokens) for r in results],
+            wall_s=time.perf_counter() - t0, steps=st.decode_steps,
+            admits=st.n_admit_dispatches, replays=st.n_replay_dispatches,
+            tok_s=st.tokens_per_s, weight_bytes=st.weight_bytes_per_step,
+            weight_raw=st.weight_raw_bytes_per_step,
+            launches=ops.launch_counts(), kinds=cl.wire.snapshot()["kinds"],
+            prefills=probe.prefills, step_ms=probe.steps)
+        if e.prefix_sharing:
+            # request 0's page-aligned prompt again, in a later admission
+            # (two in one cold batch would both prefill): a snapshot hit
+            again, st2 = e.run([Request(**dict(reqs[0], uid=len(reqs)))])
+            out[label].update(again=list(again[0].tokens),
+                              hits=st2.shared_page_hits,
+                              again_admits=st2.n_admit_dispatches)
+    out["leaf_errs"] = packed_leaf_checks(
+        cfg, eng.params, pk.params, gen, f"tp_hybrid rank {tg.rank}",
+        tp=tg.world)
+    # packed against raw: each request's first divergence teacher-forced
+    # through both weight stores
+    parts = []
+    for r, a, b in zip(reqs, out["raw"]["streams"],
+                       out["packed"]["streams"]):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            parts.append((r, j, a[:j + 1]))
+    out["ties"] = []
+    if parts:
+        preqs, _, fed = zip(*parts)
+        sides = [tp_teacher_forced(cfg, e.run_cfg, e.params, preqs, fed,
+                                   tg)[0] for e in (eng, pk)]
+        for (r, j, _), lr, lp in zip(parts, *sides):
+            m_raw, m_pk, gap = logit_margins(lr[-1, :cfg.vocab_size],
+                                             lp[-1, :cfg.vocab_size])
+            out["ties"].append((r["uid"], j, m_raw, m_pk, gap))
+    del pk
+    if cfg.moe is not None:             # the fixed loop, eager at tp > 1
+        import numpy as np
+        b, s, n = TPH_FIXED
+        prompts = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (b, s)), dtype=torch.int32, device="cuda")
+        ops.reset_launch_counts()
+        cl.wire.reset()
+        t0 = time.perf_counter()
+        toks = engine.generate(cfg, run, eng.params, prompts, n,
+                               s + n + TPH_BLK * tg.world, tg)
+        torch.cuda.synchronize()
+        out["fixed"] = dict(tokens=toks.cpu().numpy(),
+                            wall_s=time.perf_counter() - t0,
+                            launches=ops.launch_counts(),
+                            kinds=cl.wire.snapshot()["kinds"])
+    return out
+
+
+def tp_hybrid_rank_job(tg):
+    """One rank of the tp_hybrid phase (spawned; ``tg`` its gloo TPGroup
+    on the card): the tiny jamba-like model on the card against the CPU
+    at tp = 2, raw and packed; then each of TPH_ARCHS at full width and
+    depth from seed 0 (the tp = 1 weights, this rank's shard)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = dict(tiny={})
+    t0 = time.perf_counter()
+    for packed in (False, True):
+        ops.reset_launch_counts()
+        res["tiny"][packed] = (small_model_diff(packed, tiny_jamba_cfg(), tg),
+                               ops.launch_counts())
+    res["tiny_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(17 + tg.rank)
+    for name in TPH_ARCHS:
+        t0 = time.perf_counter()
+        res[name] = tph_model(tg, get_config(name), gen)
+        res[name]["model_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def tph_kind_line(kinds) -> str:
+    """'kind: wire B for raw B (ratio), overflows' for each kind."""
+    return "; ".join(
+        f"{k} {v['wire_bytes']} B for {v['raw_bytes']} B raw "
+        f"({v['raw_bytes'] / max(v['wire_bytes'], 1):.4f}x, {v['parts']} "
+        f"parts, {v['overflows']} overflows)" for k, v in sorted(kinds.items()))
+
+
+def tp_hybrid_phase(smi):
+    """The paper's hybrids at tp = 2 on the card: two ranks
+    (``launch.mesh.spawn``) on the one card over gloo, host-staged, from
+    seed 0's weights (each rank's tp = 2 shard of the tp = 1 tree).  The
+    tiny jamba-like model's logits on the card within 1e-2 of the same two
+    ranks on the CPU (prefill + 10 decode steps, raw and packed); then
+    jamba-tiny-dev (8 layers: attention ∥ Mamba2, 8 experts top-2 over the
+    compressed all-to-all) and zamba2-1.2b (26 layers: attention ∥ Mamba2,
+    its 64 SSM heads split 32 a rank) at full width and depth: the mix
+    (``tph_mix``) raw and packed, zamba2's with prefix sharing on and its
+    page-aligned 512-token prompt served again after the mix (a snapshot
+    hit on both ranks, no prefill, the same stream);
+    jamba's fixed loop.  Both ranks' streams equal; packed against raw,
+    each first divergence a near-tie (a top-2 margin within the two
+    stores' logit gap there); each rank's packed shards through both
+    weight kernels.  Prints, for each prefill, the all-to-all's dispatch
+    and return and the activation gathers' wire bytes against raw bf16
+    with their escape overflows (0 for the all-to-alls), ms per prefill
+    and per decode step, and the launches.  tp = 1 is no yardstick here:
+    the reference's SSM and MoE compute another function at tp = 2
+    (ROADMAP.md, section 3).  Returns rank 0's launches."""
+    import collections
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+
+    t_phase = time.perf_counter()
+    log("tp_hybrid", f"{', '.join(TPH_ARCHS)} at tp = 2: two ranks on "
+                     f"{torch.cuda.device_count()} card(s) over gloo, CUDA "
+                     f"tensors staged through host memory | {smi}")
+    ranks = mesh.spawn(tp_hybrid_rank_job, 2, backend="gloo", device="cuda")
+    r0, r1 = ranks
+    launches = collections.Counter()
+    for packed in (False, True):
+        for rank, r in enumerate(ranks):
+            worst, lc = r["tiny"][packed]
+            log("tp_hybrid", f"tiny jamba-like model (3 layers, attention "
+                             f"∥ Mamba2, 8 experts top-2) at tp = 2, "
+                             f"{'packed' if packed else 'raw'} weights, "
+                             f"rank {rank}: card vs CPU logits max |diff| "
+                             f"{worst:.2e} (<= 1e-2), prefill + 10 steps; "
+                             f"decompress_matmul launches "
+                             f"{lc['decompress_matmul']}")
+            assert (lc["decompress_matmul"] > 0) == packed, lc
+    for name in TPH_ARCHS:
+        cfg = get_config(name)
+        a, b = r0[name], r1[name]
+        reqs = tph_mix(cfg)
+        for key in ("raw", "packed"):
+            assert a[key]["streams"] == b[key]["streams"], (name, key)
+            for req, toks in zip(reqs, a[key]["streams"]):
+                assert len(toks) == req["max_new_tokens"], (name, key)
+                assert all(0 <= t < cfg.vocab_size for t in toks)
+            assert a[key]["replays"] > 0, (name, key)     # odd tails
+            for k_, v_ in a[key]["launches"].items():
+                launches[k_] += v_
+            for n_ in ("decode_attend_paged", "exp_histogram", "lexi_pack",
+                       "lexi_unpack"):
+                assert a[key]["launches"][n_] > 0, (name, key, n_)
+        assert a["packed"]["launches"]["decompress_matmul"] > 0
+        same = sum(x == y for s1, s2 in zip(a["raw"]["streams"],
+                                            a["packed"]["streams"])
+                   for x, y in zip(s1, s2))
+        n_tok = sum(map(len, a["raw"]["streams"]))
+        log("tp_hybrid", f"{name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+                         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                         f"{cfg.head_dim}, SSM {cfg.ssm.n_heads(cfg.d_model)}"
+                         f" heads x {cfg.ssm.headdim}, d_state "
+                         f"{cfg.ssm.d_state}"
+                         + (f", {cfg.moe.n_experts} experts top-"
+                            f"{cfg.moe.top_k}" if cfg.moe else "")
+                         + f"): both ranks' streams equal, raw and packed; "
+                         f"packed == raw on {same}/{n_tok} tokens; rank 0 "
+                         f"engine {a['init_s']:.1f}s, packing "
+                         f"{a['pack_s']:.1f}s, model {a['model_s']:.1f}s")
+        for uid, j, m_raw, m_pk, gap in a["ties"]:
+            tie = min(m_raw, m_pk) <= gap
+            log("tp_hybrid", f"{name} packed vs raw, request {uid} first "
+                             f"divergence at token {j}: top-2 margin raw "
+                             f"{m_raw:.4g} / packed {m_pk:.4g}, largest "
+                             f"logit gap {gap:.4g}: "
+                             f"{'near-tie' if tie else 'MARGIN ABOVE THE GAP'}")
+            assert tie, (name, uid, j, m_raw, m_pk, gap)
+        for rank, r in enumerate(ranks):
+            errs = r[name]["leaf_errs"]
+            log("tp_hybrid", f"{name} rank {rank}: decompress_matmul at "
+                             f"its packed shards' (K, N) "
+                             f"{[k_ for k_, _ in weight_shapes(cfg, 2)]} "
+                             f"within 1e-4*(|x|@|W|)+1e-6, worst max |err| "
+                             f"at M=4 {errs[4]:.3e}, at M=1024 "
+                             f"{errs[1024]:.3e}; lexi_unpack exact on the "
+                             f"raw-read leaves and expert stacks")
+        if cfg.moe is None:
+            for key in ("raw", "packed"):
+                for rank, r in enumerate(ranks):
+                    assert r[name][key]["hits"] > 0, (name, key, rank)
+                    assert r[name][key]["again_admits"] == 0
+                assert a[key]["again"] == a[key]["streams"][0], key
+                log("tp_hybrid", f"{name} {key}, prefix sharing: request "
+                                 f"0's page-aligned "
+                                 f"{len(reqs[0]['prompt'])}-token prompt "
+                                 f"served again is a boundary-snapshot hit "
+                                 f"on both ranks ({a[key]['hits']} / "
+                                 f"{b[key]['hits']} columns, no prefill), "
+                                 f"its stream equal to the first's")
+        for key in ("raw", "packed"):
+            r = a[key]
+            log("tp_hybrid", f"{name} {key}: {r['tok_s']:.2f} tok/s (wall "
+                             f"{r['wall_s']:.2f}s, {r['steps']} decode "
+                             f"steps, {r['admits']} admissions, "
+                             f"{r['replays']} replay windows), weights "
+                             f"{r['weight_bytes']} B / {r['weight_raw']} B "
+                             f"raw per rank and step; compressed "
+                             f"collectives: {tph_kind_line(r['kinds'])}; "
+                             f"launches {r['launches']} | {smi}")
+            for pf in r["prefills"]:
+                log("tp_hybrid", f"{name} {key} prefill {pf['shape']} "
+                                 f"(rank 0): {pf['ms']:.1f} ms; "
+                                 f"{tph_kind_line(pf['kinds'])}")
+            ms = r["step_ms"]
+            log("tp_hybrid", f"{name} {key}: {sum(ms) / len(ms):.1f} ms per "
+                             f"decode or replay step (mean of {len(ms)}, "
+                             f"median {sorted(ms)[len(ms) // 2]:.1f}) | "
+                             f"{smi}")
+            for k_ in ("dispatch", "return"):
+                if k_ in r["kinds"]:
+                    assert r["kinds"][k_]["overflows"] == 0, (name, key, k_)
+                    assert b[key]["kinds"][k_]["overflows"] == 0
+        if cfg.moe is not None:
+            assert "dispatch" in a["raw"]["kinds"]
+            f = a["fixed"]
+            assert (f["tokens"] == b["fixed"]["tokens"]).all()
+            assert f["launches"]["decode_attend"] > 0, f["launches"]
+            for k_, v_ in f["launches"].items():
+                launches[k_] += v_
+            bb, ss, nn = TPH_FIXED
+            log("tp_hybrid", f"{name} fixed loop {bb} x {ss} + {nn} steps: "
+                             f"both ranks' tokens equal, {f['wall_s']:.2f}s, "
+                             f"launches {f['launches']}, "
+                             f"{tph_kind_line(f['kinds'])} | {smi}")
+    log("tp_hybrid", f"phase done in {time.perf_counter() - t_phase:.1f}s "
+                     f"| {smi}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training (the dense family at mesh 2x1: FSDP with compressed
 # weight gathers and gradient sync)
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen1.5-1.8b"
 TRAIN_SHAPE = (4, 512, 3)        # global batch, sequence, steps (warmup 1)
+TRAIN_LAYERS = 8                 # of qwen1.5-1.8b's 24, width kept
 # 2x1 against 1x1 at step 0: the codec is lossless, so only the order of
 # the sums differs (the gradient's reduce-scatter, the loss over ranks)
 TRAIN_LOSS_RTOL = 1e-4
@@ -4283,7 +4735,7 @@ def train_job(tg, cfg, steps: int):
     plain_sync = opt_mod.sync_grads
 
     def counted_sync(*a, **kw):
-        before = dict(cl.wire.__dict__)
+        before = cl.wire.snapshot()
         out = plain_sync(*a, **kw)
         for k in sync:
             sync[k] += cl.wire.__dict__[k] - before[k]
@@ -4432,9 +4884,10 @@ def train_ckpt_phase(smi):
 
 
 def train_phase(smi):
-    """Training on the card: full-width qwen1.5-1.8b (24 layers, seed 0)
-    through ``launch.train.train_loop`` at mesh 2x1 -- two ranks on the one
-    card over gloo (host-staged; NCCL refuses two ranks on one device) --
+    """Training on the card: full-width qwen1.5-1.8b (its first
+    TRAIN_LAYERS of 24 layers, seed 0) through
+    ``launch.train.train_loop`` at mesh 2x1 -- two ranks on the one card
+    over gloo (host-staged; NCCL refuses two ranks on one device) --
     global batch 4 x 512, codec full, remat on, 3 steps: per step loss,
     grad norm, lr, clip scale and ms, both ranks equal; the FSDP gathers'
     and the gradient sync's wire bytes against raw bf16, with the escape
@@ -4452,10 +4905,11 @@ def train_phase(smi):
     from repro_torch.launch import mesh
 
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     b, s, steps = TRAIN_SHAPE
     state = train_state_bytes(cfg, 2)
-    log("train", f"{cfg.name} full width ({cfg.n_layers} layers, d "
+    log("train", f"{cfg.name} full width ({cfg.n_layers} of "
+                 f"{get_config(TRAIN_ARCH).n_layers} layers, d "
                  f"{cfg.d_model}, vocab {cfg.vocab_size}) at mesh 2x1: two "
                  f"ranks on {torch.cuda.device_count()} card(s) over gloo, "
                  f"CUDA tensors staged through host memory; global batch {b}"
@@ -4522,12 +4976,13 @@ def train_phase(smi):
 
 
 # Depth (layers of qwen3-4b's 36, width kept) of the fixed, prefix,
-# disagg and tp phases: cut so that the whole run, the train phase
-# included, fits its time limit on a slower host (one run took 1201.7 s
-# at full depth where another took 845.8; with the train phase and the
-# tp and moe_mla phases at full depth, 857.4 s on a host like the
-# 845.8 s one).
+# disagg and tp phases, and of deepseek-v2-lite-16b's 27 in the moe_mla
+# phase (the train phase's: TRAIN_LAYERS): cut so that the whole run fits
+# its time limit on a slower host (one run took 1201.7 s at full depth
+# where another took 845.8; with the tp_hybrid phase added and only the
+# first four phases cut, 813.6-870.7 s on hosts like the 845.8 s one).
 PREFIX_LAYERS = 12
+MOE_MLA_LAYERS = 9
 
 
 def first_layers(cfg, params, n_layers: int):
@@ -4604,6 +5059,9 @@ def main() -> int:
             cfg, n_layers=PREFIX_LAYERS), smi).items():
         launches[name] += n
     mark("tp")
+    for name, n in tp_hybrid_phase(smi).items():
+        launches[name] += n
+    mark("tp_hybrid")
     for name, n in train_phase(smi).items():
         launches[name] += n
     mark("train")

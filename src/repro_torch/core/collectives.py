@@ -112,10 +112,20 @@ class WireStats:
     # a list: the packed bytes (numpy (parts, wire_bytes)) of every call
     # are appended to it (tests hold them against the reference's)
     keep: Optional[list] = None
+    # the same counts by the kind of call ("all_gather", "ppermute", or
+    # the all-to-all's ``kind``: the MoE's "dispatch" and "return"):
+    # kind -> {"calls", "wire_bytes", "raw_bytes", "parts", "overflows"}
+    kinds: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.calls = self.wire_bytes = self.raw_bytes = 0
         self.parts = self.overflows = 0
+        self.kinds = {}
+
+    def snapshot(self) -> dict:
+        """The counts as a dict that later calls leave as it is."""
+        return dict(self.__dict__,
+                    kinds={k: dict(v) for k, v in self.kinds.items()})
 
 
 wire = WireStats()
@@ -369,14 +379,17 @@ def _compress(x: torch.Tensor, cfg: CodecConfig) -> fixed.Compressed:
 
 
 def _count(ct: fixed.Compressed, raw_bytes: int, parts: int,
-           packed: torch.Tensor) -> None:
+           packed: torch.Tensor, kind: str) -> None:
     if wire.keep is not None:
         wire.keep.append(packed.reshape(parts, -1).cpu().numpy())
-    wire.calls += 1
-    wire.parts += parts
-    wire.wire_bytes += packed.numel()
-    wire.raw_bytes += raw_bytes
-    wire.overflows += int((ct.n_escapes > ct.esc_pos.shape[-1]).sum())
+    add = dict(calls=1, parts=parts, wire_bytes=packed.numel(),
+               raw_bytes=raw_bytes,
+               overflows=int((ct.n_escapes > ct.esc_pos.shape[-1]).sum()))
+    for f, v in add.items():
+        setattr(wire, f, getattr(wire, f) + v)
+    counts = wire.kinds.setdefault(kind, dict.fromkeys(add, 0))
+    for f, v in add.items():
+        counts[f] += v
 
 
 def _decompress(ct: fixed.Compressed) -> torch.Tensor:
@@ -403,7 +416,7 @@ def compressed_all_gather(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC,
     ct = fixed.compress_many(xs, k=cfg.k,
                              esc_capacity=cfg.esc_capacity(xs.shape[1]))
     packed = pack_wire(ct)
-    _count(ct, x.numel() * x.element_size(), groups, packed)
+    _count(ct, x.numel() * x.element_size(), groups, packed, "all_gather")
     got = gather_bytes(packed.reshape(-1), tg).reshape(
         (tg.world, groups, -1))
     parts = _decompress(unpack_wire(got, (xs.shape[1],), ct.k,
@@ -431,28 +444,40 @@ def compressed_psum(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC, *,
 
 def compressed_all_to_all(x: torch.Tensor, tg,
                           cfg: CodecConfig = DEFAULT_CODEC, *,
-                          split_axis: int = 0,
-                          concat_axis: int = 0) -> torch.Tensor:
+                          split_axis: int = 0, concat_axis: int = 0,
+                          groups: int = 1,
+                          kind: str = "all_to_all") -> torch.Tensor:
     """all_to_all with per-destination packing: ``split_axis`` (divisible
     by the group size) cut into world slices, each compressed with its own
     dictionary, shuffled packed and decompressed at the receiver; the
     received slices take the split axis's place, which then moves to
-    ``concat_axis`` (the reference's layout)."""
+    ``concat_axis`` (the reference's layout).  ``groups`` > 1: x's
+    leading axis holds that many groups (the axes above count it), each
+    exchanged with its own dictionaries and escape capacity (the
+    reference's all-to-all under ``vmap``, as its per-sequence admission
+    prefills run it); all groups cross in one exchange.  ``kind`` labels
+    its bytes in ``wire.kinds``."""
     n = world(tg)
     if not cfg.enabled or n == 1:
         return all_to_all(x, tg, split_axis, concat_axis)
-    xm = torch.movedim(x, split_axis, 0)
-    lead = xm.shape[0]
-    xs = xm.reshape((n, lead // n) + tuple(xm.shape[1:]))
+    xg = x if groups > 1 else x[None]
+    sa = split_axis % x.ndim + (0 if groups > 1 else 1)
+    xm = torch.movedim(xg, sa, 1)                   # (G, lead, ...)
+    g, lead, rest = xm.shape[0], xm.shape[1], tuple(xm.shape[2:])
+    xs = xm.reshape((g, n, lead // n) + rest).transpose(0, 1) \
+        .reshape(n * g, -1)                         # rank-major parts
     ct = fixed.compress_many(xs, k=cfg.k,
-                             esc_capacity=cfg.esc_capacity(xs[0].numel()))
+                             esc_capacity=cfg.esc_capacity(xs.shape[1]))
     packed = pack_wire(ct)
-    _count(ct, x.numel() * x.element_size(), n, packed)
-    got = exchange_bytes(packed, tg)
-    parts = _decompress(unpack_wire(got, tuple(xs.shape[1:]), ct.k,
-                                    ct.esc_pos.shape[-1]))
-    parts = parts.reshape((lead,) + tuple(parts.shape[2:]))
-    parts = torch.movedim(parts, 0, split_axis)
+    _count(ct, x.numel() * x.element_size(), n * g, packed, kind)
+    got = exchange_bytes(packed.reshape(n, -1), tg)
+    parts = _decompress(unpack_wire(got.reshape(n * g, -1), (xs.shape[1],),
+                                    ct.k, ct.esc_pos.shape[-1]))
+    parts = parts.reshape((n, g, lead // n) + rest).transpose(0, 1) \
+        .reshape((g, lead) + rest)
+    parts = torch.movedim(parts, 1, sa)
+    if groups == 1:
+        parts = parts[0]
     if concat_axis != split_axis:
         parts = torch.movedim(parts, split_axis, concat_axis)
     return parts
@@ -467,7 +492,7 @@ def compressed_ppermute(x: torch.Tensor, tg,
         return ppermute(x, tg, perm)
     ct = _compress(x, cfg)
     packed = pack_wire(ct)
-    _count(ct, x.numel() * x.element_size(), 1, packed)
+    _count(ct, x.numel() * x.element_size(), 1, packed, "ppermute")
     got = gather_bytes(packed, tg)
     src = _source(perm, tg.rank)
     if src is None:

@@ -24,8 +24,11 @@ every shard -- and shards the packed fields like the raw leaf.  A rank
 here holds only its shard, so it sums its slices' histograms with the
 other ranks' (an exact integer psum), picks k and the dictionaries from
 the sums, and packs its shard with them: its fields are the reference's
-shard byte for byte.  A leaf stays raw when its tp-local column count
-breaks the 32-lane alignment; the size threshold is on the whole leaf.
+shard byte for byte.  A leaf sharded on a stack dim (the MoE expert
+stacks) holds whole slices: each keeps its own histogram, and only the
+escape test that picks the leaf's one k is summed over the ranks.  A
+leaf stays raw when its tp-local column count breaks the 32-lane
+alignment; the size threshold is on the whole leaf.
 
 The training half (the reference's ``MaybeCompressed`` store): a tree
 compressed at rest with the fixed-width codec, leaf by leaf
@@ -147,23 +150,31 @@ def _leaf_eligible(path: Tuple[str, ...], x,
     return x.shape[-1] % LANES == 0
 
 
-def _pack_leaf(x: torch.Tensor, max_k: int, tg=None):
+def _pack_leaf(x: torch.Tensor, max_k: int, tg=None,
+               slices_whole: bool = False):
     """Pack one leaf on its device at the smallest escape-free code width
     k in 4..max_k, the same k for every stack slice.  Returns
     ``((signman, planes, dict_syms), k)``, or None if even max_k would need
     escapes (the leaf then stays raw).  With ``tg`` (a sharded leaf at
     tp > 1) the histograms are summed over the ranks first, so k and the
-    dictionaries are the whole leaf's."""
+    dictionaries are the whole leaf's; with ``slices_whole`` too (sharded
+    on a stack dim: the rank's slices are whole) each slice keeps its own
+    histogram and only the escape counts are summed, so k is the whole
+    leaf's."""
     from repro_torch.core import collectives as cl
     from repro_torch.core import fixed
     from repro_torch.kernels import ops as kops
 
     lead, (kk, n) = tuple(x.shape[:-2]), x.shape[-2:]
     rows = x.reshape(math.prod(lead), kk * n).contiguous()
-    hist = cl.psum(kops.histogram(rows), tg)          # (L, 256), one launch
+    hist = kops.histogram(rows)                       # (L, 256), one launch
+    if not slices_whole:
+        hist = cl.psum(hist, tg)
     for k in range(4, max_k + 1):
         dict_syms, enc_lut = fixed.build_dictionary(hist, k)
-        n_escapes = (hist * (enc_lut == fixed.esc_index(k))).sum(-1)
+        n_escapes = (hist * (enc_lut == fixed.esc_index(k))).sum()
+        if slices_whole:
+            n_escapes = cl.psum(n_escapes.reshape(1), tg)
         if bool(n_escapes.any()):
             continue
         signman, planes = kops.pack(rows, enc_lut, k)  # one launch
@@ -192,12 +203,14 @@ def pack_serving_params(params: Any, *, k: int = WEIGHT_K,
     tp = cl.world(tg)
 
     def whole(t, d):
-        """(the whole leaf's shape, the group to sum histograms over)."""
+        """(the whole leaf's shape, the group to sum histograms over,
+        whether the rank's 2-D slices are whole: sharded on a stack
+        dim)."""
         if tp == 1 or d is None or "model" not in d.spec:
-            return tuple(t.shape), None
+            return tuple(t.shape), None, False
         i = d.spec.index("model")
         return tuple(t.shape[:i]) + (t.shape[i] * tp,) \
-            + tuple(t.shape[i + 1:]), tg
+            + tuple(t.shape[i + 1:]), tg, i < t.ndim - 2
 
     def walk(t, path, d):
         if isinstance(t, dict):
@@ -207,8 +220,8 @@ def pack_serving_params(params: Any, *, k: int = WEIGHT_K,
         if isinstance(t, PackedWeight):
             kops.check_weight_backend(backend, t.device)
             return dataclasses.replace(t, backend=backend)
-        shape, group = whole(t, d)
-        packed: Optional[tuple] = (_pack_leaf(t, k, group)
+        shape, group, slices_whole = whole(t, d)
+        packed: Optional[tuple] = (_pack_leaf(t, k, group, slices_whole)
                                    if _leaf_eligible(path, t, shape)
                                    else None)
         if packed is None:

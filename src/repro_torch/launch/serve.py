@@ -35,8 +35,11 @@ process, joined by the loopback page transport (multi-process serving:
 or CUDA tensors staged through host memory, e.g. two ranks on one card,
 which NCCL refuses).  Each rank serves the same requests on its shard of
 the weights (the seed's tp = 1 weights padded for tp, ``models.params.
-pad_for_tp``); rank 0 prints.  The dense family only; ``--disagg`` stays
-at tp = 1.
+pad_for_tp``); rank 0 prints.  Every family but MLA; a dense model is
+the same function at every tp, so it prints tp = 1's continuations, while
+the SSM and MoE families compute the reference's tp-dependent function
+(``models/ssm.py``, ``models/moe.py``) and print tp's own.  ``--disagg``
+stays at tp = 1.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """What the ranks of a spawned group run (``launch.mesh.spawn(fn, world,
 ...)`` calls ``fn(group, *args)`` on each rank): serving through
-``ServeEngine(tp=...)``, the fixed-batch loop, the compressed collectives
-and their differentiable wrappers on given inputs, the fused gradient
-sync, and training steps at data = world, each on weights or inputs
+``ServeEngine(tp=...)`` and the paged path teacher-forced, the
+fixed-batch loop, one layer's SSM and MoE functions, the compressed
+collectives and their differentiable wrappers on given inputs, the fused
+gradient sync, and training steps at data = world, each on weights or inputs
 handed in, for a check against another implementation (the CPU tests
 hold them against the JAX reference).  The module imports torch and the
 port only, so a spawned rank never imports more.  (``launch/serve.py
@@ -78,6 +79,50 @@ def batch(tg, calls: List[Any]) -> List[Any]:
 
 
 # ---------------------------------------------------------------------------
+# one layer's mixers
+# ---------------------------------------------------------------------------
+
+def mixers(tg, cfg, run, cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Each case's layer function on this rank, its weights ``case["p"]``
+    (one layer's whole ``ssm`` or ``moe`` subtree, numpy) cut to the
+    rank's shard: ``fn`` one of ssm_forward (``x`` the gathered input),
+    ssm_decode_step (``x`` and ``state[rank]``, the rank's state leaves),
+    moe_forward (``x[rank]``, the rank's sequence shard; ``groups``) and
+    moe_decode (``x``); bf16 inputs as pairs (``to_tensor``).  Returns,
+    per case, the output, the new state (SSM) and the packed bytes this
+    rank put on the wire (one array per compressed call)."""
+    from repro_torch.models import moe, params as PM, ssm
+
+    out = []
+    for case in cases:
+        fn = case["fn"]
+        mod = ssm if fn.startswith("ssm") else moe
+        table = (ssm.ssm_table(cfg, tg.world) if mod is ssm
+                 else moe.moe_table(cfg, tg.world))
+        p = PM.shard_params(case["p"], table, tg.world, tg.rank)
+        x = case["x"]
+        x = to_tensor(x[tg.rank] if fn == "moe_forward" else x)
+        cl.wire.keep = []
+        st = None
+        if fn == "ssm_forward":
+            y, st = ssm.ssm_forward(cfg, p, x, want_state=True, tg=tg)
+        elif fn == "ssm_decode_step":
+            state = ssm.SSMState(*(to_tensor(a)
+                                   for a in case["state"][tg.rank]))
+            y, st = ssm.ssm_decode_step(cfg, p, x, state, tg)
+        elif fn == "moe_forward":
+            y = moe.moe_forward(cfg, run, p, x, groups=case.get("groups", 1),
+                                tg=tg)[0]
+        else:
+            y = moe.moe_decode(cfg, p, x, tg)
+        out.append(dict(y=to_numpy(y), wire=cl.wire.keep,
+                        state=None if st is None
+                        else [to_numpy(t) for t in st]))
+        cl.wire.keep = None
+    return out
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
@@ -114,16 +159,56 @@ def _packed_leaves(params) -> Dict[str, Dict[str, np.ndarray]]:
     return out
 
 
+def paged_forced(tg, cfg, run, params, prompts: List[np.ndarray],
+                 streams: List[List[int]], device) -> List[np.ndarray]:
+    """The paged path teacher-forced as the scheduler admits each prompt
+    at tp = world (``tg`` None: tp = 1): its trunk of a multiple of tp
+    prefilled into a slot of its own, then its tail and
+    ``streams[i][:-1]`` fed through paged decode steps, all slots in one
+    step while they have tokens left (the others masked, as a replay
+    window masks them).  Returns, per prompt, the whole-vocab logits
+    (len(stream), Vp) that predict each stream position (the ranks'
+    vocab shards gathered)."""
+    from repro_torch.serve import engine
+
+    tp = cl.world(tg)
+    trunks = [len(p) // tp * tp for p in prompts]
+    st = engine.empty_paged_state(
+        cfg, run, len(prompts), max(len(p) + len(s) for p, s in
+                                    zip(prompts, streams))
+        + run.codec.cache_block * tp, device=device, tp=tp)
+    rows, feeds = [], []
+    for i, (prompt, trunk) in enumerate(zip(prompts, trunks)):
+        lg, d = engine.prefill_sequences(cfg, run, params, torch.as_tensor(
+            prompt[None, :trunk], dtype=torch.int32, device=device), tg)
+        engine.insert_sequences(cfg, run, st, d, [i], tp)
+        rows.append([lg[0, -1]])
+        feeds.append([*prompt[trunk:], *streams[i][:-1]])
+    dec = engine.PagedDecoder(cfg, run, st, graphs=False, tg=tg)
+    for t in range(max(map(len, feeds))):
+        act = np.asarray([t < len(f) for f in feeds])
+        dec.tok.copy_(torch.as_tensor([[f[t] if t < len(f) else 0]
+                                       for f in feeds], device=device))
+        lg = dec.forward(params, act)
+        for i in np.flatnonzero(act):
+            rows[i].append(lg[i, -1])
+    return [cl.all_gather(torch.stack(r[len(p) - trunk:]), tg,
+                          axis=-1).float().cpu().numpy()
+            for r, p, trunk in zip(rows, prompts, trunks)]
+
+
 def serve(tg, cfg, run, requests: List[Dict[str, Any]],
           spec: Dict[str, Any]) -> Dict[str, Any]:
     """``ServeEngine(group=tg)`` on this rank: ``requests`` as dicts of
     ``Request`` fields (prompt numpy), ``spec`` the engine's keywords
     (``engine``: n_slots, max_len, seed, prefix_sharing, compress_weights,
     max_fuse_steps, ...), ``params`` (see ``_params_for``), ``device``,
-    ``then`` (more request lists, served after it on the same engine) and
-    ``packed_leaves`` (return the rank's packed fields).  Returns the
-    streams (tokens, stop reasons) of each run, its stats and the wire
-    bytes of its activation gathers."""
+    ``then`` (more request lists, served after it on the same engine),
+    ``packed_leaves`` (return the rank's packed fields) and ``forced``
+    (each request's own stream teacher-forced through the engine's
+    weights, ``paged_forced``).  Returns the streams (tokens, stop
+    reasons) of each run, its stats, the wire bytes of its activation
+    gathers and, with ``forced``, each request's forced logits."""
     from repro_torch.serve.scheduler import Request, ServeEngine
 
     device = torch.device(spec.get("device", "cpu"))
@@ -136,7 +221,11 @@ def serve(tg, cfg, run, requests: List[Dict[str, Any]],
         results, st = eng.run([Request(**r) for r in reqs])
         res["runs"].append(dict(
             streams=[(list(r.tokens), r.stop_reason) for r in results],
-            stats=st.__dict__.copy(), wire=dict(cl.wire.__dict__)))
+            stats=st.__dict__.copy(), wire=cl.wire.snapshot()))
+        if spec.get("forced"):
+            res["runs"][-1]["forced"] = paged_forced(
+                tg, cfg, eng.run_cfg, eng.params, [r["prompt"] for r in reqs],
+                [list(o.tokens) for o in results], device)
     res["pages_in_use"] = eng._pages_in_use()
     if spec.get("packed_leaves"):
         res["packed"] = _packed_leaves(eng.params)

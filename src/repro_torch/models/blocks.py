@@ -3,15 +3,18 @@
 of ``models/moe.py``) and the parallel hybrid (attention ∥ Mamba2 on the
 same normed input, + MLP or MoE).
 
-Tensor parallelism (the dense family; ``tg`` a ``launch.mesh.TPGroup``):
-boundary activations are sequence-sharded (B, S/tp, D) in prefill, and
-each mixer and FFN entry gathers the normed activations with
+Tensor parallelism (``tg`` a ``launch.mesh.TPGroup``; every family but
+MLA): boundary activations are sequence-sharded (B, S/tp, D) in prefill,
+and each mixer and MLP entry gathers the normed activations with
 ``collectives.compressed_all_gather`` -- the paper's codec at the link
 port: LEXI-packed on the wire -- and reduce-scatters its f32 partial,
 rounded to bf16, back to the sequence shards with a raw
-``psum_scatter`` (a sum cannot cross compressed).  The MLP is column-
-(w_gate, w_up) then row-parallel (w_down).  Decode activations are
-replicated (B, 1, D) and the partials are psum'd in bf16.
+``psum_scatter`` (a sum cannot cross compressed).  A hybrid's attention
+and SSM share one gather and one reduce-scatter of their summed partial.
+The MLP is column- (w_gate, w_up) then row-parallel (w_down); the MoE
+FFN runs on the sequence shard with no gather (its tokens cross to the
+experts' ranks in ``moe.moe_forward``'s all-to-alls).  Decode activations
+are replicated (B, 1, D) and the partials are psum'd in bf16.
 
 Training (FSDP over the data ranks, model = 1): ``gather_fsdp`` gathers
 a layer's sharded weights before its forward, LEXI-packed on the wire.
@@ -47,13 +50,12 @@ def mlp_table(cfg: ModelConfig) -> Dict[str, PDef]:
 
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise for a config whose tp > 1 path is not ported yet."""
-    if tp > 1 and (cfg.moe is not None or cfg.ssm is not None
-                   or cfg.mla is not None):
+    """Raise for a config whose tp > 1 path is not ported yet (MLA)."""
+    if tp > 1 and cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism covers the dense family; MoE, "
-            "SSM and MLA at tp > 1 wait for their slice (ROADMAP.md, queue "
-            "1, item 3)")
+            f"{cfg.name}: MLA at tp > 1 waits for its slice (the latent's "
+            "row-parallel path in both attention kernels; ROADMAP.md, "
+            "queue 1, item 3)")
 
 
 def block_table(cfg: ModelConfig, tp: int = 1) -> Dict:
@@ -73,12 +75,12 @@ def block_table(cfg: ModelConfig, tp: int = 1) -> Dict:
     t: Dict = {"ln1": PDef((d,), "ones"),
                "attn": attention.attn_table(cfg, tp)}
     if cfg.ssm is not None:
-        t["ssm"] = ssm_mod.ssm_table(cfg)
+        t["ssm"] = ssm_mod.ssm_table(cfg, tp)
     if cfg.post_norm:
         t["ln1b"] = PDef((d,), "ones")
     t["ln2"] = PDef((d,), "ones")
     if cfg.moe is not None:
-        t["moe"] = moe_mod.moe_table(cfg)
+        t["moe"] = moe_mod.moe_table(cfg, tp)
         return t
     t["mlp"] = mlp_table(cfg)
     if cfg.post_norm:
@@ -154,12 +156,13 @@ def ffn(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
         groups: int = 1, tg=None) -> torch.Tensor:
     """The FFN tail of a full-sequence layer with its residual: the MoE
     FFN where the layer has one (its tokens dispatched in ``groups``
-    groups, see ``moe.moe_forward``; the aux loss is dropped: serving
-    ignores it), else the MLP."""
+    groups, see ``moe.moe_forward``; at tp > 1 on the sequence shard, not
+    gathered; the aux loss is dropped: serving ignores it), else the
+    MLP."""
     if "moe" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + moe_mod.moe_forward(cfg, run, p["moe"], h,
-                                       groups=groups)[0]
+                                       groups=groups, tg=tg)[0]
     return mlp(cfg, p, x, run, tg, prefill=True, groups=groups)
 
 
@@ -169,7 +172,7 @@ def ffn_decode(cfg: ModelConfig, p, x: torch.Tensor, tg=None) -> torch.Tensor:
     else the MLP."""
     if "moe" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + moe_mod.moe_decode(cfg, p["moe"], h)
+        return x + moe_mod.moe_decode(cfg, p["moe"], h, tg)
     return mlp(cfg, p, x, tg=tg)
 
 
@@ -206,7 +209,7 @@ def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
     st = None
     if "ssm" in p:
         o_ssm, st = ssm_mod.ssm_forward(cfg, p["ssm"], h,
-                                        want_state=want_cache)
+                                        want_state=want_cache, tg=tg)
         o = o + o_ssm
     x = mixer_residual(cfg, p, x, o, tg, prefill=True)
     return ffn(cfg, run, p, x, groups, tg), kv, st

@@ -162,7 +162,9 @@ def pad_for_tp(params: Any, cfg, tp: int) -> Any:
     of ``lm_head``), the query heads padded to ``cfg.padded_heads(tp)``
     with zero columns of ``wq`` (and ``bq``) and zero rows of ``wo``.  The
     padded vocab ids are masked in the logits and a zero head adds
-    nothing, so the model is the same at every tp."""
+    nothing, so a dense model is the same at every tp.  Expert stacks and
+    SSM heads are not padded: their counts must divide by tp
+    (``moe.moe_table``, ``ssm.ssm_dims``)."""
     vp1, vp = cfg.padded_vocab(1), cfg.padded_vocab(tp)
     extra = (cfg.padded_heads(tp) - cfg.n_heads) * cfg.head_dim
 

@@ -1,5 +1,4 @@
-"""Mamba2 (SSD, state-space duality) mixer at tp = 1 (ports
-``repro/models/ssm.py``).
+"""Mamba2 (SSD, state-space duality) mixer (ports ``repro/models/ssm.py``).
 
 Prefill runs the chunked SSD scan (quadratic within a chunk, a linear
 recurrence across chunks); decode is the O(1) recurrent update of the
@@ -14,8 +13,19 @@ four-operand einsums in an explicit order (decay and dt folded into the
 (Q, Q, H) weights first, then one batched product over P), so no
 (B, nc, Q, Q, H, P) intermediate is built.
 
-Collectives dropped at tp = 1: the row-parallel B/C projection's psum and
-the ``axis_index`` slicing of the head-sharded leaves.
+Tensor parallelism (``tg`` a ``launch.mesh.TPGroup``): the heads
+(d_inner) are column-sharded over the ranks -- ``w_zx``, ``w_dt``, the
+per-head vectors, ``conv_x`` and ``gate_norm`` -- and the shared B/C
+projection is row-parallel: each rank's ``d_model / tp`` slice of the
+(gathered) input against its ``w_bc`` rows, the f32 partials summed over
+the ranks (``collectives.psum``, rank order), then rounded to bf16.  The
+output projection is row-sharded, so the caller reduces the f32 partial.
+Two of the reference's choices are kept as it has them, so the model at
+tp > 1 is not the tp = 1 model (ROADMAP.md, section 3): each rank splits
+ITS ``w_zx`` columns in half into z and x, and ``gate_norm``'s RMS runs
+over the rank's ``d_inner / tp`` channels.  The state a rank keeps is
+its heads': ``h`` (..., nh/tp, hd, n), ``conv_x`` (..., k, d_inner/tp),
+``conv_bc`` whole.  At tp = 1 the collectives are dropped.
 """
 
 from __future__ import annotations
@@ -26,52 +36,59 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as cl
 from . import layers
 from .params import PDef
 
 
-def ssm_dims(cfg: ModelConfig):
-    """(d_inner, SSM heads, head dim, state size) at tp = 1."""
+def ssm_dims(cfg: ModelConfig, tp: int = 1):
+    """(d_inner, SSM heads, head dim, state size), whole; the heads split
+    over ``tp`` ranks."""
     s = cfg.ssm
-    return s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), s.headdim, \
-        s.d_state
+    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    if nh % tp:
+        raise ValueError(f"{cfg.name}: {nh} SSM heads do not split over "
+                         f"tp {tp}")
+    return di, nh, s.headdim, s.d_state
 
 
-def ssm_table(cfg: ModelConfig) -> Dict[str, PDef]:
+def ssm_table(cfg: ModelConfig, tp: int = 1) -> Dict[str, PDef]:
     d = cfg.d_model
-    di, nh, _, n = ssm_dims(cfg)
+    di, nh, _, n = ssm_dims(cfg, tp)
     k = cfg.ssm.d_conv
+    col, row, vec = (None, "model"), ("model", None), ("model",)
     return {
-        "w_zx": PDef((d, 2 * di)),
-        "w_bc": PDef((d, 2 * n)),
-        "w_dt": PDef((d, nh)),
-        "dt_bias": PDef((nh,), "zeros"),
-        "a_log": PDef((nh,), "zeros"),          # A = -exp(a_log)
-        "d_skip": PDef((nh,), "ones"),
-        "conv_x": PDef((k, di), "normal:0.1"),
+        "w_zx": PDef((d, 2 * di), spec=col),
+        "w_bc": PDef((d, 2 * n), spec=row),
+        "w_dt": PDef((d, nh), spec=col),
+        "dt_bias": PDef((nh,), "zeros", spec=vec),
+        "a_log": PDef((nh,), "zeros", spec=vec),   # A = -exp(a_log)
+        "d_skip": PDef((nh,), "ones", spec=vec),
+        "conv_x": PDef((k, di), "normal:0.1", spec=col),
         "conv_bc": PDef((k, 2 * n), "normal:0.1"),
-        "gate_norm": PDef((di,), "ones"),
-        "w_out": PDef((di, d)),
+        "gate_norm": PDef((di,), "ones", spec=vec),
+        "w_out": PDef((di, d), spec=row),
     }
 
 
 class SSMState(NamedTuple):
-    """Decode-phase recurrent state (the paper's SSM "state cache");
-    leaves may carry leading (L, ...) stack axes."""
-    h: torch.Tensor          # (B, H, P, N) f32
-    conv_x: torch.Tensor     # (B, d_conv-1, di) bf16 ring, pre-activation
+    """Decode-phase recurrent state (the paper's SSM "state cache") of
+    one rank's heads; leaves may carry leading (L, ...) stack axes."""
+    h: torch.Tensor          # (B, H/tp, P, N) f32
+    conv_x: torch.Tensor     # (B, d_conv-1, di/tp) bf16 ring, pre-activation
     conv_bc: torch.Tensor    # (B, d_conv-1, 2N) bf16 ring, pre-activation
 
 
 def empty_state(cfg: ModelConfig, lead: Tuple[int, ...],
-                device="cpu") -> SSMState:
-    """Zeroed state with leading axes ``lead`` (e.g. (L, n_slots))."""
-    di, nh, hd, n = ssm_dims(cfg)
+                device="cpu", tp: int = 1) -> SSMState:
+    """Zeroed state of one of ``tp`` ranks with leading axes ``lead``
+    (e.g. (L, n_slots))."""
+    di, nh, hd, n = ssm_dims(cfg, tp)
     k = cfg.ssm.d_conv - 1
     return SSMState(
-        h=torch.zeros(lead + (nh, hd, n), dtype=torch.float32,
+        h=torch.zeros(lead + (nh // tp, hd, n), dtype=torch.float32,
                       device=device),
-        conv_x=torch.zeros(lead + (k, di), dtype=torch.bfloat16,
+        conv_x=torch.zeros(lead + (k, di // tp), dtype=torch.bfloat16,
                            device=device),
         conv_bc=torch.zeros(lead + (k, 2 * n), dtype=torch.bfloat16,
                             device=device))
@@ -160,13 +177,22 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(torch.bfloat16), hcur.transpose(-1, -2)
 
 
-def _proj(cfg: ModelConfig, p, x: torch.Tensor):
-    """The input projections: (z, x_in) bf16, dt f32, (B‖C) bf16."""
-    di = ssm_dims(cfg)[0]
+def _proj(cfg: ModelConfig, p, x: torch.Tensor, tg=None):
+    """The input projections of the rank's heads: (z, x_in) bf16 (the
+    rank's ``w_zx`` columns split in half), dt f32, (B‖C) bf16 (at
+    tp > 1 row-parallel: the rank's slice of x against its ``w_bc`` rows,
+    the f32 partials summed over the ranks, then rounded)."""
+    tp = cl.world(tg)
+    di_loc = ssm_dims(cfg, tp)[0] // tp
     zx = layers.pdot(x, p["w_zx"])
     dt = layers.matmul_f32(x, p["w_dt"])
-    bc = layers.matmul_f32(x, p["w_bc"]).to(torch.bfloat16)
-    return zx[..., :di], zx[..., di:], dt, bc
+    if tp == 1:
+        bc = layers.matmul_f32(x, p["w_bc"])
+    else:
+        dsh = cfg.d_model // tp
+        xs = x[..., tg.rank * dsh:(tg.rank + 1) * dsh].contiguous()
+        bc = cl.psum(layers.matmul_f32(xs, p["w_bc"]), tg)
+    return zx[..., :di_loc], zx[..., di_loc:], dt, bc.to(torch.bfloat16)
 
 
 def _gate_out(cfg: ModelConfig, p, y: torch.Tensor,
@@ -179,15 +205,18 @@ def _gate_out(cfg: ModelConfig, p, y: torch.Tensor,
 
 
 def ssm_forward(cfg: ModelConfig, p, x: torch.Tensor,
-                want_state: bool = False
+                want_state: bool = False, tg=None
                 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
-    """Full-sequence SSD block: x (B,S,D) -> (output (B,S,D) f32, the final
-    recurrent state for the prefill -> decode transition or None).  The
-    conv weights are consumed by broadcast, not matmul, so they go through
+    """Full-sequence SSD block: x (B,S,D) (gathered at tp > 1) -> (output
+    (B,S,D) f32, at tp > 1 the rank's partial; the rank's final recurrent
+    state for the prefill -> decode transition or None).  The conv
+    weights are consumed by broadcast, not matmul, so they go through
     ``layers.raw_weight`` (decoded if the store packed them)."""
-    di, nh, hd, n = ssm_dims(cfg)
+    tp = cl.world(tg)
+    di, nh, hd, n = ssm_dims(cfg, tp)
+    nh, di = nh // tp, di // tp
     bs, s, _ = x.shape
-    z, xin_raw, dt, bc_raw = _proj(cfg, p, x)
+    z, xin_raw, dt, bc_raw = _proj(cfg, p, x, tg)
     xin = _causal_conv(xin_raw, layers.raw_weight(p["conv_x"]))
     bc = _causal_conv(bc_raw, layers.raw_weight(p["conv_bc"]))
     a = -torch.exp(p["a_log"].float())
@@ -207,14 +236,17 @@ def ssm_forward(cfg: ModelConfig, p, x: torch.Tensor,
     return out, SSMState(h=state, conv_x=ring(xin_raw), conv_bc=ring(bc_raw))
 
 
-def ssm_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: SSMState
-                    ) -> Tuple[torch.Tensor, SSMState]:
-    """One-token recurrent update: x (B,1,D) normed input -> (output
-    (B,1,D) f32, the new state as fresh tensors).  The caller writes the
-    new state into its persistent buffers (``write_state``)."""
-    di, nh, hd, n = ssm_dims(cfg)
+def ssm_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: SSMState,
+                    tg=None) -> Tuple[torch.Tensor, SSMState]:
+    """One-token recurrent update: x (B,1,D) normed input (replicated at
+    tp > 1) -> (output (B,1,D) f32, at tp > 1 the rank's partial; the
+    rank's new state as fresh tensors).  The caller writes the new state
+    into its persistent buffers (``write_state``)."""
+    tp = cl.world(tg)
+    di, nh, hd, n = ssm_dims(cfg, tp)
+    nh, di = nh // tp, di // tp
     bs = x.shape[0]
-    z, xin, dt, bc = _proj(cfg, p, x)
+    z, xin, dt, bc = _proj(cfg, p, x, tg)
     ring_x = torch.cat([state.conv_x, xin], dim=1)      # (B,K,di)
     ring_bc = torch.cat([state.conv_bc, bc], dim=1)
     xin_c = F.silu(torch.einsum("bkc,kc->bc", ring_x.float(),

@@ -39,7 +39,9 @@ SSM state (hybrids): stacked (L, B or n_slots, ...) ``models.ssm.SSMState``
 buffers allocated once, next to the caches.  Each decode step runs
 ``ssm.ssm_decode_step`` beside attention (outputs summed in f32) and
 copies the new state into those buffers in place; the paged step copies
-only the rows of ``plan.active`` (a device mask), so inactive and fed-off
+only the rows of the slots that step (``plan.post > plan.pos``, a device
+mask; at tp > 1 ``plan.active`` is narrower: the slots whose token this
+rank's cache takes), so inactive and fed-off
 slots keep their state, under a CUDA graph too.
 
 Compiled dispatch: the reference jits each decode window (a ``lax.scan``
@@ -57,19 +59,22 @@ tensors that stay put (the fixed store's device length, the pool's page
 table and step buffer), refreshed in place.  State updates happen in
 place.
 
-Tensor parallelism (the dense family; ``tg`` a ``launch.mesh.TPGroup``,
-one process per rank, every rank running the same loop): prefill runs the
-sequence-sharded trunk (``lm.lm_forward``), then reshards each layer's
-K/V into the cache's interleaved slots -- one all-to-all of the rank's kv
-heads in ``col`` mode (``_interleave_heads_a2a``), a slice of the full
-payload in ``row`` mode (``_interleave_slice``) -- and broadcasts the last
-position's hidden state from rank tp - 1 (a psum where the other ranks
-add zeros).  Decode steps psum the mixer and MLP partials in bf16, merge
-the ranks' attention partials (``cache.merge_shards``) and pick the
-greedy token over the vocab shards (``greedy_token``: pmax, then pmin of
-the candidate ids).  Every rank gets the same tokens.  Decode at tp > 1
-runs eagerly: a gloo collective cannot be captured in a CUDA graph.  At
-tp = 1 every collective is dropped.
+Tensor parallelism (every family but MLA; ``tg`` a
+``launch.mesh.TPGroup``, one process per rank, every rank running the
+same loop): prefill runs the sequence-sharded trunk (``lm.lm_forward``: a
+MoE layer's tokens cross to the experts' ranks in its all-to-alls, a
+hybrid's SSM runs the rank's heads and keeps their state), then reshards
+each layer's K/V into the cache's interleaved slots -- one all-to-all of
+the rank's kv heads in ``col`` mode (``_interleave_heads_a2a``), a slice
+of the full payload in ``row`` mode (``_interleave_slice``) -- and
+broadcasts the last position's hidden state from rank tp - 1 (a psum
+where the other ranks add zeros).  Decode steps psum the mixer, MLP and
+MoE partials in bf16, merge the ranks' attention partials
+(``cache.merge_shards``) and pick the greedy token over the vocab shards
+(``greedy_token``: pmax, then pmin of the candidate ids).  Every rank
+gets the same tokens.  Decode at tp > 1 runs eagerly: a gloo collective
+cannot be captured in a CUDA graph.  At tp = 1 every collective is
+dropped.
 """
 
 from __future__ import annotations
@@ -223,11 +228,13 @@ def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
     return lm.logits_for(cfg, params, _last_hidden(x, tg), tg)
 
 
-def _empty_ssm(cfg: ModelConfig, batch: int, device) -> Optional[SSMState]:
-    """Zeroed (L, batch, ...) SSM state of a hybrid, None otherwise."""
+def _empty_ssm(cfg: ModelConfig, batch: int, device,
+               tp: int = 1) -> Optional[SSMState]:
+    """Zeroed (L, batch, ...) SSM state of a hybrid (one rank's heads of
+    ``tp``), None otherwise."""
     if cfg.ssm is None:
         return None
-    return ssm_mod.empty_state(cfg, (cfg.n_layers, batch), device)
+    return ssm_mod.empty_state(cfg, (cfg.n_layers, batch), device, tp)
 
 
 def resolve_device(device) -> torch.device:
@@ -249,7 +256,7 @@ def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
         kv=[cache_mod.empty_kv(cfg, run, batch, max_len, group=batch,
                                device=device, tp=tp)
             for _ in range(cfg.n_layers)],
-        length=0, ssm=_empty_ssm(cfg, batch, device))
+        length=0, ssm=_empty_ssm(cfg, batch, device, tp))
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
@@ -284,7 +291,7 @@ def prefill_sequences(cfg: ModelConfig, run: RunConfig, params,
     stores = [cache_mod.empty_kv(cfg, run, b, s, device=tokens.device,
                                  tp=cl.world(tg))
               for _ in range(cfg.n_layers)]
-    ssm = _empty_ssm(cfg, b, tokens.device)
+    ssm = _empty_ssm(cfg, b, tokens.device, cl.world(tg))
     logits = _prefill(cfg, run, params, tokens, stores, ssm, groups=b,
                       tg=tg)
     return logits, PrefilledSequences(kv=stores, length=s, ssm=ssm)
@@ -314,7 +321,7 @@ def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
     q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos, tg)
     o = attention.decode_out(cfg, p["attn"], attend(q, new_vals), tg)
     if sst is not None:
-        o_ssm, new = ssm_mod.ssm_decode_step(cfg, p["ssm"], h, sst)
+        o_ssm, new = ssm_mod.ssm_decode_step(cfg, p["ssm"], h, sst, tg)
         ssm_mod.write_state(sst, new, active)
         o = o + o_ssm
     return blocks.ffn_decode(cfg, p, blocks.mixer_residual(cfg, p, x, o, tg),
@@ -491,7 +498,7 @@ def empty_paged_state(cfg: ModelConfig, run: RunConfig, n_slots: int,
                                     n_pages=n_pages, device=device, tp=tp),
         lengths=np.zeros((n_slots,), np.int32),
         active=np.zeros((n_slots,), bool),
-        ssm=_empty_ssm(cfg, n_slots, device))
+        ssm=_empty_ssm(cfg, n_slots, device, tp))
 
 
 def paged_state_nbytes(state: PagedState) -> int:
@@ -513,13 +520,17 @@ def paged_decode_block(cfg: ModelConfig, run: RunConfig, p, layer: int,
     plan's ``pos`` (S,) are the rope positions, ``post`` (S,) the lengths
     including the new token.  Inactive slots leave their cache and SSM
     state untouched (their outputs are garbage the scheduler drops): the
-    new state is written only where ``plan.active``."""
+    new state is written only for the slots that step (``plan.post >
+    plan.pos``; at tp > 1 ``plan.active`` holds only the slots whose
+    position this rank's cache takes, while every rank steps its SSM
+    heads)."""
     def attend(q, new_vals):
         cache_mod.append_token_paged(cfg, run, kv, layer, new_vals, plan)
         return cache_mod.attend_paged(cfg, run, kv, layer, q, plan.post,
                                       spec, window=window, tg=tg)
 
-    return _attn_block(cfg, p, x, plan.pos, attend, sst, plan.active, tg)
+    live = None if sst is None else plan.post > plan.pos
+    return _attn_block(cfg, p, x, plan.pos, attend, sst, live, tg)
 
 
 def _paged_forward(cfg: ModelConfig, run: RunConfig, params,

@@ -11,8 +11,9 @@ cache (ports ``repro/serve/scheduler.py``).
                   (``engine.map_shared_slot``), warm ones import their
                   spilled bytes (``engine.import_slot``) (``_admit_shared``);
                   (b) the rest are drained per trunk bucket (the largest
-                  power of two <= the prompt length; the whole prompt for
-                  SSM, MoE and MLA families, ``_bucket_of``) and prefilled
+                  power of two <= the prompt length; for SSM, MoE and MLA
+                  families the prompt cut to a multiple of tp,
+                  ``_bucket_of``) and prefilled
                   together in one batched pass, each sequence's blocks
                   compressed on its own (``_admit_cold_batch``); (c)
                   leftover prompt tokens (a bucket's tail or an unmatched
@@ -80,7 +81,7 @@ runs split across replicas (``serve.disagg``): a prefill replica drives
 replica ``_decode_window`` on slots seeded by imports, its ``PageCache``
 ``remote_fetch`` wired to the transport's stores.
 
-Tensor parallelism (``ServeEngine(group=...)``, the dense family): one
+Tensor parallelism (``ServeEngine(group=...)``, every family but MLA): one
 process per rank, each running this same loop on the same requests;
 the ranks agree on every decision because every input to one is the same
 on all of them (the greedy tokens are, see ``engine.greedy_token``).  A
@@ -92,8 +93,10 @@ takes the largest page use of the ranks).  Trunk buckets are
 power-of-two multiples of tp, prompts hold at least tp tokens, and one
 prefix column covers ``cache_block * tp`` tokens.  A column's index entry
 holds this rank's page id; a spilled column's payloads are every rank's,
-shard-major (gathered at the spill), as the reference's.  MoE, SSM and
-MLA configs and CUDA graphs at tp > 1 are refused.
+shard-major (gathered at the spill), as the reference's.  A hybrid's
+boundary snapshot is the rank's own heads' SSM state, kept in the rank's
+PageCache under the same content key on every rank.  MLA configs and
+CUDA graphs at tp > 1 are refused.
 """
 
 from __future__ import annotations
@@ -339,8 +342,10 @@ class ServeEngine:
         it is 1).  At tp > 1 ``params`` is the rank's shard
         (``models.params.shard_params``), and without it every rank
         builds the seed's tp = 1 weights, pads them for tp
-        (``models.params.pad_for_tp``: zero padded vocab and query heads,
-        so the model is the same at every tp) and keeps its shard."""
+        (``models.params.pad_for_tp``: zero padded vocab and query heads)
+        and keeps its shard.  For the dense family the model is then the
+        same at every tp; the SSM and MoE families compute the reference's
+        tp-dependent function (``models/ssm.py``, ``models/moe.py``)."""
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
         if tp is None:
@@ -443,12 +448,13 @@ class ServeEngine:
         for pure attention are exact at prompt positions, so bucketing
         never changes streams.  Routed and recurrent layers (MoE, SSM,
         MLA) are not bit-equal between a decode step and the batched
-        prefill at the same position, so those families take the exact
-        trunk: the whole prompt at tp = 1 (every distinct length is its
-        own batch; they do not run at tp > 1)."""
+        prefill at the same position, so those families take the largest
+        multiple of tp that fits (every distinct length its own batch; the
+        whole prompt at tp = 1), and a tail of fewer than tp tokens
+        replays."""
         c = self.cfg
         if c.moe is not None or c.ssm is not None or c.mla is not None:
-            return prompt_len
+            return (prompt_len // self.tp) * self.tp
         b = self.tp
         while b * 2 <= prompt_len:
             b *= 2
@@ -910,7 +916,8 @@ class ServeEngine:
         if nr:
             engine.import_slot(self.state, s, self._warm_wire(warm),
                                n * self.blk_tokens, col0=h,
-                               ssm_slot=snap["ssm"])
+                               ssm_slot=snap["ssm"], tp=self.tp,
+                               ti=self.rank)
         else:
             engine.restore_ssm(self.state, s, snap["ssm"])
         ls.shared_hits += n

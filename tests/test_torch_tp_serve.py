@@ -424,9 +424,10 @@ def _engine_tp2(cfg, run, group, **kw):
 
 
 def test_tp_refusals():
-    """What tp > 1 does not serve yet raises, before any collective: MoE,
-    SSM and MLA configs, CUDA graphs, a missing or mismatched group; and
-    the scheduler refuses prompts shorter than tp."""
+    """What tp > 1 does not serve yet raises, before any collective: MLA
+    configs, CUDA graphs, a missing or mismatched group; and the
+    scheduler refuses prompts shorter than tp.  MoE and SSM configs build
+    (each rank holding its experts and its SSM heads)."""
     from repro_torch.configs import get_config, make_reduced
     from repro_torch.launch.mesh import TPGroup
     from repro_torch.serve.scheduler import Request as TReq
@@ -435,10 +436,16 @@ def test_tp_refusals():
     cpu = torch.device("cpu")
     tg = TPGroup(0, 2, "gloo", cpu)
     _, trun = _runs(True)
-    for name in ("granite-moe-1b-a400m", "zamba2-1.2b",
-                 "deepseek-v2-lite-16b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine_tp2(make_reduced(get_config(name), tp=2), trun, tg)
+    moe = make_reduced(get_config("granite-moe-1b-a400m"), tp=2)
+    eng = _engine_tp2(moe, trun, tg)
+    assert eng.params["blocks"]["moe"]["w_gate"].shape[1] \
+        == moe.moe.n_experts // 2
+    hyb = make_reduced(get_config("zamba2-1.2b"), tp=2)
+    eng = _engine_tp2(hyb, trun, tg)
+    assert eng.state.ssm.h.shape[2] == hyb.ssm.n_heads(hyb.d_model) // 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _engine_tp2(make_reduced(get_config("deepseek-v2-lite-16b"), tp=2),
+                    trun, tg)
     dense = TModel(**_cfg_kw("gqa"))
     with pytest.raises(ValueError, match="cuda_graphs"):
         _engine_tp2(dense, trun, tg, cuda_graphs=True)
