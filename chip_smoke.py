@@ -192,7 +192,8 @@ non-zero:
                ms (100 Gb/s chiplet link, not measured), export and import
                ms per column, transfer ms per handoff, tok/s and TTFT.
   11. hybrid — the parallel attention ∥ SSM hybrid, full-width
-               zamba2-1.2b (26 layers, d 2048, 16/16 heads, hd 128, SSM
+               zamba2-1.2b (its first ``HYBRID_LAYERS`` = 8 of 26
+               layers, d 2048, 16/16 heads, hd 128, SSM
                d_inner 4096 = 64 heads x 64, d_state 64; random weights
                from seed 0), block 256: both attention kernels at its
                shapes (MHA, W 4096) within 1e-4 of their plain versions
@@ -268,9 +269,10 @@ non-zero:
      within 1e-2 of the same two ranks on the CPU (prefill + 10 steps,
      raw and packed); then jamba-tiny-dev (8 layers, attention ∥ Mamba2,
      8 experts top-2: expert parallelism over the compressed all-to-all)
-     and zamba2-1.2b (26 layers, its 64 SSM heads 32 a rank) at full
-     width and depth: 6 prompts of 255-1023 tokens (3 odd: their tails
-     replay), 16 new tokens each, 4 slots, raw and packed (``cuda``),
+     and zamba2-1.2b (its first 8 of 26 layers, ``TPH_LAYERS``; its 64
+     SSM heads 32 a rank) at full width: 6 prompts of 255-1023 tokens
+     (3 odd: their tails replay), 16 new tokens each, 4 slots, raw and
+     packed (``cuda``),
      zamba2's with prefix sharing on and a page-aligned prompt served
      twice (a snapshot hit on both ranks), jamba's fixed loop 4 x 508 +
      6.  Both ranks' streams equal; packed against raw, each first
@@ -282,7 +284,7 @@ non-zero:
      families (the reference's tp = 2 function differs, ROADMAP.md
      section 3).
   15. train — training on the card: full-width qwen1.5-1.8b (its first
-     ``TRAIN_LAYERS`` = 8 of 24 layers, random weights from seed 0)
+     ``TRAIN_LAYERS`` = 4 of 24 layers, random weights from seed 0)
      through ``launch.train.train_loop`` at mesh 2x1 (FSDP: two ranks
      on the one card over gloo, host-staged), global batch 4 x 512,
      codec full, remat on, 3 steps: per step loss, grad norm, lr, clip
@@ -300,9 +302,35 @@ non-zero:
      the reduced size (2 ranks, 8 steps, a checkpoint every 4, a failure
      at step 6): LATEST reads step 8, the step-8 checkpoint restored and
      saved again to the same bytes, stored against raw bytes.
-  16. the card's line, the ``kernels`` JSON line (launches from the runs
+  16. families — the remaining families at tp = 1, full width, random
+     weights from seed 0, codec on, block 256, 4 slots: the attention
+     kernels at the new geometries (rows 1g, 1h: the paged kernel at
+     gemma2-9b's heads, 16/8, hd 256, softcap 50, and hymba-1.5b's, 25
+     query heads on 5 kv heads; 6g, 6v, 6x: the fixed kernel at gemma2's
+     (4 x 4400, window 4096), internvl2-76b's (64/8, hd 128) and
+     seamless-m4t-large-v2's cross attention over its encoder memory
+     (16/16, hd 64, 4 x 512 rows, non-causal, the host-length launch its
+     static length takes), each as the kernels phase holds and times
+     qwen3-4b's); the tiny attention-free, enc-dec and VLM models on the
+     card against the CPU (1e-2; the latter two on the fixed loop with
+     their stub inputs); mamba2-370m (48 layers, no attention: no pages)
+     on ``ServeEngine`` eagerly and from CUDA graphs (streams and SSM
+     state equal), a ``DisaggEngine`` fleet (the monolithic streams; the
+     handoff is the SSM state), the packed weight plane (both weight
+     kernels on its leaves; near-ties only) and the fixed loop;
+     seamless-m4t-large-v2 (24 + 24 layers; 4 x 512 encoder frames and
+     prompts, 16 new tokens; the cross-attention store's stored and raw
+     bytes) and internvl2-76b (``FAM_LAYERS``: 4 of 80; 512-token
+     prompts, their first 256 positions front embeds) on the fixed loop,
+     graph == eager; gemma2-9b (42 layers) on ``ServeEngine`` from CUDA
+     graphs and the fixed loop 4 x 4200 (past its 4096 window);
+     hymba-1.5b (32 layers) and granite-moe-1b-a400m (24 layers) on
+     ``ServeEngine`` from CUDA graphs.  Each serving family's decode step
+     profiled from its graph (host and busy ms a step).
+  17. the card's line, the ``kernels`` JSON line (launches from the runs
      from CUDA graphs, the replays counted; the disagg, hybrid, moe_mla,
-     tp, tp_hybrid and train phases' runs added), then the result line.
+     tp, tp_hybrid, train and families phases' runs added), then the
+     result line.
 """
 
 from __future__ import annotations
@@ -497,11 +525,23 @@ def ptxas_report(name: str):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _pages(gen, n_pages, blk, w):
+def _pages(gen, n_pages, blk, w, small=False):
     """K/V-like bf16 pages: normal values, one page with a moderate number
     of out-of-dictionary exponents (escapes within capacity) and one with
-    far more distinct exponents than the side channel holds (overflow)."""
+    far more distinct exponents than the side channel holds (overflow).
+    With ``small`` both are built of bounded values (a filled dictionary
+    with tiny escapes, ``attend_cases.overflowing``), whatever the width,
+    so that outputs stay O(1) under a softcap and an absolute error means
+    something."""
     import torch
+    from repro_torch.kernels import attend_cases as AC
+    if small:
+        x = torch.randn((n_pages, blk, w), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        x[1] = AC.with_escapes(AC.dict_filled(gen, (blk, w)),
+                               list(range(0, blk, 16)))
+        x[2] = AC.overflowing(gen, (blk, w))
+        return x
     x = torch.randn((n_pages, blk, w), generator=gen, device="cuda")
     scale = torch.ones_like(x)
     wide = torch.rand((blk, w), generator=gen, device="cuda")
@@ -945,15 +985,17 @@ def bound_row(by: float, flops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_attend_kernel(cfg, gen, phase):
+def paged_attend_kernel(cfg, gen, phase, small=False):
     """decode_attend_paged against its plain version at ``cfg``'s attention
     shapes (block 256, k 5, slots of PAGED_LENGTHS walking permuted pool
     pages, the escape and overflow pages live in the longest slot): the
     codec pair exact on the pool's pages and the card's compress equal to
     the CPU's; within 1e-4 at full and window 700, codec off, with two
     slots aliased and at the split edges; two launches bit for bit; timed
-    beside SDPA and its bound.  Returns (the JSON row, the pool's pages
-    as rows, the escape capacity)."""
+    beside SDPA and its bound; every call at the config's attention
+    softcap (``small``: the escape and overflow pages of bounded values,
+    see ``_pages``).  Returns (the JSON row, the pool's pages as rows, the
+    escape capacity)."""
     import torch
     from repro_torch.core import fixed
     from repro_torch.kernels import attend_cases as AC
@@ -968,7 +1010,7 @@ def paged_attend_kernel(cfg, gen, phase):
     s_ = len(lengths)
     n_live = sum(L // blk for L in lengths)
     n_pages = n_live + 2
-    pages = _pages(gen, n_pages, blk, w)
+    pages = _pages(gen, n_pages, blk, w, small)
     rows = pages.reshape(n_pages, n)
     how = codec_check(f"{cfg.name} pool pages", rows, k)
 
@@ -999,7 +1041,7 @@ def paged_attend_kernel(cfg, gen, phase):
     maxp = page_ids.shape[1]
     fields = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
               None)
-    kw = dict(k=k, **g.kw)
+    kw = dict(k=k, softcap=cfg.attn_softcap, **g.kw)
     if cfg.mla is None:
         assert g.kw["kv_idx"] == cache_mod.gqa_head_table(cfg, h)
     errs = []
@@ -1273,16 +1315,20 @@ def _fixed_check(args_codec, args_raw, kw_cases):
     return worst
 
 
-FIXED_CASES = {"gemma2-9b": (4400, 4096)}   # arch: (length, window)
+# arch: (length, window); seamless's length is the memory's in the
+# families phase (512 encoder frames), its decoder layers windowless
+FIXED_CASES = {"gemma2-9b": (4400, 4096), "seamless-m4t-large-v2": (512, 200)}
 
 
-def fixed_attend_kernel(cfg, gen, phase, also=()):
+def fixed_attend_kernel(cfg, gen, phase, also=(), host_length=False):
     """decode_attend against its plain version at ``cfg``'s attention
     shapes and at those of the archs in ``also`` (B=4, block 256, length
     1100 and window 700 unless FIXED_CASES says otherwise): full, window,
     softcap 50, codec off, host- and device-length launches; at ``cfg``'s
     the split edges too, two launches bit for bit, timed beside SDPA and
-    its bound.  Returns the JSON row."""
+    its bound (the device-length launch, the decode loop's form; with
+    ``host_length`` the host-length one, the form of an encoder-decoder's
+    cross attention, whose length is static).  Returns the JSON row."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import attend_cases as AC
@@ -1300,7 +1346,7 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
         n_esc = ct.n_escapes.tolist()
         assert n_esc[1] > cap, n_esc                          # overflow
         assert bool((ct.esc_pos[1] < blk * g.w).any())
-        kw = dict(k=k, **g.kw)
+        kw = dict(k=k, softcap=c_.attn_softcap, **g.kw)
         store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos,
                  ct.esc_raw, None)
         args = (q, *store, ring, length)
@@ -1329,6 +1375,8 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
         host_form = (args + (full,), kw)
         dev_len = torch.tensor(length, dtype=torch.int32, device="cuda")
         timed = ((q, *store, ring, dev_len, full), kw)
+        if host_length:
+            host_form, timed = timed, host_form
         for form in (host_form, timed):
             first = decode_attend.decode_attend(*form[0], **form[1])
             assert AC.same_bits(first, decode_attend.decode_attend(
@@ -1344,8 +1392,9 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
         def host_fn():
             return decode_attend.decode_attend(*host_form[0], **host_form[1])
 
-        log(phase, f"decode_attend host-length launch (grid from the "
-                   f"host length): {cuda_ms(host_fn):.4f} ms with the "
+        log(phase, f"decode_attend {'device' if host_length else 'host'}"
+                   f"-length launch (the one not in the row): "
+                   f"{cuda_ms(host_fn):.4f} ms with the "
                    f"spin, host time per call {host_us(host_fn):.1f} us")
         errs.append(split_edges_fixed(cfg, gen, phase))
         live = length // blk
@@ -1364,7 +1413,8 @@ def fixed_attend_kernel(cfg, gen, phase, also=()):
                             .decode_attend(*timed[0], **timed[1]), lib_fn))
     row["max_abs_err"] = max(errs)
     log(phase, f"decode_attend at {cfg.name}'s shapes, full window, "
-               f"codec on, device-length launch: {row}")
+               f"codec on, {'host' if host_length else 'device'}-length "
+               f"launch: {row}")
     return row
 
 
@@ -1419,7 +1469,8 @@ def weight_shapes(cfg, tp: int = 1):
             sp = table[name].spec
             shapes.append((table[name].shape, layers,
                            tuple(tp if a == "model" else 1 for a in sp)))
-    shapes.append(((d, cfg.padded_vocab(tp)), 1, col))
+    if not cfg.tie_embeddings:          # a tied head is the raw embedding
+        shapes.append(((d, cfg.padded_vocab(tp)), 1, col))
     return [((kk // dk, n // dn), c) for (kk, n), c, (dk, dn) in shapes
             if kk * n >= weights.MIN_COMPRESS_SIZE
             and (n // dn) % weights.LANES == 0]
@@ -1681,8 +1732,8 @@ def small_model_diff(packed: bool, cfg=None, tg=None) -> float:
                                  tg.rank)
     if packed:                    # CPU: torch backend; on the card: cuda
         params = weights.pack_serving_params(params, table=table, tg=tg)
-        assert isinstance(params["blocks"]["attn"]["wq"],
-                          weights.PackedWeight)
+        assert any(isinstance(leaf, weights.PackedWeight)
+                   for leaf in weights.leaves(params["blocks"]))
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (2, 9 if tp == 1 else 10)),
@@ -2212,7 +2263,8 @@ def fixed_phase(cfg, params, smi):
                  f"to its ring; codec off (raw blocks through the same "
                  f"kernel) gives the same {b * (n + 1)} tokens")
     tok = out[:, -1:].to("cuda")
-    graph_launches = fixed_graphs(cfg, run, params, prompts, max_len, n, smi)
+    graph_launches = fixed_graphs(cfg, run, params, prompts, max_len, n,
+                                  smi)[0]
 
     prof = {}
     for graphs in (False, True):
@@ -2293,63 +2345,81 @@ def fixed_phase(cfg, params, smi):
     return graph_launches
 
 
-def fixed_graphs(cfg, run, params, prompts, max_len, n, smi):
+def fixed_graphs(cfg, run, params, prompts, max_len, n, smi, extras=None,
+                 phase="graphs"):
     """The fixed loop (``engine.FixedDecoder``, as ``generate`` runs it)
     eagerly and from a CUDA graph: the same tokens, and every layer's
-    block store and ring byte-identical; the ring flush at 1024 the only
-    eager step of the graph run.  Returns the graph run's launches of
-    ``decode_attend``."""
+    block store and ring byte-identical (an encoder-decoder's
+    cross-attention stores and a hybrid's or an SSM model's state too);
+    the ring flushes the only eager steps of the graph run (none for an
+    attention-free model).  ``extras``: the stub inputs
+    (``front_embeds``, ``enc_embeds``).  Returns (the graph run's
+    launches of ``decode_attend``, its state, its ms per step without
+    the capture)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import engine
 
     b, s = prompts.shape
+    blk = run.codec.cache_block
     runs = {}
     for graphs in (False, True):
-        logits, st = engine.prefill(cfg, run, params, prompts, max_len)
+        logits, st = engine.prefill(cfg, run, params, prompts, max_len,
+                                    **(extras or {}))
         dec = engine.FixedDecoder(cfg, run, params, st,
                                   engine.greedy_token(logits), graphs)
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = [dec.tok.clone()]
-        for _ in range(n):
+        for i in range(n):
+            if i == 1:             # the first step captures
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
             dec.step()
             out.append(dec.tok.clone())
         toks = torch.cat(out, 1).cpu()
         wall = time.perf_counter() - t0
-        runs[graphs] = (toks, st, dec.counts, ops.launch_counts(), wall)
-    (t_e, st_e, c_e, _, w_e), (t_g, st_g, c_g, launches, w_g) = \
+        step_ms = (time.perf_counter() - t1) * 1e3 / (n - 1)
+        runs[graphs] = (toks, st, dec.counts, ops.launch_counts(), wall,
+                        step_ms)
+    (t_e, st_e, c_e, _, w_e, _), (t_g, st_g, c_g, launches, w_g, ms_g) = \
         runs[False], runs[True]
     assert torch.equal(t_e, t_g), "fixed loop: graph tokens != eager"
     assert int(st_g.length_dev) == st_g.length == st_e.length == s + n
     n_bytes = 0
-    for kv_e, kv_g in zip(st_e.kv, st_g.kv):
+    for kv_e, kv_g in zip((st_e.kv or []) + (st_e.xkv or []),
+                          (st_g.kv or []) + (st_g.xkv or [])):
         for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
                   "ring"):
             a, g = getattr(kv_e, f), getattr(kv_g, f)
             assert torch.equal(a.view(torch.uint8), g.view(torch.uint8)), f
             n_bytes += a.numel() * a.element_size()
-    if st_e.ssm is not None:          # a hybrid's recurrent state too
+    if st_e.ssm is not None:          # the recurrent state too
         n_bytes += same_ssm(st_e.ssm, st_g.ssm)
-    flushes = sum((s + t) % 256 == 255 for t in range(n))
-    assert c_e.eager == n and c_g.eager == c_g.flush == flushes == 1, c_g
+    flushes = 0 if st_e.kv is None else sum(
+        (s + t) % blk == blk - 1 for t in range(n))
+    assert c_e.eager == n and c_g.eager == c_g.flush == flushes, c_g
     assert c_g.replays == n - flushes and c_g.captures == 1
     passes = c_g.eager + c_g.replays + c_g.captures
-    assert launches["decode_attend"] == cfg.n_layers * passes, launches
-    log("graphs", f"fixed loop ({cfg.name}), {b} x ({s} prompt + {n} "
-                  f"steps), from a CUDA graph: tokens and all {n_bytes} B "
-                  f"of block stores and rings"
-                  f"{' and SSM state' if st_e.ssm is not None else ''} "
-                  f"equal to the eager loop's; {c_g.eager} eager step "
-                  f"(the ring flush), {c_g.replays} replayed, 1 capture; "
-                  f"decode_attend "
-                  f"{launches['decode_attend']} launches = {cfg.n_layers} x "
-                  f"{passes}; {n} steps in {w_e * 1e3:.1f} ms eager, "
-                  f"{w_g * 1e3:.1f} ms from the graph (the capture "
-                  f"included) | {smi}")
+    stores = (st_e.kv is not None) + (st_e.xkv is not None)
+    assert launches["decode_attend"] == stores * cfg.n_layers * passes, \
+        launches
+    extra = [name for name, on in (("cross-attention stores",
+                                    st_e.xkv is not None),
+                                   ("SSM state", st_e.ssm is not None)) if on]
+    log(phase, f"fixed loop ({cfg.name}), {b} x ({s} prompt + {n} "
+               f"steps), from a CUDA graph: tokens and all {n_bytes} B "
+               f"of block stores and rings{''.join(', ' + e for e in extra)}"
+               f" equal to the eager loop's; {c_g.eager} eager step(s) "
+               f"(ring flushes), {c_g.replays} replayed, 1 capture; "
+               f"decode_attend {launches['decode_attend']} launches = "
+               f"{stores} x {cfg.n_layers} x {passes}; {n} steps in "
+               f"{w_e * 1e3:.1f} ms eager, {w_g * 1e3:.1f} ms from the "
+               f"graph (the capture included; {ms_g:.3f} ms a step after "
+               f"it) | {smi}")
     del runs
-    return launches["decode_attend"]
+    return launches["decode_attend"], st_g, ms_g
 
 
 def logit_margins(a, b):
@@ -3426,8 +3496,8 @@ def ssm_step_ms(cfg, eng) -> float:
 
 
 def hybrid_phase(smi):
-    """The parallel attention ∥ SSM hybrid: full-width zamba2-1.2b (26
-    layers, random weights from seed 0) through
+    """The parallel attention ∥ SSM hybrid: full-width zamba2-1.2b (its
+    first HYBRID_LAYERS of 26 layers, random weights from seed 0) through
     every serving path of the dense family.
     Returns the kernel launches of its runs from CUDA graphs (replays
     counted) and of its packed run."""
@@ -3444,7 +3514,8 @@ def hybrid_phase(smi):
     from repro_torch.serve.scheduler import Request, ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = get_config("zamba2-1.2b")
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              n_layers=HYBRID_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(11)
     paged_attend_kernel(cfg, gen, "hybrid")
     fixed_attend_kernel(cfg, gen, "hybrid")
@@ -3656,7 +3727,7 @@ def hybrid_phase(smi):
     prompts = torch.as_tensor(np.random.default_rng(6).integers(
         0, cfg.vocab_size, (4, 1000)), dtype=torch.int32, device="cuda")
     launches["decode_attend"] += fixed_graphs(cfg, run, params, prompts,
-                                              1000 + 40 + blk, 40, smi)
+                                              1000 + 40 + blk, 40, smi)[0]
     log("hybrid", f"phase done in {time.perf_counter() - t_phase:.1f}s")
     return launches
 
@@ -3814,7 +3885,7 @@ def moe_mla_phase(smi):
     prompts = torch.as_tensor(np.random.default_rng(6).integers(
         0, cfg.vocab_size, (4, 1000)), dtype=torch.int32, device="cuda")
     launches["decode_attend"] += fixed_graphs(cfg, run, params, prompts,
-                                              1000 + 40 + blk, 40, smi)
+                                              1000 + 40 + blk, 40, smi)[0]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4347,6 +4418,9 @@ def tp_phase(cfg, smi):
 # ---------------------------------------------------------------------------
 
 TPH_ARCHS = ("jamba-tiny-dev", "zamba2-1.2b")
+# depth cuts for the time limit (width kept): zamba2-1.2b runs its first
+# 8 of 26 layers here (as the hybrid phase does at tp = 1)
+TPH_LAYERS = {"zamba2-1.2b": 8}
 TPH_BLK = 256
 # 6 prompts of 255 .. 1023 tokens, 3 odd (their one-token tails replay
 # through decode steps at tp = 2), 16 new tokens each, over 4 slots
@@ -4354,6 +4428,19 @@ TPH_MIX = ((512, 16), (255, 16), (1023, 16), (768, 16), (385, 16),
            (640, 16))
 TPH_MAXLEN = 4 * TPH_BLK * 2
 TPH_FIXED = (4, 508, 6)        # jamba's fixed loop: B, prompt, steps
+
+
+def cut_cfg(name, depths):
+    """``name``'s config at the depth ``depths`` gives it (its own
+    otherwise), width kept."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=depths.get(name, cfg.n_layers))
+
+
+def tph_cfg(name):
+    """``name``'s config at the tp_hybrid phase's depth (TPH_LAYERS)."""
+    return cut_cfg(name, TPH_LAYERS)
 
 
 def tph_mix(cfg):
@@ -4524,7 +4611,6 @@ def tp_hybrid_rank_job(tg):
     depth from seed 0 (the tp = 1 weights, this rank's shard)."""
     import gc
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4538,7 +4624,7 @@ def tp_hybrid_rank_job(tg):
     gen = torch.Generator(device="cuda").manual_seed(17 + tg.rank)
     for name in TPH_ARCHS:
         t0 = time.perf_counter()
-        res[name] = tph_model(tg, get_config(name), gen)
+        res[name] = tph_model(tg, tph_cfg(name), gen)
         res[name]["model_s"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
@@ -4560,8 +4646,9 @@ def tp_hybrid_phase(smi):
     tiny jamba-like model's logits on the card within 1e-2 of the same two
     ranks on the CPU (prefill + 10 decode steps, raw and packed); then
     jamba-tiny-dev (8 layers: attention ∥ Mamba2, 8 experts top-2 over the
-    compressed all-to-all) and zamba2-1.2b (26 layers: attention ∥ Mamba2,
-    its 64 SSM heads split 32 a rank) at full width and depth: the mix
+    compressed all-to-all) and zamba2-1.2b (its first 8 of 26 layers,
+    ``TPH_LAYERS``: attention ∥ Mamba2, its 64 SSM heads split 32 a rank)
+    at full width: the mix
     (``tph_mix``) raw and packed, zamba2's with prefix sharing on and its
     page-aligned 512-token prompt served again after the mix (a snapshot
     hit on both ranks, no prefill, the same stream);
@@ -4576,7 +4663,6 @@ def tp_hybrid_phase(smi):
     (ROADMAP.md, section 3).  Returns rank 0's launches."""
     import collections
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import mesh
 
     t_phase = time.perf_counter()
@@ -4598,7 +4684,7 @@ def tp_hybrid_phase(smi):
                              f"{lc['decompress_matmul']}")
             assert (lc["decompress_matmul"] > 0) == packed, lc
     for name in TPH_ARCHS:
-        cfg = get_config(name)
+        cfg = tph_cfg(name)
         a, b = r0[name], r1[name]
         reqs = tph_mix(cfg)
         for key in ("raw", "packed"):
@@ -4705,7 +4791,7 @@ def tp_hybrid_phase(smi):
 
 TRAIN_ARCH = "qwen1.5-1.8b"
 TRAIN_SHAPE = (4, 512, 3)        # global batch, sequence, steps (warmup 1)
-TRAIN_LAYERS = 8                 # of qwen1.5-1.8b's 24, width kept
+TRAIN_LAYERS = 4                 # of qwen1.5-1.8b's 24, width kept
 # 2x1 against 1x1 at step 0: the codec is lossless, so only the order of
 # the sums differs (the gradient's reduce-scatter, the loss over ranks)
 TRAIN_LOSS_RTOL = 1e-4
@@ -4975,14 +5061,474 @@ def train_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the remaining families at tp = 1 (mamba2-370m, seamless,
+# internvl2-76b, gemma2-9b, hymba-1.5b, granite-moe-1b-a400m)
+# ---------------------------------------------------------------------------
+
+FAM_BLK = 256
+# depth cuts for the time limit (width kept): gemma2-9b runs all of its
+# 42 layers, internvl2-76b 4 of its 80 (FAM_LAYERS), the others whole
+FAM_LAYERS = {"internvl2-76b": 4}
+FAM_NEW = 16               # new tokens of the fixed loops
+ENC_LEN = 512              # seamless: encoder frames = decoder prompt
+VLM_LEN = 512              # internvl2: prompt, its first 256 positions images
+GEMMA_FIXED = (4, 4200)    # gemma2's fixed loop: B, prompt (past its window)
+
+
+def fam_cfg(name):
+    """``name``'s config at the families phase's depth (FAM_LAYERS)."""
+    return cut_cfg(name, FAM_LAYERS)
+
+
+def tiny_ssm_cfg():
+    """The reference tests' attention-free model (2 layers, d 64)."""
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+    return ModelConfig(name="s", family="ssm", n_layers=2, d_model=64,
+                       n_heads=0, n_kv_heads=0, d_ff=0, vocab_size=512,
+                       ssm=SSMConfig(d_state=16, headdim=8, chunk=16),
+                       sub_quadratic=True)
+
+
+def tiny_stub_cfgs():
+    """The reference tests' encoder-decoder and a tiny vision-stub VLM."""
+    from repro_torch.configs.base import ModelConfig
+    return (ModelConfig(name="e", family="encdec", n_layers=2, d_model=64,
+                        n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=512,
+                        head_dim=16, encdec=True, frontend="audio_stub"),
+            ModelConfig(name="v", family="vlm", n_layers=2, d_model=64,
+                        n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=512,
+                        head_dim=16, frontend="vision_stub",
+                        n_frontend_tokens=8))
+
+
+def small_fixed_diff(cfg) -> float:
+    """Prefill + 10 teacher-forced fixed-loop steps of a tiny enc-dec or
+    VLM on the card and on the CPU from the same weights, tokens and stub
+    inputs (``launch.serve.stub_inputs``); returns the largest logit gap
+    (<= 1e-2)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import lm, params as PM
+    from repro_torch.serve import engine
+
+    run = RunConfig(codec=CodecConfig(cache_block=4))
+    params = PM.init_params(lm.lm_table(cfg),
+                            torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 10)),
+                             dtype=torch.int32)
+    extras = stub_inputs(cfg, rng, 2, 10, "cpu")
+    states, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = PM.to_device(params, dev)
+        lg, st = engine.prefill(cfg, run, p, prompt.to(dev), 32,
+                                **{k: v.to(dev) for k, v in extras.items()})
+        states[dev], logits[dev] = (st, p), [lg.float().cpu()]
+    feed = engine.greedy_token(logits["cpu"][0])
+    for _ in range(10):                     # crosses two ring flushes
+        for dev in ("cpu", "cuda"):
+            st, p = states[dev]
+            logits[dev].append(engine.decode_step(
+                cfg, run, p, st, feed.to(dev)).float().cpu())
+        feed = engine.greedy_token(logits["cpu"][-1])
+    worst = 0.0
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert torch.isfinite(b).all()
+        worst = max(worst, float((a - b).abs().max()))
+    assert worst <= 1e-2, worst
+    return worst
+
+
+def graph_profile(cfg, eng, name: str):
+    """8 decode steps of 4 fresh 990-token slots of an idle engine from
+    its CUDA graph, profiled (``profile_window``;
+    ``chiprun_out/profile_<name>.txt``): host ms a step, busy ms a step,
+    tok/s.  The three windows (warm-up and capture, timed, profiled) end
+    at 1014 tokens, before the ring flush at 1024, so every step is a
+    replay."""
+    from repro_torch.serve import engine
+
+    tok = hybrid_prefill_slots(cfg, eng, 990, seed=3)
+    dec = engine.PagedDecoder(cfg, eng.run_cfg, eng.state, True)
+    return profile_window(name, lambda: dec.decode(eng.params, tok, 8).cpu(),
+                          8, dec.counts)
+
+
+def fixed_profile(cfg, run, params, st, name: str):
+    """8 steps of a fixed-loop state (4 sequences) from a CUDA graph,
+    profiled (``profile_window``)."""
+    import torch
+    from repro_torch.serve import engine
+
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    dec = engine.FixedDecoder(cfg, run, params, st, tok, True)
+
+    def window():
+        for _ in range(8):
+            dec.step()
+        return dec.tok.cpu()
+
+    return profile_window(name, window, 8, dec.counts)
+
+
+def fam_line(tag, row, launches, smi):
+    """A new kernel row's numbers on one line (PERF.md section 6)."""
+    log("families", f"row {tag}: ms {row['ms']:.4f}, plain ms "
+                    f"{row['plain_ms']:.4f}, SDPA ms "
+                    f"{row['library_ms']:.4f}, bound ms "
+                    f"{row['bound_ms']:.5f} ({row['bound_by']}), max |err| "
+                    f"{row['max_abs_err']:.3e}, launches {launches} | {smi}")
+
+
+def fam_serve(cfg, run, params, reqs, graphs=True):
+    """``cfg``'s serve mix on ``ServeEngine`` (4 slots, sharing off): every
+    budget met; returns (engine, streams, stats, launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import ServeEngine
+
+    eng = ServeEngine(cfg, run, params=params, cuda_graphs=graphs,
+                      prefix_sharing=False, n_slots=4, max_len=8 * FAM_BLK,
+                      device="cuda")
+    ops.reset_launch_counts()
+    results, st = eng.run(reqs)
+    torch.cuda.synchronize()
+    for req, res in zip(reqs, results):
+        assert len(res.tokens) == req.max_new_tokens, (req.uid, res)
+        assert all(0 <= t < cfg.vocab_size for t in res.tokens)
+    return eng, [r.tokens for r in results], st, ops.launch_counts()
+
+
+def mamba2_family(gen, smi, launches):
+    """mamba2-370m, all 48 layers: ``ServeEngine`` eagerly and from CUDA
+    graphs (streams and SSM state equal; no pages), profiled; a
+    ``DisaggEngine`` fleet (the monolithic streams; the handoff's wire
+    bytes: the SSM state alone); the packed weight plane (``cuda``:
+    both weight kernels on its leaves, its streams against raw, each
+    first divergence a near-tie); the fixed loop, graph == eager."""
+    import dataclasses as dc
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import weights
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.serve import DisaggEngine
+
+    cfg = fam_cfg("mamba2-370m")
+    run = RunConfig(codec=CodecConfig(cache_block=FAM_BLK))
+    reqs = serve_mix(cfg, np.random.default_rng(0))
+    params = engine_params(cfg)
+    runs = {g: fam_serve(cfg, run, params, reqs, g) for g in (False, True)}
+    (e_eng, e_tok, e_st, _), (g_eng, g_tok, g_st, g_l) = runs[False], \
+        runs[True]
+    assert g_tok == e_tok, "mamba2: graph streams != eager"
+    assert g_eng.state.kv is None and g_st.peak_pages == 0
+    n_ssm = same_ssm(e_eng.state.ssm, g_eng.state.ssm)
+    assert g_st.graph_captures == 1 and g_st.eager_steps == 0, g_st
+    assert g_st.graph_replays == g_st.decode_steps > 0, g_st
+    assert not any(g_l[n] for n in SERVE_KERNELS), g_l
+    slot_bytes = ssm_mod.state_nbytes(g_eng.state.ssm) // 4
+    log("families", f"{cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+                    f"SSM d_inner {cfg.ssm.d_inner(cfg.d_model)}, d_state "
+                    f"{cfg.ssm.d_state}, vocab {cfg.vocab_size}, no "
+                    f"attention): the serve mix from CUDA graphs equals the "
+                    f"eager run (streams, all {n_ssm} B of SSM state); no "
+                    f"page (peak_pages 0), no attention or page-codec "
+                    f"launch; {g_st.graph_replays} steps replayed, 0 eager; "
+                    f"SSM state {slot_bytes} B a slot")
+    for graphs, (_, _, st, _) in sorted(runs.items()):
+        log("families", f"{cfg.name} serve mix, "
+                        f"{'CUDA graphs' if graphs else 'eager'}: "
+                        f"{st.tokens_per_s:.2f} tok/s, inter-token "
+                        f"{st.inter_token_mean_s * 1e3:.2f} ms, TTFT mean "
+                        f"{st.ttft_mean_s * 1e3:.1f} ms | {smi}")
+    del runs, e_eng
+    gc.collect()
+    prof = graph_profile(cfg, g_eng, "decode_mamba2")
+    log("families", f"{cfg.name} decode step, 4 slots at ~1000 tokens, "
+                    f"from the graph (no flush): host "
+                    f"{prof['host_ms']:.3f} ms/step, "
+                    f"busy {prof['busy_ms']:.3f} ms/step "
+                    f"({100 * prof['busy_ms'] / prof['host_ms']:.0f}%), "
+                    f"{prof['tok_s']:.1f} tok/s | {smi}")
+    del g_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # disaggregated: 1 prefill -> 1 decode replica over the loopback
+    dis = DisaggEngine(cfg, run, params=params, n_slots=4,
+                       max_len=8 * FAM_BLK, device="cuda")
+    res, dst = dis.run(reqs)
+    torch.cuda.synchronize()
+    assert [r.tokens for r in res] == g_tok, "mamba2: disagg != monolithic"
+    assert dst.n_transfers > 0 and dst.wire_raw_bytes > 0
+    log("families", f"{cfg.name} disagg 1 prefill -> 1 decode (loopback): "
+                    f"the monolithic streams; {dst.n_transfers} handoffs, "
+                    f"wire {dst.wire_bytes} B "
+                    f"({dst.wire_bytes // dst.n_transfers} B a handoff: the "
+                    f"SSM state and the header, no page) "
+                    f"of {dst.wire_raw_bytes} B raw; transfer "
+                    f"{dst.transfer_mean_s * 1e3:.1f} ms a handoff | {smi}")
+    del dis
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the packed weight plane: both weight kernels on mamba2's leaves, its
+    # streams against raw (each first divergence a near-tie)
+    packed = weights.pack_serving_params(params, backend="cuda")
+    packed_leaf_checks(cfg, params, packed, gen, "families")
+    run_be = RunConfig(codec=dc.replace(run.codec, weight_backend="cuda"))
+    eng, got, st, pl = fam_serve(cfg, run_be, packed, reqs)
+    del eng
+    for name in ("decompress_matmul", "lexi_unpack"):
+        assert pl[name] > 0, pl
+        launches[name] += pl[name]
+    same = sum(a == b for r, g in zip(got, g_tok) for a, b in zip(r, g))
+    log("families", f"{cfg.name} packed (cuda backend) from CUDA graphs: "
+                    f"{st.weight_bytes_per_step} B per step of "
+                    f"{st.weight_raw_bytes_per_step} B raw "
+                    f"({st.weight_ratio:.3f}); {same}/{sum(map(len, got))} "
+                    f"tokens equal to the raw run; {st.tokens_per_s:.2f} "
+                    f"tok/s; decompress_matmul {pl['decompress_matmul']}, "
+                    f"lexi_unpack {pl['lexi_unpack']} launches | {smi}")
+    for uid, (ra, rb) in enumerate(zip(g_tok, got)):
+        i = next((j for j, (a, b) in enumerate(zip(ra, rb)) if a != b), None)
+        if i is None:
+            continue
+        prompt = torch.as_tensor(reqs[uid].prompt, dtype=torch.int32,
+                                 device="cuda")[None]
+        forced = torch.as_tensor([ra[:i]], dtype=torch.int32, device="cuda")
+        side = [teacher_forced(cfg, run, w, prompt, prompt.shape[1], forced,
+                               8 * FAM_BLK)[i][0] for w in (params, packed)]
+        m_raw, m_cuda, gap = logit_margins(*side)
+        log("families", f"{cfg.name} raw vs cuda, request {uid} position "
+                        f"{i}: top-2 margin raw {m_raw:.4g} / cuda "
+                        f"{m_cuda:.4g}, largest logit gap {gap:.4g}")
+        assert min(m_raw, m_cuda) <= gap, "packed: margin above the gap"
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fixed loop: 4 x 1000 tokens + 40 steps, graph == eager
+    prompts = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 1000)), dtype=torch.int32, device="cuda")
+    _, st, ms = fixed_graphs(cfg, run, params, prompts, 1000 + 40 + FAM_BLK,
+                             40, smi, phase="families")
+    log("families", f"{cfg.name} fixed loop: {ms:.3f} ms a step from the "
+                    f"graph ({4 * 1e3 / ms:.1f} tok/s) | {smi}")
+    del params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def stub_family(name, gen, smi, launches, rows):
+    """seamless-m4t-large-v2 (24 + 24 layers; 4 x ENC_LEN encoder frames
+    and decoder prompts) or internvl2-76b (FAM_LAYERS; 4 x VLM_LEN
+    prompts, their first 256 positions front embeds) on the fixed loop,
+    FAM_NEW new tokens, graph == eager (cross-attention stores too),
+    profiled; seamless's cross-attention store: stored against raw
+    bytes."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.launch.serve import stub_inputs
+
+    cfg = fam_cfg(name)
+    s = ENC_LEN if cfg.encdec else VLM_LEN
+    run = RunConfig(codec=CodecConfig(cache_block=FAM_BLK))
+    params = engine_params(cfg)
+    rng = np.random.default_rng(8)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, s)),
+                              dtype=torch.int32, device="cuda")
+    extras = stub_inputs(cfg, rng, 4, s, "cuda")
+    max_len = s + FAM_NEW + 8 * 3 + FAM_BLK
+    n_dec, st, ms = fixed_graphs(cfg, run, params, prompts, max_len,
+                                 FAM_NEW, smi, extras, phase="families")
+    launches["decode_attend"] += n_dec
+    kinds = "self and cross attention" if cfg.encdec else "attention"
+    log("families", f"{cfg.name} ({cfg.n_layers} layers"
+                    f"{' + as many encoder layers' if cfg.encdec else ''}, d "
+                    f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+                    f"{cfg.head_dim}, vocab {cfg.vocab_size}): fixed loop "
+                    f"4 x {s} + {FAM_NEW}, {ms:.3f} ms a step from the graph "
+                    f"({4 * 1e3 / ms:.1f} tok/s); decode_attend {n_dec} "
+                    f"launches ({kinds}) | {smi}")
+    if cfg.encdec:
+        stored = raw = 0
+        for x in st.xkv:
+            nfull = st.xlen // FAM_BLK
+            stored += sum(getattr(x, f)[:, :nfull].numel() for f in
+                          ("signman", "dict_syms", "esc_raw")) \
+                + 4 * sum(getattr(x, f)[:, :nfull].numel()
+                          for f in ("planes", "esc_pos")) \
+                + (st.xlen - nfull * FAM_BLK) * x.ring.shape[0] \
+                * x.ring.shape[2] * 2
+            raw += st.xlen * x.ring.shape[0] * x.ring.shape[2] * 2
+        rows["6x"]["launches"] = n_dec // 2
+        log("families", f"{cfg.name} cross-attention store: {st.xlen} "
+                        f"frames x 4 sequences x {cfg.n_layers} layers, "
+                        f"{stored} B stored of {raw} B raw bf16 "
+                        f"({raw / stored:.4f}x) | {smi}")
+    else:
+        rows["6v"]["launches"] = n_dec
+    prof = fixed_profile(cfg, run, params, st, f"decode_fixed_{cfg.family}")
+    log("families", f"{cfg.name} fixed loop from the graph, profiled: host "
+                    f"{prof['host_ms']:.3f} ms/step, busy "
+                    f"{prof['busy_ms']:.3f} ms/step "
+                    f"({100 * prof['busy_ms'] / prof['host_ms']:.0f}%) | "
+                    f"{smi}")
+    del params, st, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def attention_family(name, smi, launches, rows):
+    """gemma2-9b (serve mix from CUDA graphs, its prompts 259-1029 tokens
+    so that the tails its power-of-two trunks leave are short, and the
+    fixed loop past its window), hymba-1.5b and granite-moe-1b-a400m
+    (serve mix from CUDA graphs), each profiled."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+
+    cfg = fam_cfg(name)
+    run = RunConfig(codec=CodecConfig(cache_block=FAM_BLK))
+    params = engine_params(cfg)
+    reqs = serve_mix(cfg, np.random.default_rng(0))
+    if cfg.moe is None and cfg.ssm is None:
+        # a dense model's trunk is a power of two: short tails to replay
+        for req, n in zip(reqs, (1029, 512, 259, 520, 300, 640)):
+            req.prompt = req.prompt[:n] if n <= len(req.prompt) else \
+                np.resize(req.prompt, n)
+    eng, toks, st, g_l = fam_serve(cfg, run, params, reqs)
+    passes = check_graph_run(cfg, st, g_l)
+    assert all(g_l[n] > 0 for n in SERVE_KERNELS), g_l
+    for n in SERVE_KERNELS:
+        launches[n] += g_l[n]
+    tag = {"gemma2-9b": "1g", "hymba-1.5b": "1h"}.get(name)
+    if tag:
+        rows[tag]["launches"] = g_l["decode_attend_paged"]
+    log("families", f"{cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+                    f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+                    f"{cfg.head_dim}, window {cfg.window}, softcap "
+                    f"{cfg.attn_softcap}, vocab {cfg.vocab_size}): serve mix "
+                    f"(6 requests, 4 slots) from CUDA graphs, every budget "
+                    f"met; {st.graph_replays} replayed, {st.eager_steps} "
+                    f"eager (flushing) steps, {st.n_admit_dispatches} "
+                    f"admissions + {st.n_replay_dispatches} replay windows; "
+                    f"decode_attend_paged {g_l['decode_attend_paged']} = "
+                    f"{cfg.n_layers} x {passes}; {st.tokens_per_s:.2f} tok/s,"
+                    f" inter-token {st.inter_token_mean_s * 1e3:.2f} ms | "
+                    f"{smi}")
+    prof = graph_profile(cfg, eng, f"decode_{cfg.family}_{cfg.n_layers}")
+    log("families", f"{cfg.name} decode step, 4 slots at ~1000 tokens, "
+                    f"from the graph (no flush): host "
+                    f"{prof['host_ms']:.3f} ms/step, "
+                    f"busy {prof['busy_ms']:.3f} ms/step "
+                    f"({100 * prof['busy_ms'] / prof['host_ms']:.0f}%), "
+                    f"{prof['tok_s']:.1f} tok/s | {smi}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name == "gemma2-9b":
+        b, s = GEMMA_FIXED
+        prompts = torch.as_tensor(np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (b, s)), dtype=torch.int32, device="cuda")
+        n_dec, st, ms = fixed_graphs(cfg, run, params, prompts,
+                                     s + FAM_NEW + FAM_BLK, FAM_NEW, smi,
+                                     phase="families")
+        launches["decode_attend"] += n_dec
+        rows["6g"]["launches"] = n_dec
+        log("families", f"{cfg.name} fixed loop {b} x {s} + {FAM_NEW} (its "
+                        f"even layers' 4096-token window in force): {ms:.3f}"
+                        f" ms a step from the graph ({b * 1e3 / ms:.1f} "
+                        f"tok/s) | {smi}")
+        del st
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_phase(smi):
+    """The remaining families at tp = 1, at full width (random N(0, 0.02)
+    weights from seed 0, codec on, block 256, 4 slots; depth cuts in
+    FAM_LAYERS): the new attention geometries' kernel rows (1g, 1h, 6g,
+    6v, 6x: each within 1e-4 of its plain version at its split edges,
+    timed beside SDPA and its bound); the tiny attention-free, enc-dec
+    and VLM models on the card against the CPU (1e-2); mamba2-370m on
+    every serving path (``mamba2_family``); seamless-m4t-large-v2 and
+    internvl2-76b on the fixed loop (``stub_family``); gemma2-9b,
+    hymba-1.5b and granite-moe-1b-a400m (``attention_family``).  Returns
+    the launches of its runs (from CUDA graphs, replays counted)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    launches = {name: 0 for name in REPLACES}
+    rows = {"1g": paged_attend_kernel(fam_cfg("gemma2-9b"), gen,
+                                      "families", small=True)[0],
+            "1h": paged_attend_kernel(fam_cfg("hymba-1.5b"), gen,
+                                      "families", small=True)[0],
+            "6g": fixed_attend_kernel(fam_cfg("gemma2-9b"), gen, "families"),
+            "6v": fixed_attend_kernel(fam_cfg("internvl2-76b"), gen,
+                                      "families"),
+            "6x": fixed_attend_kernel(fam_cfg("seamless-m4t-large-v2"), gen,
+                                      "families", host_length=True)}
+    torch.cuda.empty_cache()
+    for packed in (False, True):
+        ops.reset_launch_counts()
+        worst = small_model_diff(packed, tiny_ssm_cfg())
+        assert (ops.launch_counts()["decompress_matmul"] > 0) == packed
+        log("families", f"tiny attention-free model, "
+                        f"{'packed' if packed else 'raw'} weights, prefill "
+                        f"+ 10 teacher-forced steps: card vs CPU logits max "
+                        f"|diff| {worst:.2e} (<= 1e-2)")
+    for cfg in tiny_stub_cfgs():
+        worst = small_fixed_diff(cfg)
+        log("families", f"tiny {cfg.family} model, fixed loop with its stub "
+                        f"inputs, prefill + 10 teacher-forced steps: card vs "
+                        f"CPU logits max |diff| {worst:.2e} (<= 1e-2)")
+    marks = [("kernels + tiny", time.perf_counter())]
+    mamba2_family(gen, smi, launches)
+    marks.append(("mamba2", time.perf_counter()))
+    for name in ("seamless-m4t-large-v2", "internvl2-76b"):
+        stub_family(name, gen, smi, launches, rows)
+        marks.append((name, time.perf_counter()))
+    for name in ("gemma2-9b", "hymba-1.5b", "granite-moe-1b-a400m"):
+        attention_family(name, smi, launches, rows)
+        marks.append((name, time.perf_counter()))
+    for tag, row in rows.items():
+        fam_line(tag, row, row.get("launches"), smi)
+    t0 = t_phase
+    log("families", "phase done in "
+        f"{time.perf_counter() - t_phase:.1f}s (" + ", ".join(
+            f"{n} {t - t_prev:.1f}s" for (n, t), t_prev in
+            zip(marks, [t0] + [t for _, t in marks[:-1]])) + ")")
+    return launches
+
+
 # Depth (layers of qwen3-4b's 36, width kept) of the fixed, prefix,
-# disagg and tp phases, and of deepseek-v2-lite-16b's 27 in the moe_mla
-# phase (the train phase's: TRAIN_LAYERS): cut so that the whole run fits
-# its time limit on a slower host (one run took 1201.7 s at full depth
-# where another took 845.8; with the tp_hybrid phase added and only the
-# first four phases cut, 813.6-870.7 s on hosts like the 845.8 s one).
+# disagg and tp phases, of deepseek-v2-lite-16b's 27 in the moe_mla phase
+# and of zamba2-1.2b's 26 in the hybrid phase (the train phase's:
+# TRAIN_LAYERS; tp_hybrid's: TPH_LAYERS; families': FAM_LAYERS): cut so
+# that the whole run fits its time limit on a slower host (one run took
+# 1201.7 s at full depth where another took 845.8; with the families
+# phase added, 697.9 s on a host 1.19x faster than the 733.6 s one).
 PREFIX_LAYERS = 12
 MOE_MLA_LAYERS = 9
+HYBRID_LAYERS = 8
 
 
 def first_layers(cfg, params, n_layers: int):
@@ -5065,6 +5611,9 @@ def main() -> int:
     for name, n in train_phase(smi).items():
         launches[name] += n
     mark("train")
+    for name, n in families_phase(smi).items():
+        launches[name] += n
+    mark("families")
     log("time", ", ".join(f"{name} {t - t0:.1f}s" for (_, t0), (name, t)
                           in zip(marks, marks[1:])) + f" | {smi}")
     kernels = []

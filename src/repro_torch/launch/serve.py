@@ -16,9 +16,15 @@ tensor-parallel over N ranks.
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 \
         --dist-backend gloo --device cpu [--continuous [--compress-weights]]
 
-``--arch`` takes every dense, hybrid and MoE config (MLA included:
-deepseek-v2-lite-16b; jamba-tiny-dev, granite-moe-1b-a400m) in all three
-modes; attention-free and encoder-decoder configs are not ported.
+``--arch`` takes every config.  The dense, hybrid, MoE (MLA included:
+deepseek-v2-lite-16b; jamba-tiny-dev, granite-moe-1b-a400m) and
+attention-free (mamba2-370m) ones serve in all three modes.  The
+vision-stub VLM (internvl2-76b) and the encoder-decoder
+(seamless-m4t-large-v2) serve in fixed-batch mode only, as in the
+reference: their stub inputs are drawn after the prompts from the same
+generator -- ``front_embeds`` (B, n_frontend_tokens, d), then
+``enc_embeds`` (B, prompt-len, d), N(0, 1) in bf16 -- and ``--continuous``
+/ ``--disagg`` refuse them (``ServeEngine`` raises).
 
 Weights are a seeded random init (no checkpoint ships with the repo).
 ``--reduced`` (the default) serves ``make_reduced(cfg)``; ``--no-reduced``
@@ -214,10 +220,11 @@ def _serve_fixed(cfg, run: RunConfig, args, tg=None) -> int:
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
                               dtype=torch.int32, device=device)
+    extras = stub_inputs(cfg, rng, b, s, device)
 
     def serve():
         return engine.generate(cfg, run, params, prompts, n, max_len,
-                               tg).cpu()
+                               tg, **extras).cpu()
 
     t0 = time.perf_counter()
     serve()
@@ -236,6 +243,26 @@ def _serve_fixed(cfg, run: RunConfig, args, tg=None) -> int:
           f"cache block {run.codec.cache_block}, tp {tp}")
     print("[serve] sample continuations:", out[:2, :12].tolist())
     return 0
+
+
+def stub_inputs(cfg, rng, batch: int, prompt_len: int, device) -> dict:
+    """The fixed loop's stub inputs, drawn from ``rng`` (after the
+    prompts) in the reference launcher's order: a vision-stub VLM's
+    ``front_embeds`` (B, n_frontend_tokens, d), then an encoder-decoder's
+    ``enc_embeds`` (B, prompt_len, d), N(0, 1) rounded to bf16."""
+    import torch
+
+    def normal(shape):
+        return torch.as_tensor(rng.normal(0, 1, shape), dtype=torch.float32,
+                               device=device).to(torch.bfloat16)
+
+    extras = {}
+    if cfg.frontend == "vision_stub":
+        extras["front_embeds"] = normal(
+            (batch, cfg.n_frontend_tokens, cfg.d_model))
+    if cfg.encdec:
+        extras["enc_embeds"] = normal((batch, prompt_len, cfg.d_model))
+    return extras
 
 
 def _serve_continuous(cfg, run: RunConfig, args, tg=None) -> int:

@@ -1,7 +1,11 @@
 """Transformer blocks (ports ``repro/models/blocks.py``): the dense family
 (attention + MLP), the MoE family (attention, plain or MLA, + the MoE FFN
-of ``models/moe.py``) and the parallel hybrid (attention ∥ Mamba2 on the
-same normed input, + MLP or MoE).
+of ``models/moe.py``), the parallel hybrid (attention ∥ Mamba2 on the
+same normed input, + MLP or MoE), the attention-free SSM block (Mamba2
+alone, no FFN: mamba2-370m) and an encoder-decoder's decoder block
+(self attention, then cross attention to the encoder's memory, then the
+MLP; ``cross_attn_forward``).  The VLM (a vision stub in front of a dense
+trunk) takes dense blocks.
 
 Tensor parallelism (``tg`` a ``launch.mesh.TPGroup``; every family but
 MLA): boundary activations are sequence-sharded (B, S/tp, D) in prefill,
@@ -50,41 +54,49 @@ def mlp_table(cfg: ModelConfig) -> Dict[str, PDef]:
 
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise for a config whose tp > 1 path is not ported yet (MLA)."""
+    """Raise for a config whose tp > 1 path is not ported yet (MLA; the
+    encoder-decoder, the VLM and the attention-free families)."""
     if tp > 1 and cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: MLA at tp > 1 waits for its slice (the latent's "
             "row-parallel path in both attention kernels; ROADMAP.md, "
             "queue 1, item 3)")
+    if tp > 1 and (cfg.encdec or cfg.frontend != "none"
+                   or cfg.n_heads == 0):
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder, VLM and attention-free "
+            "families at tp > 1 wait for their slice (ROADMAP.md, queue 1, "
+            "item 3)")
 
 
-def block_table(cfg: ModelConfig, tp: int = 1) -> Dict:
-    """Parameter table for ONE layer (unstacked): attention (with a
-    hybrid's ``ssm`` subtable beside it), then an ``mlp`` or, for MoE
-    configs, a ``moe`` FFN; ``spec``s for ``tp`` ranks."""
+def block_table(cfg: ModelConfig, tp: int = 1, cross: bool = False) -> Dict:
+    """Parameter table for ONE layer (unstacked), as the reference's:
+    attention (none when ``n_heads == 0``) and a hybrid's or an SSM
+    model's ``ssm`` subtable beside it; with ``cross`` (an
+    encoder-decoder's decoder) ``ln_x`` and the cross-attention ``xattn``;
+    then a ``moe`` FFN, or an ``mlp`` unless the block is a pure SSM's;
+    ``spec``s for ``tp`` ranks."""
     check_tp(cfg, tp)
-    if cfg.n_heads == 0:
-        raise NotImplementedError(
-            f"{cfg.name}: attention-free blocks wait for the mamba2 slice "
-            "(a KV-less PagedState)")
-    if cfg.encdec or (cfg.moe is None and not cfg.d_ff):
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and FFN-less blocks wait for the "
-            "enc-dec slice")
     d = cfg.d_model
-    t: Dict = {"ln1": PDef((d,), "ones"),
-               "attn": attention.attn_table(cfg, tp)}
-    if cfg.ssm is not None:
+    has_attn, has_ssm = cfg.n_heads > 0, cfg.ssm is not None
+    t: Dict = {"ln1": PDef((d,), "ones")}
+    if has_attn:
+        t["attn"] = attention.attn_table(cfg, tp)
+    if has_ssm:
         t["ssm"] = ssm_mod.ssm_table(cfg, tp)
     if cfg.post_norm:
         t["ln1b"] = PDef((d,), "ones")
-    t["ln2"] = PDef((d,), "ones")
+    if cross:
+        t["ln_x"] = PDef((d,), "ones")
+        t["xattn"] = attention.attn_table(cfg, tp)
     if cfg.moe is not None:
+        t["ln2"] = PDef((d,), "ones")
         t["moe"] = moe_mod.moe_table(cfg, tp)
-        return t
-    t["mlp"] = mlp_table(cfg)
-    if cfg.post_norm:
-        t["ln2b"] = PDef((d,), "ones")
+    elif cfg.d_ff and (has_attn or not has_ssm):
+        t["ln2"] = PDef((d,), "ones")
+        t["mlp"] = mlp_table(cfg)
+        if cfg.post_norm:
+            t["ln2b"] = PDef((d,), "ones")
     return t
 
 
@@ -157,23 +169,27 @@ def ffn(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
     """The FFN tail of a full-sequence layer with its residual: the MoE
     FFN where the layer has one (its tokens dispatched in ``groups``
     groups, see ``moe.moe_forward``; at tp > 1 on the sequence shard, not
-    gathered; the aux loss is dropped: serving ignores it), else the
-    MLP."""
+    gathered; the aux loss is dropped: serving ignores it), else the MLP,
+    else (a pure SSM block) nothing."""
     if "moe" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + moe_mod.moe_forward(cfg, run, p["moe"], h,
                                        groups=groups, tg=tg)[0]
-    return mlp(cfg, p, x, run, tg, prefill=True, groups=groups)
+    if "mlp" in p:
+        return mlp(cfg, p, x, run, tg, prefill=True, groups=groups)
+    return x
 
 
 def ffn_decode(cfg: ModelConfig, p, x: torch.Tensor, tg=None) -> torch.Tensor:
     """The FFN tail of a decode layer (ports ``serve/engine.py:
     _ffn_decode``): ``moe.moe_decode`` where the layer has a MoE FFN,
-    else the MLP."""
+    else the MLP, else (a pure SSM block) nothing."""
     if "moe" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + moe_mod.moe_decode(cfg, p["moe"], h, tg)
-    return mlp(cfg, p, x, tg=tg)
+    if "mlp" in p:
+        return mlp(cfg, p, x, tg=tg)
+    return x
 
 
 def mixer_residual(cfg: ModelConfig, p, x: torch.Tensor,
@@ -191,25 +207,60 @@ def mixer_residual(cfg: ModelConfig, p, x: torch.Tensor,
 def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
                   positions: torch.Tensor, spec: layers.AttnSpec,
                   window=None, want_cache: bool = False,
-                  groups: int = 1, tg=None):
+                  groups: int = 1, tg=None, memory=None, mem_positions=None):
     """x (B,S,D) -> (x', the decode cache payload or None: (k, v), or an
-    MLA layer's latent (B,S,W); the SSM's final ``SSMState`` or None).  A
-    hybrid's attention and SSM outputs are summed in f32.  The B
-    sequences run as ``groups`` separate prefills: a MoE FFN dispatches
-    each group's tokens on its own, and at tp > 1 the gathers compress
-    each group's activations on their own.  At tp > 1 x is the rank's
-    sequence shard (B, S/tp, D) and (k, v) the rank's cache payload heads
-    (``attention.project_qkv``)."""
+    MLA layer's latent (B,S,W); None without attention; the SSM's final
+    ``SSMState`` or None).  A hybrid's attention and SSM outputs are
+    summed in f32.  The B sequences run as ``groups`` separate prefills:
+    a MoE FFN dispatches each group's tokens on its own, and at tp > 1
+    the gathers compress each group's activations on their own.  At
+    tp > 1 x is the rank's sequence shard (B, S/tp, D) and (k, v) the
+    rank's cache payload heads (``attention.project_qkv``).
+
+    ``memory`` (B, Sm, D) (an encoder-decoder's decoder layer, at tp = 1;
+    ``mem_positions`` its (Sm,) positions) adds the cross attention
+    between the mixers and the FFN and a fourth item: its cache payload,
+    the memory's (k, v), or None."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cl.world(tg) > 1:
         h = _gather(h, run, tg, groups)
-    o, kv = attention.attn_forward(cfg, run, p["attn"], h, positions, spec,
-                                   window=window, want_cache=want_cache,
-                                   tg=tg)
-    st = None
+    o = kv = st = None
+    if "attn" in p:
+        o, kv = attention.attn_forward(cfg, run, p["attn"], h, positions,
+                                       spec, window=window,
+                                       want_cache=want_cache, tg=tg)
     if "ssm" in p:
         o_ssm, st = ssm_mod.ssm_forward(cfg, p["ssm"], h,
                                         want_state=want_cache, tg=tg)
-        o = o + o_ssm
+        o = o_ssm if o is None else o + o_ssm
     x = mixer_residual(cfg, p, x, o, tg, prefill=True)
-    return ffn(cfg, run, p, x, groups, tg), kv, st
+    if memory is None:
+        return ffn(cfg, run, p, x, groups, tg), kv, st
+    hx = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    o, xkv = cross_attn_forward(cfg, run, p["xattn"], hx, memory, positions,
+                                mem_positions, want_cache)
+    x = x + o.to(torch.bfloat16)
+    return ffn(cfg, run, p, x, groups, tg), kv, st, xkv
+
+
+def cross_attn_forward(cfg: ModelConfig, run: RunConfig, p,
+                       h: torch.Tensor, memory: torch.Tensor,
+                       q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                       want_cache: bool = False):
+    """Cross attention (tp = 1, the reference's ``col`` mode): queries
+    from h (B,S,D), keys and values from the encoder's memory (B,Sm,D),
+    no rope, no norm, no bias on k and v; non-causal, no softcap.
+    Returns (the o-projection (B,S,D) f32, the memory's (k, v) (B,Hkv,Sm,
+    hd) each, with ``want_cache``, else None)."""
+    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    b, s, _ = h.shape
+    sm = memory.shape[1]
+    q = layers.pdot(h, p["wq"], p.get("bq")).reshape(b, s, -1, hd) \
+        .transpose(1, 2)
+    k = layers.pdot(memory, p["wk"]).reshape(b, sm, nkv, hd).transpose(1, 2)
+    v = layers.pdot(memory, p["wv"]).reshape(b, sm, nkv, hd).transpose(1, 2)
+    out = layers.flash_attention(
+        q, k, v, q_pos, kv_pos, layers.AttnSpec(causal=False, softcap=None),
+        chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv)
+    out = out.transpose(1, 2).reshape(b, s, q.shape[1] * hd)
+    return layers.matmul_f32(out, p["wo"]), ((k, v) if want_cache else None)

@@ -369,8 +369,7 @@ class PagedKV:
         if self.ids is None:
             self.ids = torch.from_numpy(np.maximum(self.page_table, 0)).to(dev)
         if self.step is None:
-            self.step = torch.zeros((4, self.page_table.shape[0]),
-                                    dtype=torch.int32, device=dev)
+            self.step = empty_step(self.page_table.shape[0], dev)
 
     def page_ids(self) -> torch.Tensor:
         return self.ids
@@ -407,9 +406,14 @@ def page_bytes(cfg: ModelConfig, run: RunConfig) -> Tuple[int, int]:
 
 def empty_paged_kv(cfg: ModelConfig, run: RunConfig, n_slots: int,
                    max_len: int, n_pages: Optional[int] = None,
-                   device="cpu", tp: int = 1) -> PagedKV:
+                   device="cpu", tp: int = 1) -> Optional[PagedKV]:
     """One rank's zeroed pool (of ``tp``): pages, rings and tables for
-    ``n_slots`` sequences of up to ``max_len`` tokens."""
+    ``n_slots`` sequences of up to ``max_len`` tokens.  An attention-free
+    model has no KV pages at all: None (its pool holds only SSM state;
+    ``page_bytes`` is (0, 0), and a step stages its lengths alone,
+    ``stage_append`` with ``pkv`` None)."""
+    if cfg.n_heads == 0:
+        return None
     blk, w, n, npad, c, k = _page_geometry(cfg, run)
     L = cfg.n_layers
     maxp = max_pages_per_slot(run, max_len, tp)
@@ -444,12 +448,18 @@ def _alloc_pages(pkv: PagedKV, count: int) -> np.ndarray:
     return free.astype(np.int32)
 
 
+def empty_step(n_slots: int, device) -> torch.Tensor:
+    """A zeroed (4, n_slots) int32 step buffer (``PagedKV.step``'s rows;
+    a KV-less pool's own, staged by ``stage_append`` with ``pkv`` None)."""
+    return torch.zeros((4, n_slots), dtype=torch.int32, device=device)
+
+
 class AppendPlan(NamedTuple):
     """One decode step's cache appends, shared by every layer (all layers
     append at the same positions and flush together).  The device part
-    is views of ``PagedKV.step``, the same tensors every step, so a CUDA
-    graph of a step reads each step's values; the flush part is host-side
-    and runs only in an eager step."""
+    is views of the step buffer (``PagedKV.step``), the same tensors every
+    step, so a CUDA graph of a step reads each step's values; the flush
+    part is host-side and runs only in an eager step."""
     rows: torch.Tensor             # (S,) int64 flat ring row of every slot
     # (S,) bool: the slot appends this step, to this rank's ring (at
     # tp > 1: only where the rank owns the position)
@@ -460,9 +470,10 @@ class AppendPlan(NamedTuple):
     flush_pages: np.ndarray        # (nf,) int64 their new pages
 
 
-def stage_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
-                 active: np.ndarray, tp: int = 1,
-                 ti: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+def stage_append(run: RunConfig, pkv: Optional[PagedKV], lengths: np.ndarray,
+                 active: np.ndarray, tp: int = 1, ti: int = 0,
+                 step: Optional[torch.Tensor] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
     """The host part of a step's appends: decide where each slot's token
     goes and which active rings fill (host arithmetic only), allocate the
     filling rings' pages, map them into the page table, and stage the
@@ -470,29 +481,35 @@ def stage_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
     Returns (flush slots, their pages).  Mirrors the reference's in-graph
     ``append_token_paged`` bookkeeping: on rank ``ti`` of ``tp`` a slot
     writes only where it owns the position (``length % tp == ti``), at
-    its slot ``length // tp``."""
+    its slot ``length // tp``.  ``pkv`` None (an attention-free model's
+    pool: no pages) stages the lengths into ``step`` and flushes
+    nothing."""
     blk = run.codec.cache_block
     lengths = np.asarray(lengths, np.int64)
     active = np.asarray(active, bool)
     write = active & (lengths % tp == ti)
     loc = lengths // tp
     r = loc % blk
-    flush = np.flatnonzero(write & (r == blk - 1))
-    pages = _alloc_pages(pkv, len(flush))
-    if len(flush):
-        pkv.page_table[flush, loc[flush] // blk] = pages
-        pkv.touch()
+    if pkv is None:
+        flush, pages = np.zeros((0,), np.int64), np.zeros((0,), np.int32)
+    else:
+        step = pkv.step
+        flush = np.flatnonzero(write & (r == blk - 1))
+        pages = _alloc_pages(pkv, len(flush))
+        if len(flush):
+            pkv.page_table[flush, loc[flush] // blk] = pages
+            pkv.touch()
     host = np.stack([np.arange(len(lengths)) * blk + r, write, lengths,
                      lengths + active]).astype(np.int32)
-    pkv.step.copy_(torch.from_numpy(host), non_blocking=True)
+    step.copy_(torch.from_numpy(host), non_blocking=True)
     return flush, pages.astype(np.int64)
 
 
-def device_plan(pkv: PagedKV, flush_slots=(), flush_pages=()) -> AppendPlan:
-    """The plan of the step staged in ``pkv.step`` (no flush by default:
-    the form a CUDA graph captures)."""
-    st = pkv.step
-    return AppendPlan(st[0].long(), st[1].bool(), st[2], st[3],
+def device_plan(step: torch.Tensor, flush_slots=(),
+                flush_pages=()) -> AppendPlan:
+    """The plan of the step staged in ``step`` (a pool's ``PagedKV.step``;
+    no flush by default: the form a CUDA graph captures)."""
+    return AppendPlan(step[0].long(), step[1].bool(), step[2], step[3],
                       np.asarray(flush_slots, np.int64),
                       np.asarray(flush_pages, np.int64))
 
@@ -500,7 +517,8 @@ def device_plan(pkv: PagedKV, flush_slots=(), flush_pages=()) -> AppendPlan:
 def plan_append(run: RunConfig, pkv: PagedKV, lengths: np.ndarray,
                 active: np.ndarray, tp: int = 1, ti: int = 0) -> AppendPlan:
     """``stage_append`` then ``device_plan``: one eager step's plan."""
-    return device_plan(pkv, *stage_append(run, pkv, lengths, active, tp, ti))
+    return device_plan(pkv.step,
+                       *stage_append(run, pkv, lengths, active, tp, ti))
 
 
 def append_token_paged(cfg: ModelConfig, run: RunConfig, pkv: PagedKV,

@@ -1,4 +1,8 @@
-"""Decoder-only language model (ports ``repro/models/lm.py``).
+"""Language models (ports ``repro/models/lm.py``): decoder-only, the
+vision-stub VLM (``front_embeds`` take the first ``n_frontend_tokens``
+positions) and the encoder-decoder (a non-causal encoder trunk over
+``enc_embeds``, whose normed output is every decoder layer's
+cross-attention memory; tp = 1).
 
 The vocabulary is padded to a multiple of tp * 128 (``padded_vocab``) and,
 at tp > 1, sharded over the ranks (rows of ``embed``, columns of
@@ -38,8 +42,12 @@ def lm_table(cfg: ModelConfig, tp: int = 1, data: int = 1,
     t: Dict = {
         "embed": PDef((vp, d), "normal:0.02", spec=("model", None)),
         "final_norm": PDef((d,), "ones"),
-        "blocks": stack(blocks.block_table(cfg, tp), cfg.n_layers),
     }
+    if cfg.encdec:
+        t["enc_blocks"] = stack(blocks.block_table(cfg, tp), cfg.n_layers)
+        t["enc_norm"] = PDef((d,), "ones")
+    t["blocks"] = stack(blocks.block_table(cfg, tp, cross=cfg.encdec),
+                        cfg.n_layers)
     if not cfg.tie_embeddings:
         t["lm_head"] = PDef((d, vp), "normal:0.02", spec=(None, "model"))
     if run is not None and run.tp_strategy == "fsdp":
@@ -72,13 +80,14 @@ def lm_fsdp_dims(table: Dict) -> Dict:
             else None}
 
 
-def layer_params(params, i: int):
-    """Layer ``i``'s leaves (views) of the stacked block tree; a
-    ``PackedWeight`` leaf slices all its packed fields."""
+def layer_params(params, i: int, key: str = "blocks"):
+    """Layer ``i``'s leaves (views) of the stacked block tree ``key``
+    (``enc_blocks``: the encoder's); a ``PackedWeight`` leaf slices all
+    its packed fields."""
     def take(t):
         return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[i]
-    return take(params["blocks"])
+    return take(params[key])
 
 
 def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
@@ -117,23 +126,49 @@ def logits_for(cfg: ModelConfig, params, x: torch.Tensor,
     return torch.where(col_ok, logits, layers.NEG_INF)
 
 
+def encode(cfg: ModelConfig, run: RunConfig, params,
+           enc_embeds: torch.Tensor) -> torch.Tensor:
+    """An encoder-decoder's encoder trunk (tp = 1): frame embeddings
+    (B, Sm, D) through the non-causal encoder blocks (the config's
+    softcap), then ``enc_norm`` -> the memory (B, Sm, D) bf16.  The
+    reference's tp = 1 gather of the memory round-trips it through the
+    codec, the identity without escape overflow (see ``blocks``)."""
+    x = enc_embeds.to(torch.bfloat16)
+    sm = x.shape[1]
+    positions = torch.arange(sm, dtype=torch.int32, device=x.device)
+    spec = layers.AttnSpec(causal=False, softcap=cfg.attn_softcap)
+    for i in range(cfg.n_layers):
+        x = blocks.block_forward(cfg, run, layer_params(params, i,
+                                                        "enc_blocks"),
+                                 x, positions, spec)[0]
+    return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
 def lm_forward(cfg: ModelConfig, run: RunConfig, params,
                tokens: torch.Tensor, want_cache: bool = False,
-               cache_fn=None, groups: int = 1, tg=None):
+               cache_fn=None, groups: int = 1, tg=None,
+               xcache_fn=None, front_embeds: Optional[torch.Tensor] = None,
+               enc_embeds: Optional[torch.Tensor] = None):
     """Trunk forward: tokens (B, S) -> (final-normed hidden (B, S, D),
     per-layer ``cache_fn(i, kv, ssm_state)`` results or None).  At tp > 1
     (``tg``) every rank takes the whole of ``tokens`` and returns its
     sequence shard (B, S/tp, D) of the hidden state (S % tp == 0).
 
     ``cache_fn`` (prefill) turns each layer's cache payload -- its rope'd
-    (k, v), or an MLA layer's latent (B, S, W) -- (and, for a hybrid, its
-    final ``SSMState``, else None) into its decode cache right away, so
-    the raw tensors of only one layer are alive at a time.  Without
-    ``cache_fn`` the list holds the (kv, ssm_state) pairs.  The B
-    sequences run as ``groups`` separate prefills (``B``: each sequence
+    (k, v), or an MLA layer's latent (B, S, W), or None without attention
+    -- (and a hybrid's or an SSM model's final ``SSMState``, else None)
+    into its decode cache right away, so the raw tensors of only one
+    layer are alive at a time.  Without ``cache_fn`` the list holds the
+    (kv, ssm_state) pairs.  ``xcache_fn(i, xkv)`` does the same for an
+    encoder-decoder's cross-attention payload (the memory's (k, v)).  The
+    B sequences run as ``groups`` separate prefills (``B``: each sequence
     on its own): MoE layers dispatch each group's tokens on their own, and
-    at tp > 1 the gathers compress each group's activations on their
-    own."""
+    at tp > 1 the gathers compress each group's activations on their own.
+
+    A vision-stub VLM's ``front_embeds`` (B, n_frontend_tokens, D)
+    replace the embeddings of the first ``n_frontend_tokens`` positions;
+    an encoder-decoder's ``enc_embeds`` (B, Sm, D) go through ``encode``,
+    and the memory goes to every decoder layer (both at tp = 1)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     spec = attention.base_attn_spec(cfg)
@@ -142,16 +177,31 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
         raise ValueError(f"prefill of {s} tokens does not split over tp "
                          f"{cl.world(tg)}")
     x = embed_tokens(cfg, params["embed"], tokens, tg, scatter=True)
+    if cfg.frontend == "vision_stub" and front_embeds is not None:
+        nf = min(cfg.n_frontend_tokens, s)
+        x = torch.cat([front_embeds[:, :nf].to(x.dtype), x[:, nf:]], dim=1)
+    memory = mem_pos = None
+    if cfg.encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs "
+                             "enc_embeds")
+        memory = encode(cfg, run, params, enc_embeds)
+        mem_pos = torch.arange(memory.shape[1], dtype=torch.int32,
+                               device=tokens.device)
     caches = [] if want_cache else None
     for i in range(cfg.n_layers):
         win: Optional[int] = None if wins is None else int(wins[i])
-        x, kv, st = blocks.block_forward(cfg, run, layer_params(params, i),
-                                         x, positions, spec, window=win,
-                                         want_cache=want_cache,
-                                         groups=groups, tg=tg)
+        out = blocks.block_forward(cfg, run, layer_params(params, i), x,
+                                   positions, spec, window=win,
+                                   want_cache=want_cache, groups=groups,
+                                   tg=tg, memory=memory,
+                                   mem_positions=mem_pos)
+        x, kv, st = out[:3]
         if want_cache:
             caches.append(cache_fn(i, kv, st) if cache_fn is not None
                           else (kv, st))
+            if memory is not None and xcache_fn is not None:
+                xcache_fn(i, out[3])
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
 

@@ -148,11 +148,14 @@ _WIRE_DTYPES = {"signman": torch.uint8, "planes": torch.int32,
 
 
 def blob_wire(blob: SequenceBlob, device, col0: int = 0
-              ) -> cache_mod.PageWire:
+              ) -> Optional[cache_mod.PageWire]:
     """A host blob's page columns from ``col0`` on and its ring as a
     ``PageWire`` on ``device`` (one copy to the device per field), the
-    form ``engine.import_slot`` scatters."""
+    form ``engine.import_slot`` scatters; None for a blob with no KV (an
+    attention-free model's)."""
     kv = blob.kv
+    if kv is None:
+        return None
     return cache_mod.PageWire(
         **{f: _dev(kv[f][0, :, col0:], dt, device) if f in kv else None
            for f, dt in _WIRE_DTYPES.items()},
@@ -307,12 +310,15 @@ class PrefillReplica:
 
     def _export_blob(self, s: int) -> SequenceBlob:
         """Slot ``s`` as a host ``SequenceBlob``: its full pages and ring
-        copied from the card (one gather per field)."""
+        copied from the card (one gather per field); an attention-free
+        model's blob has no KV section (no ``_FLAG_KV``) and no columns,
+        only its SSM state, as the reference's."""
         eng, ls = self.engine, self.ls
         req = ls.slot_req[s]
         length = ls.slot_len[s]
         blk, w, k, esc_cap, npad = eng._page_geometry()
-        n_cols = cache_mod.export_n_cols(length, blk)
+        n_cols = (cache_mod.export_n_cols(length, blk)
+                  if eng.cfg.n_heads > 0 else 0)
         wire, ssm, dev_len = engine_mod.export_slot(eng.state, s, n_cols)
         assert dev_len == length, (s, length, dev_len)
         return SequenceBlob(
@@ -320,7 +326,8 @@ class PrefillReplica:
             n_layers=eng.cfg.n_layers, n_cols=n_cols, blk=blk, w=w, k=k,
             esc_cap=esc_cap, npad=npad, length=length,
             cur_token=int(ls.cur[s, 0]), emitted=list(ls.emitted[req.uid]),
-            kv=_host_fields(wire, ring=True), ssm=ssm_host(ssm))
+            kv=None if wire is None else _host_fields(wire, ring=True),
+            ssm=ssm_host(ssm))
 
 
 class DecodeReplica:
@@ -451,9 +458,10 @@ class DecodeReplica:
             # pin the matched columns before the pressure valve runs
             ids[c] = eng.cache.acquire(key)[0]
             eng._slot_keys[s].append(key)
-        need = max(blob.valid_cols(0) - m, 0)
+        need = max(blob.valid_cols(0) - m, 0) if blob.kv is not None else 0
         eng._ensure_free_pages(need)
-        free_pages = eng._n_pages - int(eng.state.kv.page_used.sum())
+        free_pages = eng._n_pages - (0 if eng.state.kv is None else
+                                     int(eng.state.kv.page_used.sum()))
         if free_pages < need:
             for key in mkeys:       # undo the pins: nothing written
                 eng.cache.release(key)

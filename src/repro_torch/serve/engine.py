@@ -1,9 +1,10 @@
 """Serving engine (ports ``repro/serve/engine.py``): prefill, then greedy
 decode over a LEXI-compressed KV cache (MLA: the latent
-cache; and, for the parallel attention ∥ SSM hybrids, each layer's
-recurrent SSM state), in two dataflows that share the per-layer compute
-(``_attn_block``, whose FFN tail is the MLP or the MoE decode of
-``blocks.ffn_decode``):
+cache; and, for the parallel attention ∥ SSM hybrids and the
+attention-free SSM model, each layer's recurrent SSM state -- the
+attention-free model has no KV at all), in two dataflows that share the
+per-layer compute (``_attn_block``, whose FFN tail is the MLP or the
+MoE decode of ``blocks.ffn_decode``):
 
 Fixed batch (the reference's original research loop; ``launch/serve.py``
 without ``--continuous``):
@@ -14,7 +15,13 @@ without ``--continuous``):
   goes into the ring (a full ring is compressed into the next block) and
   ``cache.attend_cache`` attends [blocks ‖ ring] through the
   ``decode_attend`` kernel.  ``generate`` is prefill + N greedy steps
-  (``FixedDecoder``).
+  (``FixedDecoder``).  The fixed loop also serves the two families the
+  continuous engine refuses, as in the reference: the vision-stub VLM
+  (``prefill(front_embeds=)``) and the encoder-decoder
+  (``prefill(enc_embeds=)``: the encoder's memory is projected to each
+  decoder layer's cross-attention K/V once, into a static block store,
+  ``DecodeState.xkv``, which every decode step attends through the same
+  ``decode_attend`` kernel, non-causal, at the memory's length).
 
 Continuous batching (driven by ``serve.scheduler.ServeEngine``):
   admit  — ``prefill_sequences`` runs the trunk over a batch of
@@ -96,28 +103,36 @@ from repro_torch.models.ssm import SSMState
 @dataclasses.dataclass
 class DecodeState:
     """Fixed-batch decode state: every layer's batch-shared block store
-    (group = B); all B sequences hold ``length`` tokens, a host int that
-    decides the ring flushes, kept equal to ``length_dev``, the same
-    count as a 0-d int32 on the stores' device that the step's device
-    work reads (rope positions, ring row, attention length).  A hybrid's
-    ``ssm`` holds every layer's recurrent state, stacked (L, B, ...)."""
-    kv: List[cache_mod.KVBlocks]       # one per layer
+    (group = B; None for an attention-free model); all B sequences hold
+    ``length`` tokens, a host int that decides the ring flushes, kept
+    equal to ``length_dev``, the same count as a 0-d int32 on the stores'
+    device that the step's device work reads (rope positions, ring row,
+    attention length).  A hybrid's or an SSM model's ``ssm`` holds every
+    layer's recurrent state, stacked (L, B, ...).  An encoder-decoder's
+    ``xkv`` holds every decoder layer's cross-attention store of the
+    encoder's memory (static after prefill; ``xlen`` rows)."""
+    kv: Optional[List[cache_mod.KVBlocks]]     # one per layer
     length: int
     length_dev: Optional[torch.Tensor] = None
     ssm: Optional[SSMState] = None
+    xkv: Optional[List[cache_mod.KVBlocks]] = None
+    xlen: int = 0
 
     def __post_init__(self):
         if self.length_dev is None:
+            dev = (self.kv[0].ring.device if self.kv is not None
+                   else self.ssm.h.device)
             self.length_dev = torch.tensor(self.length, dtype=torch.int32,
-                                           device=self.kv[0].ring.device)
+                                           device=dev)
 
 
 @dataclasses.dataclass
 class PrefilledSequences:
     """``prefill_sequences`` output: per-layer single-sequence block
-    stores (group = 1), ``length`` tokens each, and a hybrid's final SSM
-    states (L, B, ...), for ``insert_sequences``."""
-    kv: List[cache_mod.KVBlocks]       # one per layer, leading axis B
+    stores (group = 1; None for an attention-free model), ``length``
+    tokens each, and a hybrid's or an SSM model's final SSM states (L, B,
+    ...), for ``insert_sequences``."""
+    kv: Optional[List[cache_mod.KVBlocks]]     # one per layer, leading B
     length: int
     ssm: Optional[SSMState] = None
 
@@ -126,11 +141,22 @@ class PrefilledSequences:
 class PagedState:
     """Slot-based decode state.  ``lengths``/``active`` are per slot and
     shared by every layer (a sequence is at the same position in all);
-    a hybrid's ``ssm`` is stacked (L, n_slots, ...)."""
-    kv: cache_mod.PagedKV
+    a hybrid's or an SSM model's ``ssm`` is stacked (L, n_slots, ...).
+    An attention-free model has no pool (``kv`` None, as in the
+    reference); ``step`` is the (4, n_slots) buffer a step's per-slot
+    values are staged into (``cache.stage_append``): the pool's
+    ``PagedKV.step``, or the state's own without a pool."""
+    kv: Optional[cache_mod.PagedKV]
     lengths: np.ndarray                # (n_slots,) int32 tokens per slot
     active: np.ndarray                 # (n_slots,) bool slot occupied
     ssm: Optional[SSMState] = None
+    step: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.step is None:
+            self.step = (self.kv.step if self.kv is not None else
+                         cache_mod.empty_step(len(self.lengths),
+                                              self.ssm.h.device))
 
 
 def greedy_token(logits: torch.Tensor, tg=None) -> torch.Tensor:
@@ -179,7 +205,8 @@ def _interleave_slice(vals: torch.Tensor, tg) -> torch.Tensor:
 def cache_payload(cfg: ModelConfig, kv, tg=None) -> torch.Tensor:
     """A layer's prefill cache output -> its (B, S, W) cache payload: the
     MLA latent as it is, else ``kv_payload(k, v)``; at tp > 1 the rank's
-    interleaved slots of it (B, S/tp, W)."""
+    interleaved slots of it (B, S/tp, W).  (An encoder-decoder's
+    cross-attention (k, v) of the memory takes the same layout.)"""
     if cfg.mla is not None:
         return kv
     vals = kv_payload(*kv)
@@ -203,14 +230,18 @@ def _last_hidden(x: torch.Tensor, tg) -> torch.Tensor:
 
 
 def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
-             stores: List[cache_mod.KVBlocks],
+             stores: Optional[List[cache_mod.KVBlocks]],
              ssm: Optional[SSMState] = None,
-             groups: int = 1, tg=None) -> torch.Tensor:
+             groups: int = 1, tg=None, front_embeds=None, enc_embeds=None,
+             xstores: Optional[List[cache_mod.KVBlocks]] = None
+             ) -> torch.Tensor:
     """tokens (B, S) -> last-position logits (B,1,Vp); layer i's cache
     payload (K/V, or MLA's latent) fills the empty block store
-    ``stores[i]`` in place, and a hybrid's final SSM state layer i of
-    ``ssm`` (L, B, ...); the B sequences run as ``groups`` separate
-    prefills (``lm.lm_forward``).
+    ``stores[i]`` in place (none without attention), a hybrid's or an SSM
+    model's final SSM state layer i of ``ssm`` (L, B, ...), and an
+    encoder-decoder's cross-attention K/V of the memory the store
+    ``xstores[i]``; the B sequences run as ``groups`` separate prefills
+    (``lm.lm_forward``, which takes ``front_embeds`` and ``enc_embeds``).
     At tp > 1 the logits are the rank's vocab shard and the stores take
     the rank's interleaved slots.
 
@@ -220,11 +251,17 @@ def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
     def to_blocks(i, kv, st):
         if st is not None:
             ssm_mod.write_state(ssm_mod.take(ssm, i), st)
-        return cache_mod.fill_from_prefill(cfg, run, stores[i],
-                                           cache_payload(cfg, kv, tg))
+        if kv is not None:
+            cache_mod.fill_from_prefill(cfg, run, stores[i],
+                                        cache_payload(cfg, kv, tg))
+
+    def to_xblocks(i, xkv):
+        cache_mod.fill_from_prefill(cfg, run, xstores[i], kv_payload(*xkv))
 
     x, _ = lm.lm_forward(cfg, run, params, tokens, want_cache=True,
-                         cache_fn=to_blocks, groups=groups, tg=tg)
+                         cache_fn=to_blocks, groups=groups, tg=tg,
+                         xcache_fn=to_xblocks, front_embeds=front_embeds,
+                         enc_embeds=enc_embeds)
     return lm.logits_for(cfg, params, _last_hidden(x, tg), tg)
 
 
@@ -247,33 +284,59 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _empty_stores(cfg: ModelConfig, run: RunConfig, batch: int,
+                  max_len: int, group: int, device,
+                  tp: int = 1) -> Optional[List[cache_mod.KVBlocks]]:
+    """One zeroed block store per layer, or None for an attention-free
+    model."""
+    if cfg.n_heads == 0:
+        return None
+    return [cache_mod.empty_kv(cfg, run, batch, max_len, group=group,
+                               device=device, tp=tp)
+            for _ in range(cfg.n_layers)]
+
+
 def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
                 device="cuda", tp: int = 1) -> DecodeState:
     """Zeroed fixed-batch state: one batch-shared store per layer (one
-    rank's of ``tp``), on the card unless the caller asks for the CPU."""
+    rank's of ``tp``; none without attention) and, for an
+    encoder-decoder, one cross-attention store per decoder layer of the
+    same capacity (the reference's), on the card unless the caller asks
+    for the CPU."""
     device = resolve_device(device)
     return DecodeState(
-        kv=[cache_mod.empty_kv(cfg, run, batch, max_len, group=batch,
-                               device=device, tp=tp)
-            for _ in range(cfg.n_layers)],
-        length=0, ssm=_empty_ssm(cfg, batch, device, tp))
+        kv=_empty_stores(cfg, run, batch, max_len, batch, device, tp),
+        length=0, ssm=_empty_ssm(cfg, batch, device, tp),
+        xkv=(_empty_stores(cfg, run, batch, max_len, batch, device)
+             if cfg.encdec else None))
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
-            max_len: int, tg=None) -> Tuple[torch.Tensor, DecodeState]:
+            max_len: int, tg=None, front_embeds=None,
+            enc_embeds=None) -> Tuple[torch.Tensor, DecodeState]:
     """Fixed batch: tokens (B, S) -> (last-position logits (B,1,Vp),
     DecodeState) with room for ``max_len`` tokens per sequence.  A MoE
     layer dispatches the B * S tokens jointly, as the reference's
     ``prefill`` does.  At tp > 1 (S % tp == 0) the logits are the rank's
-    vocab shard and the state the rank's."""
+    vocab shard and the state the rank's.  A vision-stub VLM takes
+    ``front_embeds`` (B, n_frontend_tokens, D), an encoder-decoder
+    ``enc_embeds`` (B, Sm, D), Sm <= ``max_len`` (as the reference's
+    ``prefill``, at tp = 1)."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
+    if cfg.encdec and (enc_embeds is None or enc_embeds.shape[1] > max_len):
+        raise ValueError(f"{cfg.name}: prefill needs enc_embeds of at most "
+                         f"max_len={max_len} frames")
     state = empty_state(cfg, run, b, max_len, device=tokens.device,
                         tp=cl.world(tg))
-    logits = _prefill(cfg, run, params, tokens, state.kv, state.ssm, tg=tg)
+    logits = _prefill(cfg, run, params, tokens, state.kv, state.ssm, tg=tg,
+                      front_embeds=front_embeds, enc_embeds=enc_embeds,
+                      xstores=state.xkv)
     state.length = s
     state.length_dev.fill_(s)
+    if cfg.encdec:
+        state.xlen = int(enc_embeds.shape[1])
     return logits, state
 
 
@@ -288,9 +351,7 @@ def prefill_sequences(cfg: ModelConfig, run: RunConfig, params,
     compressed on their own in the gathers.  At tp > 1 each rank keeps its
     slots."""
     b, s = tokens.shape
-    stores = [cache_mod.empty_kv(cfg, run, b, s, device=tokens.device,
-                                 tp=cl.world(tg))
-              for _ in range(cfg.n_layers)]
+    stores = _empty_stores(cfg, run, b, s, 1, tokens.device, cl.world(tg))
     ssm = _empty_ssm(cfg, b, tokens.device, cl.world(tg))
     logits = _prefill(cfg, run, params, tokens, stores, ssm, groups=b,
                       tg=tg)
@@ -307,36 +368,54 @@ def decode_spec(cfg: ModelConfig) -> layers.AttnSpec:
 
 def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
                 attend, sst: Optional[SSMState] = None,
-                active: Optional[torch.Tensor] = None,
-                tg=None) -> torch.Tensor:
+                active: Optional[torch.Tensor] = None, tg=None,
+                cross=None) -> torch.Tensor:
     """One layer's decode step around its cache: x (B,1,D), ``pos`` (B,)
     rope positions; ``attend(q, new_vals)`` appends the new K/V (MLA: the
-    latent) and returns the merged attention (B,Hq,1,hd_v) bf16.  A
-    hybrid's ``sst`` (this layer's state buffers) steps beside attention,
-    its output summed in f32, and takes the new state in place (only
-    ``active``'s rows if given).  Then the FFN tail: MLP or MoE.  At
-    tp > 1 the partials are psum'd in bf16 (``blocks.mixer_residual``,
-    ``blocks.ffn_decode``)."""
+    latent) and returns the merged attention (B,Hq,1,hd_v) bf16 (None for
+    an attention-free layer, which has no attention).  A hybrid's or an
+    SSM model's ``sst`` (this layer's state buffers) steps beside
+    attention, its output summed in f32, and takes the new state in place
+    (only ``active``'s rows if given).  An encoder-decoder's ``cross(q)``
+    attends the layer's cross-attention store of the memory (ports the
+    reference's ``decode_block`` cross path: ``cross_decode_q``, then
+    ``attend_cache``, then ``decode_out``).  Then the FFN tail: MLP or
+    MoE.  At tp > 1 the partials are psum'd in bf16
+    (``blocks.mixer_residual``, ``blocks.ffn_decode``)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos, tg)
-    o = attention.decode_out(cfg, p["attn"], attend(q, new_vals), tg)
+    o = None
+    if attend is not None:
+        q, new_vals = attention.decode_qkv(cfg, p["attn"], h, pos, tg)
+        o = attention.decode_out(cfg, p["attn"], attend(q, new_vals), tg)
     if sst is not None:
         o_ssm, new = ssm_mod.ssm_decode_step(cfg, p["ssm"], h, sst, tg)
         ssm_mod.write_state(sst, new, active)
-        o = o + o_ssm
-    return blocks.ffn_decode(cfg, p, blocks.mixer_residual(cfg, p, x, o, tg),
-                             tg)
+        o = o_ssm if o is None else o + o_ssm
+    x = blocks.mixer_residual(cfg, p, x, o, tg)
+    if cross is not None:
+        hx = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
+        xa = p["xattn"]
+        b = hx.shape[0]
+        q = layers.pdot(hx, xa["wq"], xa.get("bq")).reshape(
+            b, 1, -1, cfg.head_dim).transpose(1, 2)
+        x = x + attention.decode_out(cfg, xa, cross(q)).to(torch.bfloat16)
+    return blocks.ffn_decode(cfg, p, x, tg)
 
 
 def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
-                 kv: cache_mod.KVBlocks, length: int,
+                 kv: Optional[cache_mod.KVBlocks], length: int,
                  length_dev: torch.Tensor, post: torch.Tensor,
                  spec: layers.AttnSpec, window=None,
-                 sst: Optional[SSMState] = None, tg=None) -> torch.Tensor:
+                 sst: Optional[SSMState] = None, tg=None,
+                 xkv: Optional[cache_mod.KVBlocks] = None,
+                 xlen: int = 0) -> torch.Tensor:
     """One layer's fixed-batch decode step: the new token at position
     ``length`` (host int, for the flush; ``length_dev`` the same on the
     device) of every sequence, ``post`` = length + 1 on the device; ``kv``
-    (and a hybrid's SSM state ``sst``) updated in place."""
+    (None without attention) and a hybrid's or an SSM model's state
+    ``sst`` updated in place.  An encoder-decoder's ``xkv`` (the layer's
+    cross-attention store, ``xlen`` rows of the memory) is attended
+    non-causally with no softcap at that static length."""
     pos = length_dev.expand(x.shape[0])
 
     def attend(q, new_vals):
@@ -345,7 +424,13 @@ def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
         return cache_mod.attend_cache(cfg, run, kv, q, post, spec,
                                       window=window, tg=tg)
 
-    return _attn_block(cfg, p, x, pos, attend, sst, tg=tg)
+    def cross(q):
+        return cache_mod.attend_cache(
+            cfg, run, xkv, q, xlen,
+            layers.AttnSpec(causal=False, softcap=None))
+
+    return _attn_block(cfg, p, x, pos, None if kv is None else attend, sst,
+                       tg=tg, cross=None if xkv is None else cross)
 
 
 def _fixed_forward(cfg: ModelConfig, run: RunConfig, params,
@@ -361,10 +446,13 @@ def _fixed_forward(cfg: ModelConfig, run: RunConfig, params,
     post = state.length_dev + 1
     for i in range(cfg.n_layers):
         x = decode_block(cfg, run, lm.layer_params(params, i), x,
-                         state.kv[i], state.length, state.length_dev, post,
+                         None if state.kv is None else state.kv[i],
+                         state.length, state.length_dev, post,
                          spec, window=None if wins is None else int(wins[i]),
                          sst=None if state.ssm is None
-                         else ssm_mod.take(state.ssm, i), tg=tg)
+                         else ssm_mod.take(state.ssm, i), tg=tg,
+                         xkv=None if state.xkv is None else state.xkv[i],
+                         xlen=state.xlen)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     state.length_dev.copy_(post)
     return lm.logits_for(cfg, params, x, tg)
@@ -411,8 +499,10 @@ class FixedDecoder:
     """The fixed-batch loop's steps (``generate``): each step feeds
     ``tok`` (B, 1) int32 and leaves its greedy tokens there.  A step whose
     ring write fills the ring (``length % blk == blk - 1``, known on the
-    host) runs eagerly; with ``graphs``, every other step replays one
-    captured ``decode_step`` + greedy, captured at the first such step."""
+    host; never for an attention-free model) runs eagerly; with
+    ``graphs``, every other step replays one captured ``decode_step`` +
+    greedy, captured at the first such step (an encoder-decoder's static
+    cross-attention stores and length are part of it)."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, params,
                  state: DecodeState, tok: torch.Tensor, graphs: bool,
@@ -437,11 +527,11 @@ class FixedDecoder:
         length and the tokens."""
         st, blk = self.state, self.run.codec.cache_block
         r = st.length % blk
-        keep = [kv.ring[:, r].clone() for kv in st.kv]
+        keep = [kv.ring[:, r].clone() for kv in st.kv or ()]
         ssm_keep = None if st.ssm is None else [t.clone() for t in st.ssm]
         tok, length = self.tok.clone(), st.length_dev.clone()
         self._body()
-        for kv, row in zip(st.kv, keep):
+        for kv, row in zip(st.kv or (), keep):
             kv.ring[:, r] = row
         if ssm_keep is not None:
             for t, v in zip(st.ssm, ssm_keep):
@@ -451,10 +541,12 @@ class FixedDecoder:
 
     def step(self) -> None:
         st, blk = self.state, self.run.codec.cache_block
-        if (st.length // cl.world(self.tg) + 1) // blk > st.kv[0].nblk:
+        if st.kv is not None and \
+                (st.length // cl.world(self.tg) + 1) // blk > st.kv[0].nblk:
             raise ValueError(f"length {st.length + 1} does not fit the "
                              f"store's blocks of {blk} and the ring")
-        if self.graphs and self.state.length % blk != blk - 1:
+        flush = st.kv is not None and st.length % blk == blk - 1
+        if self.graphs and not flush:
             if self.graph is None:
                 self.graph = kops.CapturedStep(self._body, self._warmup,
                                                self.tok.device)
@@ -464,18 +556,21 @@ class FixedDecoder:
         else:
             self._body()
             self.counts.eager += 1
-            self.counts.flush += self.state.length % blk == blk - 1
+            self.counts.flush += flush
         self.state.length += 1
 
 
 def generate(cfg: ModelConfig, run: RunConfig, params, prompts: torch.Tensor,
-             new_tokens: int, max_len: int, tg=None) -> torch.Tensor:
-    """The reference launcher's fixed-batch loop: prefill, then
+             new_tokens: int, max_len: int, tg=None, front_embeds=None,
+             enc_embeds=None) -> torch.Tensor:
+    """The reference launcher's fixed-batch loop: prefill (with a VLM's
+    ``front_embeds``, an encoder-decoder's ``enc_embeds``), then
     ``new_tokens`` greedy decode steps (``FixedDecoder``: from a CUDA
     graph on the card at tp = 1, eagerly on the CPU or at tp > 1).
     prompts (B, S) -> (B, new_tokens + 1) int32: the greedy token after
     the prompt and after each step (the same on every rank)."""
-    logits, state = prefill(cfg, run, params, prompts, max_len, tg)
+    logits, state = prefill(cfg, run, params, prompts, max_len, tg,
+                            front_embeds=front_embeds, enc_embeds=enc_embeds)
     dec = FixedDecoder(cfg, run, params, state, greedy_token(logits, tg),
                        resolve_graphs(None, prompts.device, cl.world(tg)),
                        tg)
@@ -505,14 +600,15 @@ def paged_state_nbytes(state: PagedState) -> int:
     """Device bytes of the paged state (pools, rings and SSM state), from
     shapes."""
     kv = state.kv
-    return sum(t.numel() * t.element_size() for t in
-               (kv.signman, kv.planes, kv.dict_syms, kv.esc_pos, kv.esc_raw,
-                kv.raw_pages, kv.ring) if t is not None) \
-        + ssm_mod.state_nbytes(state.ssm)
+    pool = () if kv is None else (kv.signman, kv.planes, kv.dict_syms,
+                                  kv.esc_pos, kv.esc_raw, kv.raw_pages,
+                                  kv.ring)
+    return sum(t.numel() * t.element_size() for t in pool
+               if t is not None) + ssm_mod.state_nbytes(state.ssm)
 
 
 def paged_decode_block(cfg: ModelConfig, run: RunConfig, p, layer: int,
-                       x: torch.Tensor, kv: cache_mod.PagedKV,
+                       x: torch.Tensor, kv: Optional[cache_mod.PagedKV],
                        plan: cache_mod.AppendPlan, spec: layers.AttnSpec,
                        window=None,
                        sst: Optional[SSMState] = None, tg=None) -> torch.Tensor:
@@ -523,18 +619,20 @@ def paged_decode_block(cfg: ModelConfig, run: RunConfig, p, layer: int,
     new state is written only for the slots that step (``plan.post >
     plan.pos``; at tp > 1 ``plan.active`` holds only the slots whose
     position this rank's cache takes, while every rank steps its SSM
-    heads)."""
+    heads).  An attention-free model has no pool (``kv`` None)."""
     def attend(q, new_vals):
         cache_mod.append_token_paged(cfg, run, kv, layer, new_vals, plan)
         return cache_mod.attend_paged(cfg, run, kv, layer, q, plan.post,
                                       spec, window=window, tg=tg)
 
     live = None if sst is None else plan.post > plan.pos
-    return _attn_block(cfg, p, x, plan.pos, attend, sst, live, tg)
+    return _attn_block(cfg, p, x, plan.pos,
+                       None if kv is None else attend, sst, live, tg)
 
 
 def _paged_forward(cfg: ModelConfig, run: RunConfig, params,
-                   kv: cache_mod.PagedKV, plan: cache_mod.AppendPlan,
+                   kv: Optional[cache_mod.PagedKV],
+                   plan: cache_mod.AppendPlan,
                    tokens: torch.Tensor,
                    ssm: Optional[SSMState] = None, tg=None) -> torch.Tensor:
     """The device work of one paged step: tokens (S, 1) -> logits (S, 1,
@@ -583,7 +681,7 @@ class PagedDecoder:
             raise ValueError("PagedDecoder: no CUDA graphs at tp > 1")
         self.cfg, self.run, self.state = cfg, run, state
         self.tok = torch.zeros((len(state.lengths), 1), dtype=torch.int32,
-                               device=state.kv.ring.device)
+                               device=state.step.device)
         self.graphs = graphs
         self.graph, self.params = None, None
         self.tg = tg
@@ -592,7 +690,7 @@ class PagedDecoder:
     def _stage(self, lengths, active):
         return cache_mod.stage_append(self.run, self.state.kv, lengths,
                                       active, cl.world(self.tg),
-                                      cl.rank(self.tg))
+                                      cl.rank(self.tg), self.state.step)
 
     def _body(self, plan: cache_mod.AppendPlan) -> None:
         self.tok.copy_(greedy_token(_paged_forward(
@@ -604,16 +702,16 @@ class PagedDecoder:
         active (every ring row written back as it was, nothing flushed)
         and puts the tokens back; then the step in hand is staged again."""
         self.params = params
-        st, kv = self.state, self.state.kv
+        st = self.state
         tok = self.tok.clone()
 
         def warmup():
             self._stage(st.lengths, np.zeros_like(active))
-            self._body(cache_mod.device_plan(kv))
+            self._body(cache_mod.device_plan(st.step))
             self.tok.copy_(tok)
 
         self.graph = kops.CapturedStep(
-            lambda: self._body(cache_mod.device_plan(kv)), warmup,
+            lambda: self._body(cache_mod.device_plan(st.step)), warmup,
             self.tok.device)
         self.counts.captures += 1
         self._stage(st.lengths, active)
@@ -635,7 +733,7 @@ class PagedDecoder:
             self.counts.replays += 1
         else:
             logits = _paged_forward(self.cfg, self.run, params, st.kv,
-                                    cache_mod.device_plan(st.kv, *flush),
+                                    cache_mod.device_plan(st.step, *flush),
                                     self.tok, st.ssm, self.tg)
             self.counts.eager += 1
             self.counts.flush += bool(len(flush[0]))
@@ -681,8 +779,9 @@ def insert_sequences(cfg: ModelConfig, run: RunConfig, state: PagedState,
     of ``d.length`` tokens, the rank's slots of them at tp > 1) into free
     slots ``slots`` (in place)."""
     slots = np.asarray(slots, np.int64)
-    cache_mod.paged_insert_many(cfg, run, state.kv, d.kv, slots, d.length,
-                                tp)
+    if state.kv is not None:
+        cache_mod.paged_insert_many(cfg, run, state.kv, d.kv, slots,
+                                    d.length, tp)
     if state.ssm is not None:
         idx = torch.as_tensor(slots, device=state.ssm.h.device)
         for dst, src in zip(state.ssm, d.ssm):
@@ -726,15 +825,17 @@ def export_slot(state: PagedState, slot: int, n_cols: int, col0: int = 0,
                 ) -> Tuple[cache_mod.PageWire, Optional[SSMState], int]:
     """One slot's cache payload for a handoff or a spill: (the
     ``cache.export_sequence`` of page columns ``[col0, col0 + n_cols)``
-    and the ring, views of the slot's SSM state (leaves (L, ...)) or
-    None, the slot's length).  A consumer that keeps the SSM state copies
-    it (``disagg.ssm_host``); a spill never reads it."""
+    and the ring, or None for an attention-free model, views of the
+    slot's SSM state (leaves (L, ...)) or None, the slot's length).  A
+    consumer that keeps the SSM state copies it (``disagg.ssm_host``); a
+    spill never reads it."""
     length = int(state.lengths[slot])
     ssm_slot = None
     if state.ssm is not None:
         ssm_slot = SSMState(*(t[:, slot] for t in state.ssm))
-    return cache_mod.export_sequence(state.kv, slot, n_cols, length,
-                                     col0, tp, ti), ssm_slot, length
+    wire = None if state.kv is None else cache_mod.export_sequence(
+        state.kv, slot, n_cols, length, col0, tp, ti)
+    return wire, ssm_slot, length
 
 
 def restore_ssm(state: PagedState, slot: int, ssm_slot: SSMState
@@ -746,15 +847,18 @@ def restore_ssm(state: PagedState, slot: int, ssm_slot: SSMState
     return state
 
 
-def import_slot(state: PagedState, slot: int, kv_wire: cache_mod.PageWire,
-                length: int, col0: int = 0,
-                ssm_slot: Optional[SSMState] = None, tp: int = 1,
-                ti: int = 0) -> PagedState:
+def import_slot(state: PagedState, slot: int,
+                kv_wire: Optional[cache_mod.PageWire], length: int,
+                col0: int = 0, ssm_slot: Optional[SSMState] = None,
+                tp: int = 1, ti: int = 0) -> PagedState:
     """Import an exported sequence into free slot ``slot``: pages from
     this pool's free list, fields byte-copied (``cache.import_sequence``;
-    ``col0`` > 0 keeps the row below it), a hybrid's ``ssm_slot`` scattered
-    into the slot, the slot active at ``length``."""
-    cache_mod.import_sequence(state.kv, slot, kv_wire, length, col0, tp, ti)
+    ``col0`` > 0 keeps the row below it; none for an attention-free
+    model, ``kv_wire`` None), a hybrid's or an SSM model's ``ssm_slot``
+    scattered into the slot, the slot active at ``length``."""
+    if kv_wire is not None:
+        cache_mod.import_sequence(state.kv, slot, kv_wire, length, col0, tp,
+                                  ti)
     if ssm_slot is not None:
         restore_ssm(state, slot, ssm_slot)
     state.lengths[slot] = length
@@ -765,9 +869,10 @@ def import_slot(state: PagedState, slot: int, kv_wire: cache_mod.PageWire,
 def release_slots(state: PagedState, mask: np.ndarray,
                   free_mask: Optional[np.ndarray] = None) -> PagedState:
     """Evict finished sequences: free their pages (with prefix sharing,
-    only ``free_mask``'s: the pages whose last reference went), clear
-    their slots."""
-    cache_mod.release_pages(state.kv, mask, free_mask)
+    only ``free_mask``'s: the pages whose last reference went; none for
+    an attention-free model), clear their slots."""
+    if state.kv is not None:
+        cache_mod.release_pages(state.kv, mask, free_mask)
     state.lengths[mask] = 0
     state.active[mask] = False
     return state

@@ -345,7 +345,15 @@ class ServeEngine:
         (``models.params.pad_for_tp``: zero padded vocab and query heads)
         and keeps its shard.  For the dense family the model is then the
         same at every tp; the SSM and MoE families compute the reference's
-        tp-dependent function (``models/ssm.py``, ``models/moe.py``)."""
+        tp-dependent function (``models/ssm.py``, ``models/moe.py``).
+
+        Encoder-decoder and non-text-frontend configs are refused with the
+        reference's error: they serve on the fixed loop only
+        (``engine.generate``).  An attention-free config has no page pool
+        (no pages, no sharing; every page count is 0)."""
+        if cfg.encdec or cfg.frontend != "none":
+            raise ValueError("continuous batching covers decoder-only, "
+                             "text-frontend architectures")
         if max_fuse_steps < 1:
             raise ValueError("max_fuse_steps must be >= 1")
         if tp is None:
@@ -408,8 +416,9 @@ class ServeEngine:
                                            self.cuda_graphs, self.group)
         # tokens of one full page column (every rank's slots of it)
         self.blk_tokens = run.codec.cache_block * tp
-        self._n_pages = self.state.kv.page_used.shape[0]
-        self._maxp = self.state.kv.page_table.shape[1]
+        kv = self.state.kv
+        self._n_pages = kv.page_used.shape[0] if kv is not None else 0
+        self._maxp = kv.page_table.shape[1] if kv is not None else 0
         # host-side page lifecycle: the tiered PageCache owns the prefix
         # index, refcounts, retention LRU and warm store; _slot_keys holds
         # the prefix keys each slot has a reference on
@@ -463,7 +472,9 @@ class ServeEngine:
     def _pages_for_length(self, length: int) -> int:
         """Pages one sequence of ``length`` tokens holds (all layers,
         summed over the ranks) — host arithmetic mirroring the flush rule,
-        no device sync."""
+        no device sync; none without attention."""
+        if self.cfg.n_heads == 0:
+            return 0
         return sum(self._lfp(length, t) for t in range(self.tp)) \
             * self.cfg.n_layers
 
@@ -498,6 +509,8 @@ class ServeEngine:
     def _pages_in_use(self) -> int:
         """This rank's pages in use, summed over layers (the host's page
         use)."""
+        if self.state.kv is None:
+            return 0
         return int(self.state.kv.page_used.sum()) * self.cfg.n_layers
 
     # -- prefix index ------------------------------------------------------
@@ -601,9 +614,12 @@ class ServeEngine:
 
     def _page_geometry(self) -> Tuple[int, int, int, int, int]:
         """(blk, w, k, esc_cap, npad) of one page in this pool: the
-        payload geometry shared with the transport's wire format."""
-        blk, w, _, npad, esc_cap, k = cache_mod._page_geometry(self.cfg,
+        payload geometry shared with the transport's wire format; (blk,
+        0, k, 0, 0) without attention, as the reference's."""
+        blk, w, n, npad, esc_cap, k = cache_mod._page_geometry(self.cfg,
                                                                self.run_cfg)
+        if n == 0:
+            return blk, 0, k, 0, 0
         return blk, w, k, esc_cap, npad
 
     @contextlib.contextmanager
@@ -746,7 +762,7 @@ class ServeEngine:
         Called before every page-allocating admission, import, replay
         window and decode window.  Spilling happened at release, so
         eviction only clears page use."""
-        if need <= 0 or not self.cache.lru:
+        if need <= 0 or not self.cache.lru or self.state.kv is None:
             return
         free = self._n_pages - cl.host_max(
             int(self.state.kv.page_used.sum()), self.group)

@@ -1972,3 +1972,143 @@ def test_train_steps_on_card_match_cpu(cuda):
             losses[str(dev)].append(float(m["loss"]))
     for a, b in zip(losses["cpu"], losses["cuda"]):
         assert abs(a - b) <= 1e-3 * abs(a), losses
+
+
+# ---------------------------------------------------------------------------
+# the remaining families' geometries: hd 256 with softcap and window
+# (gemma2-9b), a GQA group of 5 (hymba-1.5b), the non-causal cross-memory
+# launch (seamless-m4t-large-v2); the attention-free PagedDecoder
+# ---------------------------------------------------------------------------
+
+# (heads, kv heads, head dim, the local layers' window, softcap)
+FAMILY_GEOMETRIES = {"gemma2": (16, 8, 256, 4096, 50.0),
+                     "hymba": (25, 5, 64, 1024, None)}
+
+
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+@pytest.mark.parametrize("geo", list(FAMILY_GEOMETRIES))
+def test_attention_kernels_family_geometries(cuda, geo, codec_on):
+    """Both attention kernels at gemma2-9b's heads (16/8, hd 256: a
+    4096-wide row) and hymba-1.5b's (25 query heads on 5 kv heads), block
+    256, the split's edge lengths and one past the window: full, the
+    config's window, and (gemma2) softcap 50 with and without it; escapes
+    past capacity and on both sides of a span boundary.  Within 1e-4 of
+    the plain versions, two launches bit for bit."""
+    h, hkv, hd, win, softcap = FAMILY_GEOMETRIES[geo]
+    blk, w = 256, 2 * hkv * hd
+    kv_idx = AC.kv_idx(h, hkv)
+    lengths = AC.edge_lengths(blk) + [win + 300]
+    cases = [(ref.WINDOW_NONE, None), (win, None), (win, softcap),
+             (ref.WINDOW_NONE, softcap)]
+    gen = torch.Generator(device=cuda).manual_seed(h * hd + codec_on)
+    q, pool, ring, table, lens = _edge_pool(gen, h, hkv, hd, blk, lengths,
+                                            codec_on)
+    for window, cap in cases:
+        args = (q, *pool, ring, table, lens, window)
+        kw = dict(k=5, kv_idx=kv_idx, scale=hd ** -0.5, softcap=cap)
+        got = ops.decode_attend_paged(*args, **kw)
+        AC.attend_close(got, ref.paged_decode_attend_plain(*args, **kw))
+        assert AC.same_bits(got, ops.decode_attend_paged(*args, **kw))
+    b = 3
+    blocks = _edge_blocks(gen, b, blk, w, max(lengths) // blk + 1)
+    nblk, n = blocks.shape[0], b * blk * w
+    if codec_on:
+        ct = fixed.compress_many(blocks.reshape(nblk, n), k=5,
+                                 esc_capacity=max(n // 128, 8))
+        assert int(ct.n_escapes[1]) > ct.esc_pos.shape[-1]
+        store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
+                 None)
+    else:
+        store = (None,) * 5 + (blocks,)
+    ring = _bf16(gen, (b, blk, w))
+    q = _bf16(gen, (b, h, hd))
+    for length in lengths:
+        dev_len = torch.tensor(length, dtype=torch.int32, device=cuda)
+        for window, cap in cases:
+            kw = dict(k=5, kv_idx=kv_idx, scale=hd ** -0.5, softcap=cap)
+            want = ref.decode_attend_plain(q, *store, ring, length, window,
+                                           **kw)
+            for ln in (length, dev_len):          # both launch forms
+                got = ops.decode_attend(q, *store, ring, ln, window, **kw)
+                AC.attend_close(got, want)
+            assert AC.same_bits(got, ops.decode_attend(
+                q, *store, ring, dev_len, window, **kw))
+
+
+@pytest.mark.parametrize("codec_on", [True, False], ids=["codec", "raw"])
+@pytest.mark.parametrize("sm", [5, 300, 513, 1000])
+def test_cross_memory_attend(cuda, sm, codec_on):
+    """An encoder-decoder's cross attention at seamless-m4t-large-v2's
+    heads (16/16, hd 64), 4 sequences: the encoder's K/V of ``sm`` frames
+    (lengths that end mid-block) stored by ``cache.fill_from_prefill``
+    (full blocks compressed on the card byte for byte as on the CPU, the
+    tail in the ring) and attended non-causally, no softcap, at that
+    static length through ``cache.attend_cache``: within 1e-4 of the
+    plain version on the CPU's store."""
+    from repro_torch.models import cache, layers
+
+    cfg = ModelConfig(name="x", family="encdec", n_layers=1, d_model=1024,
+                      n_heads=16, n_kv_heads=16, d_ff=64, vocab_size=512,
+                      head_dim=64, encdec=True, frontend="audio_stub")
+    codec = CodecConfig(cache_block=256) if codec_on else \
+        dataclasses.replace(CodecConfig.off(), cache_block=256)
+    run = RunConfig(codec=codec)
+    gen = torch.Generator(device=cuda).manual_seed(sm)
+    b, w = 4, cache.kv_width(cfg)
+    vals = _bf16(gen, (b, sm, w))
+    q = _bf16(gen, (b, 16, 1, 64))
+    spec = layers.AttnSpec(causal=False, softcap=None)
+    stores = {}
+    for dev in ("cpu", "cuda"):
+        st = cache.empty_kv(cfg, run, b, 1024 + 8, group=b, device=dev)
+        stores[dev] = cache.fill_from_prefill(cfg, run, st, vals.to(dev))
+    for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+              "raw_blocks", "ring"):
+        a, c = getattr(stores["cpu"], f), getattr(stores["cuda"], f)
+        assert (a is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a.view(torch.uint8),
+                               c.cpu().view(torch.uint8)), f
+    before = decode_attend.launches["decode_attend"]
+    got = cache.attend_cache(cfg, run, stores["cuda"], q, sm, spec)
+    assert decode_attend.launches["decode_attend"] == before + 1
+    want = cache.attend_cache(cfg, run, stores["cpu"], q.cpu(), sm, spec)
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=1e-4,
+                               atol=1e-4)
+
+
+SSM_ONLY = ModelConfig(name="s", family="ssm", n_layers=2, d_model=64,
+                       n_heads=0, n_kv_heads=0, d_ff=0, vocab_size=512,
+                       ssm=SSMConfig(d_state=16, headdim=8, chunk=16),
+                       sub_quadratic=True)
+
+
+def test_attention_free_paged_decoder_graph_matches_eager(cuda):
+    """The attention-free model (no pool: ``PagedState.kv`` None) on
+    ``ServeEngine`` from CUDA graphs against eagerly: the same streams and
+    SSM state bit for bit, every step replayed (no ring ever flushes),
+    one capture; no page, and no attention or page-codec launch."""
+    run = RunConfig(codec=CodecConfig(cache_block=4))
+    params = PM.init_params(lm.lm_table(SSM_ONLY),
+                            torch.Generator(device=cuda).manual_seed(2),
+                            device=cuda)
+    got = {}
+    for graphs in (False, True):
+        eng = ServeEngine(SSM_ONLY, run, n_slots=2, max_len=48,
+                          params=params, cuda_graphs=graphs)
+        assert eng.state.kv is None
+        ops.reset_launch_counts()
+        results, st = eng.run(_tiny_requests())
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert [len(r.tokens) for r in results] == [5, 6, 9, 4]
+        assert st.peak_pages == 0
+        assert not any(counts[k] for k in ATTEND_PATH_KERNELS), counts
+        if graphs:
+            assert st.graph_captures == 1 and st.eager_steps == 0
+            assert st.graph_replays == st.decode_steps
+        got[graphs] = ([r.tokens for r in results],
+                       [t.view(torch.uint8).cpu() for t in eng.state.ssm])
+    assert got[True][0] == got[False][0]
+    for a, c in zip(got[True][1], got[False][1]):
+        assert torch.equal(a, c)

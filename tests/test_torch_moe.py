@@ -428,7 +428,8 @@ def test_fixed_loop_matches_reference(ref, monkeypatch):
 
 def test_block_tables():
     """The MoE tables: attention (∥ SSM for a hybrid) and ``moe``, no
-    ``mlp``; attention-free and enc-dec configs still refused."""
+    ``mlp``; the attention-free and enc-dec configs' tables build with
+    the reference's keys (the decoder's with its cross attention)."""
     from repro_torch.configs import get_config
 
     t = tblocks.block_table(get_config("jamba-tiny-dev"))
@@ -438,10 +439,20 @@ def test_block_tables():
     assert "ws_gate" in t["moe"] and "mlp" not in t
     assert get_config("deepseek-v2-lite-16b").param_count() == 16210198528
     assert get_config("jamba-tiny-dev").param_count() == 613023744
-    for name, word in (("mamba2-370m", "mamba2"),
-                       ("seamless-m4t-large-v2", "enc")):
-        with pytest.raises(NotImplementedError, match=word):
-            tblocks.block_table(get_config(name))
+    from repro.configs import get_config as jget_config
+    from repro.models import blocks as jblocks
+
+    for name, cross in (("mamba2-370m", False),
+                        ("seamless-m4t-large-v2", False),
+                        ("seamless-m4t-large-v2", True)):
+        t = tblocks.block_table(get_config(name), cross=cross)
+        jt = jblocks.block_table(jget_config(name), 1, cross=cross)
+        assert list(t) == list(jt), (name, cross)
+        for key in ("attn", "xattn", "ssm", "mlp"):
+            if key in jt:
+                assert set(t[key]) == set(jt[key]), (name, key)
+    assert set(tblocks.block_table(get_config("mamba2-370m"))) \
+        == {"ln1", "ssm"}
 
 
 @pytest.mark.parametrize("mode", [[], ["--continuous"], ["--disagg"]],

@@ -142,12 +142,16 @@ def test_tables_and_bridge(model):
     for k, v in params["blocks"]["ssm"].items():
         assert (bits(tp_["blocks"]["ssm"][k]) == bits(v)).all(), k
     # the full-width hybrids' layer tables (jamba's FFN is MoE), and the
-    # attention-free family still waiting
+    # attention-free family's: the Mamba2 mixer alone, the reference's
+    # leaves and shapes
     assert "ssm" in tblocks.block_table(tget_config("zamba2-1.2b"))
     jamba = tblocks.block_table(tget_config("jamba-tiny-dev"))
     assert {"ssm", "moe"} <= set(jamba) and "mlp" not in jamba
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        tblocks.block_table(tget_config("mamba2-370m"))
+    mamba = tblocks.block_table(tget_config("mamba2-370m"))
+    jmamba = jblocks.block_table(jget_config("mamba2-370m"), 1)
+    assert list(mamba) == list(jmamba) == ["ln1", "ssm"]
+    assert {k: d.shape for k, d in mamba["ssm"].items()} \
+        == {k: d.shape for k, d in jmamba["ssm"].items()}
 
 
 def _layer(params, i):
