@@ -257,12 +257,19 @@ non-zero:
      near-tie; per prefill the activation gathers' wire bytes against
      raw bf16, the escape overflows, the compressed all-gather's ms
      against a raw one on this transport, ms per prefill and per decode
-     step, the launches.  The kernels phase holds both
-     attention kernels' shard path on every shard of tp 2 and 4 and
-     times one tp = 2 shard (``tp_attend_kernels``: rows 1t and 6t), and
-     likewise at the hybrids' heads (``hybrid_tp_kernels``: the paged
-     kernel's rows 1zt, zamba2-1.2b, and 1jt, jamba-tiny-dev; the fixed
-     kernel's, which jamba's fixed loop runs, 6jt).
+     step, the launches.  A disaggregated fleet (one prefill and one
+     decode replica, codec on, loopback, streaming) serves the mix at
+     tp = 1 in the parent and at tp = 2 on the ranks (``disagg_fleet``):
+     the tp = 2 streams equal the monolithic tp = 2 engine's (a
+     divergence only at a near-tie, its margin printed), both ranks
+     equal; wire and raw bytes, ``link_reduction`` at tp 2 against tp 1,
+     the export, chunk, transfer and import ms per handoff.  The kernels
+     phase holds both attention kernels' shard path on every shard of tp
+     2 and 4 and times one tp = 2 shard (``tp_attend_kernels``: rows 1t
+     and 6t), likewise at the hybrids' heads (``hybrid_tp_kernels``: the
+     paged kernel's rows 1zt, zamba2-1.2b, and 1jt, jamba-tiny-dev; the
+     fixed kernel's, which jamba's fixed loop runs, 6jt) and on the MLA
+     latent at deepseek-v2-lite's (``mla_tp_kernels``: rows 1mt, 6mt).
   14. tp_hybrid — the paper's hybrids at tp = 2, two ranks on the one
      card over gloo from seed 0's weights (each rank's tp = 2 shard of
      the tp = 1 tree): a tiny jamba-like model's logits on the card
@@ -270,14 +277,17 @@ non-zero:
      raw and packed); then jamba-tiny-dev (8 layers, attention ∥ Mamba2,
      8 experts top-2: expert parallelism over the compressed all-to-all)
      and zamba2-1.2b (its first 8 of 26 layers, ``TPH_LAYERS``; its 64
-     SSM heads 32 a rank) at full width: 6 prompts of 255-1023 tokens
-     (3 odd: their tails replay), 16 new tokens each, 4 slots, raw and
-     packed (``cuda``),
+     SSM heads 32 a rank) and deepseek-v2-lite-16b (its first
+     ``TPM_LAYERS`` = 4 of 27 layers: MLA's row-parallel latent, 8 of
+     the 16 heads a rank, 64 experts over the all-to-all; ``TPM_MIX``: 4
+     prompts of 255-767 tokens, 6 new tokens) at full width: 4 prompts
+     of 255-1023 tokens (3 odd: their tails replay), 16 new tokens each,
+     4 slots, raw and packed (``cuda``),
      zamba2's with prefix sharing on and a page-aligned prompt served
-     twice (a snapshot hit on both ranks), jamba's fixed loop 4 x 508 +
-     6.  Both ranks' streams equal; packed against raw, each first
-     divergence a near-tie; each rank's packed expert stacks and SSM
-     shards through both weight kernels; per prefill the all-to-all's
+     twice (a snapshot hit on both ranks), jamba's and deepseek's fixed
+     loops 4 x 508 + 6.  Both ranks' streams equal; packed against raw,
+     each first divergence a near-tie; each rank's packed expert stacks
+     and SSM shards through both weight kernels; per prefill the all-to-all's
      dispatch and return and the gathers' wire bytes against raw bf16
      (0 escape overflows in the all-to-alls), ms per prefill and per
      decode step, the launches.  tp = 1 is no yardstick for these
@@ -808,6 +818,7 @@ def kernels_phase(cfg):
     rec["decode_attend"] = fixed_attend_kernel(cfg, gen, "kernels",
                                                also=("gemma2-9b",))
     tp_attend_kernels(cfg, gen, "kernels")
+    mla_tp_kernels(gen, "kernels")
     hybrid_tp_kernels(gen)
     return rec
 
@@ -879,6 +890,36 @@ def tp_attend_kernels(cfg, gen, phase):
     tp_fixed_row(cfg, gen, phase, "6t")
 
 
+MLA_TP_ARCH = "deepseek-v2-lite-16b"
+
+
+def mla_tp_kernels(gen, phase):
+    """Both attention kernels' MLA latent path on the tensor-parallel
+    shard path at deepseek-v2-lite's geometry (16 heads over one latent
+    row of 512 + 64 columns, values its first 512): every shard of tp 2
+    and 4 against the plain versions (``attend_cases.tp_paged_checks`` /
+    ``tp_fixed_checks``, the cases of ``tp_attend_kernels``), then shard
+    0 of tp = 2 timed beside SDPA on the shard's decompressed latent rows
+    (rows ``1mt`` and ``6mt``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attend_cases as AC
+
+    cfg = get_config(MLA_TP_ARCH)
+    g = attend_geom(cfg)
+    t0 = time.perf_counter()
+    err_p, n_p = AC.tp_paged_checks(gen, g.h, g.hd, g.w, g.kw)
+    err_f, n_f = AC.tp_fixed_checks(gen, g.h, g.hd, g.w, g.kw)
+    log(phase, f"MLA x tp at {cfg.name}'s latent (H={g.h}, W={g.w}, lora "
+               f"{g.hd_v}), every shard of tp 2 and 4: decode_attend_paged "
+               f"{n_p} calls and decode_attend {n_f} calls (both launch "
+               f"forms) within 1e-4 of the plain versions, each launched "
+               f"twice bit for bit; max |err| {err_p:.3e} / {err_f:.3e} "
+               f"({time.perf_counter() - t0:.1f}s)")
+    assert max(err_p, err_f) < 1e-4
+    tp_paged_row(cfg, gen, phase, "1mt")
+    tp_fixed_row(cfg, gen, phase, "6mt")
+
+
 def tp_fixed_row(cfg, gen, phase, tag):
     """decode_attend's shard 0 of tp = 2 timed at ``cfg``'s heads on the
     fixed loop's shapes (4 sequences of 1100 global tokens, block 256, k
@@ -916,7 +957,8 @@ def tp_fixed_row(cfg, gen, phase, tag):
         **bound_row(by, 2 * (g.hd + g.hd_v) * b * g.h * loc_len),
         **attend_timing(phase, f"decode_attend tp=2 shard 0 ({cfg.name})",
                         lambda: decode_attend.decode_attend(*fargs, **kw),
-                        sdpa_fn(q, fixed_rows(blocks, ring, loc_len))))
+                        sdpa_fn(q, fixed_rows(blocks, ring, loc_len),
+                                g.kw["mla_lora"])))
     log(phase, f"{tag} decode_attend at {cfg.name}'s heads (H={g.h}/"
                f"{g.hkv}, hd={g.hd}, W={g.w}), shard {ti} of tp {tp} (B={b}, "
                f"global length {length}, shard rows {loc_len}, "
@@ -954,7 +996,8 @@ def tp_paged_row(cfg, gen, phase, tag):
     s_, n = len(loc), blk * g.w
     c = ct.esc_pos.shape[-1]
     lib_fn = sdpa_fn(q, torch.cat([fixed.decompress(ct)[page_ids.long()]
-                                   .reshape(s_, -1, g.w), ring], 1))
+                                   .reshape(s_, -1, g.w), ring], 1),
+                     g.kw["mla_lora"])
     by = (n_live * (n * (1 + k / 8) + c) + sum(L % blk for L in loc) * g.w
           * 2 + q.numel() * 2 + s_ * g.h * (g.hd_v + 2) * 4)
     row = dict(max_abs_err=err, launches=None, plain_ms=cuda_ms(
@@ -1430,9 +1473,9 @@ def weight_shapes(cfg, tp: int = 1):
     """[((K, N), matmuls per decode step)] of the model's packed weights
     that go through decompress_matmul, on one rank of ``tp``: the
     attention projections per layer (wq, wk and wv, wo; MLA's wq, w_dkv,
-    wo), the dense FFN's w_gate and w_up, w_down or a MoE layer's router
-    and shared experts, a hybrid's SSM projections (SSM_MATMULS), and the
-    LM head.  At tp > 1 a column-parallel leaf keeps N / tp columns and a
+    wo, w_dkv row-parallel at tp > 1), the dense FFN's w_gate and w_up,
+    w_down or a MoE layer's router and shared experts, a hybrid's SSM
+    projections (SSM_MATMULS), and the LM head.  At tp > 1 a column-parallel leaf keeps N / tp columns and a
     row-parallel one K / tp rows: wq (over the query heads padded for tp),
     wk and wv in the ``col`` kv mode (K / tp in the ``row`` mode), w_gate,
     w_up, the shared experts' ws_gate and ws_up, the SSM's w_zx and w_dt
@@ -1450,13 +1493,11 @@ def weight_shapes(cfg, tp: int = 1):
         kv_split = col if cfg.n_kv_heads % tp == 0 else row
         shapes = [((d, q), layers, col), ((d, kv), 2 * layers, kv_split),
                   ((q, d), layers, row)]
-    else:
-        assert tp == 1, "MLA at tp > 1 is not served"
-        m = cfg.mla
-        shapes = [((d, cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim)),
-                   layers, col), ((d, m.kv_lora_rank + m.qk_rope_dim),
-                                  layers, col),
-                  ((cfg.n_heads * m.v_dim, d), layers, row)]
+    else:                   # w_dkv row-parallel at tp > 1, as wo
+        m, hq = cfg.mla, cfg.padded_heads(tp)
+        shapes = [((d, hq * (m.qk_nope_dim + m.qk_rope_dim)), layers, col),
+                  ((d, m.kv_lora_rank + m.qk_rope_dim), layers, row),
+                  ((hq * m.v_dim, d), layers, row)]
     f = cfg.d_ff
     if cfg.moe is not None:             # the router is replicated
         shapes.append(((d, cfg.moe.n_experts), layers, (1, 1)))
@@ -4066,6 +4107,23 @@ def tp_teacher_forced(cfg, run, params, reqs, streams, tg=None):
     return [torch.from_numpy(x) for x in out], wires, clock
 
 
+def forced_as_served(cfg, run, params, reqs, feeds, tg=None, slots=4):
+    """``tp_teacher_forced`` of ``reqs`` fed ``feeds`` in groups of the
+    served engine's ``slots``, each group padded with copies of its first
+    request: every decode step then has the served run's rows (the
+    decode route's split-K plan and the GEMMs depend on the rows), so a
+    path forced with a served stream reproduces that run's numbers.
+    Returns the logits of ``reqs`` only."""
+    out = []
+    for i in range(0, len(reqs), slots):
+        r, f = list(reqs[i:i + slots]), list(feeds[i:i + slots])
+        n = len(r)
+        r += [r[0]] * (slots - n)
+        f += [f[0]] * (slots - n)
+        out += tp_teacher_forced(cfg, run, params, r, f, tg)[0][:n]
+    return out
+
+
 def tp_fixed_forced(cfg, run, params, prompts, tokens, max_len, tg=None):
     """The fixed loop (``engine.prefill`` + ``engine.decode_step``) with
     ``tokens`` (B, T) fed in place of its own greedy picks: the whole-vocab
@@ -4083,6 +4141,74 @@ def tp_fixed_forced(cfg, run, params, prompts, tokens, max_len, tg=None):
                                     tg)
         rows.append(cl.all_gather(logits[:, -1], tg, axis=-1))
     return torch.stack(rows, 1).float().cpu()
+
+
+HANDOFF_SPANS = ("export", "wire_chunk", "wire", "import")
+
+
+def disagg_fleet(cfg, run, params, reqs, tg=None):
+    """A ``DisaggEngine`` fleet (one prefill and one decode replica of 4
+    slots, loopback transport, streaming on; at tp > 1 every rank its
+    shard, ``group=tg``) on ``reqs``, from ``params`` (the monolithic
+    engine's), traced: its streams, stats, wall time, launches and each
+    handoff span's host ms (``HANDOFF_SPANS``: the blob's export, the
+    streamed chunks, the closing blob's transfer, the import)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.disagg import DisaggEngine
+    from repro_torch.serve.scheduler import Request
+    from repro_torch.serve.telemetry import Tracer
+
+    tr = Tracer(True)
+    fleet = DisaggEngine(cfg, run, group=tg, n_slots=4,
+                         max_len=4 * TP_BLK * 2, params=params,
+                         streaming=True, tracer=tr, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results, st = fleet.run([Request(**r) for r in reqs])
+    torch.cuda.synchronize()
+    out = dict(streams=[list(r.tokens) for r in results],
+               wall_s=time.perf_counter() - t0,
+               launches=ops.launch_counts(),
+               stats=dict(st.__dict__, link_reduction=st.link_reduction),
+               spans={k: [e["dur"] / 1e6 for e in tr.events
+                          if e["name"] == k] for k in HANDOFF_SPANS})
+    del fleet
+    torch.cuda.empty_cache()
+    return out
+
+
+def disagg_line(d) -> str:
+    """A fleet's link bytes and handoff times (``disagg_fleet``)."""
+    st, sp = d["stats"], d["spans"]
+    n = max(st["n_transfers"], 1)
+    per = ", ".join(f"{k} {sum(v) / n:.1f} ms" for k, v in sp.items())
+    return (f"{st['n_transfers']} transfers: wire {st['wire_bytes']} B "
+            f"against {st['wire_raw_bytes']} B raw bf16 (link_reduction "
+            f"{st['link_reduction']:.4f}; {st['pages_streamed']} pages "
+            f"streamed in {st['stream_chunk_bytes']} B); host ms per "
+            f"handoff: {per}; wall {d['wall_s']:.2f}s, "
+            f"{st['tokens_per_s']:.2f} tok/s; launches {d['launches']}")
+
+
+def tp_disagg_fleet(tg, cfg, run, eng, reqs, mono):
+    """The tp phase's fleet at tp = 2 (``disagg_fleet`` on ``eng``'s
+    weights) against ``eng``'s monolithic streams ``mono`` of the same
+    mix: at each request's first divergence, its common prefix
+    teacher-forced through the paged path (``tp_teacher_forced``) and the
+    top-2 margin there returned for the parent's near-tie check."""
+    out = disagg_fleet(cfg, run, eng.params, reqs, tg)
+    out["ties"] = []
+    for a, b, r in zip(out["streams"], mono, reqs):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        logits = forced_as_served(cfg, run, eng.params, [r], [b[:j + 1]],
+                                  tg)
+        m, _, _ = logit_margins(logits[0][j, :cfg.vocab_size],
+                                logits[0][j, :cfg.vocab_size])
+        out["ties"].append((r["uid"], j, a[j], b[j], m))
+    return out
 
 
 def tp_rank_job(tg, cfg, want_streams, want_fixed):
@@ -4145,6 +4271,8 @@ def tp_rank_job(tg, cfg, want_streams, want_fixed):
                 cfg, eng.params, e.params, gen, f"tp rank {tg.rank}",
                 tp=tg.world, stacks=True)
             del e
+    res["disagg"] = tp_disagg_fleet(tg, cfg, run, eng, reqs,
+                                    res["raw"]["streams"])
     # the fixed loop (engine.prefill + decode_step), eager at tp > 1
     b, s, n = TP_FIXED
     prompts = torch.as_tensor(tp_fixed_prompts(cfg), device="cuda")
@@ -4305,6 +4433,9 @@ def tp_phase(cfg, smi):
                                          want)
     fixed1_pk = tp_fixed_forced(cfg, pk.run_cfg, pk.params, prompts,
                                 want_fixed, max_len).numpy()
+    fleet1 = disagg_fleet(cfg, run, eng.params, reqs)
+    same1 = sum(x == y for a, b_ in zip(fleet1["streams"], want)
+                for x, y in zip(a, b_))
     v = cfg.vocab_size
     gap1 = max([float((a[:, :v] - b_[:, :v]).abs().max())
                 for a, b_ in zip(forced1, forced1_pk)]
@@ -4317,6 +4448,10 @@ def tp_phase(cfg, smi):
               f"{gap1:.6g} (the reorder gap), so tp = 2 is held within "
               f"{TP_GAP_FACTOR:g} x {gap1:.6g} = {bound:.6g} "
               f"({time.perf_counter() - t_phase:.1f}s) | {smi}")
+    log("tp", f"tp = 1 fleet (1 prefill -> 1 decode replica, streaming) "
+              f"on the same mix: {same1}/{sum(map(len, want))} tokens "
+              f"equal to the monolithic tp = 1 engine's; "
+              f"{disagg_line(fleet1)} | {smi}")
     del eng, pk, results
     gc.collect()
     torch.cuda.empty_cache()
@@ -4372,6 +4507,29 @@ def tp_phase(cfg, smi):
                   f"weights {r['weight_bytes']} B / {r['weight_raw']} B raw "
                   f"per rank and step, compressed gathers {r['wire']}, "
                   f"launches {r['launches']} | {smi}")
+    # the disaggregated fleet at tp = 2 against the monolithic tp = 2
+    d0, d1 = r0["disagg"], r1["disagg"]
+    assert d0["streams"] == d1["streams"]
+    assert d0["stats"]["wire_bytes"] == d1["stats"]["wire_bytes"]
+    for uid, j, tok_f, tok_m, margin in d0["ties"]:
+        tie = margin <= bound
+        log("tp", f"disagg tp 2 vs monolithic tp 2, request {uid} first "
+                  f"divergence at token {j} (fleet {tok_f}, monolithic "
+                  f"{tok_m}): top-2 margin there {margin:.4g} (the reorder "
+                  f"bound {bound:.4g}): "
+                  f"{'near-tie' if tie else 'MARGIN ABOVE THE BOUND'}")
+        assert tie, (uid, j, margin, bound)
+    same = sum(x == y for a, b_ in zip(d0["streams"], r0["raw"]["streams"])
+               for x, y in zip(a, b_))
+    lr1, lr2 = (fleet1["stats"]["link_reduction"],
+                d0["stats"]["link_reduction"])
+    log("tp", f"disagg fleet at tp = 2 (1 prefill -> 1 decode replica, "
+              f"streaming, each rank's pages in the blob): both ranks' "
+              f"streams equal; {same}/{sum(map(len, d0['streams']))} "
+              f"tokens equal to the monolithic tp = 2 engine's; "
+              f"{disagg_line(d0)}; link_reduction tp 2 {lr2:.4f} vs tp 1 "
+              f"{lr1:.4f} on the same prompts (wire/raw {1 - lr2:.4f} vs "
+              f"{1 - lr1:.4f}) | {smi}")
     f = r0["fixed"]
     log("tp", f"fixed loop {b} x {s} + {n} steps: {f['wall_s']:.2f}s, "
               f"launches {f['launches']}, gathers {f['wire']} | {smi}")
@@ -4406,7 +4564,7 @@ def tp_phase(cfg, smi):
     assert r0["fixed"]["launches"]["decode_attend"] > 0
     log("tp", f"phase done in {time.perf_counter() - t_phase:.1f}s | {smi}")
     launches = dict(r0["raw"]["launches"])
-    for part in (r0["packed"]["launches"], f["launches"]):
+    for part in (r0["packed"]["launches"], f["launches"], d0["launches"]):
         for k_, v_ in part.items():
             launches[k_] += v_
     return launches
@@ -4417,15 +4575,20 @@ def tp_phase(cfg, smi):
 # compressed all-to-all, column-sharded Mamba2 heads), two ranks on the card
 # ---------------------------------------------------------------------------
 
-TPH_ARCHS = ("jamba-tiny-dev", "zamba2-1.2b")
+TPH_ARCHS = ("jamba-tiny-dev", "zamba2-1.2b", MLA_TP_ARCH)
 # depth cuts for the time limit (width kept): zamba2-1.2b runs its first
-# 8 of 26 layers here (as the hybrid phase does at tp = 1)
-TPH_LAYERS = {"zamba2-1.2b": 8}
+# 8 of 26 layers here (as the hybrid phase does at tp = 1), deepseek its
+# first TPM_LAYERS of 27 (at most the moe_mla phase's MOE_MLA_LAYERS)
+TPM_LAYERS = 4
+TPH_LAYERS = {"zamba2-1.2b": 8, MLA_TP_ARCH: TPM_LAYERS}
 TPH_BLK = 256
-# 6 prompts of 255 .. 1023 tokens, 3 odd (their one-token tails replay
+# 4 prompts of 255 .. 1023 tokens, 3 odd (their one-token tails replay
 # through decode steps at tp = 2), 16 new tokens each, over 4 slots
-TPH_MIX = ((512, 16), (255, 16), (1023, 16), (768, 16), (385, 16),
-           (640, 16))
+TPH_MIX = ((512, 16), (255, 16), (1023, 16), (385, 16))
+# deepseek's mix at tp = 2: 4 prompts of 255 .. 767 tokens, 2 odd, 6 new
+# tokens each (its MoE layers' all-to-alls cross host memory twice a
+# layer and step)
+TPM_MIX = ((512, 6), (255, 6), (767, 6), (384, 6))
 TPH_MAXLEN = 4 * TPH_BLK * 2
 TPH_FIXED = (4, 508, 6)        # jamba's fixed loop: B, prompt, steps
 
@@ -4444,12 +4607,14 @@ def tph_cfg(name):
 
 
 def tph_mix(cfg):
-    """The phase's requests from seed 1."""
+    """The phase's requests from seed 1 (TPM_MIX for MLA, else
+    TPH_MIX)."""
     import numpy as np
     rng = np.random.default_rng(1)
+    mix = TPM_MIX if cfg.mla is not None else TPH_MIX
     return [dict(uid=i, prompt=rng.integers(0, cfg.vocab_size, (s,))
                  .astype(np.int32), max_new_tokens=b)
-            for i, (s, b) in enumerate(TPH_MIX)]
+            for i, (s, b) in enumerate(mix)]
 
 
 def tiny_jamba_cfg():
@@ -4515,7 +4680,7 @@ def tph_model(tg, cfg, gen):
     sharing, request 0 again (a snapshot hit); both weight kernels
     on this rank's packed shards (``packed_leaf_checks``); each request
     whose packed stream parts from the raw one teacher-forced through both
-    weight stores up to its first divergence (``tp_teacher_forced``); a MoE
+    weight stores up to its first divergence (``forced_as_served``); a MoE
     model's fixed loop."""
     import dataclasses as dc
     import torch
@@ -4579,8 +4744,8 @@ def tph_model(tg, cfg, gen):
     out["ties"] = []
     if parts:
         preqs, _, fed = zip(*parts)
-        sides = [tp_teacher_forced(cfg, e.run_cfg, e.params, preqs, fed,
-                                   tg)[0] for e in (eng, pk)]
+        sides = [forced_as_served(cfg, e.run_cfg, e.params, preqs, fed, tg)
+                 for e in (eng, pk)]
         for (r, j, _), lr, lp in zip(parts, *sides):
             m_raw, m_pk, gap = logit_margins(lr[-1, :cfg.vocab_size],
                                              lp[-1, :cfg.vocab_size])
@@ -4705,9 +4870,15 @@ def tp_hybrid_phase(smi):
         n_tok = sum(map(len, a["raw"]["streams"]))
         log("tp_hybrid", f"{name} ({cfg.n_layers} layers, d {cfg.d_model}, "
                          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
-                         f"{cfg.head_dim}, SSM {cfg.ssm.n_heads(cfg.d_model)}"
-                         f" heads x {cfg.ssm.headdim}, d_state "
-                         f"{cfg.ssm.d_state}"
+                         f"{cfg.head_dim}"
+                         + (f", SSM {cfg.ssm.n_heads(cfg.d_model)} heads x "
+                            f"{cfg.ssm.headdim}, d_state {cfg.ssm.d_state}"
+                            if cfg.ssm else "")
+                         + (f", MLA latent {cfg.mla.kv_lora_rank} + "
+                            f"{cfg.mla.qk_rope_dim}, each rank "
+                            f"{cfg.padded_heads(2) // 2} of the "
+                            f"{cfg.n_heads} heads, w_dkv row-parallel"
+                            if cfg.mla else "")
                          + (f", {cfg.moe.n_experts} experts top-"
                             f"{cfg.moe.top_k}" if cfg.moe else "")
                          + f"): both ranks' streams equal, raw and packed; "
@@ -4731,7 +4902,7 @@ def tp_hybrid_phase(smi):
                              f"at M=4 {errs[4]:.3e}, at M=1024 "
                              f"{errs[1024]:.3e}; lexi_unpack exact on the "
                              f"raw-read leaves and expert stacks")
-        if cfg.moe is None:
+        if cfg.moe is None and cfg.mla is None:
             for key in ("raw", "packed"):
                 for rank, r in enumerate(ranks):
                     assert r[name][key]["hits"] > 0, (name, key, rank)

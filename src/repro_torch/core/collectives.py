@@ -221,6 +221,16 @@ def gather_objects(obj, tg) -> list:
     return out
 
 
+def broadcast_object(obj, tg, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` on every rank (the others pass
+    anything, e.g. None)."""
+    if world(tg) == 1:
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(box, src=src)
+    return box[0]
+
+
 # ---------------------------------------------------------------------------
 # plain collectives
 # ---------------------------------------------------------------------------

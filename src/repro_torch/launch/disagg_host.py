@@ -19,21 +19,27 @@ Roles:
              processes are equal and the streams identical across the
              socket).
 
+``--tp N --dist-backend gloo|nccl`` runs either role on N ranks
+(``launch.mesh.spawn``): each rank holds its shard of every replica, a
+decode host's rank 0 holds the socket and runs each call on every rank
+(``serve.disagg.GroupReplica``), a driver's rank 0 talks to the hosts
+and hands every rank their answers; the blobs carry every rank's pages.
+
 Both processes must be launched with the same model, codec, geometry and
-seed flags: the hello handshake compares a configuration fingerprint
-(``serve.net.framing.config_fingerprint``, the reference's bytes) and
-refuses the session otherwise.  Each process draws its weights from the
-seed on its own device (``--device``, default ``cuda``; a missing GPU
-raises).  The backends default to ``auto``, the only value the reference
-shares, so that a reference driver and a port host agree on the
-fingerprint.
+seed flags (``--tp`` too): the hello handshake compares a configuration
+fingerprint (``serve.net.framing.config_fingerprint``, the reference's
+bytes) and refuses the session otherwise. Each process draws its weights
+from the seed on its own device (``--device``, default ``cuda``; a
+missing GPU raises). The backends default to ``auto``, the only value
+the reference shares, so that a reference driver and a port host agree
+on the fingerprint.
 
     PYTHONPATH=src python -m repro_torch.launch.disagg_host --role decode \\
         --model tiny-bench --codec on --port 7070
     PYTHONPATH=src python -m repro_torch.launch.disagg_host --role driver \\
         --model tiny-bench --codec on --decode-addr 127.0.0.1:7070 --check
     PYTHONPATH=src python -m repro_torch.launch.disagg_host --selftest \\
-        --device cpu
+        --device cpu [--tp 2 --dist-backend gloo]
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ def build_cfg_run(args):
     if args.model == "tiny-bench":
         cfg = tiny_bench_config()
     elif args.reduced:
-        cfg = make_reduced(get_config(args.model), tp=1)
+        cfg = make_reduced(get_config(args.model), tp=args.tp)
     else:
         cfg = get_config(args.model)
     if args.layers is not None:
@@ -87,7 +93,7 @@ def build_cfg_run(args):
 
 def _fingerprint(args, cfg, run) -> bytes:
     from repro_torch.serve.net.framing import config_fingerprint
-    return config_fingerprint(cfg, run.codec, 1, args.slots,
+    return config_fingerprint(cfg, run.codec, args.tp, args.slots,
                               args.max_len, args.seed, eos_id=args.eos_id)
 
 
@@ -141,9 +147,9 @@ def demo_requests(cfg, args) -> List:
     rng = np.random.default_rng(args.seed)
     v = cfg.vocab_size
     plen = min(args.prompt_len, args.max_len - 2 * args.new_tokens)
-    plen = max(plen, 1)
+    plen = max(plen, args.tp)
     base_a = rng.integers(0, v, (plen,)).astype(np.int32)
-    base_b = rng.integers(0, v, (max(1, plen * 2 // 3),)
+    base_b = rng.integers(0, v, (max(args.tp, plen * 2 // 3),)
                           ).astype(np.int32)
     forked = np.concatenate([base_a[:plen * 2 // 3],
                              rng.integers(0, v, (plen - plen * 2 // 3,)
@@ -160,16 +166,51 @@ def demo_requests(cfg, args) -> List:
 # ---------------------------------------------------------------------------
 
 
-def run_decode_host(args) -> int:
+def _on_ranks(role, args, *extra) -> int:
+    """Run ``role(args, *extra, tg=...)`` on ``--tp`` spawned ranks (one
+    rank: in this process); rank 0 prints."""
+    if args.tp == 1:
+        return role(args, *extra)
+    from repro_torch.launch import mesh
+    return max(mesh.spawn(_rank, args.tp, backend=args.dist_backend,
+                          device=args.device, args=(role, args) + extra))
+
+
+def _rank(tg, role, args, *extra) -> int:
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()) if tg.rank \
+            else contextlib.nullcontext():
+        return role(args, *extra, tg=tg)
+
+
+def _device(args, tg):
+    import torch
+    return torch.device(args.device) if tg is None else tg.device
+
+
+def run_decode_host(args, tg=None) -> int:
+    """Serve one decode replica behind a TCP listener; at tp > 1 rank 0
+    listens and the other ranks follow its calls."""
     from repro_torch.serve import DecodeReplica, PageHost, ServeEngine
+    from repro_torch.serve.disagg import GroupReplica, follow
     cfg, run = build_cfg_run(args)
-    eng = ServeEngine(cfg, run, n_slots=args.slots, max_len=args.max_len,
-                      seed=args.seed, eos_id=args.eos_id,
-                      store_pages=args.store_pages,
+    eng = ServeEngine(cfg, run, tp=args.tp, group=tg, n_slots=args.slots,
+                      max_len=args.max_len, seed=args.seed,
+                      eos_id=args.eos_id, store_pages=args.store_pages,
                       compress_weights=args.compress_weights,
-                      device=args.device)
-    host = PageHost(DecodeReplica(eng), _fingerprint(args, cfg, run),
+                      device=_device(args, tg))
+    replica = DecodeReplica(eng)
+    if tg is not None and tg.rank:
+        follow(replica, tg)
+        return 0
+    if tg is not None:
+        replica = GroupReplica(replica, tg)
+    host = PageHost(replica, _fingerprint(args, cfg, run),
                     max_store_pages=args.store_pages)
+    if tg is not None:
+        # the transport store lives on rank 0: no remote tier at tp > 1
+        eng.cache.remote_fetch = None
     listener = socket.create_server((args.host, args.port))
     actual = listener.getsockname()[1]
     print(f"READY host={args.host} port={actual} "
@@ -178,33 +219,39 @@ def run_decode_host(args) -> int:
         host.serve_forever(listener, once=args.once)
     finally:
         listener.close()
+        if tg is not None:
+            replica.close()
     return 0
 
 
-def run_driver(args, expect_params: Optional[str] = None) -> int:
+def run_driver(args, expect_params: Optional[str] = None, tg=None) -> int:
     """Serve the demo stream through remote decode hosts.  With
-    ``expect_params`` (a host's ``param_digest``) the driver's own weights
-    must have the same digest."""
+    ``expect_params`` (a host's ``param_digest``; at tp > 1 its rank 0's)
+    the driver's own weights (rank 0's) must have the same digest."""
+    from repro_torch.core import collectives as cl
     from repro_torch.serve import DisaggEngine, ServeEngine, SocketTransport
     from repro_torch.serve.disagg import format_disagg_stats
     from repro_torch.serve.telemetry import Tracer
     cfg, run = build_cfg_run(args)
     addrs = [a for a in args.decode_addr.split(",") if a]
-    transport = SocketTransport()
-    tracer = Tracer(enabled=args.trace_out is not None)
-    eng = DisaggEngine(cfg, run, n_prefill=args.prefill_replicas,
+    root = tg is None or tg.rank == 0
+    tracer = Tracer(enabled=args.trace_out is not None and root)
+    eng = DisaggEngine(cfg, run, tp=args.tp, group=tg,
+                       n_prefill=args.prefill_replicas,
                        n_slots=args.slots, max_len=args.max_len,
                        seed=args.seed, eos_id=args.eos_id,
-                       transport=transport, streaming=args.streaming,
-                       decode_addrs=addrs, store_pages=args.store_pages,
+                       transport=SocketTransport() if root else None,
+                       streaming=args.streaming, decode_addrs=addrs,
+                       store_pages=args.store_pages,
                        compress_weights=args.compress_weights,
-                       tracer=tracer, device=args.device)
+                       tracer=tracer, device=_device(args, tg))
     if expect_params is not None:
-        mine = param_digest(eng.params)
+        mine = cl.broadcast_object(param_digest(eng.params) if root
+                                   else None, tg)
         if mine != expect_params:
             print(f"[disagg_host] PARAMS MISMATCH: driver {mine}, decode "
                   f"host {expect_params}")
-            transport.close()
+            eng.transport.close()
             return 1
         print(f"[disagg_host] params equal in both processes ({mine})")
     reqs = demo_requests(cfg, args)
@@ -212,21 +259,22 @@ def run_driver(args, expect_params: Optional[str] = None) -> int:
     # fleet metrics fold the remote replicas' METRICS RPC snapshots, so
     # query them before the session closes
     snap = eng.metrics_snapshot() if args.metrics_json else None
-    transport.close()
-    if args.trace_out:
+    eng.transport.close()
+    if args.trace_out and root:
         tracer.write(args.trace_out)
         print(f"[disagg_host] trace -> {args.trace_out} "
               f"({len(tracer.events)} spans)")
-    if snap is not None:
+    if snap is not None and root:
         import json
         with open(args.metrics_json, "w") as f:
             json.dump(snap, f, indent=1)
         print(f"[disagg_host] metrics -> {args.metrics_json}")
     print("[disagg_host] socket:", format_disagg_stats(st))
     if args.check:
-        mono = ServeEngine(cfg, run, n_slots=args.slots,
-                           max_len=args.max_len, params=eng.params,
-                           eos_id=args.eos_id, device=args.device)
+        mono = ServeEngine(cfg, run, tp=args.tp, group=tg,
+                           n_slots=args.slots, max_len=args.max_len,
+                           params=eng.params, eos_id=args.eos_id,
+                           device=_device(args, tg))
         res_m, _ = mono.run(demo_requests(cfg, args))
         for x, y in zip(res_m, results):
             if x.tokens != y.tokens or x.stop_reason != y.stop_reason:
@@ -311,7 +359,9 @@ def run_selftest(args) -> int:
                   "--decode-backend", args.decode_backend,
                   "--weight-backend", args.weight_backend,
                   "--store-pages", str(args.store_pages),
-                  "--device", args.device]
+                  "--device", args.device, "--tp", str(args.tp)]
+    if args.dist_backend is not None:
+        model_args += ["--dist-backend", args.dist_backend]
     if not args.reduced:
         model_args += ["--no-reduced"]
     if args.layers is not None:
@@ -324,7 +374,7 @@ def run_selftest(args) -> int:
     try:
         args.decode_addr = f"127.0.0.1:{port}"
         args.check = True
-        return run_driver(args, expect_params=params)
+        return _on_ranks(run_driver, args, params)
     finally:
         stop_child(proc)
 
@@ -365,6 +415,13 @@ def main(argv=None) -> int:
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks of every replica (one "
+                         "process each)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default=None,
+                    help="--tp > 1: the process group's backend (gloo for "
+                         "ranks that share a card or the CPU)")
     # decode-host flags
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0,
@@ -398,14 +455,16 @@ def main(argv=None) -> int:
                          "here")
     args = ap.parse_args(argv)
 
+    if args.tp > 1 and args.dist_backend is None:
+        ap.error("--tp > 1 needs --dist-backend nccl or gloo")
     if args.selftest:
         return run_selftest(args)
     if args.role == "decode":
-        return run_decode_host(args)
+        return _on_ranks(run_decode_host, args)
     if args.role == "driver":
         if not args.decode_addr:
             ap.error("--role driver needs --decode-addr")
-        return run_driver(args)
+        return _on_ranks(run_driver, args)
     ap.error("pick --role decode|driver or --selftest")
 
 

@@ -41,11 +41,14 @@ process, joined by the loopback page transport (multi-process serving:
 or CUDA tensors staged through host memory, e.g. two ranks on one card,
 which NCCL refuses).  Each rank serves the same requests on its shard of
 the weights (the seed's tp = 1 weights padded for tp, ``models.params.
-pad_for_tp``); rank 0 prints.  Every family but MLA; a dense model is
-the same function at every tp, so it prints tp = 1's continuations, while
-the SSM and MoE families compute the reference's tp-dependent function
-(``models/ssm.py``, ``models/moe.py``) and print tp's own.  ``--disagg``
-stays at tp = 1.
+pad_for_tp``); rank 0 prints.  Every family but the encoder-decoder,
+the VLM and the attention-free model (refused before any rank starts,
+``models.blocks.check_tp``); a dense model is the same function at every
+tp, so it prints tp = 1's continuations, while the SSM and MoE families
+(MLA's too) compute the reference's tp-dependent function
+(``models/ssm.py``, ``models/moe.py``) and print tp's own.  ``--disagg
+--tp N`` runs every replica of the fleet on the N ranks
+(``DisaggEngine(group=)``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from repro_torch.configs import get_config, make_reduced
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.collectives import CodecConfig
 from repro_torch.kernels.ops import DECODE_BACKENDS, WEIGHT_BACKENDS
+from repro_torch.models.blocks import check_tp
 
 
 def main(argv=None) -> int:
@@ -127,12 +131,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.tp < 1:
         ap.error("--tp must be >= 1")
-    if args.tp > 1:
-        if args.dist_backend is None:
-            ap.error("--tp > 1 needs --dist-backend nccl or gloo")
-        if args.disagg:
-            ap.error("--disagg runs at tp = 1 (disaggregated serving at "
-                     "tp > 1 is not ported yet)")
+    if args.tp > 1 and args.dist_backend is None:
+        ap.error("--tp > 1 needs --dist-backend nccl or gloo")
 
     codec = (CodecConfig() if args.codec == "full" else CodecConfig.off())
     run = RunConfig(codec=dataclasses.replace(
@@ -143,6 +143,10 @@ def main(argv=None) -> int:
         cfg = make_reduced(cfg)
     if args.compress_weights and not (args.continuous or args.disagg):
         ap.error("--compress-weights needs --continuous or --disagg")
+    try:                       # before any rank spawns
+        check_tp(cfg, args.tp)
+    except NotImplementedError as e:
+        ap.error(str(e))
     if args.tp > 1:
         return _spawn_ranks(cfg, run, args)
     if args.continuous or args.disagg:
@@ -175,7 +179,7 @@ def _rank(tg, cfg, run: RunConfig, args) -> int:
     quiet = tg.rank != 0
     with contextlib.redirect_stdout(io.StringIO()) if quiet \
             else contextlib.nullcontext():
-        if args.continuous:
+        if args.continuous or args.disagg:
             return _serve_continuous(cfg, run, args, tg)
         return _serve_fixed(cfg, run, args, tg)
 
@@ -278,15 +282,16 @@ def _serve_continuous(cfg, run: RunConfig, args, tg=None) -> int:
              if args.stop_seq else None)
     if args.disagg:
         from repro_torch.serve.disagg import DisaggEngine, format_disagg_stats
-        eng = DisaggEngine(cfg, run, n_prefill=args.prefill_replicas,
+        eng = DisaggEngine(cfg, run, group=tg,
+                           n_prefill=args.prefill_replicas,
                            n_decode=args.decode_replicas,
                            n_slots=args.slots, max_len=max_len,
                            seed=run.seed, eos_id=args.eos_id,
                            stop_seqs=stops, streaming=args.streaming,
                            compress_weights=args.compress_weights,
-                           device=args.device)
+                           device=_rank_device(args, tg))
         results, st = eng.run(reqs)
-        print("[serve] disagg:", format_disagg_stats(st))
+        print(f"[serve] disagg (tp {tp}):", format_disagg_stats(st))
     else:
         eng = ServeEngine(cfg, run, group=tg, n_slots=args.slots,
                           max_len=max_len, seed=run.seed, eos_id=args.eos_id,

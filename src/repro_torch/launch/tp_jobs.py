@@ -1,6 +1,7 @@
 """What the ranks of a spawned group run (``launch.mesh.spawn(fn, world,
 ...)`` calls ``fn(group, *args)`` on each rank): serving through
-``ServeEngine(tp=...)`` and the paged path teacher-forced, the
+``ServeEngine(tp=...)`` and the paged path teacher-forced, a
+``DisaggEngine(group=)`` fleet and a decode replica fed wire blobs, the
 fixed-batch loop, one layer's SSM and MoE functions, the compressed
 collectives and their differentiable wrappers on given inputs, the fused
 gradient sync, and training steps at data = world, each on weights or inputs
@@ -230,6 +231,80 @@ def serve(tg, cfg, run, requests: List[Dict[str, Any]],
     if spec.get("packed_leaves"):
         res["packed"] = _packed_leaves(eng.params)
     return res
+
+
+def disagg(tg, cfg, run, requests: List[Dict[str, Any]],
+           spec: Dict[str, Any]) -> Dict[str, Any]:
+    """A ``DisaggEngine(group=tg)`` fleet on this rank (its replicas in
+    one process, a loopback transport): ``requests`` as in ``serve``,
+    ``spec`` the fleet's keywords (``engine``: n_prefill, n_decode,
+    n_slots, max_len, streaming, compress_weights, ...), ``params`` and
+    ``device`` as in ``serve``, ``blobs`` (record each handoff's closing
+    blob, serialized with no dedup, and its request, in export order)
+    and ``mono`` (also serve the requests on a monolithic
+    ``ServeEngine`` on the same weights).  Returns the streams, the
+    fleet's stats (with ``link_reduction``), the recorded blobs and the
+    monolithic streams."""
+    from repro_torch.serve.disagg import DisaggEngine
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    device = torch.device(spec.get("device", "cpu"))
+    kw = dict(spec.get("engine", {}))
+    eng = DisaggEngine(cfg, run, group=tg, device=device,
+                       params=_params_for(tg, cfg, spec, device), **kw)
+    blobs: List[Dict[str, Any]] = []
+    if spec.get("blobs"):
+        for pr in eng.prefills:
+            def export(s, pr=pr, orig=pr._export_blob):
+                blob, req = orig(s), pr.ls.slot_req[s]
+                blobs.append(dict(req=dict(
+                    uid=req.uid, prompt=np.asarray(req.prompt),
+                    max_new_tokens=req.max_new_tokens),
+                    wire=blob.to_wire()[0]))
+                return blob
+            pr._export_blob = export
+    results, st = eng.run([Request(**r) for r in requests])
+    res = dict(streams=[(list(r.tokens), r.stop_reason) for r in results],
+               stats=dict(st.__dict__, link_reduction=st.link_reduction),
+               blobs=blobs)
+    if spec.get("mono"):
+        mono = ServeEngine(cfg, run, group=tg, device=device,
+                           params=eng.params,
+                           n_slots=kw.get("n_slots", 4),
+                           max_len=kw.get("max_len", 256),
+                           max_fuse_steps=kw.get("max_fuse_steps", 32))
+        out, _ = mono.run([Request(**r) for r in requests])
+        res["mono"] = [(list(r.tokens), r.stop_reason) for r in out]
+    return res
+
+
+def decode_blobs(tg, cfg, run, handoffs: List[Dict[str, Any]],
+                 spec: Dict[str, Any]) -> Dict[int, Any]:
+    """A decode replica of ``ServeEngine(group=tg, **spec["engine"])`` fed
+    wire blobs (another implementation's prefill replica's: ``handoffs``
+    as dicts of ``req`` (``Request`` fields) and ``wire``, the closing
+    blob's bytes), parsed by the port's ``SequenceBlob.from_wire``; each
+    rank imports its shard as slots free and decodes to the end.  Returns
+    each request's (tokens, stop reason) by uid."""
+    from repro_torch.serve.disagg import DecodeReplica, Handoff
+    from repro_torch.serve.scheduler import Request, ServeEngine
+    from repro_torch.serve.transport import SequenceBlob
+
+    device = torch.device(spec.get("device", "cpu"))
+    dec = DecodeReplica(ServeEngine(
+        cfg, run, group=tg, device=device,
+        params=_params_for(tg, cfg, spec, device), **spec.get("engine", {})))
+    pending = list(handoffs)
+    out: Dict[int, Any] = {}
+    while pending or not dec.idle():
+        while pending and dec.free_slots():
+            h = pending.pop(0)
+            dec.import_handoff(Handoff(
+                req=Request(**h["req"]), admit_t=0.0,
+                blob=SequenceBlob.from_wire(h["wire"])))
+        for r in dec.step_window():
+            out[r.uid] = (list(r.tokens), r.stop_reason)
+    return out
 
 
 def fixed(tg, cfg, run, prompts: np.ndarray, new_tokens: int, max_len: int,

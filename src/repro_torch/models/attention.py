@@ -16,7 +16,18 @@ Prefill's attention output is a partial o-projection (rows of ``wo`` per
 rank) that the block reduce-scatters.  Decode gathers q (and, in ``col``,
 the new k/v) to full heads -- the cache is sequence-sharded and holds
 every head -- and ``decode_out`` applies the rank's heads' ``wo`` rows to
-the merged attention.  MLA runs at tp = 1 only.
+the merged attention.
+
+MLA at tp > 1 (the reference's specs, ``repro/models/attention.py:
+75-84``): ``wq``, ``w_uk`` and ``w_uv`` are column-sharded by query head,
+``w_dkv`` and ``wo`` row-sharded.  The latent is the rank's d_model slice
+of x times its rows of ``w_dkv``, summed in f32 over the group and
+rounded to bf16 once (``:171-215``, ``:271-297``), so every rank holds
+the whole latent; the cache keeps the rank's interleaved rows of it.
+Decode absorbs q through the rank's ``w_uk`` heads and gathers q over
+heads, so every rank attends all heads over its own latent rows;
+``decode_out`` takes the rank's heads through its ``w_uv`` slice, then
+its rows of ``wo`` (``:335-352``).
 
 MLA: the cache stores one latent row per token, c_kv ‖ k_rope (lora +
 rope wide, shared by every head; LEXI compresses the latent).  Prefill
@@ -74,21 +85,17 @@ def kv_mode(cfg: ModelConfig, tp: int) -> str:
 def attn_table(cfg: ModelConfig, tp: int = 1) -> Dict[str, PDef]:
     d, hd = cfg.d_model, cfg.head_dim
     hq, nkv = cfg.padded_heads(tp), cfg.n_kv_heads
+    col, row, rep = (None, "model"), ("model", None), ()
     if cfg.mla is not None:
-        if tp > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA at tp > 1 waits for its slice (ROADMAP.md, "
-                "queue 1, item 3)")
         m = cfg.mla
         return {
-            "wq": PDef((d, hq * (m.qk_nope_dim + m.qk_rope_dim))),
-            "w_dkv": PDef((d, m.kv_lora_rank + m.qk_rope_dim)),
+            "wq": PDef((d, hq * (m.qk_nope_dim + m.qk_rope_dim)), spec=col),
+            "w_dkv": PDef((d, m.kv_lora_rank + m.qk_rope_dim), spec=row),
             "kv_norm": PDef((m.kv_lora_rank,), "ones"),
-            "w_uk": PDef((m.kv_lora_rank, hq * m.qk_nope_dim)),
-            "w_uv": PDef((m.kv_lora_rank, hq * m.v_dim)),
-            "wo": PDef((hq * m.v_dim, d)),
+            "w_uk": PDef((m.kv_lora_rank, hq * m.qk_nope_dim), spec=col),
+            "w_uv": PDef((m.kv_lora_rank, hq * m.v_dim), spec=col),
+            "wo": PDef((hq * m.v_dim, d), spec=row),
         }
-    col, row, rep = (None, "model"), ("model", None), ()
     kv = col if kv_mode(cfg, tp) == "col" else row
     t: Dict[str, PDef] = {
         "wq": PDef((d, hq * hd), spec=col),
@@ -118,14 +125,22 @@ def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(b, s, n, hd).transpose(1, 2)
 
 
+def _row_sum(cfg: ModelConfig, x: torch.Tensor, ws, tg):
+    """Row-parallel products, in the order of ``ws``: the rank's d_model
+    slice of x times each of its row shards, summed in f32 over the group
+    (x times each whole weight at tp = 1)."""
+    if cl.world(tg) == 1:
+        return [matmul_f32(x, w) for w in ws]
+    dsh = cfg.d_model // tg.world
+    x = x[..., tg.rank * dsh:(tg.rank + 1) * dsh]
+    return cl.psum(torch.stack([matmul_f32(x, w) for w in ws]), tg)
+
+
 def _row_kv(cfg: ModelConfig, p, x: torch.Tensor, tg):
     """``row`` mode's k and v (…, nkv * hd) bf16: the rank's d_model slice
     of x times its rows of wk / wv, summed in f32 over the group, biased
     in f32, then rounded."""
-    dsh = cfg.d_model // tg.world
-    xs = x[..., tg.rank * dsh:(tg.rank + 1) * dsh]
-    k, v = cl.psum(torch.stack([matmul_f32(xs, p["wk"]),
-                                matmul_f32(xs, p["wv"])]), tg)
+    k, v = _row_sum(cfg, x, (p["wk"], p["wv"]), tg)
     if cfg.qkv_bias:
         k, v = k + p["bk"].float(), v + p["bv"].float()
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
@@ -168,15 +183,25 @@ def project_qkv(cfg: ModelConfig, p, xg: torch.Tensor,
     return QKV(q, k.index_select(1, idx), v.index_select(1, idx)), (k, v)
 
 
+def _latent(cfg: ModelConfig, p, x: torch.Tensor, tg) -> torch.Tensor:
+    """MLA's latent rows (…, lora + dr) bf16 before the norm: x times
+    ``w_dkv`` in f32, at tp > 1 row-parallel (summed over the group),
+    rounded once."""
+    return _row_sum(cfg, x, (p["w_dkv"],), tg)[0].to(torch.bfloat16)
+
+
 def project_qkv_mla(cfg: ModelConfig, p, xg: torch.Tensor,
-                    positions: torch.Tensor):
-    """MLA projections, non-absorbed: xg (B,S,D) -> (QKV with per-head
-    q/k (B,Hq,S,dn+dr) rope'd and v (B,Hq,S,dv), the latent (B,S,lora+dr)
-    that the decode cache stores: c_kv normed, k_rope NOT rotated)."""
+                    positions: torch.Tensor, tg=None):
+    """MLA projections, non-absorbed: xg (B,S,D) -> (QKV with the rank's
+    per-head q/k (B,Hq,S,dn+dr) rope'd and v (B,Hq,S,dv), the latent
+    (B,S,lora+dr) that the decode cache stores: c_kv normed, k_rope NOT
+    rotated; the whole latent on every rank)."""
     m = cfg.mla
-    hq, dn, dr, dv = cfg.n_heads, m.qk_nope_dim, m.qk_rope_dim, m.v_dim
+    tp = cl.world(tg)
+    hq = cfg.padded_heads(tp) // tp
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_dim
     q = _heads(pdot(xg, p["wq"]), hq, dn + dr)
-    lat = matmul_f32(xg, p["w_dkv"]).to(torch.bfloat16)
+    lat = _latent(cfg, p, xg, tg)
     c_kv = layers.rms_norm(lat[..., :m.kv_lora_rank], p["kv_norm"],
                            cfg.norm_eps)
     k_rope = lat[..., m.kv_lora_rank:]                   # (B,S,dr)
@@ -198,7 +223,7 @@ def attn_forward(cfg: ModelConfig, run: RunConfig, p, xg: torch.Tensor,
     tp > 1 the o-projection is the rank's partial (its heads' rows of
     ``wo``) and (k, v) as ``project_qkv`` returns them."""
     if cfg.mla is not None:
-        qkv, latent = project_qkv_mla(cfg, p, xg, positions)
+        qkv, latent = project_qkv_mla(cfg, p, xg, positions, tg)
         spec = spec._replace(scale=mla_scale(cfg))
         cache = latent
     else:
@@ -213,16 +238,19 @@ def attn_forward(cfg: ModelConfig, run: RunConfig, p, xg: torch.Tensor,
 
 
 def decode_qkv_mla(cfg: ModelConfig, p, h: torch.Tensor,
-                   pos: torch.Tensor):
+                   pos: torch.Tensor, tg=None):
     """MLA decode projections, absorbed: h (B,1,D), pos (B,) -> (q
     (B,Hq,1,lora+dr) = [q_nope · W_uk per head (f32, rounded to bf16) ‖
-    q_rope rotated], new_vals (B, lora+dr) = [c_kv ‖ k_rope rotated])."""
+    q_rope rotated], new_vals (B, lora+dr) = [c_kv ‖ k_rope rotated]).
+    At tp > 1 the rank absorbs its own heads and q is gathered to full
+    heads; the latent is the group's row-parallel sum."""
     m = cfg.mla
-    hq, dn, dr, lora = cfg.n_heads, m.qk_nope_dim, m.qk_rope_dim, \
-        m.kv_lora_rank
+    tp = cl.world(tg)
+    hq = cfg.padded_heads(tp) // tp
+    dn, dr, lora = m.qk_nope_dim, m.qk_rope_dim, m.kv_lora_rank
     b = h.shape[0]
     q = pdot(h, p["wq"]).reshape(b, 1, hq, dn + dr).transpose(1, 2)
-    lat = matmul_f32(h, p["w_dkv"]).to(torch.bfloat16)[:, 0]   # (B, W)
+    lat = _latent(cfg, p, h, tg)[:, 0]                   # (B, W)
     c_kv = layers.rms_norm(lat[..., :lora], p["kv_norm"], cfg.norm_eps)
     cos, sin = rope_tables(pos.reshape(b, 1), dr, cfg.rope_theta)
     cos, sin = cos[:, None], sin[:, None]                # (B,1,1,dr/2)
@@ -232,6 +260,8 @@ def decode_qkv_mla(cfg: ModelConfig, p, h: torch.Tensor,
     q_lat = torch.einsum("bhsd,lhd->bhsl", q[..., :dn].float(),
                          w_uk.float()).to(torch.bfloat16)
     q_full = torch.cat([q_lat, apply_rope(q[..., dn:], cos, sin)], dim=-1)
+    if tp > 1:
+        q_full = cl.fold_parts(cl.gather_many((q_full,), tg)[0], 1)
     return q_full, new_vals
 
 
@@ -242,7 +272,7 @@ def decode_qkv(cfg: ModelConfig, p, h: torch.Tensor, pos: torch.Tensor,
     ``decode_qkv_mla``).  At tp > 1 q (and in ``col`` mode k and v) are
     gathered from the ranks to full heads: every rank gets all of them."""
     if cfg.mla is not None:
-        return decode_qkv_mla(cfg, p, h, pos)
+        return decode_qkv_mla(cfg, p, h, pos, tg)
     hd, tp = cfg.head_dim, cl.world(tg)
     hq_loc = cfg.padded_heads(tp) // tp
     b = h.shape[0]
@@ -287,8 +317,8 @@ def decode_out(cfg: ModelConfig, p, merged: torch.Tensor,
         merged = merged[:, tg.rank * hq_loc:(tg.rank + 1) * hq_loc]
     if cfg.mla is not None:
         m = cfg.mla
-        w_uv = raw_weight(p["w_uv"]).reshape(m.kv_lora_rank, cfg.n_heads,
-                                             m.v_dim)
+        w_uv = raw_weight(p["w_uv"]).reshape(m.kv_lora_rank,
+                                             merged.shape[1], m.v_dim)
         merged = torch.einsum("bhsl,lhv->bhsv", merged.float(),
                               w_uv.float()).to(torch.bfloat16)
     return matmul_f32(merged.transpose(1, 2).reshape(b, 1, -1), p["wo"])

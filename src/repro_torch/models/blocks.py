@@ -8,8 +8,9 @@ MLP; ``cross_attn_forward``).  The VLM (a vision stub in front of a dense
 trunk) takes dense blocks.
 
 Tensor parallelism (``tg`` a ``launch.mesh.TPGroup``; every family but
-MLA): boundary activations are sequence-sharded (B, S/tp, D) in prefill,
-and each mixer and MLP entry gathers the normed activations with
+the encoder-decoder, the VLM and the attention-free model): boundary
+activations are sequence-sharded (B, S/tp, D) in prefill, and each mixer
+and MLP entry gathers the normed activations with
 ``collectives.compressed_all_gather`` -- the paper's codec at the link
 port: LEXI-packed on the wire -- and reduce-scatters its f32 partial,
 rounded to bf16, back to the sequence shards with a raw
@@ -54,13 +55,8 @@ def mlp_table(cfg: ModelConfig) -> Dict[str, PDef]:
 
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise for a config whose tp > 1 path is not ported yet (MLA; the
+    """Raise for a config whose tp > 1 path is not ported yet (the
     encoder-decoder, the VLM and the attention-free families)."""
-    if tp > 1 and cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA at tp > 1 waits for its slice (the latent's "
-            "row-parallel path in both attention kernels; ROADMAP.md, "
-            "queue 1, item 3)")
     if tp > 1 and (cfg.encdec or cfg.frontend != "none"
                    or cfg.n_heads == 0):
         raise NotImplementedError(

@@ -160,13 +160,13 @@ def pad_for_tp(params: Any, cfg, tp: int) -> Any:
     ``lm.lm_table(cfg, tp)``: the vocabulary padded to
     ``cfg.padded_vocab(tp)`` with zero rows of ``embed`` (and zero columns
     of ``lm_head``), the query heads padded to ``cfg.padded_heads(tp)``
-    with zero columns of ``wq`` (and ``bq``) and zero rows of ``wo``.  The
-    padded vocab ids are masked in the logits and a zero head adds
-    nothing, so a dense model is the same at every tp.  Expert stacks and
-    SSM heads are not padded: their counts must divide by tp
-    (``moe.moe_table``, ``ssm.ssm_dims``)."""
+    with zero columns of ``wq`` (and ``bq``; MLA's ``w_uk`` and ``w_uv``)
+    and zero rows of ``wo``.  The padded vocab ids are masked in the
+    logits and a zero head adds nothing, so a dense model is the same at
+    every tp.  Expert stacks and SSM heads are not padded: their counts
+    must divide by tp (``moe.moe_table``, ``ssm.ssm_dims``)."""
     vp1, vp = cfg.padded_vocab(1), cfg.padded_vocab(tp)
-    extra = (cfg.padded_heads(tp) - cfg.n_heads) * cfg.head_dim
+    extra = cfg.padded_heads(tp) - cfg.n_heads
 
     def pad(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
         if n == 0:
@@ -181,10 +181,16 @@ def pad_for_tp(params: Any, cfg, tp: int) -> Any:
         out["lm_head"] = pad(params["lm_head"], 1, vp - vp1)
     if extra and cfg.n_heads:
         attn = dict(params["blocks"]["attn"])
-        attn["wq"] = pad(attn["wq"], 2, extra)
-        attn["wo"] = pad(attn["wo"], 1, extra)
-        if "bq" in attn:
-            attn["bq"] = pad(attn["bq"], 1, extra)
+        m = cfg.mla
+        if m is None:
+            widths = dict(wq=cfg.head_dim, wo=cfg.head_dim, bq=cfg.head_dim)
+        else:               # MLA: per-head columns of its projections
+            widths = dict(wq=m.qk_nope_dim + m.qk_rope_dim,
+                          w_uk=m.qk_nope_dim, w_uv=m.v_dim, wo=m.v_dim)
+        for name, hw in widths.items():
+            if name in attn:
+                attn[name] = pad(attn[name], 1 if name in ("wo", "bq")
+                                 else 2, extra * hw)
         out["blocks"] = dict(params["blocks"], attn=attn)
     return out
 

@@ -1,7 +1,8 @@
 """Disaggregated prefill serving: prefill replicas feeding decode replicas
-through compressed page transfer (ports ``repro/serve/disagg.py`` at tp =
-1 for the dense, MoE and MLA families and the parallel attention ∥ SSM
-hybrids; an MLA page is a block of 576-wide latent rows on the wire).
+through compressed page transfer (ports ``repro/serve/disagg.py`` for the
+dense, MoE and MLA families, the parallel attention ∥ SSM hybrids and the
+attention-free model; an MLA page is a block of 576-wide latent rows on
+the wire).
 
 The monolithic ``ServeEngine`` interleaves admission (prefill-heavy,
 bursty) and decode (latency-sensitive, steady) on one set of slots.
@@ -40,10 +41,27 @@ into pages from the decode pool's own free list.
 decode replicas in other OS processes (``launch.disagg_host``) over TCP:
 the same wire bytes, the same streams.
 
-Left out: tp > 1 (and ``local_full_pages``) and attention-free (KV-less)
-blobs.  The reference rounds streaming export windows to powers of two to
-bound its jit cache; the port exports exactly the new columns, with the
-same chunk entries.
+Tensor parallelism (``DisaggEngine(group=)``; the families
+``blocks.check_tp`` admits): every rank runs its shard of every replica,
+and the whole fleet's host loop, in lock step, as ``ServeEngine(group=)``
+does.  A handoff's blob carries every rank's pages, shard-major, in the
+reference's ``(tp, L, ...)`` layout (``repro/serve/disagg.py:293-316``):
+each rank exports its own shard (``engine.export_slot(.., tp, ti=rank)``),
+the shards are gathered to every rank (``collectives.gather_objects``)
+and each rank imports its own shard of the received blob
+(``:440-470``).  Streaming export counts the columns ``sent`` per shard
+(``cache.local_full_pages``, ``:199-218``), and a hybrid's SSM state
+travels per rank, ``(tp, L, nh_loc, ...)``.  Every rank holds an
+identical loopback transport, so the link accounting and every routing
+decision are the same on every rank.  With ``decode_addrs`` rank 0 alone
+holds the socket: the transport and the remote replicas run there and
+every rank gets their results (``_OnRoot``); a decode host at tp > 1
+(``launch.disagg_host --tp``) runs its ranks behind rank 0's socket
+(``GroupReplica``, ``follow``).
+
+The reference rounds streaming export windows to powers of two to bound
+its jit cache; the port exports exactly the new columns, with the same
+chunk entries.
 """
 
 from __future__ import annotations
@@ -57,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import collectives as cl
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.ssm import SSMState
 from . import engine as engine_mod
@@ -147,25 +166,25 @@ _WIRE_DTYPES = {"signman": torch.uint8, "planes": torch.int32,
                 "esc_raw": torch.uint8, "raw_pages": torch.bfloat16}
 
 
-def blob_wire(blob: SequenceBlob, device, col0: int = 0
+def blob_wire(blob: SequenceBlob, device, col0: int = 0, ti: int = 0
               ) -> Optional[cache_mod.PageWire]:
-    """A host blob's page columns from ``col0`` on and its ring as a
-    ``PageWire`` on ``device`` (one copy to the device per field), the
-    form ``engine.import_slot`` scatters; None for a blob with no KV (an
-    attention-free model's)."""
+    """Shard ``ti``'s page columns of a host blob from ``col0`` on and its
+    ring as a ``PageWire`` on ``device`` (one copy to the device per
+    field), the form ``engine.import_slot`` scatters; None for a blob with
+    no KV (an attention-free model's)."""
     kv = blob.kv
     if kv is None:
         return None
     return cache_mod.PageWire(
-        **{f: _dev(kv[f][0, :, col0:], dt, device) if f in kv else None
+        **{f: _dev(kv[f][ti, :, col0:], dt, device) if f in kv else None
            for f, dt in _WIRE_DTYPES.items()},
-        ring=_dev(kv["ring"][0], torch.bfloat16, device))
+        ring=_dev(kv["ring"][ti], torch.bfloat16, device))
 
 
 def ssm_host(ssm: Optional[SSMState]):
     """A slot's SSM state (leaves (L, ...), views of the pool's) copied
-    into the blob's host section: (tp = 1, L, ...) numpy leaves, ``h`` f32
-    and the rings as bf16 bits."""
+    into the blob's host section of one rank: (1, L, ...) numpy leaves,
+    ``h`` f32 and the rings as bf16 bits."""
     if ssm is None:
         return None
 
@@ -176,15 +195,29 @@ def ssm_host(ssm: Optional[SSMState]):
             host(ssm.conv_bc.view(torch.int16)).view(np.uint16))
 
 
-def ssm_wire(blob: SequenceBlob, device) -> Optional[SSMState]:
-    """A blob's SSM section as an ``SSMState`` (leaves (L, ...)) on
-    ``device``, or None."""
+def ssm_wire(blob: SequenceBlob, device, ti: int = 0
+             ) -> Optional[SSMState]:
+    """Shard ``ti``'s SSM section of a blob as an ``SSMState`` (leaves
+    (L, ...)) on ``device``, or None."""
     if blob.ssm is None:
         return None
     h, cx, cbc = blob.ssm
-    return SSMState(h=torch.from_numpy(h[0]).to(device),
-                    conv_x=_dev(cx[0], torch.bfloat16, device),
-                    conv_bc=_dev(cbc[0], torch.bfloat16, device))
+    return SSMState(h=torch.from_numpy(np.ascontiguousarray(h[ti]))
+                    .to(device),
+                    conv_x=_dev(cx[ti], torch.bfloat16, device),
+                    conv_bc=_dev(cbc[ti], torch.bfloat16, device))
+
+
+def gather_shards(mine, group):
+    """Every rank's host section (a dict or tuple of (1, ...) arrays, or
+    None), stacked shard-major on the leading axis: (tp, ...); at one
+    rank ``mine`` itself."""
+    if mine is None or cl.world(group) == 1:
+        return mine
+    ranks = cl.gather_objects(mine, group)
+    if isinstance(mine, dict):
+        return {f: np.concatenate([r[f] for r in ranks]) for f in mine}
+    return tuple(np.concatenate(a) for a in zip(*ranks))
 
 
 class PrefillReplica:
@@ -230,25 +263,32 @@ class PrefillReplica:
 
     def _stream_progress(self, ls: _LoopState) -> None:
         """Mid-admission hook: export and ship every freshly completed
-        page column of every live slot (one export per slot, exactly its
-        new columns)."""
+        page column of every live slot (one export per slot and rank,
+        exactly the columns from the least-sent shard's on; ``sent``
+        counts per shard, ``cache.local_full_pages``)."""
         eng = self.engine
         blk = eng.run_cfg.codec.cache_block
         codec_on = bool(eng.run_cfg.codec.cache)
+        tp = eng.tp
         for s in ls.live_slots():
             if ls.done[s]:
                 continue               # finishing at admission: no transfer
-            valid = ls.slot_len[s] // blk
+            valid = [cache_mod.local_full_pages(ls.slot_len[s], t, blk, tp)
+                     for t in range(tp)]
             st = self._streams.get(s)
-            sent = st["sent"] if st is not None else 0
-            if valid <= sent:
+            sent = st["sent"] if st is not None else [0] * tp
+            if all(v <= s0 for v, s0 in zip(valid, sent)):
                 continue
-            wire, _, _ = engine_mod.export_slot(eng.state, s, valid - sent,
-                                                col0=sent)
-            kv = _host_fields(wire)
-            entries = [(0, l, c, page_payload(kv, codec_on, 0, l, c - sent))
-                       for l in range(eng.cfg.n_layers)
-                       for c in range(sent, valid)]
+            col0 = min(sent)
+            wire, _, _ = engine_mod.export_slot(
+                eng.state, s, max(valid) - col0, col0=col0, tp=tp,
+                ti=eng.rank)
+            kv = gather_shards(_host_fields(wire), eng.group)
+            entries = [(t, l, c, page_payload(kv, codec_on, t, l, c - col0))
+                       for t in range(tp) for l in range(eng.cfg.n_layers)
+                       for c in range(max(sent[t], col0), valid[t])]
+            if not entries:
+                continue
             if st is None:
                 st = {"seq_id": self.transport.new_stream(),
                       "dst": self.pick_dst(), "sent": sent}
@@ -263,7 +303,7 @@ class PrefillReplica:
                     args={"wire_bytes":
                           reg.value("transport.wire_bytes") - wb0,
                           "pages": len(entries), "dst": st["dst"]})
-            st["sent"] = valid
+            st["sent"] = [max(v, s0) for v, s0 in zip(valid, sent)]
 
     def admit_step(self) -> Tuple[List[RequestResult], List[Handoff]]:
         """One admission round: admit into every free slot, replay prompt
@@ -310,24 +350,28 @@ class PrefillReplica:
 
     def _export_blob(self, s: int) -> SequenceBlob:
         """Slot ``s`` as a host ``SequenceBlob``: its full pages and ring
-        copied from the card (one gather per field); an attention-free
-        model's blob has no KV section (no ``_FLAG_KV``) and no columns,
-        only its SSM state, as the reference's."""
+        copied from the card (one gather per field), at tp > 1 every
+        rank's shard of them (``export_n_cols`` columns each: the most any
+        rank holds); an attention-free model's blob has no KV section (no
+        ``_FLAG_KV``) and no columns, only its SSM state, as the
+        reference's."""
         eng, ls = self.engine, self.ls
         req = ls.slot_req[s]
         length = ls.slot_len[s]
         blk, w, k, esc_cap, npad = eng._page_geometry()
-        n_cols = (cache_mod.export_n_cols(length, blk)
+        n_cols = (cache_mod.export_n_cols(length, blk, eng.tp)
                   if eng.cfg.n_heads > 0 else 0)
-        wire, ssm, dev_len = engine_mod.export_slot(eng.state, s, n_cols)
+        wire, ssm, dev_len = engine_mod.export_slot(
+            eng.state, s, n_cols, tp=eng.tp, ti=eng.rank)
         assert dev_len == length, (s, length, dev_len)
         return SequenceBlob(
-            codec_on=bool(eng.run_cfg.codec.cache), tp=1,
+            codec_on=bool(eng.run_cfg.codec.cache), tp=eng.tp,
             n_layers=eng.cfg.n_layers, n_cols=n_cols, blk=blk, w=w, k=k,
             esc_cap=esc_cap, npad=npad, length=length,
             cur_token=int(ls.cur[s, 0]), emitted=list(ls.emitted[req.uid]),
-            kv=None if wire is None else _host_fields(wire, ring=True),
-            ssm=ssm_host(ssm))
+            kv=None if wire is None else gather_shards(
+                _host_fields(wire, ring=True), eng.group),
+            ssm=gather_shards(ssm_host(ssm), eng.group))
 
 
 class DecodeReplica:
@@ -420,12 +464,16 @@ class DecodeReplica:
           * the sequence must fit a page-table row (``n_cols <= maxp``);
           * the pool must hold enough free pages for the columns a prefix
             hit does not cover.  The port keeps one host page table for
-            every layer, so its free count is every layer's: it rejects
-            exactly where the reference's per-(shard, layer) check does.
+            every layer, so its free count is every layer's; each rank
+            checks its own shard and the ranks agree on the verdict: it
+            rejects exactly where the reference's per-(shard, layer) check
+            does.
+
+        At tp > 1 every rank imports its own shard of the blob.
         """
         eng, ls, blob = self.engine, self.ls, h.blob
         blk, w, k, esc_cap, npad = eng._page_geometry()
-        want = (1, eng.cfg.n_layers, blk, w, k, esc_cap, npad,
+        want = (eng.tp, eng.cfg.n_layers, blk, w, k, esc_cap, npad,
                 bool(eng.run_cfg.codec.cache), eng.cfg.ssm is not None)
         got = (blob.tp, blob.n_layers, blob.blk, blob.w, blob.k,
                blob.esc_cap, blob.npad, blob.codec_on, blob.ssm is not None)
@@ -455,27 +503,32 @@ class DecodeReplica:
             mkeys = keys[:m]
         ids = np.zeros((eng._maxp,), np.int32)
         for c, key in enumerate(mkeys):
-            # pin the matched columns before the pressure valve runs
+            # pin the matched columns before the pressure valve runs (the
+            # index holds this rank's page id)
             ids[c] = eng.cache.acquire(key)[0]
             eng._slot_keys[s].append(key)
-        need = max(blob.valid_cols(0) - m, 0) if blob.kv is not None else 0
-        eng._ensure_free_pages(need)
+        need = [max(blob.valid_cols(t) - m, 0) if blob.kv is not None else 0
+                for t in range(eng.tp)]
+        eng._ensure_free_pages(max(need))
         free_pages = eng._n_pages - (0 if eng.state.kv is None else
                                      int(eng.state.kv.page_used.sum()))
-        if free_pages < need:
+        if cl.host_max(int(free_pages < need[eng.rank]), eng.group):
             for key in mkeys:       # undo the pins: nothing written
                 eng.cache.release(key)
             eng._slot_keys[s] = []
             raise RuntimeError(
                 "decode-replica page pool oversubscribed: import needs "
-                f"{need} pages but a shard/layer has only {free_pages} free")
-        wire = blob_wire(blob, eng.device, col0=m)
+                f"{max(need)} pages but a shard/layer has too few free "
+                f"(rank {eng.rank}: {free_pages})")
+        wire = blob_wire(blob, eng.device, col0=m, ti=eng.rank)
         if m:                       # map the resident shared columns first
             engine_mod.map_shared_slot(eng.state, s, ids, m,
                                        m * eng.blk_tokens)
             ls.shared_hits += m
         engine_mod.import_slot(eng.state, s, wire, blob.length, col0=m,
-                               ssm_slot=ssm_wire(blob, eng.device))
+                               ssm_slot=ssm_wire(blob, eng.device,
+                                                 eng.rank),
+                               tp=eng.tp, ti=eng.rank)
         ls.slot_req[s] = req
         eng._slot_busy[s] = True
         ls.slot_len[s] = blob.length
@@ -490,6 +543,114 @@ class DecodeReplica:
         eng, ls = self.engine, self.ls
         eng._decode_window(ls)
         return eng._finish_ready(ls)
+
+
+class _OnRoot:
+    """An object that lives on rank 0 of ``group`` (None elsewhere), as
+    every rank sees it: each attribute read or method call runs on rank 0
+    and every rank gets its value or result (or its exception), so ranks
+    in lock step take the same decisions from it.  An ``_OnRoot`` passed
+    as an argument reaches rank 0's call as the object it wraps."""
+
+    def __init__(self, obj, group):
+        self._obj, self._group = obj, group
+
+    def _root(self, fn):
+        res = None
+        if self._group.rank == 0:
+            try:
+                res = (True, fn())
+            except Exception as e:             # re-raised on every rank
+                res = (False, e)
+        ok, val = cl.broadcast_object(res, self._group)
+        if not ok:
+            raise val
+        return val
+
+    def __getattr__(self, name):
+        if self._group.rank == 0:
+            attr = getattr(self._obj, name)
+        is_call = self._root(lambda: callable(attr))
+        if not is_call:
+            return self._root(lambda: attr)
+
+        def call(*args, **kw):
+            def unwrap(a):
+                return a._obj if isinstance(a, _OnRoot) else a
+            return self._root(lambda: attr(
+                *map(unwrap, args), **{k: unwrap(v) for k, v in kw.items()}))
+        return call
+
+
+def _on_root(obj, group):
+    """``obj`` as every rank of ``group`` sees it (``_OnRoot``); ``obj``
+    itself at one rank."""
+    return obj if cl.world(group) == 1 else _OnRoot(obj, group)
+
+
+class GroupReplica:
+    """Rank 0's face of a decode replica whose ranks run in lock step
+    behind one socket (``launch.disagg_host --tp``; ``net.server.PageHost``
+    drives it as a ``DecodeReplica``): a call that changes the replica
+    (an import, a decode window, dropping the live slots) goes to every
+    rank with its arguments (the whole blob: each rank imports its shard)
+    and returns rank 0's result; a read answers from rank 0's replica,
+    whose host state every rank shares.  The other ranks run ``follow``;
+    ``close`` ends it."""
+
+    def __init__(self, replica: "DecodeReplica", group):
+        self.replica, self.group = replica, group
+
+    @property
+    def engine(self):
+        return self.replica.engine
+
+    @property
+    def ls(self):
+        return self.replica.ls
+
+    def _all(self, name: str, *args):
+        cl.broadcast_object((name, args), self.group)
+        return getattr(self.replica, name)(*args)
+
+    def import_handoff(self, h: Handoff) -> int:
+        return self._all("import_handoff", h)
+
+    def step_window(self) -> List[RequestResult]:
+        return self._all("step_window")
+
+    def drop_live(self) -> int:
+        return self._all("drop_live")
+
+    def free_slots(self) -> int:
+        return self.replica.free_slots()
+
+    def idle(self) -> bool:
+        return self.replica.idle()
+
+    def decode_stats(self) -> Dict[str, int]:
+        return self.replica.decode_stats()
+
+    def metrics_snapshot(self) -> Dict:
+        return self.replica.metrics_snapshot()
+
+    def close(self) -> None:
+        cl.broadcast_object(None, self.group)
+
+
+def follow(replica: "DecodeReplica", group) -> None:
+    """A decode host's rank > 0: run each call rank 0's ``GroupReplica``
+    sends on this rank's replica, until ``close``.  A call that raises
+    raised on rank 0 too, which reports it; the loop goes on."""
+    while True:
+        call = cl.broadcast_object(None, group)
+        if call is None:
+            return
+        name, args = call
+        try:
+            getattr(replica, name)(*args)
+        except Exception:
+            pass
 
 
 class DisaggEngine:
@@ -508,12 +669,17 @@ class DisaggEngine:
     ``streaming=True`` streams full pages during admission.
     ``decode_addrs`` replaces the in-process decode replicas with remote
     ones at the given ``host:port`` list; ``transport`` must then be a
-    ``net.client.SocketTransport``, and each address must run
-    ``launch.disagg_host`` with a matching configuration fingerprint.
-    The port serves at tp = 1 only, so it takes no ``tp`` argument.
+    ``net.client.SocketTransport`` (on rank 0; the other ranks' is not
+    used), and each address must run ``launch.disagg_host`` with a
+    matching configuration fingerprint (``--tp`` included).
+
+    ``group`` (a ``launch.mesh.TPGroup``) runs the fleet at tp = its
+    world: every rank constructs this engine and calls ``run`` with the
+    same requests (``tp``, if given, must equal the world).
     """
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, *,
+                 tp: Optional[int] = None, group=None,
                  n_prefill: int = 1, n_decode: int = 1, n_slots: int = 4,
                  max_len: int = 256, params=None, seed: int = 0,
                  eos_id: Optional[int] = None,
@@ -527,13 +693,19 @@ class DisaggEngine:
                  cuda_graphs: Optional[bool] = None):
         if n_prefill < 1 or (n_decode < 1 and decode_addrs is None):
             raise ValueError("need at least one replica of each kind")
+        tp = cl.world(group) if tp is None else tp
+        if tp != cl.world(group):
+            raise ValueError(f"tp={tp} needs the rank's TPGroup of {tp} "
+                             f"ranks, got {group}")
         self.cfg, self.run_cfg = cfg, run
+        self.tp, self.group = tp, (group if tp > 1 else None)
         # one tracer for every replica: the root span opened at a prefill
         # submit closes when the decode side finishes the uid
         self.tracer = tracer if tracer is not None else Tracer(False)
         self.transport = transport if transport is not None \
             else LoopbackTransport(max_store_pages=store_pages)
-        mk = dict(n_slots=n_slots, max_len=max_len, seed=seed,
+        mk = dict(tp=tp, group=self.group, n_slots=n_slots, max_len=max_len,
+                  seed=seed,
                   eos_id=eos_id, stop_seqs=stop_seqs,
                   max_fuse_steps=max_fuse_steps,
                   compress_weights=compress_weights, device=device,
@@ -543,19 +715,25 @@ class DisaggEngine:
         if decode_addrs is not None:
             from .net.client import RemoteDecodeReplica, SocketTransport
             from .net.framing import config_fingerprint
-            if not isinstance(self.transport, SocketTransport):
+            root = cl.rank(self.group) == 0
+            if root and not isinstance(self.transport, SocketTransport):
                 raise ValueError("decode_addrs needs a SocketTransport")
-            fp = config_fingerprint(cfg, run.codec, 1, n_slots, max_len,
+            fp = config_fingerprint(cfg, run.codec, tp, n_slots, max_len,
                                     seed, eos_id=eos_id,
                                     stop_seqs=stop_seqs)
             for i, addr in enumerate(decode_addrs):
                 host, _, port = str(addr).rpartition(":")
                 dst = f"decode{i}"
-                self.transport.connect(dst, host or "127.0.0.1", int(port),
-                                       fp)
-                self.decodes.append(RemoteDecodeReplica(
-                    self.transport, dst, tracer=self.tracer, name=dst))
+                if root:
+                    self.transport.connect(dst, host or "127.0.0.1",
+                                           int(port), fp)
+                self.decodes.append(_on_root(RemoteDecodeReplica(
+                    self.transport, dst, tracer=self.tracer, name=dst)
+                    if root else None, self.group))
                 self._names.append(dst)
+            # rank 0 alone talks to the hosts; every rank gets the results
+            self.transport = _on_root(self.transport if root else None,
+                                     self.group)
         self.prefills: List[PrefillReplica] = []
 
         def pick_dst() -> str:

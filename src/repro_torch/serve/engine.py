@@ -66,22 +66,23 @@ tensors that stay put (the fixed store's device length, the pool's page
 table and step buffer), refreshed in place.  State updates happen in
 place.
 
-Tensor parallelism (every family but MLA; ``tg`` a
-``launch.mesh.TPGroup``, one process per rank, every rank running the
-same loop): prefill runs the sequence-sharded trunk (``lm.lm_forward``: a
-MoE layer's tokens cross to the experts' ranks in its all-to-alls, a
-hybrid's SSM runs the rank's heads and keeps their state), then reshards
-each layer's K/V into the cache's interleaved slots -- one all-to-all of
-the rank's kv heads in ``col`` mode (``_interleave_heads_a2a``), a slice
-of the full payload in ``row`` mode (``_interleave_slice``) -- and
-broadcasts the last position's hidden state from rank tp - 1 (a psum
-where the other ranks add zeros).  Decode steps psum the mixer, MLP and
-MoE partials in bf16, merge the ranks' attention partials
-(``cache.merge_shards``) and pick the greedy token over the vocab shards
-(``greedy_token``: pmax, then pmin of the candidate ids).  Every rank
-gets the same tokens.  Decode at tp > 1 runs eagerly: a gloo collective
-cannot be captured in a CUDA graph.  At tp = 1 every collective is
-dropped.
+Tensor parallelism (every family with attention but the encoder-decoder
+and the VLM; ``tg`` a ``launch.mesh.TPGroup``, one process per rank,
+every rank running the same loop): prefill runs the sequence-sharded
+trunk (``lm.lm_forward``: a MoE layer's tokens cross to the experts'
+ranks in its all-to-alls, a hybrid's SSM runs the rank's heads and keeps
+their state), then reshards each layer's K/V into the cache's
+interleaved slots -- one all-to-all of the rank's kv heads in ``col``
+mode (``_interleave_heads_a2a``), a slice of the full payload in ``row``
+mode and of MLA's latent, which every rank holds whole
+(``_interleave_slice``) -- and broadcasts the last position's hidden
+state from rank tp - 1 (a psum where the other ranks add zeros).  Decode
+steps psum the mixer, MLP and MoE partials in bf16, merge the ranks'
+attention partials (``cache.merge_shards``) and pick the greedy token
+over the vocab shards (``greedy_token``: pmax, then pmin of the
+candidate ids).  Every rank gets the same tokens.  Decode at tp > 1 runs
+eagerly: a gloo collective cannot be captured in a CUDA graph.  At tp = 1
+every collective is dropped.
 """
 
 from __future__ import annotations
@@ -207,12 +208,10 @@ def cache_payload(cfg: ModelConfig, kv, tg=None) -> torch.Tensor:
     MLA latent as it is, else ``kv_payload(k, v)``; at tp > 1 the rank's
     interleaved slots of it (B, S/tp, W).  (An encoder-decoder's
     cross-attention (k, v) of the memory takes the same layout.)"""
-    if cfg.mla is not None:
-        return kv
-    vals = kv_payload(*kv)
+    vals = kv if cfg.mla is not None else kv_payload(*kv)
     if cl.world(tg) == 1:
         return vals
-    if attention.kv_mode(cfg, tg.world) == "col":
+    if cfg.mla is None and attention.kv_mode(cfg, tg.world) == "col":
         return _interleave_heads_a2a(vals, tg)
     return _interleave_slice(vals, tg)
 

@@ -81,7 +81,8 @@ runs split across replicas (``serve.disagg``): a prefill replica drives
 replica ``_decode_window`` on slots seeded by imports, its ``PageCache``
 ``remote_fetch`` wired to the transport's stores.
 
-Tensor parallelism (``ServeEngine(group=...)``, every family but MLA): one
+Tensor parallelism (``ServeEngine(group=...)``, the families
+``blocks.check_tp`` admits): one
 process per rank, each running this same loop on the same requests;
 the ranks agree on every decision because every input to one is the same
 on all of them (the greedy tokens are, see ``engine.greedy_token``).  A
@@ -95,8 +96,8 @@ prefix column covers ``cache_block * tp`` tokens.  A column's index entry
 holds this rank's page id; a spilled column's payloads are every rank's,
 shard-major (gathered at the spill), as the reference's.  A hybrid's
 boundary snapshot is the rank's own heads' SSM state, kept in the rank's
-PageCache under the same content key on every rank.  MLA configs and
-CUDA graphs at tp > 1 are refused.
+PageCache under the same content key on every rank.  CUDA graphs at
+tp > 1 are refused.
 """
 
 from __future__ import annotations

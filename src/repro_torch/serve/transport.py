@@ -44,7 +44,8 @@ Raw bf16 (raw pages, the ring) travels as ``uint16`` bits (``BF16``): the
 reference falls back to the same dtype when no numpy bfloat16 is
 installed, and the bytes are the same.  The port's pool keeps ``planes``
 as int32; callers view them as ``uint32`` at this byte boundary.  Blobs
-keep the reference's leading ``(tp, n_layers)`` axes, with tp = 1, so that
+keep the reference's leading ``(tp, n_layers)`` axes, every rank's shard
+of the sequence shard-major (``DisaggEngine(group=)`` at tp > 1), so that
 the wire bytes match.  A hybrid's blob carries the SSM section: per
 layer the slot's f32 recurrent state ``h`` and its bf16 conv rings (as
 ``uint16`` bits), raw, as the reference ships them; ``raw_bytes`` and the
@@ -236,9 +237,9 @@ class SequenceBlob:
 
     Array layout is per-shard, shard-major: every array carries a leading
     ``(tp, n_layers)`` axis pair, as the reference's stacked per-shard
-    views (the port exports at tp = 1).  Raw bf16 arrays (``ring``,
-    ``raw_pages``) are ``BF16`` bits.  ``kv`` is None for attention-free
-    configs, ``ssm`` for attention-only ones.  See
+    views (at tp > 1 each rank's shard, gathered from the ranks).  Raw
+    bf16 arrays (``ring``, ``raw_pages``) are ``BF16`` bits.  ``kv`` is
+    None for attention-free configs, ``ssm`` for attention-only ones.  See
     ``repro/models/cache.py:export_sequence`` for the byte-level WIRE FORMAT
     this serializes to.  In streaming mode, page payloads travel ahead of
     the blob as :func:`pack_chunk` frames and the blob's page section

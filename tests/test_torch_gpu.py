@@ -1855,6 +1855,44 @@ def test_decode_attend_tp_shards_match_plain(cuda, heads, tp):
     assert n > 0 and worst < 1e-4
 
 
+# MLA latents: deepseek-v2-lite's (16 heads over one 512 + 64 row) and a
+# small one (4 heads over 48 + 16)
+MLA_TP_GEOMS = {"deepseek": (16, 512, 64), "small": (4, 48, 16)}
+
+
+def _mla_tp_kw(h, lora, rope):
+    return dict(kv_idx=(), scale=(128 + rope) ** -0.5, mla_lora=lora)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("geom", sorted(MLA_TP_GEOMS))
+def test_decode_attend_paged_mla_tp_shards_match_plain(cuda, geom, tp):
+    """The MLA latent path on every shard of tp: the paged kernel against
+    its plain version (the tp cases above: lengths 0 .. 3 blk tp + 5,
+    window 5, softcap, escapes on both sides of a span boundary and past
+    the capacity, 1 and 64 slots), within 1e-4, two launches bit for
+    bit."""
+    h, lora, rope = MLA_TP_GEOMS[geom]
+    w = lora + rope
+    gen = torch.Generator(device=cuda).manual_seed(tp * 30 + h)
+    worst, n = AC.tp_paged_checks(gen, h, w, w, _mla_tp_kw(h, lora, rope),
+                                  blk=16, tps=(tp,))
+    assert n == 3 * tp * len(AC.TP_MASKS) and worst < 1e-4
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("geom", sorted(MLA_TP_GEOMS))
+def test_decode_attend_mla_tp_shards_match_plain(cuda, geom, tp):
+    """The fixed-batch kernel's MLA latent path on every shard of tp,
+    both launch forms, the same cases."""
+    h, lora, rope = MLA_TP_GEOMS[geom]
+    w = lora + rope
+    gen = torch.Generator(device=cuda).manual_seed(tp * 40 + h)
+    worst, n = AC.tp_fixed_checks(gen, h, w, w, _mla_tp_kw(h, lora, rope),
+                                  blk=16, tps=(tp,))
+    assert n > 0 and worst < 1e-4
+
+
 def test_decode_attend_tp1_args_are_the_tp1_path(cuda):
     """tp = 1, ti = 0 passed explicitly gives the bits of the default
     launch (the shard arithmetic is the identity there)."""

@@ -396,8 +396,8 @@ def test_launcher_tp2(mode, capsys):
 def test_launcher_refuses(capsys):
     from repro_torch.launch import serve as launcher
     for args, msg in ((["--tp", "2"], "dist-backend"),
-                      (["--tp", "2", "--dist-backend", "gloo", "--disagg"],
-                       "disagg")):
+                      (["--tp", "2", "--dist-backend", "gloo", "--disagg",
+                        "--arch", "mamba2-370m"], "ROADMAP")):
         with pytest.raises(SystemExit):
             launcher.main(["--device", "cpu", *args])
         assert msg in capsys.readouterr().err
@@ -424,10 +424,13 @@ def _engine_tp2(cfg, run, group, **kw):
 
 
 def test_tp_refusals():
-    """What tp > 1 does not serve yet raises, before any collective: MLA
-    configs, CUDA graphs, a missing or mismatched group; and the
-    scheduler refuses prompts shorter than tp.  MoE and SSM configs build
-    (each rank holding its experts and its SSM heads)."""
+    """What tp > 1 does not serve yet raises, before any collective: the
+    encoder-decoder, the VLM and the attention-free model (naming
+    ROADMAP), CUDA graphs, a missing or mismatched group; and the
+    scheduler refuses prompts shorter than tp.  MoE, SSM and MLA configs
+    build (each rank holding its experts, its SSM heads, its MLA query
+    heads)."""
+    from repro_torch.models import blocks
     from repro_torch.configs import get_config, make_reduced
     from repro_torch.launch.mesh import TPGroup
     from repro_torch.serve.scheduler import Request as TReq
@@ -443,9 +446,19 @@ def test_tp_refusals():
     hyb = make_reduced(get_config("zamba2-1.2b"), tp=2)
     eng = _engine_tp2(hyb, trun, tg)
     assert eng.state.ssm.h.shape[2] == hyb.ssm.n_heads(hyb.d_model) // 2
+    mla = make_reduced(get_config("deepseek-v2-lite-16b"), tp=2)
+    attn = _engine_tp2(mla, trun, tg).params["blocks"]["attn"]
+    m, hq = mla.mla, mla.padded_heads(2) // 2
+    assert attn["wq"].shape[2] == hq * (m.qk_nope_dim + m.qk_rope_dim)
+    assert attn["w_uk"].shape[2] == hq * m.qk_nope_dim
+    assert attn["w_uv"].shape[2] == hq * m.v_dim
+    assert attn["wo"].shape[1] == hq * m.v_dim
+    assert attn["w_dkv"].shape[1] == mla.d_model // 2
+    for name in ("seamless-m4t-large-v2", "internvl2-76b", "mamba2-370m"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            blocks.check_tp(make_reduced(get_config(name), tp=2), 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine_tp2(make_reduced(get_config("deepseek-v2-lite-16b"), tp=2),
-                    trun, tg)
+        _engine_tp2(make_reduced(get_config("mamba2-370m"), tp=2), trun, tg)
     dense = TModel(**_cfg_kw("gqa"))
     with pytest.raises(ValueError, match="cuda_graphs"):
         _engine_tp2(dense, trun, tg, cuda_graphs=True)
