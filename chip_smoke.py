@@ -920,12 +920,14 @@ def mla_tp_kernels(gen, phase):
     tp_fixed_row(cfg, gen, phase, "6mt")
 
 
-def tp_fixed_row(cfg, gen, phase, tag):
+def tp_fixed_row(cfg, gen, phase, tag, length=1100, host_length=False):
     """decode_attend's shard 0 of tp = 2 timed at ``cfg``'s heads on the
-    fixed loop's shapes (4 sequences of 1100 global tokens, block 256, k
-    5, the shard's blocks, device-length launch) beside SDPA on that
-    shard's decompressed rows, the plain version and the bound; within
-    1e-4 of the plain version.  Logs row ``tag`` and returns it (launches
+    fixed loop's shapes (4 sequences of ``length`` global tokens, block
+    256, k 5, the shard's blocks, device-length launch; with
+    ``host_length`` the host-length one, an encoder-decoder's cross
+    attention over its static memory) beside SDPA on that shard's
+    decompressed rows, the plain version and the bound; within 1e-4 of
+    the plain version.  Logs row ``tag`` and returns it (launches
     None)."""
     import torch
     from repro_torch.kernels import attend_cases as AC
@@ -935,14 +937,15 @@ def tp_fixed_row(cfg, gen, phase, tag):
     tp, ti = TP_SHARD
     blk, k = ATTEND_BLK, ATTEND_K
     kw = dict(k=k, **g.kw, tp=tp, ti=ti)
-    # fixed: 4 sequences of 1100 global tokens, this shard's blocks
-    b, length = 4, 1100
+    # fixed: 4 sequences of ``length`` global tokens, this shard's blocks
+    b = 4
     loc_len = ref.local_length(length, tp, ti)
     blocks, ct, ring, q = _fixed_case(gen, b, g.h, g.hkv, g.hd, blk,
                                       loc_len, w=g.w)
     store = (ct.signman, ct.planes, ct.dict_syms, ct.esc_pos, ct.esc_raw,
              None)
-    dev_len = torch.tensor(length, dtype=torch.int32, device="cuda")
+    dev_len = length if host_length else torch.tensor(
+        length, dtype=torch.int32, device="cuda")
     fargs = (q, *store, ring, dev_len, ref.WINDOW_NONE)
     err = AC.attend_close(decode_attend.decode_attend(*fargs, **kw),
                           ref.decode_attend_plain(*fargs, **kw))
@@ -962,7 +965,8 @@ def tp_fixed_row(cfg, gen, phase, tag):
     log(phase, f"{tag} decode_attend at {cfg.name}'s heads (H={g.h}/"
                f"{g.hkv}, hd={g.hd}, W={g.w}), shard {ti} of tp {tp} (B={b}, "
                f"global length {length}, shard rows {loc_len}, "
-               f"device-length launch): {row}")
+               f"{'host' if host_length else 'device'}-length launch): "
+               f"{row}")
     return row
 
 
@@ -4124,17 +4128,19 @@ def forced_as_served(cfg, run, params, reqs, feeds, tg=None, slots=4):
     return out
 
 
-def tp_fixed_forced(cfg, run, params, prompts, tokens, max_len, tg=None):
-    """The fixed loop (``engine.prefill`` + ``engine.decode_step``) with
-    ``tokens`` (B, T) fed in place of its own greedy picks: the whole-vocab
-    logits (B, T, Vp) that predict each of them (at tp > 1 the ranks'
-    vocab shards gathered)."""
+def tp_fixed_forced(cfg, run, params, prompts, tokens, max_len, tg=None,
+                    extras=None):
+    """The fixed loop (``engine.prefill`` + ``engine.decode_step``, with
+    the stub inputs ``extras``) with ``tokens`` (B, T) fed in place of its
+    own greedy picks: the whole-vocab logits (B, T, Vp) that predict each
+    of them (at tp > 1 the ranks' vocab shards gathered)."""
     import torch
     from repro_torch.core import collectives as cl
     from repro_torch.serve import engine
 
     feed = torch.as_tensor(tokens, dtype=torch.int32, device="cuda")
-    logits, st = engine.prefill(cfg, run, params, prompts, max_len, tg)
+    logits, st = engine.prefill(cfg, run, params, prompts, max_len, tg,
+                                **(extras or {}))
     rows = [cl.all_gather(logits[:, -1], tg, axis=-1)]
     for j in range(feed.shape[1] - 1):
         logits = engine.decode_step(cfg, run, params, st, feed[:, j:j + 1],
@@ -5534,16 +5540,7 @@ def stub_family(name, gen, smi, launches, rows):
                     f"({4 * 1e3 / ms:.1f} tok/s); decode_attend {n_dec} "
                     f"launches ({kinds}) | {smi}")
     if cfg.encdec:
-        stored = raw = 0
-        for x in st.xkv:
-            nfull = st.xlen // FAM_BLK
-            stored += sum(getattr(x, f)[:, :nfull].numel() for f in
-                          ("signman", "dict_syms", "esc_raw")) \
-                + 4 * sum(getattr(x, f)[:, :nfull].numel()
-                          for f in ("planes", "esc_pos")) \
-                + (st.xlen - nfull * FAM_BLK) * x.ring.shape[0] \
-                * x.ring.shape[2] * 2
-            raw += st.xlen * x.ring.shape[0] * x.ring.shape[2] * 2
+        stored, raw = cross_store_bytes(st, FAM_BLK)
         rows["6x"]["launches"] = n_dec // 2
         log("families", f"{cfg.name} cross-attention store: {st.xlen} "
                         f"frames x 4 sequences x {cfg.n_layers} layers, "
@@ -5560,6 +5557,26 @@ def stub_family(name, gen, smi, launches, rows):
     del params, st, extras
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def cross_store_bytes(st, blk, tp=1, ti=0):
+    """(stored, raw bf16) bytes of a fixed-loop state's cross-attention
+    stores (every layer's), on shard ``ti`` of ``tp``: its interleaved
+    rows of the memory, the full blocks compressed, the rest in the
+    ring."""
+    from repro_torch.models import cache as cache_mod
+
+    rows = cache_mod.local_length(st.xlen, tp, ti)
+    nfull = rows // blk
+    stored = raw = 0
+    for x in st.xkv:
+        stored += sum(getattr(x, f)[:, :nfull].numel() for f in
+                      ("signman", "dict_syms", "esc_raw")) \
+            + 4 * sum(getattr(x, f)[:, :nfull].numel()
+                      for f in ("planes", "esc_pos")) \
+            + (rows - nfull * blk) * x.ring.shape[0] * x.ring.shape[2] * 2
+        raw += rows * x.ring.shape[0] * x.ring.shape[2] * 2
+    return stored, raw
 
 
 def attention_family(name, smi, launches, rows):
@@ -5690,6 +5707,485 @@ def families_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the remaining families at tp = 2 (the encoder-decoder and the
+# vision stub on the fixed loop, the attention-free model on every serving
+# path), two ranks on the card
+# ---------------------------------------------------------------------------
+
+# depth cuts for the time limit (width kept): seamless-m4t-large-v2 runs 6
+# of its 24 encoder and 24 decoder layers, internvl2-76b 4 of its 80 (as
+# the families phase does), mamba2-370m 12 of its 48
+TPF_LAYERS = {"seamless-m4t-large-v2": 6, "internvl2-76b": 4,
+              "mamba2-370m": 12}
+TPF_STUBS = ("seamless-m4t-large-v2", "internvl2-76b")
+TPF_BLK = 256
+# the stubs' fixed loops: B, prompt, decode steps.  seamless's encoder
+# frames are its prompt (ENC_LEN: 256 rows of the memory a shard);
+# internvl2's 256 front tokens span both shards of a 384-token prompt
+TPF_FIXED = {"seamless-m4t-large-v2": (4, ENC_LEN, 8),
+             "internvl2-76b": (4, 384, 8)}
+# mamba2's mix: the fixed loop's 4 prompts of 512 tokens, then 2 odd ones
+# (their one-token tails replay at tp = 2), 8 new tokens each, 4 slots
+TPF_MIX = ((512, 8),) * 4 + ((255, 8), (385, 8))
+TPF_MAXLEN = 4 * TPF_BLK * 2
+# the kernel rows: (model, tag, global length, host-length launch):
+# seamless's cross store of ENC_LEN frames, static (the host-length
+# launch); internvl2's self store at the fixed loop's 1100 tokens
+TPF_ROWS = (("seamless-m4t-large-v2", "6xt", ENC_LEN, True),
+            ("internvl2-76b", "6vt", 1100, False))
+
+
+def tpf_cfg(name):
+    """``name``'s config at the tp_families phase's depth (TPF_LAYERS)."""
+    return cut_cfg(name, TPF_LAYERS)
+
+
+def tpf_inputs(cfg):
+    """A stub family's fixed-loop prompts and stub inputs on the card,
+    from seed 8 in the launcher's order (``launch.serve.stub_inputs``:
+    the prompts first), the same on every rank."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import stub_inputs
+
+    b, s, _ = TPF_FIXED[cfg.name]
+    rng = np.random.default_rng(8)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                              dtype=torch.int32, device="cuda")
+    return prompts, stub_inputs(cfg, rng, b, s, "cuda")
+
+
+def tpf_mix(cfg):
+    """mamba2's requests from seed 1 (TPF_MIX): the first four share a
+    length, so the fixed loop serves their prompts too."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [dict(uid=i, prompt=rng.integers(0, cfg.vocab_size, (s,))
+                 .astype(np.int32), max_new_tokens=n)
+            for i, (s, n) in enumerate(TPF_MIX)]
+
+
+def stub_tp_kernels(gen):
+    """decode_attend's tp shard path at the stub families' heads
+    (seamless's cross store: 16/16 heads of 64; internvl2: 64/8 of 128):
+    every shard of tp 2 and 4 at its split edges against the plain
+    version (``attend_cases.tp_fixed_checks``: both launch forms, two
+    launches bit for bit), then shard 0 of tp = 2 timed (rows 6xt over
+    a cross store of ENC_LEN frames, host-length launch; 6vt).  Returns
+    the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attend_cases as AC
+
+    rows = {}
+    for name, tag, length, host in TPF_ROWS:
+        cfg = get_config(name)
+        g = attend_geom(cfg)
+        t0 = time.perf_counter()
+        err, n = AC.tp_fixed_checks(gen, g.h, g.hd, g.w, g.kw)
+        assert err < 1e-4, (name, err)
+        log("tp_families", f"tp shard path at {name}'s heads (H={g.h}/"
+                           f"{g.hkv}, hd={g.hd}, W={g.w}), every shard of "
+                           f"tp 2 and 4: decode_attend {n} calls (both "
+                           f"launch forms) within 1e-4 of the plain "
+                           f"version, each launched twice bit for bit; "
+                           f"max |err| {err:.3e} "
+                           f"({time.perf_counter() - t0:.1f}s)")
+        rows[tag] = tp_fixed_row(cfg, gen, "tp_families", tag, length, host)
+    return rows
+
+
+def tpf_params(tg, cfg):
+    """Seed 0's tp = 1 weights on the card, padded for tp and cut to this
+    rank's shard (as ``launch.serve --tp`` makes them)."""
+    import gc
+    import torch
+    from repro_torch.models import lm, params as PM
+
+    full = PM.init_params(lm.lm_table(cfg), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    out = PM.shard_params(PM.pad_for_tp(full, cfg, tg.world),
+                          lm.lm_table(cfg, tg.world), tg.world, tg.rank)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpf_stub(tg, cfg, want):
+    """seamless or internvl2 on this rank: the fixed loop eagerly (its
+    prefill and each decode step timed between device syncs), the
+    prefill's compressed gathers by kind, the launches, an
+    encoder-decoder's cross store bytes on this shard, and tp = 1's
+    tokens ``want`` teacher-forced through this path."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import collectives as cl
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    run = RunConfig(codec=CodecConfig(cache_block=TPF_BLK))
+    b, s, n = TPF_FIXED[cfg.name]
+    prompts, extras = tpf_inputs(cfg)
+    max_len = s + n + TPF_BLK * tg.world
+    params = tpf_params(tg, cfg)
+    ops.reset_launch_counts()
+    cl.wire.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, st = engine.prefill(cfg, run, params, prompts, max_len, tg,
+                                **extras)
+    torch.cuda.synchronize()
+    out = dict(prefill_ms=(time.perf_counter() - t0) * 1e3,
+               kinds=cl.wire.snapshot()["kinds"], step_ms=[])
+    dec = engine.FixedDecoder(cfg, run, params, st,
+                              engine.greedy_token(logits, tg), False, tg)
+    toks = [dec.tok.clone()]
+    for _ in range(n):
+        t0 = time.perf_counter()
+        dec.step()
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        toks.append(dec.tok.clone())
+    out.update(tokens=torch.cat(toks, 1).cpu().numpy(),
+               launches=ops.launch_counts())
+    if cfg.encdec:
+        out["xstore"] = cross_store_bytes(st, TPF_BLK, tg.world, tg.rank)
+    del st, dec
+    out["forced"] = tp_fixed_forced(cfg, run, params, prompts, want,
+                                    max_len, tg, extras).numpy()
+    return out
+
+
+def tpf_mamba2(tg, cfg):
+    """mamba2 on this rank at tp = 2: ``ServeEngine(group=)`` (no pool)
+    on the mix raw and packed (``cuda`` weight backend), each under a
+    ``RunProbe``; the raw streams teacher-forced through both weight
+    stores at the served slot count (``forced_as_served``): their largest
+    logit gap is the reorder gap, and each packed divergence's top-2
+    margins are returned; the fixed loop on the mix's first four prompts
+    (its divergences from the served streams teacher-forced through it,
+    margins returned); a tp = 2 fleet against the monolithic streams
+    (``tp_disagg_fleet``)."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import collectives as cl
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    run = RunConfig(codec=CodecConfig(cache_block=TPF_BLK))
+    reqs = tpf_mix(cfg)
+    v = cfg.vocab_size
+    out = {}
+    eng = ServeEngine(cfg, run, group=tg, n_slots=4, max_len=TPF_MAXLEN,
+                      seed=0, device="cuda")
+    assert eng.state.kv is None
+    pk = ServeEngine(cfg, dc.replace(run, codec=dc.replace(
+        run.codec, weight_backend="cuda")), group=tg, n_slots=4,
+        max_len=TPF_MAXLEN, params=eng.params, compress_weights=True,
+        device="cuda")
+    for label, e in (("raw", eng), ("packed", pk)):
+        cl.wire.reset()
+        ops.reset_launch_counts()
+        with RunProbe() as probe:
+            results, st = e.run([Request(**r) for r in reqs])
+        torch.cuda.synchronize()
+        out[label] = dict(
+            streams=[list(r.tokens) for r in results],
+            admits=st.n_admit_dispatches, replays=st.n_replay_dispatches,
+            peak_pages=st.peak_pages, pages=e._pages_in_use(),
+            weight_bytes=st.weight_bytes_per_step,
+            weight_raw=st.weight_raw_bytes_per_step,
+            launches=ops.launch_counts(), kinds=cl.wire.snapshot()["kinds"],
+            prefills=probe.prefills, step_ms=probe.steps)
+    raw = out["raw"]["streams"]
+    sides = [forced_as_served(cfg, e.run_cfg, e.params, reqs, raw, tg)
+             for e in (eng, pk)]
+    out["gap"] = max(float((a[:, :v] - b[:, :v]).abs().max())
+                     for a, b in zip(*sides))
+    out["ties"] = []
+    for r, a, b, lr, lp in zip(reqs, raw, out["packed"]["streams"], *sides):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            out["ties"].append(("packed", r["uid"], j) + logit_margins(
+                lr[j, :v], lp[j, :v])[:2])
+    del pk
+    # the fixed loop on the first four prompts (one length)
+    prompts = torch.as_tensor(np.stack([r["prompt"] for r in reqs[:4]]),
+                              device="cuda")
+    n = reqs[0]["max_new_tokens"] - 1
+    max_len = prompts.shape[1] + n + TPF_BLK * tg.world
+    ops.reset_launch_counts()
+    cl.wire.reset()
+    t0 = time.perf_counter()
+    toks = engine.generate(cfg, run, eng.params, prompts, n, max_len, tg)
+    torch.cuda.synchronize()
+    out["fixed"] = dict(tokens=toks.cpu().numpy(),
+                        wall_s=time.perf_counter() - t0,
+                        launches=ops.launch_counts(),
+                        kinds=cl.wire.snapshot()["kinds"])
+    parts = [(i, next((j for j, (x, y) in enumerate(zip(f, raw[i]))
+                       if x != y), None))
+             for i, f in enumerate(out["fixed"]["tokens"].tolist())]
+    if any(j is not None for _, j in parts):
+        ff = tp_fixed_forced(cfg, run, eng.params, prompts,
+                             np.asarray(raw[:4]), max_len, tg)
+        for i, j in parts:
+            if j is not None:
+                out["ties"].append(("fixed", i, j) + logit_margins(
+                    ff[i, j, :v], sides[0][i][j, :v])[:2])
+    out["disagg"] = tp_disagg_fleet(tg, cfg, run, eng, reqs, raw)
+    return out
+
+
+def tp_families_rank_job(tg, want):
+    """One rank of the tp_families phase (spawned; ``tg`` its gloo TPGroup
+    on the card): seamless and internvl2 on the fixed loop against tp =
+    1's tokens ``want`` (by name), then mamba2 on every serving path."""
+    import gc
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for name in TPF_STUBS:
+        t0 = time.perf_counter()
+        res[name] = tpf_stub(tg, tpf_cfg(name), want[name])
+        res[name]["model_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["mamba2-370m"] = tpf_mamba2(tg, tpf_cfg("mamba2-370m"))
+    res["mamba2-370m"]["model_s"] = time.perf_counter() - t0
+    return res
+
+
+def tpf_tp1(cfg):
+    """A stub family at tp = 1 in this process: the fixed loop's tokens
+    (``generate``: from a CUDA graph), then those tokens teacher-forced
+    through its raw and its packed (``cuda``) weights: (tokens, forced
+    logits raw, packed)."""
+    import dataclasses as dc
+    import gc
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import weights
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.serve import engine
+
+    run = RunConfig(codec=CodecConfig(cache_block=TPF_BLK))
+    b, s, n = TPF_FIXED[cfg.name]
+    prompts, extras = tpf_inputs(cfg)
+    max_len = s + n + TPF_BLK
+    params = engine_params(cfg)
+    want = engine.generate(cfg, run, params, prompts, n, max_len,
+                           **extras).cpu().numpy()
+    f_raw = tp_fixed_forced(cfg, run, params, prompts, want, max_len,
+                            extras=extras).numpy()
+    packed = weights.pack_serving_params(params, backend="cuda")
+    del params
+    gc.collect()
+    run_pk = RunConfig(codec=dc.replace(run.codec, weight_backend="cuda"))
+    f_pk = tp_fixed_forced(cfg, run_pk, packed, prompts, want, max_len,
+                           extras=extras).numpy()
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, f_raw, f_pk
+
+
+def tp_families_phase(smi):
+    """The remaining families at tp = 2 on the card: two ranks
+    (``launch.mesh.spawn``) on the one card over gloo, host-staged, from
+    seed 0's weights (each rank's shard of the tp = 1 tree), at full width
+    (depth cuts in TPF_LAYERS).  Rows 6xt and 6vt (``stub_tp_kernels``);
+    seamless-m4t-large-v2 (its encoder sequence-sharded, the memory
+    gathered LEXI-packed, cross attention over each rank's interleaved
+    rows of the memory's K/V) and internvl2-76b (front embeds across both
+    shards) on the fixed loop, held to tp = 1 as the dense family is
+    (``tp_held_to_tp1``: every teacher-forced logit gap within
+    TP_GAP_FACTOR x tp = 1's reorder gap, first divergences near-ties);
+    mamba2-370m on ``ServeEngine`` raw and packed, the fixed loop and a
+    tp = 2 fleet against a tp = 1 fleet (``link_reduction``), every
+    divergence between them a near-tie within TP_GAP_FACTOR x its raw vs
+    packed reorder gap, teacher-forced at the served slot count.  Both
+    ranks' tokens equal everywhere.  Prints ms per prefill and decode
+    step, each gather kind's wire / raw bytes and overflows, the cross
+    store's stored / raw bytes.  Returns rank 0's launches and the
+    rows."""
+    import collections
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.collectives import CodecConfig
+    from repro_torch.launch import mesh
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = stub_tp_kernels(gen)
+    torch.cuda.empty_cache()
+    tp1, bounds = {}, {}
+    for name in TPF_STUBS:
+        cfg = tpf_cfg(name)
+        tp1[name] = tpf_tp1(cfg)
+        v = cfg.vocab_size
+        gap1 = float(np.abs(tp1[name][1][..., :v]
+                            - tp1[name][2][..., :v]).max())
+        assert 0 < gap1 < float("inf"), (name, gap1)
+        bounds[name] = TP_GAP_FACTOR * gap1
+        log("tp_families", f"{name} at tp = 1: fixed loop "
+                           f"{' x '.join(map(str, TPF_FIXED[name]))}; its "
+                           f"tokens teacher-forced through its raw and its "
+                           f"packed (cuda) weights: reorder gap {gap1:.6g}, "
+                           f"so tp = 2 is held within {bounds[name]:.6g}")
+    m_cfg = tpf_cfg("mamba2-370m")
+    m_run = RunConfig(codec=CodecConfig(cache_block=TPF_BLK))
+    fleet1 = disagg_fleet(m_cfg, m_run, engine_params(m_cfg),
+                          tpf_mix(m_cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("tp_families", f"{', '.join(TPF_LAYERS)} at tp = 2: two ranks on "
+                       f"{torch.cuda.device_count()} card(s) over gloo, "
+                       f"CUDA tensors staged through host memory | {smi}")
+    ranks = mesh.spawn(tp_families_rank_job, 2, backend="gloo",
+                       device="cuda",
+                       args=({k: v[0] for k, v in tp1.items()},))
+    log("tp_families", f"2 ranks done in {time.perf_counter() - t0:.1f}s "
+                       f"| {smi}")
+    r0, r1 = ranks
+    launches = collections.Counter()
+    for name in TPF_STUBS:
+        cfg = tpf_cfg(name)
+        a, b_ = r0[name], r1[name]
+        assert np.array_equal(a["tokens"], b_["tokens"]), name
+        want, f1, _ = tp1[name]
+        same, n_tok, gap = tp_held_to_tp1(name, cfg, a["tokens"], want,
+                                          a["forced"], f1, bounds[name])
+        for k_, v_ in a["launches"].items():
+            launches[k_] += v_
+        assert a["launches"]["decode_attend"] > 0, a["launches"]
+        for k_, v_ in a["kinds"].items():
+            assert v_["overflows"] == 0 == b_["kinds"][k_]["overflows"], \
+                (name, k_)
+        want_kinds = {"all_gather"} | ({"encoder", "memory", "cross"}
+                                       if cfg.encdec else set())
+        assert set(a["kinds"]) == want_kinds, a["kinds"]
+        bb, ss, nn = TPF_FIXED[name]
+        ms = a["step_ms"]
+        log("tp_families", f"{name} ({cfg.n_layers} layers"
+                           f"{' + as many encoder layers' if cfg.encdec else ''}"
+                           f", d {cfg.d_model}, {cfg.n_heads}/"
+                           f"{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+                           f"vocab {cfg.vocab_size}) fixed loop {bb} x {ss} "
+                           f"+ {nn} at tp = 2: both ranks' tokens equal; tp "
+                           f"2 == tp 1 on {same}/{n_tok} tokens; "
+                           f"teacher-forced logit gap tp 2 vs tp 1 max "
+                           f"{gap:.6g} (bound {bounds[name]:.6g}); prefill "
+                           f"{a['prefill_ms']:.1f} ms, "
+                           f"{sum(ms) / len(ms):.1f} ms per decode step "
+                           f"(mean of {len(ms)}, median "
+                           f"{sorted(ms)[len(ms) // 2]:.1f}); rank 0 model "
+                           f"{a['model_s']:.1f}s | {smi}")
+        log("tp_families", f"{name} prefill's compressed gathers (rank 0): "
+                           f"{tph_kind_line(a['kinds'])}")
+        if cfg.encdec:
+            for rank, r in enumerate(ranks):
+                st_, raw_ = r[name]["xstore"]
+                log("tp_families", f"{name} cross-attention store on shard "
+                                   f"{rank}: {ss // 2} of {ss} memory rows "
+                                   f"x {bb} sequences x {cfg.n_layers} "
+                                   f"layers, {st_} B stored of {raw_} B raw "
+                                   f"bf16 ({raw_ / st_:.4f}x)")
+            rows["6xt"]["launches"] = a["launches"]["decode_attend"] // 2
+        else:
+            rows["6vt"]["launches"] = a["launches"]["decode_attend"]
+    # mamba2
+    a, b_ = r0["mamba2-370m"], r1["mamba2-370m"]
+    reqs = tpf_mix(m_cfg)
+    bound = TP_GAP_FACTOR * a["gap"]
+    assert 0 < a["gap"] < float("inf"), a["gap"]
+    for key in ("raw", "packed"):
+        assert a[key]["streams"] == b_[key]["streams"], key
+        assert a[key]["peak_pages"] == a[key]["pages"] == 0 \
+            == b_[key]["pages"], key
+        assert a[key]["replays"] > 0, key                  # odd tails
+        for req, toks in zip(reqs, a[key]["streams"]):
+            assert len(toks) == req["max_new_tokens"], key
+        for k_, v_ in a[key]["launches"].items():
+            launches[k_] += v_
+        assert a[key]["kinds"]["all_gather"]["overflows"] == 0
+    assert a["packed"]["launches"]["decompress_matmul"] > 0
+    assert np.array_equal(a["fixed"]["tokens"], b_["fixed"]["tokens"])
+    d0, d1 = a["disagg"], b_["disagg"]
+    assert d0["streams"] == d1["streams"]
+    for k_, v_ in a["fixed"]["launches"].items():
+        launches[k_] += v_
+    for k_, v_ in d0["launches"].items():
+        launches[k_] += v_
+    ties = list(a["ties"]) + [("disagg", uid, j, m, m)
+                              for uid, j, _, _, m in d0["ties"]]
+    for what, uid, j, m1, m2 in ties:
+        tie = min(m1, m2) <= bound
+        log("tp_families", f"mamba2 {what} vs the raw served stream, "
+                           f"request {uid} first divergence at token {j}: "
+                           f"top-2 margins {m1:.4g} / {m2:.4g} (bound "
+                           f"{bound:.4g}): "
+                           f"{'near-tie' if tie else 'MARGIN ABOVE THE BOUND'}")
+        assert tie, (what, uid, j, m1, m2, bound)
+    raw = a["raw"]["streams"]
+    eq = {k: sum(x == y for s1, s2 in zip(st_, raw) for x, y in zip(s1, s2))
+          for k, st_ in (("packed", a["packed"]["streams"]),
+                         ("fixed", a["fixed"]["tokens"].tolist()),
+                         ("disagg", d0["streams"]))}
+    log("tp_families", f"mamba2-370m ({m_cfg.n_layers} layers, d "
+                       f"{m_cfg.d_model}, SSM "
+                       f"{m_cfg.ssm.n_heads(m_cfg.d_model)} heads, "
+                       f"{m_cfg.ssm.n_heads(m_cfg.d_model) // 2} a rank, "
+                       f"d_state {m_cfg.ssm.d_state}) at tp = 2: both "
+                       f"ranks' streams equal on every path; no page on "
+                       f"either rank; tokens equal to the raw served "
+                       f"streams: packed {eq['packed']}, fixed loop "
+                       f"{eq['fixed']} (of its 4 x "
+                       f"{reqs[0]['max_new_tokens']}), fleet {eq['disagg']}"
+                       f" of {sum(map(len, raw))}; raw vs packed reorder "
+                       f"gap {a['gap']:.6g}; rank 0 model "
+                       f"{a['model_s']:.1f}s")
+    for key in ("raw", "packed"):
+        r = a[key]
+        pf = [p_["ms"] for p_ in r["prefills"]]
+        ms = r["step_ms"]
+        log("tp_families", f"mamba2 {key}: {len(pf)} admission prefills "
+                           f"{', '.join(f'{x:.1f}' for x in pf)} ms; "
+                           f"{sum(ms) / len(ms):.1f} ms per decode or "
+                           f"replay step (mean of {len(ms)}, median "
+                           f"{sorted(ms)[len(ms) // 2]:.1f}); weights "
+                           f"{r['weight_bytes']} B / {r['weight_raw']} B "
+                           f"raw per rank and step; "
+                           f"{tph_kind_line(r['kinds'])} | {smi}")
+    lr1, lr2 = fleet1["stats"]["link_reduction"], \
+        d0["stats"]["link_reduction"]
+    log("tp_families", f"mamba2 fleet at tp = 2 (each rank's SSM state in "
+                       f"the blob, no page): {disagg_line(d0)}; "
+                       f"link_reduction tp 2 {lr2:.4f} vs tp 1 {lr1:.4f} "
+                       f"on the same prompts | {smi}")
+    for tag, row in rows.items():
+        log("tp_families", f"row {tag}: ms {row['ms']:.4f}, plain ms "
+                           f"{row['plain_ms']:.4f}, SDPA ms "
+                           f"{row['library_ms']:.4f}, bound ms "
+                           f"{row['bound_ms']:.5f} ({row['bound_by']}), max "
+                           f"|err| {row['max_abs_err']:.3e}, launches "
+                           f"{row.get('launches')} | {smi}")
+    log("tp_families", f"phase done in {time.perf_counter() - t_phase:.1f}s"
+                       f" | {smi}")
+    return launches
+
+
 # Depth (layers of qwen3-4b's 36, width kept) of the fixed, prefix,
 # disagg and tp phases, of deepseek-v2-lite-16b's 27 in the moe_mla phase
 # and of zamba2-1.2b's 26 in the hybrid phase (the train phase's:
@@ -5785,6 +6281,9 @@ def main() -> int:
     for name, n in families_phase(smi).items():
         launches[name] += n
     mark("families")
+    for name, n in tp_families_phase(smi).items():
+        launches[name] += n
+    mark("tp_families")
     log("time", ", ".join(f"{name} {t - t0:.1f}s" for (_, t0), (name, t)
                           in zip(marks, marks[1:])) + f" | {smi}")
     kernels = []

@@ -6,6 +6,8 @@ collectives (ports ``examples/serve_lm.py``).
     PYTHONPATH=src python examples/torch_serve_lm.py --continuous
     PYTHONPATH=src python examples/torch_serve_lm.py --disagg \\
         --tp 2 --dist-backend gloo
+    PYTHONPATH=src python examples/torch_serve_lm.py --tp 2 \\
+        --dist-backend gloo --arch seamless-m4t-large-v2
 
 The fixed batch (the default) prefills ``--batch`` prompts and decodes
 them greedily in lockstep.  ``--continuous`` runs a request stream
@@ -15,7 +17,9 @@ prefill replica feeding a decode replica over compressed page transfer.
 ``--tp N --dist-backend nccl|gloo`` spawns N tensor-parallel ranks (the
 reference's mesh model axis; gloo for ranks that share a card or the
 CPU); rank 0 prints.  ``--device`` is ``cuda`` (the default) or ``cpu``.
-The model is ``make_reduced(arch, tp=N)`` with seeded random weights.
+The model is ``make_reduced(arch, tp=N)`` with seeded random weights;
+every family serves at every tp (the encoder-decoder and the vision-stub
+VLM on the fixed batch only, with the launcher's stub inputs).
 
 Prints each transport's compression accounting beside throughput.
 """
@@ -40,6 +44,7 @@ def serve(tg, args) -> int:
     from repro_torch.core import weights as W
     from repro_torch.core.collectives import CodecConfig
     from repro_torch.core.fixed import wire_ratio
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import cache as cache_mod
     from repro_torch.models import lm, params as PM
     from repro_torch.serve import engine
@@ -95,13 +100,17 @@ def serve(tg, args) -> int:
 
     if s % tp:
         raise SystemExit(f"--prompt-len {s} must be a multiple of --tp {tp}")
-    prompts = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (b, s)), dtype=torch.int32, device=device)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                              dtype=torch.int32, device=device)
+    # a VLM's front embeds or an encoder-decoder's frames, after the
+    # prompts, the same on every rank
+    extras = stub_inputs(cfg, rng, b, s, device)
     max_len = s + n + run.codec.cache_block * tp
 
     def go():
         return engine.generate(cfg, run, params, prompts, n, max_len,
-                               tg).cpu()
+                               tg, **extras).cpu()
 
     go()                                       # build, warm up
     t0 = time.perf_counter()

@@ -113,7 +113,8 @@ class WireStats:
     # are appended to it (tests hold them against the reference's)
     keep: Optional[list] = None
     # the same counts by the kind of call ("all_gather", "ppermute", or
-    # the all-to-all's ``kind``: the MoE's "dispatch" and "return"):
+    # the call's ``kind``: the MoE all-to-all's "dispatch" and "return",
+    # an encoder-decoder's "encoder", "memory" and "cross" gathers):
     # kind -> {"calls", "wire_bytes", "raw_bytes", "parts", "overflows"}
     kinds: dict = dataclasses.field(default_factory=dict)
 
@@ -413,20 +414,23 @@ def _decompress(ct: fixed.Compressed) -> torch.Tensor:
 
 def compressed_all_gather(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC,
                           *, gather_axis: int = 0, tiled: bool = True,
-                          groups: int = 1) -> torch.Tensor:
+                          groups: int = 1,
+                          kind: str = "all_gather") -> torch.Tensor:
     """all_gather with LEXI-FW packing on the wire: ``x`` (bf16) is this
     rank's shard; the result concatenates all shards along ``gather_axis``
     (tiled) or stacks a new axis there (untiled).  ``groups`` > 1: x's
     leading axis holds that many groups, each compressed on its own, with
     its own dictionary and escape capacity (the reference's gather under
-    ``vmap``, as its per-sequence admission prefills run it)."""
+    ``vmap``, as its per-sequence admission prefills run it).  ``kind``
+    labels its bytes in ``wire.kinds`` (an encoder-decoder's gathers:
+    ``encoder``, ``memory``, ``cross``)."""
     if not cfg.enabled or world(tg) == 1:
         return all_gather(x, tg, gather_axis, tiled)
     xs = x.reshape((groups, -1))
     ct = fixed.compress_many(xs, k=cfg.k,
                              esc_capacity=cfg.esc_capacity(xs.shape[1]))
     packed = pack_wire(ct)
-    _count(ct, x.numel() * x.element_size(), groups, packed, "all_gather")
+    _count(ct, x.numel() * x.element_size(), groups, packed, kind)
     got = gather_bytes(packed.reshape(-1), tg).reshape(
         (tg.world, groups, -1))
     parts = _decompress(unpack_wire(got, (xs.shape[1],), ct.k,

@@ -50,8 +50,9 @@ MIN_COMPRESS_SIZE = 1 << 12   # leaves below 4096 elements stay raw
 WEIGHT_K = 6                  # largest exponent-code width tried
 LANES = 32                    # bit-plane word width (columns per word)
 # top-level subtrees of ``models.lm.lm_table`` whose leaves carry a leading
-# layer axis: one layer's slice of such a leaf is what its consumer sees
-STACKED = ("blocks",)
+# layer axis (an encoder-decoder's encoder too): one layer's slice of such
+# a leaf is what its consumer sees
+STACKED = ("blocks", "enc_blocks")
 
 
 @dataclasses.dataclass

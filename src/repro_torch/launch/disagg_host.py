@@ -23,7 +23,9 @@ Roles:
 (``launch.mesh.spawn``): each rank holds its shard of every replica, a
 decode host's rank 0 holds the socket and runs each call on every rank
 (``serve.disagg.GroupReplica``), a driver's rank 0 talks to the hosts
-and hands every rank their answers; the blobs carry every rank's pages.
+and hands every rank their answers; the blobs carry every rank's pages
+(an attention-free model's, every rank's SSM state: ``--arch
+mamba2-370m``).
 
 Both processes must be launched with the same model, codec, geometry and
 seed flags (``--tp`` too): the hello handshake compares a configuration
@@ -39,7 +41,7 @@ on the fingerprint.
     PYTHONPATH=src python -m repro_torch.launch.disagg_host --role driver \\
         --model tiny-bench --codec on --decode-addr 127.0.0.1:7070 --check
     PYTHONPATH=src python -m repro_torch.launch.disagg_host --selftest \\
-        --device cpu [--tp 2 --dist-backend gloo]
+        --device cpu [--tp 2 --dist-backend gloo] [--arch mamba2-370m]
 """
 
 from __future__ import annotations
@@ -391,7 +393,7 @@ def main(argv=None) -> int:
                          "--check (the two-process smoke test)")
     # shared model / geometry flags: they must match across processes (the
     # hello handshake compares a configuration fingerprint)
-    ap.add_argument("--model", default="tiny-bench",
+    ap.add_argument("--model", "--arch", dest="model", default="tiny-bench",
                     help="'tiny-bench' or a named arch")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,

@@ -15,6 +15,8 @@ tensor-parallel over N ranks.
         --arch deepseek-v2-lite-16b --continuous --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 \
         --dist-backend gloo --device cpu [--continuous [--compress-weights]]
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 \
+        --dist-backend gloo --device cpu --arch seamless-m4t-large-v2
 
 ``--arch`` takes every config.  The dense, hybrid, MoE (MLA included:
 deepseek-v2-lite-16b; jamba-tiny-dev, granite-moe-1b-a400m) and
@@ -41,11 +43,11 @@ process, joined by the loopback page transport (multi-process serving:
 or CUDA tensors staged through host memory, e.g. two ranks on one card,
 which NCCL refuses).  Each rank serves the same requests on its shard of
 the weights (the seed's tp = 1 weights padded for tp, ``models.params.
-pad_for_tp``); rank 0 prints.  Every family but the encoder-decoder,
-the VLM and the attention-free model (refused before any rank starts,
-``models.blocks.check_tp``); a dense model is the same function at every
-tp, so it prints tp = 1's continuations, while the SSM and MoE families
-(MLA's too) compute the reference's tp-dependent function
+pad_for_tp``); rank 0 prints.  Every family: a dense model (the VLM and
+the encoder-decoder too: every rank draws the same stub inputs, after
+the same prompts) is the same function at every tp, so it prints tp =
+1's continuations up to near-ties, while the SSM (mamba2-370m too) and
+MoE families (MLA's too) compute the reference's tp-dependent function
 (``models/ssm.py``, ``models/moe.py``) and print tp's own.  ``--disagg
 --tp N`` runs every replica of the fleet on the N ranks
 (``DisaggEngine(group=)``).
@@ -61,7 +63,6 @@ from repro_torch.configs import get_config, make_reduced
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.collectives import CodecConfig
 from repro_torch.kernels.ops import DECODE_BACKENDS, WEIGHT_BACKENDS
-from repro_torch.models.blocks import check_tp
 
 
 def main(argv=None) -> int:
@@ -143,10 +144,6 @@ def main(argv=None) -> int:
         cfg = make_reduced(cfg)
     if args.compress_weights and not (args.continuous or args.disagg):
         ap.error("--compress-weights needs --continuous or --disagg")
-    try:                       # before any rank spawns
-        check_tp(cfg, args.tp)
-    except NotImplementedError as e:
-        ap.error(str(e))
     if args.tp > 1:
         return _spawn_ranks(cfg, run, args)
     if args.continuous or args.disagg:

@@ -2,7 +2,9 @@
 ...)`` calls ``fn(group, *args)`` on each rank): serving through
 ``ServeEngine(tp=...)`` and the paged path teacher-forced, a
 ``DisaggEngine(group=)`` fleet and a decode replica fed wire blobs, the
-fixed-batch loop, one layer's SSM and MoE functions, the compressed
+fixed-batch loop (with a VLM's or an encoder-decoder's stub inputs), an
+encoder's memory and cross-attention stores, one layer's SSM and MoE
+functions, the compressed
 collectives and their differentiable wrappers on given inputs, the fused
 gradient sync, and training steps at data = world, each on weights or inputs
 handed in, for a check against another implementation (the CPU tests
@@ -307,24 +309,52 @@ def decode_blobs(tg, cfg, run, handoffs: List[Dict[str, Any]],
     return out
 
 
+STUBS = ("front_embeds", "enc_embeds")
+
+
+def _store_fields(store) -> Dict[str, np.ndarray]:
+    """A batch-shared block store's fields (group = B: the reference's
+    layout, the group axis dropped) and ring, as numpy bytes."""
+    out = {f: getattr(store, f)[0].cpu().numpy() for f in
+           ("signman", "dict_syms", "esc_pos", "esc_raw")
+           if getattr(store, f) is not None}
+    if store.planes is not None:
+        out["planes"] = store.planes[0].cpu().numpy().view(np.uint32)
+    out["ring"] = store.ring.view(torch.int16).cpu().numpy() \
+        .view(np.uint16)
+    return out
+
+
 def fixed(tg, cfg, run, prompts: np.ndarray, new_tokens: int, max_len: int,
           spec: Dict[str, Any]) -> Dict[str, Any]:
     """The fixed-batch loop at tp = world on this rank, on the whole tree
-    ``spec["params"]`` cut to its shard: ``generate``'s tokens (B,
-    new_tokens + 1), and, with ``spec["forced"]`` (B, new_tokens) tokens,
-    the whole-vocab logits of the prefill and of each decode step fed
-    them (teacher forcing: the ranks' vocab shards gathered)."""
+    ``spec["params"]`` cut to its shard, with a VLM's or an
+    encoder-decoder's stub inputs ``spec["front_embeds"]`` /
+    ``spec["enc_embeds"]`` (the whole arrays, the same on every rank; bf16
+    pairs): ``generate``'s tokens (B, new_tokens + 1) and the wire counts
+    of its compressed collectives (``collectives.wire.snapshot``), and,
+    with ``spec["forced"]`` (B, new_tokens) tokens, the whole-vocab logits
+    of the prefill and of each decode step fed them (teacher forcing: the
+    ranks' vocab shards gathered) and, for an encoder-decoder, the rank's
+    cross-attention stores after that prefill (``xkv``: per layer, its
+    fields as numpy)."""
     from repro_torch.serve import engine
 
     device = torch.device(spec.get("device", "cpu"))
     params = _params_for(tg, cfg, spec, device)
+    extras = {k: to_tensor(spec[k], device) for k in STUBS if k in spec}
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
-    got = engine.generate(cfg, run, params, toks, new_tokens, max_len, tg)
-    res = dict(tokens=got.cpu().numpy())
+    cl.wire.reset()
+    got = engine.generate(cfg, run, params, toks, new_tokens, max_len, tg,
+                          **extras)
+    res = dict(tokens=got.cpu().numpy(), wire=cl.wire.snapshot())
     forced: Optional[np.ndarray] = spec.get("forced")
     if forced is not None:
         whole = lambda lg: cl.all_gather(lg[:, 0], tg, axis=-1)
-        lg, st = engine.prefill(cfg, run, params, toks, max_len, tg)
+        lg, st = engine.prefill(cfg, run, params, toks, max_len, tg,
+                                **extras)
+        if st.xkv is not None:
+            res["xkv"] = [_store_fields(x) for x in st.xkv]
         out = [whole(lg).cpu().numpy()]
         for t in range(forced.shape[1]):
             step = torch.as_tensor(forced[:, t:t + 1], dtype=torch.int32,
@@ -333,6 +363,39 @@ def fixed(tg, cfg, run, prompts: np.ndarray, new_tokens: int, max_len: int,
                                                 tg)).cpu().numpy())
         res["logits"] = np.stack(out)
     return res
+
+
+def encoder(tg, cfg, run, enc_embeds, kvs, max_len: int,
+            spec: Dict[str, Any]) -> Dict[str, Any]:
+    """An encoder-decoder's encoder at tp = world on this rank
+    (``lm.encode`` of the whole ``enc_embeds``, bf16 pairs): the memory
+    every rank gets and the packed bytes this rank put on the wire in the
+    memory's gather (its last compressed call); then every decoder
+    layer's cross-attention store filled as ``engine.prefill`` fills it
+    (``engine.cache_payload``: the interleaving) from the given K/V
+    ``kvs[rank][layer]`` (another implementation's (k, v) of the memory,
+    (B, Hkv, Sm, hd) bf16 pairs: the rank's kv heads in ``col`` mode, every
+    kv head in ``row`` mode), with room for ``max_len`` tokens (``xkv`` as
+    ``fixed`` returns it)."""
+    from repro_torch.models import cache as cache_mod, lm
+    from repro_torch.serve import engine
+
+    device = torch.device(spec.get("device", "cpu"))
+    params = _params_for(tg, cfg, spec, device)
+    cl.wire.keep = []
+    mem = lm.encode(cfg, run, params, to_tensor(enc_embeds, device), tg)
+    keep, cl.wire.keep = cl.wire.keep, None
+    xkv = []
+    for k, v in kvs[tg.rank]:
+        k, v = to_tensor(k, device), to_tensor(v, device)
+        store = cache_mod.empty_kv(cfg, run, k.shape[0], max_len,
+                                   group=k.shape[0], device=device,
+                                   tp=tg.world)
+        cache_mod.fill_from_prefill(cfg, run, store,
+                                    engine.cache_payload(cfg, (k, v), tg))
+        xkv.append(_store_fields(store))
+    return dict(memory=to_numpy(mem), wire=keep[-1] if keep else None,
+                xkv=xkv)
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Dense decoder model code at tp = 1 (ports ``repro/models``)."""
+"""Model code of every family, at tp = 1 and tp > 1 (ports
+``repro/models``)."""

@@ -125,7 +125,7 @@ def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(b, s, n, hd).transpose(1, 2)
 
 
-def _row_sum(cfg: ModelConfig, x: torch.Tensor, ws, tg):
+def row_sum(cfg: ModelConfig, x: torch.Tensor, ws, tg):
     """Row-parallel products, in the order of ``ws``: the rank's d_model
     slice of x times each of its row shards, summed in f32 over the group
     (x times each whole weight at tp = 1)."""
@@ -140,13 +140,13 @@ def _row_kv(cfg: ModelConfig, p, x: torch.Tensor, tg):
     """``row`` mode's k and v (…, nkv * hd) bf16: the rank's d_model slice
     of x times its rows of wk / wv, summed in f32 over the group, biased
     in f32, then rounded."""
-    k, v = _row_sum(cfg, x, (p["wk"], p["wv"]), tg)
+    k, v = row_sum(cfg, x, (p["wk"], p["wv"]), tg)
     if cfg.qkv_bias:
         k, v = k + p["bk"].float(), v + p["bv"].float()
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
-def _local_q_kv_index(cfg: ModelConfig, tg) -> torch.Tensor:
+def local_q_kv_index(cfg: ModelConfig, tg) -> torch.Tensor:
     """``row`` mode: the kv head of each of the rank's query heads (pad
     heads clip onto the last kv head)."""
     hq_loc = cfg.padded_heads(tg.world) // tg.world
@@ -179,7 +179,7 @@ def project_qkv(cfg: ModelConfig, p, xg: torch.Tensor,
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if kv_mode(cfg, tp) == "col":
         return QKV(q, k, v), (k, v)
-    idx = _local_q_kv_index(cfg, tg).to(k.device)
+    idx = local_q_kv_index(cfg, tg).to(k.device)
     return QKV(q, k.index_select(1, idx), v.index_select(1, idx)), (k, v)
 
 
@@ -187,7 +187,7 @@ def _latent(cfg: ModelConfig, p, x: torch.Tensor, tg) -> torch.Tensor:
     """MLA's latent rows (…, lora + dr) bf16 before the norm: x times
     ``w_dkv`` in f32, at tp > 1 row-parallel (summed over the group),
     rounded once."""
-    return _row_sum(cfg, x, (p["w_dkv"],), tg)[0].to(torch.bfloat16)
+    return row_sum(cfg, x, (p["w_dkv"],), tg)[0].to(torch.bfloat16)
 
 
 def project_qkv_mla(cfg: ModelConfig, p, xg: torch.Tensor,

@@ -7,19 +7,23 @@ alone, no FFN: mamba2-370m) and an encoder-decoder's decoder block
 MLP; ``cross_attn_forward``).  The VLM (a vision stub in front of a dense
 trunk) takes dense blocks.
 
-Tensor parallelism (``tg`` a ``launch.mesh.TPGroup``; every family but
-the encoder-decoder, the VLM and the attention-free model): boundary
-activations are sequence-sharded (B, S/tp, D) in prefill, and each mixer
-and MLP entry gathers the normed activations with
+Tensor parallelism (``tg`` a ``launch.mesh.TPGroup``; every family):
+boundary activations are sequence-sharded (B, S/tp, D) in prefill, and
+each mixer and MLP entry gathers the normed activations with
 ``collectives.compressed_all_gather`` -- the paper's codec at the link
 port: LEXI-packed on the wire -- and reduce-scatters its f32 partial,
 rounded to bf16, back to the sequence shards with a raw
 ``psum_scatter`` (a sum cannot cross compressed).  A hybrid's attention
-and SSM share one gather and one reduce-scatter of their summed partial.
-The MLP is column- (w_gate, w_up) then row-parallel (w_down); the MoE
-FFN runs on the sequence shard with no gather (its tokens cross to the
-experts' ranks in ``moe.moe_forward``'s all-to-alls).  Decode activations
-are replicated (B, 1, D) and the partials are psum'd in bf16.
+and SSM share one gather and one reduce-scatter of their summed partial;
+a pure SSM block has that one gather and reduce-scatter and no FFN.  The
+MLP is column- (w_gate, w_up) then row-parallel (w_down); the MoE FFN
+runs on the sequence shard with no gather (its tokens cross to the
+experts' ranks in ``moe.moe_forward``'s all-to-alls).  An
+encoder-decoder's cross attention gathers ``ln_x(x)`` too (its own wire
+``kind``, ``cross``), attends the rank's query heads over the whole
+memory and reduce-scatters its partial (``repro/models/blocks.py:
+161-176``).  Decode activations are replicated (B, 1, D) and the
+partials are psum'd in bf16.
 
 Training (FSDP over the data ranks, model = 1): ``gather_fsdp`` gathers
 a layer's sharded weights before its forward, LEXI-packed on the wire.
@@ -54,17 +58,6 @@ def mlp_table(cfg: ModelConfig) -> Dict[str, PDef]:
             "w_down": PDef((f, d), spec=row)}
 
 
-def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise for a config whose tp > 1 path is not ported yet (the
-    encoder-decoder, the VLM and the attention-free families)."""
-    if tp > 1 and (cfg.encdec or cfg.frontend != "none"
-                   or cfg.n_heads == 0):
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder, VLM and attention-free "
-            "families at tp > 1 wait for their slice (ROADMAP.md, queue 1, "
-            "item 3)")
-
-
 def block_table(cfg: ModelConfig, tp: int = 1, cross: bool = False) -> Dict:
     """Parameter table for ONE layer (unstacked), as the reference's:
     attention (none when ``n_heads == 0``) and a hybrid's or an SSM
@@ -72,7 +65,6 @@ def block_table(cfg: ModelConfig, tp: int = 1, cross: bool = False) -> Dict:
     encoder-decoder's decoder) ``ln_x`` and the cross-attention ``xattn``;
     then a ``moe`` FFN, or an ``mlp`` unless the block is a pure SSM's;
     ``spec``s for ``tp`` ranks."""
-    check_tp(cfg, tp)
     d = cfg.d_model
     has_attn, has_ssm = cfg.n_heads > 0, cfg.ssm is not None
     t: Dict = {"ln1": PDef((d,), "ones")}
@@ -126,13 +118,13 @@ def gather_fsdp(params, dims, run: RunConfig, mesh, in_scan: bool = True):
     return one(params, dims)
 
 
-def _gather(h: torch.Tensor, run: RunConfig, tg,
-            groups: int = 1) -> torch.Tensor:
+def _gather(h: torch.Tensor, run: RunConfig, tg, groups: int = 1,
+            kind: str = "all_gather") -> torch.Tensor:
     """A prefill mixer's or FFN's entry: the sequence-sharded normed
     activations gathered, LEXI-compressed on the wire (each of ``groups``
-    groups of sequences on its own)."""
+    groups of sequences on its own; ``kind`` labels the bytes)."""
     return cl.compressed_all_gather(h, tg, run.codec, gather_axis=1,
-                                    groups=groups)
+                                    groups=groups, kind=kind)
 
 
 def _reduce(y: torch.Tensor, tg, prefill: bool) -> torch.Tensor:
@@ -144,12 +136,14 @@ def _reduce(y: torch.Tensor, tg, prefill: bool) -> torch.Tensor:
 
 
 def mlp(cfg: ModelConfig, p, x: torch.Tensor, run: RunConfig = None,
-        tg=None, prefill: bool = False, groups: int = 1) -> torch.Tensor:
+        tg=None, prefill: bool = False, groups: int = 1,
+        kind: str = "all_gather") -> torch.Tensor:
     """The MLP sub-block with its residual: x + W_down(swiglu(...)); at
-    tp > 1 (``run``'s codec for the gather) column- then row-parallel."""
+    tp > 1 (``run``'s codec for the gather, ``kind`` its label) column-
+    then row-parallel."""
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if prefill and cl.world(tg) > 1:
-        h = _gather(h, run, tg, groups)
+        h = _gather(h, run, tg, groups, kind)
     m = p["mlp"]
     act = layers.swiglu(layers.pdot(h, m["w_gate"]),
                         layers.pdot(h, m["w_up"]))
@@ -161,7 +155,7 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor, run: RunConfig = None,
 
 
 def ffn(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
-        groups: int = 1, tg=None) -> torch.Tensor:
+        groups: int = 1, tg=None, kind: str = "all_gather") -> torch.Tensor:
     """The FFN tail of a full-sequence layer with its residual: the MoE
     FFN where the layer has one (its tokens dispatched in ``groups``
     groups, see ``moe.moe_forward``; at tp > 1 on the sequence shard, not
@@ -172,7 +166,8 @@ def ffn(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
         return x + moe_mod.moe_forward(cfg, run, p["moe"], h,
                                        groups=groups, tg=tg)[0]
     if "mlp" in p:
-        return mlp(cfg, p, x, run, tg, prefill=True, groups=groups)
+        return mlp(cfg, p, x, run, tg, prefill=True, groups=groups,
+                   kind=kind)
     return x
 
 
@@ -203,23 +198,27 @@ def mixer_residual(cfg: ModelConfig, p, x: torch.Tensor,
 def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
                   positions: torch.Tensor, spec: layers.AttnSpec,
                   window=None, want_cache: bool = False,
-                  groups: int = 1, tg=None, memory=None, mem_positions=None):
+                  groups: int = 1, tg=None, memory=None, mem_positions=None,
+                  kind: str = "all_gather"):
     """x (B,S,D) -> (x', the decode cache payload or None: (k, v), or an
     MLA layer's latent (B,S,W); None without attention; the SSM's final
     ``SSMState`` or None).  A hybrid's attention and SSM outputs are
     summed in f32.  The B sequences run as ``groups`` separate prefills:
     a MoE FFN dispatches each group's tokens on its own, and at tp > 1
-    the gathers compress each group's activations on their own.  At
+    the gathers compress each group's activations on their own (their
+    bytes labelled ``kind``: an encoder layer's are ``encoder``).  At
     tp > 1 x is the rank's sequence shard (B, S/tp, D) and (k, v) the
     rank's cache payload heads (``attention.project_qkv``).
 
-    ``memory`` (B, Sm, D) (an encoder-decoder's decoder layer, at tp = 1;
-    ``mem_positions`` its (Sm,) positions) adds the cross attention
-    between the mixers and the FFN and a fourth item: its cache payload,
-    the memory's (k, v), or None."""
+    ``memory`` (B, Sm, D) (an encoder-decoder's decoder layer: the whole
+    memory on every rank; ``mem_positions`` its (Sm,) positions) adds the
+    cross attention between the mixers and the FFN -- at tp > 1 its input
+    gathered (``cross``) and its partial reduce-scattered -- and a fourth
+    item: its cache payload, the memory's (k, v) (``cross_attn_forward``),
+    or None."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cl.world(tg) > 1:
-        h = _gather(h, run, tg, groups)
+        h = _gather(h, run, tg, groups, kind)
     o = kv = st = None
     if "attn" in p:
         o, kv = attention.attn_forward(cfg, run, p["attn"], h, positions,
@@ -231,32 +230,57 @@ def block_forward(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
         o = o_ssm if o is None else o + o_ssm
     x = mixer_residual(cfg, p, x, o, tg, prefill=True)
     if memory is None:
-        return ffn(cfg, run, p, x, groups, tg), kv, st
+        return ffn(cfg, run, p, x, groups, tg, kind), kv, st
     hx = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    if cl.world(tg) > 1:
+        hx = _gather(hx, run, tg, groups, "cross")
     o, xkv = cross_attn_forward(cfg, run, p["xattn"], hx, memory, positions,
-                                mem_positions, want_cache)
-    x = x + o.to(torch.bfloat16)
-    return ffn(cfg, run, p, x, groups, tg), kv, st, xkv
+                                mem_positions, want_cache, tg)
+    x = x + _reduce(o.to(torch.bfloat16), tg, prefill=True)
+    return ffn(cfg, run, p, x, groups, tg, kind), kv, st, xkv
 
 
 def cross_attn_forward(cfg: ModelConfig, run: RunConfig, p,
                        h: torch.Tensor, memory: torch.Tensor,
                        q_pos: torch.Tensor, kv_pos: torch.Tensor,
-                       want_cache: bool = False):
-    """Cross attention (tp = 1, the reference's ``col`` mode): queries
-    from h (B,S,D), keys and values from the encoder's memory (B,Sm,D),
-    no rope, no norm, no bias on k and v; non-causal, no softcap.
-    Returns (the o-projection (B,S,D) f32, the memory's (k, v) (B,Hkv,Sm,
-    hd) each, with ``want_cache``, else None)."""
-    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+                       want_cache: bool = False, tg=None):
+    """Cross attention: queries from h (B,S,D), keys and values from the
+    encoder's memory (B,Sm,D), no rope, no norm, no bias on k and v;
+    non-causal, no softcap.  At tp > 1 (the reference's two kv regimes,
+    ``attention.kv_mode``) the rank's query heads attend: in ``col`` mode
+    over its n_kv / tp kv heads of the whole memory, in ``row`` mode over
+    the kv head of each (``attention.local_q_kv_index``) taken from every
+    kv head, the rank's d_model slice of the memory times its rows of
+    wk / wv summed in f32 over the group.  Returns (the o-projection
+    (B,S,D) f32, at tp > 1 the rank's partial; the memory's (k, v) with
+    ``want_cache``, else None: the rank's kv heads in ``col`` mode, every
+    kv head in ``row`` mode, (B, Hkv, Sm, hd) each).
+
+    ``row`` mode stores every kv head where the reference stores the
+    rank's query heads' picks (``repro/models/blocks.py:226-232``), which
+    fits its store only at hq / tp = n_kv = 1, where the two are the same
+    bytes (``ROADMAP.md`` section 3, item 8)."""
+    hd, tp = cfg.head_dim, cl.world(tg)
+    hq_loc = cfg.padded_heads(tp) // tp
     b, s, _ = h.shape
     sm = memory.shape[1]
-    q = layers.pdot(h, p["wq"], p.get("bq")).reshape(b, s, -1, hd) \
+    q = layers.pdot(h, p["wq"], p.get("bq")).reshape(b, s, hq_loc, hd) \
         .transpose(1, 2)
-    k = layers.pdot(memory, p["wk"]).reshape(b, sm, nkv, hd).transpose(1, 2)
-    v = layers.pdot(memory, p["wv"]).reshape(b, sm, nkv, hd).transpose(1, 2)
+    if attention.kv_mode(cfg, tp) == "col":
+        nkv = cfg.n_kv_heads // tp
+        k = layers.pdot(memory, p["wk"]).reshape(b, sm, nkv, hd) \
+            .transpose(1, 2)
+        v = layers.pdot(memory, p["wv"]).reshape(b, sm, nkv, hd) \
+            .transpose(1, 2)
+        kq, vq = k, v
+    else:
+        k, v = (t.to(torch.bfloat16).reshape(b, sm, cfg.n_kv_heads, hd)
+                .transpose(1, 2) for t in attention.row_sum(
+                    cfg, memory, (p["wk"], p["wv"]), tg))
+        idx = attention.local_q_kv_index(cfg, tg).to(k.device)
+        kq, vq = k.index_select(1, idx), v.index_select(1, idx)
     out = layers.flash_attention(
-        q, k, v, q_pos, kv_pos, layers.AttnSpec(causal=False, softcap=None),
+        q, kq, vq, q_pos, kv_pos, layers.AttnSpec(causal=False, softcap=None),
         chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv)
-    out = out.transpose(1, 2).reshape(b, s, q.shape[1] * hd)
+    out = out.transpose(1, 2).reshape(b, s, hq_loc * hd)
     return layers.matmul_f32(out, p["wo"]), ((k, v) if want_cache else None)

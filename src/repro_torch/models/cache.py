@@ -45,7 +45,10 @@ its own (page ids may differ between ranks), and decode attention runs
 the kernels' ``tp, ti`` path over the rank's slots; the partials of the
 ranks merge with one pmax and two psums (``merge_shards``, the
 reference's ``layers.merge_partials``).  At tp = 1 a rank owns every
-position.
+position.  An encoder-decoder's cross-attention store of the memory
+(Sm rows, static after prefill) takes the same layout: shard ``ti`` holds
+``local_length(Sm, tp, ti)`` rows, every kv head, attended at the
+memory's length.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 vision-stub VLM (``front_embeds`` take the first ``n_frontend_tokens``
 positions) and the encoder-decoder (a non-causal encoder trunk over
 ``enc_embeds``, whose normed output is every decoder layer's
-cross-attention memory; tp = 1).
+cross-attention memory; at tp > 1 the encoder runs sequence-sharded and
+its output is gathered, LEXI-packed, to every rank).
 
 The vocabulary is padded to a multiple of tp * 128 (``padded_vocab``) and,
 at tp > 1, sharded over the ranks (rows of ``embed``, columns of
@@ -127,21 +128,51 @@ def logits_for(cfg: ModelConfig, params, x: torch.Tensor,
 
 
 def encode(cfg: ModelConfig, run: RunConfig, params,
-           enc_embeds: torch.Tensor) -> torch.Tensor:
-    """An encoder-decoder's encoder trunk (tp = 1): frame embeddings
-    (B, Sm, D) through the non-causal encoder blocks (the config's
-    softcap), then ``enc_norm`` -> the memory (B, Sm, D) bf16.  The
-    reference's tp = 1 gather of the memory round-trips it through the
-    codec, the identity without escape overflow (see ``blocks``)."""
-    x = enc_embeds.to(torch.bfloat16)
-    sm = x.shape[1]
+           enc_embeds: torch.Tensor, tg=None) -> torch.Tensor:
+    """An encoder-decoder's encoder trunk: frame embeddings (B, Sm, D)
+    through the non-causal encoder blocks (the config's softcap), then
+    ``enc_norm`` -> the memory (B, Sm, D) bf16.  At tp > 1 (Sm % tp == 0,
+    as the reference's slice needs) the rank runs its contiguous Sm / tp
+    frames through the blocks' tp path (its gathers' bytes labelled
+    ``encoder``), and the normed shards are gathered LEXI-packed
+    (``memory``), so every rank holds the whole memory
+    (``repro/models/lm.py:319-331``).  The reference's tp = 1 gather of
+    the memory round-trips it through the codec, the identity without
+    escape overflow; the port drops it (see ``blocks``)."""
+    tp, sm = cl.world(tg), enc_embeds.shape[1]
+    if sm % tp:
+        raise ValueError(f"{cfg.name}: {sm} encoder frames do not split "
+                         f"over tp {tp}")
+    sm_loc = sm // tp
+    x = enc_embeds[:, cl.rank(tg) * sm_loc:(cl.rank(tg) + 1) * sm_loc] \
+        .to(torch.bfloat16)
     positions = torch.arange(sm, dtype=torch.int32, device=x.device)
     spec = layers.AttnSpec(causal=False, softcap=cfg.attn_softcap)
     for i in range(cfg.n_layers):
         x = blocks.block_forward(cfg, run, layer_params(params, i,
                                                         "enc_blocks"),
-                                 x, positions, spec)[0]
-    return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+                                 x, positions, spec, tg=tg,
+                                 kind="encoder")[0]
+    x = layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    if tp == 1:
+        return x
+    return cl.compressed_all_gather(x, tg, run.codec, gather_axis=1,
+                                    kind="memory")
+
+
+def front_embed(cfg: ModelConfig, x: torch.Tensor,
+                front_embeds: torch.Tensor, tg=None) -> torch.Tensor:
+    """A vision-stub VLM's embeddings: ``front_embeds`` (B,
+    n_frontend_tokens, D) replace the token embeddings of the first
+    n_frontend_tokens positions of the rank's sequence shard x (B, S/tp,
+    D) (positions ``rank * S/tp + arange(S/tp)``), so the front tokens
+    may end inside shard 0, span shards or fill several
+    (``repro/models/lm.py:312-316``)."""
+    s_loc = x.shape[1]
+    pos = cl.rank(tg) * s_loc + torch.arange(s_loc, device=x.device)
+    nf = cfg.n_frontend_tokens
+    fe = front_embeds.index_select(1, pos.clamp(0, nf - 1))
+    return torch.where((pos < nf)[None, :, None], fe.to(x.dtype), x)
 
 
 def lm_forward(cfg: ModelConfig, run: RunConfig, params,
@@ -166,9 +197,11 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
     at tp > 1 the gathers compress each group's activations on their own.
 
     A vision-stub VLM's ``front_embeds`` (B, n_frontend_tokens, D)
-    replace the embeddings of the first ``n_frontend_tokens`` positions;
-    an encoder-decoder's ``enc_embeds`` (B, Sm, D) go through ``encode``,
-    and the memory goes to every decoder layer (both at tp = 1)."""
+    replace the embeddings of the first ``n_frontend_tokens`` positions
+    (``front_embed``); an encoder-decoder's ``enc_embeds`` (B, Sm, D) go
+    through ``encode``, and the whole memory goes to every decoder layer
+    (at tp > 1 too: every rank holds the same ``front_embeds`` and
+    ``enc_embeds``)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     spec = attention.base_attn_spec(cfg)
@@ -178,14 +211,13 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
                          f"{cl.world(tg)}")
     x = embed_tokens(cfg, params["embed"], tokens, tg, scatter=True)
     if cfg.frontend == "vision_stub" and front_embeds is not None:
-        nf = min(cfg.n_frontend_tokens, s)
-        x = torch.cat([front_embeds[:, :nf].to(x.dtype), x[:, nf:]], dim=1)
+        x = front_embed(cfg, x, front_embeds, tg)
     memory = mem_pos = None
     if cfg.encdec:
         if enc_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs "
                              "enc_embeds")
-        memory = encode(cfg, run, params, enc_embeds)
+        memory = encode(cfg, run, params, enc_embeds, tg)
         mem_pos = torch.arange(memory.shape[1], dtype=torch.int32,
                                device=tokens.device)
     caches = [] if want_cache else None

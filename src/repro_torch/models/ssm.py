@@ -25,7 +25,10 @@ tp > 1 is not the tp = 1 model (ROADMAP.md, section 3): each rank splits
 ITS ``w_zx`` columns in half into z and x, and ``gate_norm``'s RMS runs
 over the rank's ``d_inner / tp`` channels.  The state a rank keeps is
 its heads': ``h`` (..., nh/tp, hd, n), ``conv_x`` (..., k, d_inner/tp),
-``conv_bc`` whole.  At tp = 1 the collectives are dropped.
+``conv_bc`` whole.  At tp = 1 the collectives are dropped.  The
+attention-free model's block is this mixer alone (``blocks.
+block_forward``: one compressed gather at its entry, the rank's heads, a
+``psum_scatter`` of the partial in prefill, a ``psum`` in decode).
 """
 
 from __future__ import annotations

@@ -41,8 +41,8 @@ into pages from the decode pool's own free list.
 decode replicas in other OS processes (``launch.disagg_host``) over TCP:
 the same wire bytes, the same streams.
 
-Tensor parallelism (``DisaggEngine(group=)``; the families
-``blocks.check_tp`` admits): every rank runs its shard of every replica,
+Tensor parallelism (``DisaggEngine(group=)``; every family
+``ServeEngine`` serves): every rank runs its shard of every replica,
 and the whole fleet's host loop, in lock step, as ``ServeEngine(group=)``
 does.  A handoff's blob carries every rank's pages, shard-major, in the
 reference's ``(tp, L, ...)`` layout (``repro/serve/disagg.py:293-316``):
@@ -51,7 +51,8 @@ the shards are gathered to every rank (``collectives.gather_objects``)
 and each rank imports its own shard of the received blob
 (``:440-470``).  Streaming export counts the columns ``sent`` per shard
 (``cache.local_full_pages``, ``:199-218``), and a hybrid's SSM state
-travels per rank, ``(tp, L, nh_loc, ...)``.  Every rank holds an
+travels per rank, ``(tp, L, nh_loc, ...)`` (an attention-free model's
+blob is that section alone: no pages).  Every rank holds an
 identical loopback transport, so the link accounting and every routing
 decision are the same on every rank.  With ``decode_addrs`` rank 0 alone
 holds the socket: the transport and the remote replicas run there and

@@ -66,23 +66,25 @@ tensors that stay put (the fixed store's device length, the pool's page
 table and step buffer), refreshed in place.  State updates happen in
 place.
 
-Tensor parallelism (every family with attention but the encoder-decoder
-and the VLM; ``tg`` a ``launch.mesh.TPGroup``, one process per rank,
-every rank running the same loop): prefill runs the sequence-sharded
-trunk (``lm.lm_forward``: a MoE layer's tokens cross to the experts'
-ranks in its all-to-alls, a hybrid's SSM runs the rank's heads and keeps
-their state), then reshards each layer's K/V into the cache's
-interleaved slots -- one all-to-all of the rank's kv heads in ``col``
-mode (``_interleave_heads_a2a``), a slice of the full payload in ``row``
-mode and of MLA's latent, which every rank holds whole
-(``_interleave_slice``) -- and broadcasts the last position's hidden
-state from rank tp - 1 (a psum where the other ranks add zeros).  Decode
-steps psum the mixer, MLP and MoE partials in bf16, merge the ranks'
-attention partials (``cache.merge_shards``) and pick the greedy token
-over the vocab shards (``greedy_token``: pmax, then pmin of the
-candidate ids).  Every rank gets the same tokens.  Decode at tp > 1 runs
-eagerly: a gloo collective cannot be captured in a CUDA graph.  At tp = 1
-every collective is dropped.
+Tensor parallelism (every family; ``tg`` a ``launch.mesh.TPGroup``, one
+process per rank, every rank running the same loop): prefill runs the
+sequence-sharded trunk (``lm.lm_forward``: a MoE layer's tokens cross to
+the experts' ranks in its all-to-alls, an SSM runs the rank's heads and
+keeps their state, an encoder-decoder's encoder runs sequence-sharded
+and its memory is gathered to every rank), then reshards each layer's
+K/V -- and an encoder-decoder's cross-attention K/V of the memory --
+into the cache's interleaved slots -- one all-to-all of the rank's kv
+heads in ``col`` mode (``_interleave_heads_a2a``), a slice of the full
+payload in ``row`` mode and of MLA's latent, which every rank holds
+whole (``_interleave_slice``) -- and broadcasts the last position's
+hidden state from rank tp - 1 (a psum where the other ranks add zeros).
+Decode steps psum the mixer, cross-attention, MLP and MoE partials in
+bf16, merge the ranks' attention partials (``cache.merge_shards``; the
+cross store's too, attended by every query head gathered) and pick the
+greedy token over the vocab shards (``greedy_token``: pmax, then pmin of
+the candidate ids).  Every rank gets the same tokens.  Decode at tp > 1
+runs eagerly: a gloo collective cannot be captured in a CUDA graph.  At
+tp = 1 every collective is dropped.
 """
 
 from __future__ import annotations
@@ -255,7 +257,8 @@ def _prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
                                         cache_payload(cfg, kv, tg))
 
     def to_xblocks(i, xkv):
-        cache_mod.fill_from_prefill(cfg, run, xstores[i], kv_payload(*xkv))
+        cache_mod.fill_from_prefill(cfg, run, xstores[i],
+                                    cache_payload(cfg, xkv, tg))
 
     x, _ = lm.lm_forward(cfg, run, params, tokens, want_cache=True,
                          cache_fn=to_blocks, groups=groups, tg=tg,
@@ -306,7 +309,7 @@ def empty_state(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
     return DecodeState(
         kv=_empty_stores(cfg, run, batch, max_len, batch, device, tp),
         length=0, ssm=_empty_ssm(cfg, batch, device, tp),
-        xkv=(_empty_stores(cfg, run, batch, max_len, batch, device)
+        xkv=(_empty_stores(cfg, run, batch, max_len, batch, device, tp)
              if cfg.encdec else None))
 
 
@@ -320,7 +323,8 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, tokens: torch.Tensor,
     vocab shard and the state the rank's.  A vision-stub VLM takes
     ``front_embeds`` (B, n_frontend_tokens, D), an encoder-decoder
     ``enc_embeds`` (B, Sm, D), Sm <= ``max_len`` (as the reference's
-    ``prefill``, at tp = 1)."""
+    ``prefill``; at tp > 1 Sm % tp == 0, and each rank's cross-attention
+    stores take its interleaved rows of the memory's K/V)."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
@@ -377,10 +381,11 @@ def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
     attention, its output summed in f32, and takes the new state in place
     (only ``active``'s rows if given).  An encoder-decoder's ``cross(q)``
     attends the layer's cross-attention store of the memory (ports the
-    reference's ``decode_block`` cross path: ``cross_decode_q``, then
-    ``attend_cache``, then ``decode_out``).  Then the FFN tail: MLP or
-    MoE.  At tp > 1 the partials are psum'd in bf16
-    (``blocks.mixer_residual``, ``blocks.ffn_decode``)."""
+    reference's ``decode_block`` cross path: ``cross_decode_q`` -- at
+    tp > 1 the rank's query heads gathered to every head --, then
+    ``attend_cache``, then ``decode_out``, whose partial is psum'd).
+    Then the FFN tail: MLP or MoE.  At tp > 1 the partials are psum'd in
+    bf16 (``blocks.mixer_residual``, ``blocks.ffn_decode``)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     o = None
     if attend is not None:
@@ -397,7 +402,10 @@ def _attn_block(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
         b = hx.shape[0]
         q = layers.pdot(hx, xa["wq"], xa.get("bq")).reshape(
             b, 1, -1, cfg.head_dim).transpose(1, 2)
-        x = x + attention.decode_out(cfg, xa, cross(q)).to(torch.bfloat16)
+        if cl.world(tg) > 1:
+            q = cl.fold_parts(cl.gather_many((q,), tg)[0], 1)
+        xo = attention.decode_out(cfg, xa, cross(q), tg)
+        x = x + cl.psum(xo.to(torch.bfloat16), tg)
     return blocks.ffn_decode(cfg, p, x, tg)
 
 
@@ -413,8 +421,9 @@ def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
     device) of every sequence, ``post`` = length + 1 on the device; ``kv``
     (None without attention) and a hybrid's or an SSM model's state
     ``sst`` updated in place.  An encoder-decoder's ``xkv`` (the layer's
-    cross-attention store, ``xlen`` rows of the memory) is attended
-    non-causally with no softcap at that static length."""
+    cross-attention store, ``xlen`` rows of the memory; at tp > 1 the
+    rank's interleaved rows) is attended non-causally with no softcap at
+    that static length, through the kernel's ``tp, ti`` path."""
     pos = length_dev.expand(x.shape[0])
 
     def attend(q, new_vals):
@@ -426,7 +435,7 @@ def decode_block(cfg: ModelConfig, run: RunConfig, p, x: torch.Tensor,
     def cross(q):
         return cache_mod.attend_cache(
             cfg, run, xkv, q, xlen,
-            layers.AttnSpec(causal=False, softcap=None))
+            layers.AttnSpec(causal=False, softcap=None), tg=tg)
 
     return _attn_block(cfg, p, x, pos, None if kv is None else attend, sst,
                        tg=tg, cross=None if xkv is None else cross)

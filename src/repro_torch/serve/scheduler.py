@@ -81,8 +81,8 @@ runs split across replicas (``serve.disagg``): a prefill replica drives
 replica ``_decode_window`` on slots seeded by imports, its ``PageCache``
 ``remote_fetch`` wired to the transport's stores.
 
-Tensor parallelism (``ServeEngine(group=...)``, the families
-``blocks.check_tp`` admits): one
+Tensor parallelism (``ServeEngine(group=...)``, every family it serves,
+the attention-free one with no pool at any tp): one
 process per rank, each running this same loop on the same requests;
 the ranks agree on every decision because every input to one is the same
 on all of them (the greedy tokens are, see ``engine.greedy_token``).  A
@@ -115,7 +115,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import collectives as cl
 from repro_torch.core import weights as weights_mod
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import blocks, cache as cache_mod
+from repro_torch.models import cache as cache_mod
 from repro_torch.models import lm, params as PM
 from repro_torch.models.ssm import SSMState
 from . import engine
@@ -362,7 +362,6 @@ class ServeEngine:
         if tp != cl.world(group):
             raise ValueError(f"tp={tp} needs the rank's TPGroup of {tp} "
                              f"ranks, got {group}")
-        blocks.check_tp(cfg, tp)
         self.tp = tp
         self.group = group if tp > 1 else None
         self.rank = cl.rank(self.group)

@@ -2115,6 +2115,74 @@ def test_cross_memory_attend(cuda, sm, codec_on):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("sm", [5, 513, 1000])
+def test_cross_memory_attend_tp_shards(cuda, sm, tp):
+    """An encoder-decoder's cross attention at tp: each shard's store of
+    its interleaved rows of the memory's K/V (seamless-m4t-large-v2's
+    heads, 4 sequences, ``sm`` frames: a shard's rows end mid-block, or
+    it holds fewer than a block) filled on the card byte for byte as on
+    the CPU, and attended at the memory's static length through the
+    kernel's ``tp, ti`` path (host-length launch, non-causal, no
+    softcap): every shard within 1e-4 of its plain version, and the
+    shards' partials merged within 1e-4 of tp = 1's attention over the
+    whole memory (normalised in f32)."""
+    from repro_torch.models import cache, layers
+
+    cfg = ModelConfig(name="x", family="encdec", n_layers=1, d_model=1024,
+                      n_heads=16, n_kv_heads=16, d_ff=64, vocab_size=512,
+                      head_dim=64, encdec=True, frontend="audio_stub")
+    run = RunConfig(codec=CodecConfig(cache_block=256))
+    gen = torch.Generator(device=cuda).manual_seed(sm + tp)
+    b, w = 4, cache.kv_width(cfg)
+    pad = (-sm) % tp                   # whole rows for every shard
+    vals = _bf16(gen, (b, sm + pad, w))
+    q = _bf16(gen, (b, 16, 1, 64))
+    kw = cache.kernel_statics(cfg, run, q, layers.AttnSpec(
+        causal=False, softcap=None))
+    outs, ms, ls = [], [], []
+    for ti in range(tp):
+        rows = vals.reshape(b, -1, tp, w)[:, :, ti]
+        stores = {}
+        for dev in ("cpu", "cuda"):
+            st = cache.empty_kv(cfg, run, b, 1024 + 8, group=b, device=dev,
+                                tp=tp)
+            stores[dev] = cache.fill_from_prefill(cfg, run, st,
+                                                  rows.to(dev))
+        for f in ("signman", "planes", "dict_syms", "esc_pos", "esc_raw",
+                  "ring"):
+            assert torch.equal(getattr(stores["cpu"], f).view(torch.uint8),
+                               getattr(stores["cuda"], f).cpu()
+                               .view(torch.uint8)), (ti, f)
+        args = {dev: (q.to(dev)[:, :, 0],
+                      *(getattr(stores[dev], f)[0] for f in
+                        ("signman", "planes", "dict_syms", "esc_pos",
+                         "esc_raw")), None, stores[dev].ring, sm,
+                      ref.WINDOW_NONE) for dev in ("cpu", "cuda")}
+        before = decode_attend.launches["decode_attend"]
+        got = ops.decode_attend(*args["cuda"], **kw, tp=tp, ti=ti)
+        assert decode_attend.launches["decode_attend"] == before + 1
+        want = ops.decode_attend(*args["cpu"], **kw, tp=tp, ti=ti)
+        AC.attend_close(got, tuple(t.to(cuda) for t in want))
+        o, m, l_ = (t.float().cpu() for t in got)
+        outs.append(o)
+        ms.append(m)
+        ls.append(l_)
+    m_g = torch.stack(ms).max(0).values
+    wts = [torch.exp(m - m_g) for m in ms]
+    num = sum(o * wt[..., None] for o, wt in zip(outs, wts))
+    den = sum(l_ * wt for l_, wt in zip(ls, wts))
+    whole = cache.empty_kv(cfg, run, b, 1024 + 8, group=b, device="cpu")
+    cache.fill_from_prefill(cfg, run, whole, vals[:, :sm].cpu())
+    o, _, l_ = ops.decode_attend(
+        q.cpu()[:, :, 0], *(getattr(whole, f)[0] for f in
+                            ("signman", "planes", "dict_syms", "esc_pos",
+                             "esc_raw")), None, whole.ring, sm,
+        ref.WINDOW_NONE, **kw)
+    torch.testing.assert_close(num / den[..., None], o / l_[..., None],
+                               rtol=1e-4, atol=1e-4)
+
+
 SSM_ONLY = ModelConfig(name="s", family="ssm", n_layers=2, d_model=64,
                        n_heads=0, n_kv_heads=0, d_ff=0, vocab_size=512,
                        ssm=SSMConfig(d_state=16, headdim=8, chunk=16),

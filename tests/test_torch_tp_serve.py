@@ -394,10 +394,11 @@ def test_launcher_tp2(mode, capsys):
 
 
 def test_launcher_refuses(capsys):
+    """The launcher's argument errors at tp, before any rank spawns (every
+    family serves at tp > 1: ``test_torch_tp_{encdec,ssm_only}.py``)."""
     from repro_torch.launch import serve as launcher
     for args, msg in ((["--tp", "2"], "dist-backend"),
-                      (["--tp", "2", "--dist-backend", "gloo", "--disagg",
-                        "--arch", "mamba2-370m"], "ROADMAP")):
+                      (["--tp", "0", "--arch", "mamba2-370m"], ">= 1")):
         with pytest.raises(SystemExit):
             launcher.main(["--device", "cpu", *args])
         assert msg in capsys.readouterr().err
@@ -424,14 +425,16 @@ def _engine_tp2(cfg, run, group, **kw):
 
 
 def test_tp_refusals():
-    """What tp > 1 does not serve yet raises, before any collective: the
-    encoder-decoder, the VLM and the attention-free model (naming
-    ROADMAP), CUDA graphs, a missing or mismatched group; and the
-    scheduler refuses prompts shorter than tp.  MoE, SSM and MLA configs
-    build (each rank holding its experts, its SSM heads, its MLA query
-    heads)."""
-    from repro_torch.models import blocks
+    """What tp > 1 does not serve raises, before any collective: CUDA
+    graphs, a missing or mismatched group, and ``ServeEngine`` on the
+    encoder-decoder and the VLM (the reference's error: they serve on the
+    fixed loop only, at every tp); and the scheduler refuses prompts
+    shorter than tp.  MoE, SSM and MLA configs build (each rank holding
+    its experts, its SSM heads, its MLA query heads), and so do the
+    encoder-decoder's, the VLM's and the attention-free model's tables at
+    tp = 2 (the attention-free engine with no page pool)."""
     from repro_torch.configs import get_config, make_reduced
+    from repro_torch.models import lm
     from repro_torch.launch.mesh import TPGroup
     from repro_torch.serve.scheduler import Request as TReq
     from repro_torch.serve.scheduler import RequestScheduler
@@ -455,10 +458,17 @@ def test_tp_refusals():
     assert attn["wo"].shape[1] == hq * m.v_dim
     assert attn["w_dkv"].shape[1] == mla.d_model // 2
     for name in ("seamless-m4t-large-v2", "internvl2-76b", "mamba2-370m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.check_tp(make_reduced(get_config(name), tp=2), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine_tp2(make_reduced(get_config("mamba2-370m"), tp=2), trun, tg)
+        cfg = make_reduced(get_config(name), tp=2)
+        table = lm.lm_table(cfg, 2)
+        assert ("xattn" in table["blocks"]) == cfg.encdec, name
+        if cfg.encdec or cfg.frontend != "none":
+            with pytest.raises(ValueError, match="continuous batching "
+                               "covers decoder-only"):
+                _engine_tp2(cfg, trun, tg)
+    ssm = make_reduced(get_config("mamba2-370m"), tp=2)
+    eng = _engine_tp2(ssm, trun, tg)
+    assert eng.state.kv is None and eng._pages_in_use() == 0
+    assert eng.state.ssm.h.shape[2] == ssm.ssm.n_heads(ssm.d_model) // 2
     dense = TModel(**_cfg_kw("gqa"))
     with pytest.raises(ValueError, match="cuda_graphs"):
         _engine_tp2(dense, trun, tg, cuda_graphs=True)

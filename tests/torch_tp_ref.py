@@ -1,7 +1,8 @@
-"""Reference-side helpers of the tp = 2 port tests of the SSM and MoE
-families (``test_torch_tp_{hybrid,moe}.py``): the reference's fixed loop
-at tp under ``shmap``, teacher-forced or greedy, and the stream rule
-the port is held to."""
+"""Reference-side helpers of the tp = 2 port tests of the SSM, MoE,
+encoder-decoder and VLM families (``test_torch_tp_{hybrid,moe,encdec,
+ssm_only}.py``): the reference's fixed loop at tp under ``shmap``,
+teacher-forced or greedy, with a VLM's or an encoder-decoder's stub
+inputs, and the stream rule the port is held to."""
 
 import jax
 import jax.numpy as jnp
@@ -30,17 +31,19 @@ def pair(a):
         else a
 
 
-def _loop(jcfg, jrun, tp, prompts, max_len, feed, n):
+def _loop(jcfg, jrun, tp, prompts, max_len, feed, n, extras=()):
     """The reference's prefill + ``n`` decode steps under shmap at ``tp``,
     fed ``feed`` (B, n) or, with None, its own greedy tokens: a jitted
-    function of (params, prompts[, feed]) -> (tokens (B, n + 1), the
-    whole-vocab logits (n + 1, B, V))."""
+    function of (params, prompts, the stub inputs named ``extras`` (a
+    dict, replicated)[, feed]) -> (tokens (B, n + 1), the whole-vocab
+    logits (n + 1, B, V))."""
     mesh_ = jax.make_mesh((1, tp), ("data", "model"))
     table = jlm.lm_table(jcfg, MeshConfig(data=1, model=tp, pod=1), jrun)
     dims = jlm.lm_fsdp_dims(table)
 
-    def loop(pp, toks, fd=None):
-        lg, st = jengine.prefill(jcfg, jrun, pp, dims, toks, max_len, tp)
+    def loop(pp, toks, ex, fd=None):
+        lg, st = jengine.prefill(jcfg, jrun, pp, dims, toks, max_len, tp,
+                                 **ex)
         tok = jengine.greedy_token(jcfg, lg, tp)
         outs, lgs = [tok], [lg]
         for t in range(n):
@@ -52,19 +55,24 @@ def _loop(jcfg, jrun, tp, prompts, max_len, feed, n):
             lgs.append(lg)
         return jnp.concatenate(outs, 1), jnp.stack(lgs)[:, :, 0]
 
-    ins = (JPM.param_pspecs(table), P(None, None)) \
+    ins = (JPM.param_pspecs(table), P(None, None),
+           {k: P() for k in extras}) \
         + ((P(None, None),) if feed is not None else ())
     return jax.jit(jcl.shmap(loop, mesh_, ins,
                              (P(None, None), P(None, None, "model"))))
 
 
-def ref_fixed(jcfg, jrun, tp, params, prompts, n, max_len, feed=None):
+def ref_fixed(jcfg, jrun, tp, params, prompts, n, max_len, feed=None,
+              extras=None):
     """The reference's fixed loop at ``tp`` from the whole tree ``params``
-    (numpy): (its greedy tokens (B, n + 1), the whole-vocab logits (n + 1,
-    B, V) of the loop, fed ``feed`` (B, n) where given)."""
-    f = _loop(jcfg, jrun, tp, prompts, max_len, feed, n)
+    (numpy), with the stub inputs ``extras`` (``front_embeds`` /
+    ``enc_embeds``, numpy): (its greedy tokens (B, n + 1), the whole-vocab
+    logits (n + 1, B, V) of the loop, fed ``feed`` (B, n) where given)."""
+    extras = extras or {}
+    f = _loop(jcfg, jrun, tp, prompts, max_len, feed, n, tuple(extras))
     args = (jax.tree_util.tree_map(jnp.asarray, params),
-            jnp.asarray(prompts))
+            jnp.asarray(prompts),
+            {k: jnp.asarray(v) for k, v in extras.items()})
     if feed is not None:
         args += (jnp.asarray(feed),)
     toks, logits = f(*args)
