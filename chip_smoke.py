@@ -294,20 +294,27 @@ non-zero:
      families (the reference's tp = 2 function differs, ROADMAP.md
      section 3).
   15. train — training on the card: full-width qwen1.5-1.8b (its first
-     ``TRAIN_LAYERS`` = 4 of 24 layers, random weights from seed 0)
-     through ``launch.train.train_loop`` at mesh 2x1 (FSDP: two ranks
-     on the one card over gloo, host-staged), global batch 4 x 512,
-     codec full, remat on, 3 steps: per step loss, grad norm, lr, clip
-     scale and ms, both ranks equal; the FSDP
-     gathers' and the gradient sync's wire bytes against raw bf16 and
-     their escape overflows; each rank's peak device memory against its
-     state; the codec kernels' launches during the steps (each > 0).
-     Step 0 again at mesh 1x1 in this process: loss within 1e-4 and grad
-     norm within 1e-2 relative of 2x1's.  ``exp_histogram`` and
-     ``lexi_pack`` bit for bit against their plain versions and
-     ``lexi_unpack``'s round trip exact at the embedding's FSDP shard
-     (1 x 155.6 M) and the largest block shard, timed beside their
-     bounds and their plain versions (the histogram also beside a
+     ``TRAIN_LAYERS`` = 4 of 24 layers, random weights from seed 0, the
+     same model at every mesh) through ``launch.train.train_loop``, two
+     ranks on the one card over gloo (host-staged) in one spawn, global
+     batch 4 x 512, codec full, remat on: mesh 2x1 (FSDP) 2 steps, mesh
+     1x2 under the megatron strategy (sequence-parallel blocks, the
+     vocab-parallel loss; vocab 151936 padded to 152064) 2 steps and
+     under the fsdp strategy its step 0: per step loss, grad norm, lr,
+     clip scale and ms, both ranks equal; the compressed collectives'
+     wire bytes against raw bf16 by kind (``fsdp`` weight gathers,
+     ``all_gather`` activation gathers, the ``loss`` gather, the
+     ``grads`` sync) and their escape overflows (0); each rank's peak
+     device memory against its state; the codec kernels' launches
+     during each run (each > 0).  Step 0 again at mesh 1x1 in this
+     process: 2x1's loss within 1e-4 and grad norm within 1e-2
+     relative, megatron 1x2's within 1e-3 and 1e-2, fsdp 1x2's loss
+     within 1e-4.  ``exp_histogram`` and ``lexi_pack`` bit for bit
+     against their plain versions and ``lexi_unpack``'s round trip exact
+     at the embedding's FSDP shard (1 x 155.6 M), the largest block
+     shard and one rank's 1x2 activation gather (1 x 2.1 M: rows 2a, 3a,
+     5a, with their launches per 1x2 step), timed beside their bounds
+     and their plain versions (the histogram also beside a
      ``torch.bincount``).  Then checkpoint/restart through ``launch.train.main`` at
      the reduced size (2 ranks, 8 steps, a checkpoint every 4, a failure
      at step 6): LATEST reads step 8, the step-8 checkpoint restored and
@@ -4963,88 +4970,112 @@ def tp_hybrid_phase(smi):
 
 # ---------------------------------------------------------------------------
 # phase 15: training (the dense family at mesh 2x1: FSDP with compressed
-# weight gathers and gradient sync)
+# weight gathers and gradient sync; at mesh 1x2: sequence-parallel blocks
+# with compressed activation gathers and the vocab-parallel loss, and the
+# fsdp tp_strategy)
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen1.5-1.8b"
-TRAIN_SHAPE = (4, 512, 3)        # global batch, sequence, steps (warmup 1)
+TRAIN_SHAPE = (4, 512, 2)        # global batch, sequence, 2x1 steps
 TRAIN_LAYERS = 4                 # of qwen1.5-1.8b's 24, width kept
-# 2x1 against 1x1 at step 0: the codec is lossless, so only the order of
-# the sums differs (the gradient's reduce-scatter, the loss over ranks)
+TRAIN_TP_STEPS = 2               # megatron steps at mesh 1x2 (fsdp: 1)
+# 2x1 and fsdp 1x2 against 1x1 at step 0: the codec is lossless and the
+# blocks run unsharded, so only the order of the sums differs (the
+# gradient's reduce-scatter, the loss over ranks)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GNORM_RTOL = 1e-2
+# megatron 1x2 against 1x1 at step 0: the blocks' tp path sums its
+# row-parallel partials in another order (bf16 reduce-scatters)
+TRAIN_TP_LOSS_RTOL = 1e-3
 TRAIN_KERNELS = ("exp_histogram", "lexi_pack", "lexi_unpack")
+TRAIN_ACT = (4, 256, 2048)       # one rank's activation gather at 1x2
 
 
-def train_job(tg, cfg, steps: int):
-    """One rank of the train phase (``tg`` None: the 1x1 run in this
-    process): ``launch.train.train_loop`` of full-width ``cfg`` from seed
-    0 for ``steps`` steps, with the wire bytes of the FSDP gathers and of
-    the gradient sync counted apart (``optimizer.sync_grads`` wrapped),
-    the codec kernels' launches during the steps and the peak device
-    memory."""
+def train_job(tg, cfg, steps: int, model: int = 1,
+              strategy: str = "megatron"):
+    """One run of the train phase on this rank (``tg`` None: the 1x1 run
+    in this process): ``launch.train.train_loop`` of full-width ``cfg``
+    from seed 0 for ``steps`` steps at mesh (world / model) x model under
+    ``strategy``, with the compressed collectives' wire bytes by kind
+    (``fsdp`` weight gathers, ``all_gather`` activation gathers, the
+    ``loss`` gather, the ``grads`` sync), the codec kernels' launches
+    during the run and the peak device memory."""
     import torch
     from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
     from repro_torch.core import collectives as cl
     from repro_torch.core.collectives import CodecConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    from repro_torch.train import optimizer as opt_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     b, s, _ = TRAIN_SHAPE
     world = 1 if tg is None else tg.world
-    sync = dict(calls=0, wire_bytes=0, raw_bytes=0, parts=0, overflows=0)
-    plain_sync = opt_mod.sync_grads
-
-    def counted_sync(*a, **kw):
-        before = cl.wire.snapshot()
-        out = plain_sync(*a, **kw)
-        for k in sync:
-            sync[k] += cl.wire.__dict__[k] - before[k]
-        return out
-    opt_mod.sync_grads = counted_sync
     cl.wire.reset()
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = launch_train.train_loop(
         cfg, ShapeConfig("train", s, b, "train"),
-        MeshConfig(world, 1, 1),
-        RunConfig(codec=CodecConfig(), remat=True, warmup_steps=1),
+        MeshConfig(world // model, model, 1),
+        RunConfig(codec=CodecConfig(), remat=True, warmup_steps=1,
+                  tp_strategy=strategy),
         steps=steps,
         ckpt_dir=None, ckpt_every=0, resume=False, log=lambda *_: None,
         tg=tg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    opt_mod.sync_grads = plain_sync
-    total = {k: v for k, v in cl.wire.__dict__.items() if k != "keep"}
-    gathers = {k: total[k] - sync[k] for k in sync}
-    return dict(history=out["history"], wall_s=wall, gathers=gathers,
-                sync=sync, launches=ops.launch_counts(),
-                peak=torch.cuda.max_memory_allocated(),
-                device=str(torch.cuda.get_device_name()))
+    res = dict(history=out["history"], wall_s=wall,
+               kinds=cl.wire.snapshot()["kinds"],
+               launches=ops.launch_counts(),
+               peak=torch.cuda.max_memory_allocated(),
+               device=str(torch.cuda.get_device_name()))
+    torch.cuda.empty_cache()
+    return res
 
 
-def train_state_bytes(cfg, data: int) -> int:
-    """A rank's bytes of state at mesh data x 1: bf16 params and grads,
-    f32 master, m and v, each leaf its FSDP shard."""
+def train_rank_job(tg, cfg):
+    """A rank of the train phase's one spawn: mesh 2x1 (TRAIN_SHAPE's
+    steps), then mesh 1x2 under the megatron strategy (TRAIN_TP_STEPS)
+    and under the fsdp strategy (its step 0)."""
+    return [train_job(tg, cfg, TRAIN_SHAPE[2]),
+            train_job(tg, cfg, TRAIN_TP_STEPS, model=2),
+            train_job(tg, cfg, 1, model=2, strategy="fsdp")]
+
+
+def train_state_bytes(cfg, data: int, model: int = 1,
+                      strategy: str = "megatron") -> int:
+    """A rank's bytes of state at mesh data x model: bf16 params and
+    grads, f32 master, m and v, each leaf the rank's shard."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import tree
-    from repro_torch.models import lm
-    n = sum(math.prod(d.shape) // (data if d.fsdp_dim is not None else 1)
-            for d in tree.leaves(lm.lm_table(cfg, data=data,
-                                             run=RunConfig())))
+    from repro_torch.models import lm, params as PM
+    sizes = {"data": data, "model": model}
+    n = 0
+    for d in tree.leaves(lm.lm_table(cfg, tp=model, data=data,
+                                     run=RunConfig(tp_strategy=strategy))):
+        n += math.prod(d.shape) // math.prod(
+            sizes[a] for a in PM.spec_axes(d))
     return n * (2 + 2 + 4 * 3)
 
 
-def train_codec_kernels(cfg, smi):
+def kind_line(kinds, names) -> str:
+    """Wire / raw bytes, calls and escape overflows of some kinds."""
+    return "; ".join(
+        f"{k} {kinds[k]['wire_bytes']} B for {kinds[k]['raw_bytes']} B raw "
+        f"({kinds[k]['raw_bytes'] / kinds[k]['wire_bytes']:.4f}x, "
+        f"{kinds[k]['calls']} calls, overflows {kinds[k]['overflows']})"
+        for k in names if k in kinds)
+
+
+def train_codec_kernels(cfg, smi, per_step):
     """exp_histogram and lexi_pack bit for bit against their plain
     versions, and lexi_unpack's round trip exact, at the train path's
     largest shards (one compress group each): the embedding's FSDP shard
-    and the largest block leaf's per-layer shard; each timed against its
-    bound and its plain version (the histogram also against a
-    ``torch.bincount``)."""
+    and the largest block leaf's per-layer shard at 2x1, and one rank's
+    activation gather at 1x2 (TRAIN_ACT, N(0, 1) like the normed
+    activations; rows 2a, 3a, 5a, beside ``per_step``: their launches per
+    1x2 step); each timed against its bound and its plain version (the
+    histogram also against a ``torch.bincount``)."""
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import entropy as E
@@ -5061,10 +5092,12 @@ def train_codec_kernels(cfg, smi):
     bshard = tuple(s // 2 if i == blk.fsdp_dim else s
                    for i, s in enumerate(blk.shape))[1:]
     gen = torch.Generator(device="cuda").manual_seed(24)
-    k = 5
-    for name, shape in (("embed shard", shard), ("block shard", bshard)):
+    k = RunConfig().codec.k
+    for name, shape, std in (("embed shard", shard, 0.02),
+                             ("block shard", bshard, 0.02),
+                             ("1x2 activation shard", TRAIN_ACT, 1.0)):
         n = math.prod(shape)
-        x = (torch.randn((1, n), generator=gen, device="cuda") * 0.02) \
+        x = (torch.randn((1, n), generator=gen, device="cuda") * std) \
             .to(torch.bfloat16)
         how = codec_check(name, x, k)
         t = codec_timing(x, k)
@@ -5085,6 +5118,8 @@ def train_codec_kernels(cfg, smi):
             lambda: lexi_unpack.plain(ct.signman, ct.planes, ct.dict_syms,
                                       k))]
         lib = cuda_ms(lambda: torch.bincount(keys, minlength=256))
+        steps = (f"; launches per 1x2 step {per_step}" if "1x2" in name
+                 else "")
         log("train", f"codec kernels at the {name} {shape} (1 x {n}, k={k}"
                      f"): exact against the plain versions ({how}); "
                      f"exp_histogram {t['exp_histogram']['ms']:.4f} ms "
@@ -5095,7 +5130,7 @@ def train_codec_kernels(cfg, smi):
                      f"{plain[1]:.3f}), lexi_unpack {un:.4f} ms (bound "
                      f"{un_bound:.4f}, plain {plain[2]:.3f}), round trip "
                      f"through compress_many -> ops.unpack exact ({esc} "
-                     f"escapes, capacity {c}) | {smi}")
+                     f"escapes, capacity {c}){steps} | {smi}")
         del x, ct, back, keys
         torch.cuda.empty_cache()
 
@@ -5146,22 +5181,40 @@ def train_ckpt_phase(smi):
                  f"({time.perf_counter() - t0:.1f}s) | {smi}")
 
 
+def train_steps_lines(label, runs, smi):
+    """Both ranks' steps of one run: equal loss and grad norm, each
+    finite; one line a step."""
+    r0, r1 = runs
+    for h0, h1 in zip(r0["history"], r1["history"]):
+        assert (h0["loss"], h0["grad_norm"]) == (h1["loss"], h1["grad_norm"])
+        assert all(math.isfinite(h0[k]) for k in ("loss", "grad_norm"))
+        log("train", f"{label} step {h0['step']}: loss {h0['loss']:.6f} "
+                     f"grad norm {h0['grad_norm']:.6f} lr {h0['lr']:.3e} "
+                     f"clip scale {h0['clip_scale']:.6f} | rank 0 "
+                     f"{h0['ms']:.1f} ms, rank 1 {h1['ms']:.1f} ms (both "
+                     f"ranks' loss and grad norm equal) | {smi}")
+
+
 def train_phase(smi):
     """Training on the card: full-width qwen1.5-1.8b (its first
-    TRAIN_LAYERS of 24 layers, seed 0) through
-    ``launch.train.train_loop`` at mesh 2x1 -- two ranks on the one card
-    over gloo (host-staged; NCCL refuses two ranks on one device) --
-    global batch 4 x 512, codec full, remat on, 3 steps: per step loss,
-    grad norm, lr, clip scale and ms, both ranks equal; the FSDP gathers'
-    and the gradient sync's wire bytes against raw bf16, with the escape
-    overflows; each rank's peak device memory against its state; the
-    codec kernels' launches during the steps.  Then step 0 at mesh 1x1 in
-    this process from the same seed and batch: its loss within
-    TRAIN_LOSS_RTOL and its grad norm within TRAIN_GNORM_RTOL of 2x1's.
-    Then the codec kernels at the train path's shapes
+    TRAIN_LAYERS of 24 layers, seed 0) through ``launch.train.train_loop``
+    -- two ranks on the one card over gloo (host-staged; NCCL refuses two
+    ranks on one device), global batch 4 x 512, codec full, remat on --
+    in one spawn: at mesh 2x1 (FSDP) for TRAIN_SHAPE's steps, at mesh 1x2
+    under the megatron strategy (sequence-parallel blocks, the
+    vocab-parallel loss) for TRAIN_TP_STEPS and under the fsdp strategy
+    for its step 0.  Per step loss, grad norm, lr, clip scale and ms,
+    both ranks equal; the compressed collectives' wire bytes against raw
+    bf16 by kind, with their escape overflows (0); each rank's peak
+    device memory against its state; the codec kernels' launches during
+    each run (each > 0).  Then step 0 at mesh 1x1 in this process from
+    the same seed and batch: 2x1's loss within TRAIN_LOSS_RTOL and grad
+    norm within TRAIN_GNORM_RTOL of it, megatron 1x2's within
+    TRAIN_TP_LOSS_RTOL and TRAIN_GNORM_RTOL, fsdp 1x2's loss within
+    TRAIN_LOSS_RTOL.  Then the codec kernels at the train path's shapes
     (``train_codec_kernels``) and the reduced checkpoint/restart
-    (``train_ckpt_phase``).  Returns rank 0's launches during the 2x1
-    steps."""
+    (``train_ckpt_phase``).  Returns rank 0's launches during the three
+    spawned runs."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -5170,68 +5223,86 @@ def train_phase(smi):
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     b, s, steps = TRAIN_SHAPE
-    state = train_state_bytes(cfg, 2)
+    state = {m: train_state_bytes(cfg, *m) for m in ((2, 1), (1, 2),
+                                                     (1, 2, "fsdp"))}
     log("train", f"{cfg.name} full width ({cfg.n_layers} of "
                  f"{get_config(TRAIN_ARCH).n_layers} layers, d "
-                 f"{cfg.d_model}, vocab {cfg.vocab_size}) at mesh 2x1: two "
+                 f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+                 f"vocab {cfg.vocab_size}: {cfg.padded_vocab(1)} rows at tp "
+                 f"1, {cfg.padded_vocab(2)} at tp 2) in one spawn of two "
                  f"ranks on {torch.cuda.device_count()} card(s) over gloo, "
                  f"CUDA tensors staged through host memory; global batch {b}"
-                 f" x {s}, codec full, remat on, {steps} steps; predicted "
-                 f"state per rank {state / 1e9:.2f} GB (bf16 params and "
-                 f"grads, f32 master, m, v; FSDP shards) | {smi}")
+                 f" x {s}, codec full, remat on: mesh 2x1 {steps} steps, "
+                 f"mesh 1x2 megatron {TRAIN_TP_STEPS} steps, mesh 1x2 fsdp "
+                 f"1 step; predicted state per rank "
+                 + ", ".join(f"{'x'.join(map(str, m[:2]))}"
+                             f"{' fsdp' if len(m) > 2 else ''} "
+                             f"{v / 1e9:.2f} GB" for m, v in state.items())
+                 + f" (bf16 params and grads, f32 master, m, v) | {smi}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    r0, r1 = mesh.spawn(train_job, 2, backend="gloo", device="cuda",
-                        args=(cfg, steps))
+    ranks = mesh.spawn(train_rank_job, 2, backend="gloo", device="cuda",
+                       args=(cfg,))
+    (d0, tp0, fs0), (d1, tp1, fs1) = ranks
     log("train", f"2 ranks done in {time.perf_counter() - t0:.1f}s (rank 0 "
-                 f"train_loop {r0['wall_s']:.1f}s: seeded init on the card, "
-                 f"then the steps) | {smi}")
-    for h0, h1 in zip(r0["history"], r1["history"]):
-        assert (h0["loss"], h0["grad_norm"]) == (h1["loss"], h1["grad_norm"])
-        assert all(math.isfinite(h0[k]) for k in ("loss", "grad_norm"))
-        log("train", f"2x1 step {h0['step']}: loss {h0['loss']:.6f} grad "
-                     f"norm {h0['grad_norm']:.6f} lr {h0['lr']:.3e} clip "
-                     f"scale {h0['clip_scale']:.6f} | rank 0 {h0['ms']:.1f} "
-                     f"ms, rank 1 {h1['ms']:.1f} ms (both ranks' loss and "
-                     f"grad norm equal) | {smi}")
-    for r, res in enumerate((r0, r1)):
-        g, sy = res["gathers"], res["sync"]
-        log("train", f"rank {r} over {steps} steps: FSDP gathers "
-                     f"{g['wire_bytes']} B on the wire for {g['raw_bytes']}"
-                     f" B of raw bf16 ({g['raw_bytes'] / g['wire_bytes']:.4f}"
-                     f"x; {g['calls']} gathers, the blocks' counted twice a "
-                     f"step: forward and remat), escape overflows "
-                     f"{g['overflows']}; gradient sync (all-gather half) "
-                     f"{sy['wire_bytes']} B for {sy['raw_bytes']} B "
-                     f"({sy['raw_bytes'] / max(sy['wire_bytes'], 1):.4f}x; "
-                     f"{sy['calls']} calls), overflows {sy['overflows']}; "
-                     f"peak device memory {res['peak'] / 1e9:.2f} GB "
-                     f"(state {state / 1e9:.2f} GB + transients) | {smi}")
-        assert g["overflows"] == 0 and sy["overflows"] == 0
-    launches = {k: r0["launches"][k] for k in TRAIN_KERNELS}
-    log("train", f"codec kernel launches during the 2x1 steps: rank 0 "
-                 f"{launches}, rank 1 "
-                 f"{ {k: r1['launches'][k] for k in TRAIN_KERNELS} }")
-    assert all(v > 0 for v in launches.values()), launches
+                 f"train_loop 2x1 {d0['wall_s']:.1f}s, 1x2 megatron "
+                 f"{tp0['wall_s']:.1f}s, 1x2 fsdp {fs0['wall_s']:.1f}s: "
+                 f"seeded init on the card, then the steps) | {smi}")
+    launches = {k: 0 for k in TRAIN_KERNELS}
+    for label, key, runs in (("2x1", (2, 1), (d0, d1)),
+                             ("1x2 megatron", (1, 2), (tp0, tp1)),
+                             ("1x2 fsdp", (1, 2, "fsdp"), (fs0, fs1))):
+        train_steps_lines(label, runs, smi)
+        n_steps = len(runs[0]["history"])
+        for r, res in enumerate(runs):
+            kinds = res["kinds"]
+            log("train", f"{label} rank {r} over {n_steps} step(s): "
+                         + kind_line(kinds, ("fsdp", "all_gather", "loss",
+                                             "grads"))
+                         + f"; peak device memory {res['peak'] / 1e9:.2f} GB"
+                         f" (state {state[key] / 1e9:.2f} GB + transients)"
+                         f" | {smi}")
+            assert all(v["overflows"] == 0 for v in kinds.values()), kinds
+        want = {"2x1": {"fsdp", "grads"},
+                "1x2 megatron": {"all_gather", "loss", "grads"},
+                "1x2 fsdp": {"fsdp", "loss", "grads"}}[label]
+        assert set(runs[0]["kinds"]) == want, (label, runs[0]["kinds"])
+        got = {k: runs[0]["launches"][k] for k in TRAIN_KERNELS}
+        log("train", f"{label}: codec kernel launches during the run: rank "
+                     f"0 {got}, rank 1 "
+                     f"{ {k: runs[1]['launches'][k] for k in TRAIN_KERNELS} }")
+        assert all(v > 0 for v in got.values()), (label, got)
+        for k in TRAIN_KERNELS:
+            launches[k] += got[k]
+    per_step = {k: tp0["launches"][k] // TRAIN_TP_STEPS
+                for k in TRAIN_KERNELS}
 
     gc.collect()
     torch.cuda.empty_cache()
     solo = train_job(None, cfg, 1)
-    h1, h2 = solo["history"][0], r0["history"][0]
-    dl = abs(h1["loss"] - h2["loss"]) / abs(h1["loss"])
-    dg = abs(h1["grad_norm"] - h2["grad_norm"]) / abs(h1["grad_norm"])
-    log("train", f"1x1 step 0 in this process: loss {h1['loss']:.6f} grad "
-                 f"norm {h1['grad_norm']:.6f} {h1['ms']:.1f} ms; against "
-                 f"2x1: loss rel gap {dl:.3e} (limit {TRAIN_LOSS_RTOL:g}), "
-                 f"grad norm rel gap {dg:.3e} (limit {TRAIN_GNORM_RTOL:g});"
-                 f" peak device memory {solo['peak'] / 1e9:.2f} GB; "
-                 f"compressed collectives {solo['gathers']['calls']} | {smi}")
-    assert dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GNORM_RTOL, (dl, dg)
+    h1 = solo["history"][0]
+    for label, h2, ltol, gtol in (
+            ("2x1", d0["history"][0], TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL),
+            ("1x2 megatron", tp0["history"][0], TRAIN_TP_LOSS_RTOL,
+             TRAIN_GNORM_RTOL),
+            ("1x2 fsdp", fs0["history"][0], TRAIN_LOSS_RTOL, None)):
+        dl = abs(h1["loss"] - h2["loss"]) / abs(h1["loss"])
+        dg = abs(h1["grad_norm"] - h2["grad_norm"]) / abs(h1["grad_norm"])
+        log("train", f"1x1 step 0 in this process: loss {h1['loss']:.6f} "
+                     f"grad norm {h1['grad_norm']:.6f} {h1['ms']:.1f} ms; "
+                     f"against {label}: loss rel gap {dl:.3e} (limit "
+                     f"{ltol:g}), grad norm rel gap {dg:.3e} (limit "
+                     f"{'none' if gtol is None else f'{gtol:g}'}); peak "
+                     f"device memory {solo['peak'] / 1e9:.2f} GB; "
+                     f"compressed collectives "
+                     f"{sum(v['calls'] for v in solo['kinds'].values())} "
+                     f"| {smi}")
+        assert dl <= ltol and (gtol is None or dg <= gtol), (label, dl, dg)
     del solo
     gc.collect()
     torch.cuda.empty_cache()
-    train_codec_kernels(cfg, smi)
+    train_codec_kernels(cfg, smi, per_step)
     train_ckpt_phase(smi)
     log("train", f"phase done in {time.perf_counter() - t_phase:.1f}s | "
                  f"{smi}")

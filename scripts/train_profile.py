@@ -5,7 +5,7 @@
 
 Builds the kernel library, then runs ``train.train_step`` on the card on
 ``chip_smoke.py``'s train phase's model and shapes (``TRAIN_ARCH``,
-``TRAIN_SHAPE``: full-width qwen1.5-1.8b, global batch 4 x 512, 3 steps),
+``TRAIN_SHAPE``: full-width qwen1.5-1.8b, global batch 4 x 512, 2 steps),
 at all 24 layers (the train phase runs the first ``TRAIN_LAYERS``),
 from seed 0 (codec full, remat on, warmup 1), once at
 mesh 1x1 in this process and once at mesh 2x1 as two ranks on the card

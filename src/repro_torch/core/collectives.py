@@ -31,6 +31,12 @@ exchange (gloo takes CPU tensors only for gather and all-to-all); NCCL
 moves it in place.  Several tensors may share one exchange
 (``gather_many``).
 
+The plain ``psum``, ``all_gather``, ``psum_scatter`` and ``all_to_all``
+are differentiable with JAX's transposes (a psum's backward a psum, an
+all-gather's a reduce-scatter and back, an all-to-all's its swap), as
+the reference's ``jax.lax`` collectives are; the sequence-parallel
+blocks and the vocab-sharded loss train through them.
+
 The differentiable wrappers (``lexi_all_gather``, ``lexi_psum``,
 ``lexi_all_to_all``, ``lexi_ppermute``) are ``torch.autograd.Function``s
 with the reference's custom VJPs: the all-gather's backward is a raw
@@ -114,7 +120,8 @@ class WireStats:
     keep: Optional[list] = None
     # the same counts by the kind of call ("all_gather", "ppermute", or
     # the call's ``kind``: the MoE all-to-all's "dispatch" and "return",
-    # an encoder-decoder's "encoder", "memory" and "cross" gathers):
+    # an encoder-decoder's "encoder", "memory" and "cross" gathers, the
+    # trainer's "fsdp" weight gathers, "loss" gathers and "grads" sync):
     # kind -> {"calls", "wire_bytes", "raw_bytes", "parts", "overflows"}
     kinds: dict = dataclasses.field(default_factory=dict)
 
@@ -162,7 +169,8 @@ def gather_bytes(b: torch.Tensor, tg) -> torch.Tensor:
     out = torch.empty((tg.world * n,), dtype=torch.uint8,
                       device="cpu" if _staged(tg, b) else b.device)
     src = b.cpu() if _staged(tg, b) else b.contiguous()
-    torch.distributed.all_gather(list(out.chunk(tg.world)), src)
+    torch.distributed.all_gather(list(out.chunk(tg.world)), src,
+                                 group=tg.pg)
     return out.to(b.device).reshape(tg.world, n)
 
 
@@ -172,7 +180,8 @@ def exchange_bytes(chunks: torch.Tensor, tg) -> torch.Tensor:
     staged = _staged(tg, chunks)
     src = chunks.cpu() if staged else chunks.contiguous()
     out = torch.empty_like(src)
-    torch.distributed.all_to_all_single(out.reshape(-1), src.reshape(-1))
+    torch.distributed.all_to_all_single(out.reshape(-1), src.reshape(-1),
+                                        group=tg.pg)
     return out.to(chunks.device)
 
 
@@ -218,7 +227,7 @@ def gather_objects(obj, tg) -> list:
     if world(tg) == 1:
         return [obj]
     out = [None] * tg.world
-    torch.distributed.all_gather_object(out, obj)
+    torch.distributed.all_gather_object(out, obj, group=tg.pg)
     return out
 
 
@@ -228,7 +237,8 @@ def broadcast_object(obj, tg, src: int = 0):
     if world(tg) == 1:
         return obj
     box = [obj]
-    torch.distributed.broadcast_object_list(box, src=src)
+    torch.distributed.broadcast_object_list(box, src=tg.global_rank(src),
+                                            group=tg.pg)
     return box[0]
 
 
@@ -249,10 +259,19 @@ def sum_parts(parts: torch.Tensor) -> torch.Tensor:
     return acc.to(parts.dtype)
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x`` here."""
+    return x.requires_grad and torch.is_grad_enabled()
+
+
 def psum(x: torch.Tensor, tg) -> torch.Tensor:
-    """Sum over the group, replicated on every rank."""
+    """Sum over the group, replicated on every rank.  Differentiable, with
+    JAX's rule: the backward is a psum of the cotangent (every rank's
+    loss reads the sum that every rank holds whole)."""
     if world(tg) == 1:
         return x
+    if _tracked(x):
+        return _PsumAD.apply(x, tg)
     return sum_parts(gather_parts(x, tg))
 
 
@@ -271,9 +290,12 @@ def pmin(x: torch.Tensor, tg) -> torch.Tensor:
 def all_gather(x: torch.Tensor, tg, axis: int = 0,
                tiled: bool = True) -> torch.Tensor:
     """``jax.lax.all_gather``: the ranks' shards concatenated along
-    ``axis`` (tiled) or stacked on a new axis there (untiled)."""
+    ``axis`` (tiled) or stacked on a new axis there (untiled).
+    Differentiable: the backward reduce-scatters the cotangent."""
     if world(tg) == 1:
         return x if tiled else x.unsqueeze(axis)
+    if _tracked(x):
+        return _AllGatherAD.apply(x, tg, axis, tiled)
     parts = gather_parts(x, tg)
     return _fold(parts, axis, tiled, x.ndim)
 
@@ -299,10 +321,13 @@ def _fold(parts: torch.Tensor, axis: int, tiled: bool,
 
 def psum_scatter(x: torch.Tensor, tg, axis: int) -> torch.Tensor:
     """``jax.lax.psum_scatter(..., tiled=True)``: the sum over the group,
-    rank r keeping chunk r of ``axis``."""
+    rank r keeping chunk r of ``axis``.  Differentiable: the backward is
+    a raw tiled all-gather of the cotangent."""
     n = world(tg)
     if n == 1:
         return x
+    if _tracked(x):
+        return _PsumScatterAD.apply(x, tg, axis)
     chunks = torch.stack(torch.chunk(x, n, dim=axis))
     return sum_parts(exchange_parts(chunks, tg))
 
@@ -311,10 +336,13 @@ def all_to_all(x: torch.Tensor, tg, split_axis: int, concat_axis: int
                ) -> torch.Tensor:
     """``jax.lax.all_to_all(..., tiled=True)``: ``split_axis`` cut into
     world chunks, chunk j to rank j; the chunks received concatenated
-    along ``concat_axis`` in rank order."""
+    along ``concat_axis`` in rank order.  Differentiable: its own
+    transpose with the two axes swapped."""
     n = world(tg)
     if n == 1:
         return x
+    if _tracked(x):
+        return _AllToAllAD.apply(x, tg, split_axis, concat_axis)
     got = exchange_parts(torch.stack(torch.chunk(x, n, dim=split_axis)), tg)
     return torch.cat(list(got), dim=concat_axis)
 
@@ -440,10 +468,12 @@ def compressed_all_gather(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC,
 
 
 def compressed_psum(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC, *,
-                    scatter_axis: Optional[int] = None) -> torch.Tensor:
+                    scatter_axis: Optional[int] = None,
+                    kind: str = "all_gather") -> torch.Tensor:
     """Allreduce as a raw reduce-scatter (it sums) and a LEXI-compressed
-    all-gather.  ``scatter_axis`` must divide by the group size; by
-    default the first axis that does; with none, a plain psum."""
+    all-gather (its bytes labelled ``kind``).  ``scatter_axis`` must
+    divide by the group size; by default the first axis that does; with
+    none, a plain psum."""
     if not cfg.enabled or world(tg) == 1:
         return psum(x, tg)
     n = tg.world
@@ -453,7 +483,8 @@ def compressed_psum(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC, *,
         if scatter_axis is None:
             return psum(x, tg)
     part = psum_scatter(x, tg, scatter_axis)
-    return compressed_all_gather(part, tg, cfg, gather_axis=scatter_axis)
+    return compressed_all_gather(part, tg, cfg, gather_axis=scatter_axis,
+                                 kind=kind)
 
 
 def compressed_all_to_all(x: torch.Tensor, tg,
@@ -547,20 +578,76 @@ def sync_gradients(grads: Any, tg, cfg: CodecConfig = DEFAULT_CODEC) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# the plain collectives' autograd rules (JAX's transposes)
+# ---------------------------------------------------------------------------
+
+class _PsumAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg):
+        ctx.tg = tg
+        return psum(x, tg)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return psum(ct.contiguous(), ctx.tg), None
+
+
+class _AllGatherAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg, axis, tiled):
+        ctx.args = (tg, axis, tiled, x.ndim)
+        return all_gather(x, tg, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, ct):
+        tg, axis, tiled, ndim = ctx.args
+        if tiled:
+            return psum_scatter(ct.contiguous(), tg, axis), None, None, None
+        axis = axis % (ndim + 1)
+        return psum_scatter(ct.contiguous(), tg, axis).squeeze(axis), \
+            None, None, None
+
+
+class _PsumScatterAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg, axis):
+        ctx.tg, ctx.axis = tg, axis
+        return psum_scatter(x, tg, axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_gather(ct.contiguous(), ctx.tg, ctx.axis), None, None
+
+
+class _AllToAllAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tg, split_axis, concat_axis):
+        ctx.args = (tg, split_axis, concat_axis)
+        return all_to_all(x, tg, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        tg, split_axis, concat_axis = ctx.args
+        return all_to_all(ct.contiguous(), tg, concat_axis, split_axis), \
+            None, None, None
+
+
+# ---------------------------------------------------------------------------
 # differentiable wrappers (the reference's custom VJPs)
 # ---------------------------------------------------------------------------
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tg, cfg, gather_axis):
+    def forward(ctx, x, tg, cfg, gather_axis, groups, kind):
         ctx.tg, ctx.axis = tg, gather_axis
-        return compressed_all_gather(x, tg, cfg, gather_axis=gather_axis)
+        return compressed_all_gather(x, tg, cfg, gather_axis=gather_axis,
+                                     groups=groups, kind=kind)
 
     @staticmethod
     def backward(ctx, ct):
         # transpose of a tiled all-gather = psum_scatter; it sums: raw
         return psum_scatter(ct.contiguous(), ctx.tg, ctx.axis), None, None, \
-            None
+            None, None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -604,10 +691,12 @@ class _Ppermute(torch.autograd.Function):
 
 
 def lexi_all_gather(x: torch.Tensor, tg, cfg: CodecConfig = DEFAULT_CODEC,
-                    gather_axis: int = 0) -> torch.Tensor:
-    """Differentiable compressed all-gather (tiled along ``gather_axis``);
-    its backward reduce-scatters the cotangent raw."""
-    return _AllGather.apply(x, tg, cfg, gather_axis)
+                    gather_axis: int = 0, groups: int = 1,
+                    kind: str = "all_gather") -> torch.Tensor:
+    """Differentiable compressed all-gather (tiled along ``gather_axis``;
+    ``groups`` and ``kind`` as ``compressed_all_gather`` takes them); its
+    backward reduce-scatters the cotangent raw."""
+    return _AllGather.apply(x, tg, cfg, gather_axis, groups, kind)
 
 
 def lexi_psum(x: torch.Tensor, tg,

@@ -5,7 +5,9 @@ Every batch is a pure function of (seed, step): the same numpy
 the reference's bit for bit and training resumes exactly after a restart.
 Tokens and labels come out as int32 tensors of the global batch; a data
 rank takes its contiguous slice of the batch dim (``shard_batch``), as the
-reference's ``P("data")`` batch spec hands it out.
+reference's ``P("data")`` batch spec hands it out; every model rank of a
+data index takes the same slice, the whole sequence (the vocab-sharded
+embedding sums the ranks' partials of the same tokens).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class SyntheticLM:
 
 def shard_batch(batch: Dict[str, torch.Tensor], rank: int,
                 world: int) -> Dict[str, torch.Tensor]:
-    """Data rank ``rank``'s contiguous slice of the batch dim."""
+    """Data rank ``rank``'s contiguous slice of the batch dim, of
+    ``world`` data ranks (the same for every model rank)."""
     out = {}
     for k, v in batch.items():
         if v.shape[0] % world:
@@ -59,7 +62,7 @@ def for_config(cfg, shape, seed: int = 0) -> SyntheticLM:
     if cfg.frontend == "vision_stub" or cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: VLM and enc-dec training inputs wait for their "
-            "slice (ROADMAP.md, queue 1, item 4)")
+            "slice (ROADMAP.md, queue 1, item 4.2)")
     return SyntheticLM(vocab_size=cfg.vocab_size,
                        global_batch=shape.global_batch,
                        seq_len=shape.seq_len, seed=seed)

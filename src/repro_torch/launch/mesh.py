@@ -15,9 +15,15 @@ tensors through host memory for gloo, explicitly, by backend.
 directory, never a fixed port, so several groups can run side by side.
 
 Training runs on a data x model ``Mesh`` (``make_mesh``, the counterpart
-of the reference's ``make_mesh_from_config``): ``axis_group(axes)`` is
-the group a collective over those mesh axes runs on.  Only model = 1 is
-ported: the data axis is the whole world and the model axis one rank.
+of the reference's ``make_mesh_from_config``): rank r is (data rank,
+model rank) = divmod(r, model), the device order of the reference's
+``jax.make_mesh((D, M), ("data", "model"))``, and ``axis_group(axes)`` is
+the group a collective over those mesh axes runs on: the M ranks of one
+data index for ("model",), the D ranks of one model index for
+("data",), the world for both.  A ``TPGroup`` carries its process group
+(``pg``, None for the default: the world) and its members' global ranks,
+so every exchange of ``core.collectives`` runs on it.  pod > 1 is not
+ported.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import pickle
 import tempfile
 import traceback
 from pathlib import Path
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,11 +46,20 @@ BACKENDS = ("nccl", "gloo")
 @dataclasses.dataclass(frozen=True)
 class TPGroup:
     """Rank ``rank`` of a tensor-parallel group of ``world`` ranks over
-    ``backend``; ``device`` is where this rank's model tensors live."""
+    ``backend``; ``device`` is where this rank's model tensors live.
+    ``pg`` is the ``torch.distributed`` process group (None: the default
+    group, the whole world) and ``ranks`` its members' global ranks in
+    group-rank order (None: the identity)."""
     rank: int
     world: int
     backend: Optional[str]
     device: torch.device
+    pg: Any = dataclasses.field(default=None, compare=False, repr=False)
+    ranks: Optional[Tuple[int, ...]] = None
+
+    def global_rank(self, r: int) -> int:
+        """The global rank of group rank ``r``."""
+        return r if self.ranks is None else self.ranks[r]
 
 
 def solo(device="cpu") -> TPGroup:
@@ -60,43 +75,87 @@ def mesh_config(*, model: int = 1) -> MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A data x model mesh of ranks (``MeshConfig`` sizes, pod = 1) as
-    seen from one rank: ``group`` is that rank in the whole world (None
-    at one rank), ``data_rank`` its index on the data axis."""
+    """A data x model mesh of ranks (``MeshConfig`` sizes; ``make_mesh``
+    builds pod = 1 only) as seen from one rank: ``group`` is that rank in
+    the whole world (None at one rank); ``groups`` its sub-groups by axis
+    ("data", "model"), where neither spans one rank or the world."""
     data: int
     model: int
     group: Optional[TPGroup]
+    groups: Dict[str, TPGroup] = dataclasses.field(default_factory=dict,
+                                                   compare=False)
+    pod: int = 1
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Each mesh axis's size."""
+        return {"data": self.data, "model": self.model, "pod": self.pod}
+
+    @property
+    def index(self) -> Dict[str, int]:
+        """This rank's index on each mesh axis."""
+        return {"data": self.data_rank, "model": self.model_rank, "pod": 0}
 
     @property
     def data_rank(self) -> int:
         return 0 if self.group is None else self.group.rank // self.model
 
+    @property
+    def model_rank(self) -> int:
+        return 0 if self.group is None else self.group.rank % self.model
+
     def size(self, axes: Sequence[str]) -> int:
-        sizes = {"data": self.data, "model": self.model, "pod": 1}
         n = 1
         for a in axes:
-            n *= sizes[a]
+            n *= self.shape[a]
         return n
 
     def axis_group(self, axes: Sequence[str]) -> Optional[TPGroup]:
         """The group of a collective over mesh ``axes``: None (every
-        collective the identity) where they span one rank, else the whole
-        world (at model = 1 every axis of size > 1 is the data axis)."""
-        return None if self.size(axes) == 1 else self.group
+        collective the identity) where they span one rank, the world
+        where they span it, else the sub-group of the one axis of size
+        > 1 that holds this rank (its ranks in data-major order, as the
+        reference's axis tuples order them)."""
+        n = self.size(axes)
+        if n == 1:
+            return None
+        if n == self.data * self.model:
+            return self.group
+        (axis,) = [a for a in axes if self.size((a,)) > 1]
+        return self.groups[axis]
 
 
 def make_mesh(mc: MeshConfig, tg: Optional[TPGroup] = None) -> Mesh:
     """The ``Mesh`` of ``mc`` whose ranks are ``tg``'s world (``tg`` None
-    or a one-rank group at 1 x 1)."""
-    if mc.model > 1 or mc.pod > 1:
+    or a one-rank group at 1 x 1).  Where both axes exceed one rank,
+    every rank creates every sub-group (``torch.distributed.new_group``,
+    collective) in one fixed order: the model groups by data index, then
+    the data groups by model index."""
+    if mc.pod > 1:
         raise NotImplementedError(
-            f"mesh {mc.data}x{mc.model} (pod {mc.pod}): training at model > 1"
-            " waits for its slice (ROADMAP.md, queue 1, item 4)")
+            f"mesh {mc.pod}x{mc.data}x{mc.model}: pod > 1 waits for its slice"
+            " (ROADMAP.md, queue 1, item 4)")
     world = 1 if tg is None else tg.world
     if world != mc.data * mc.model:
         raise ValueError(f"mesh {mc.data}x{mc.model} needs "
                          f"{mc.data * mc.model} ranks, got {world}")
-    return Mesh(mc.data, mc.model, None if world == 1 else tg)
+    if world == 1:
+        return Mesh(mc.data, mc.model, None)
+    groups: Dict[str, TPGroup] = {}
+    if mc.data > 1 and mc.model > 1:
+        di, mi = divmod(tg.rank, mc.model)
+        members = {"model": [[d * mc.model + m for m in range(mc.model)]
+                             for d in range(mc.data)],
+                   "data": [[d * mc.model + m for d in range(mc.data)]
+                            for m in range(mc.model)]}
+        for axis, mine in (("model", di), ("data", mi)):
+            for i, ranks in enumerate(members[axis]):
+                pg = torch.distributed.new_group(ranks, backend=tg.backend)
+                if i == mine:
+                    groups[axis] = TPGroup(ranks.index(tg.rank), len(ranks),
+                                           tg.backend, tg.device, pg,
+                                           tuple(ranks))
+    return Mesh(mc.data, mc.model, tg, groups)
 
 
 def rank_device(device, rank: int) -> torch.device:

@@ -6,7 +6,8 @@ fixed-batch loop (with a VLM's or an encoder-decoder's stub inputs), an
 encoder's memory and cross-attention stores, one layer's SSM and MoE
 functions, the compressed
 collectives and their differentiable wrappers on given inputs, the fused
-gradient sync, and training steps at data = world, each on weights or inputs
+gradient sync, the vocab-sharded loss, and training steps on any data x
+model mesh, each on weights or inputs
 handed in, for a check against another implementation (the CPU tests
 hold them against the JAX reference).  The module imports torch and the
 port only, so a spawned rank never imports more.  (``launch/serve.py
@@ -36,11 +37,12 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 
 
 def to_numpy(t: torch.Tensor):
-    """torch -> numpy; bf16 -> ``("bf16", uint16 bits)``."""
+    """torch -> numpy (a copy: the job may go on updating ``t`` in
+    place); bf16 -> ``("bf16", uint16 bits)``."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return ("bf16", t.view(torch.int16).numpy().view(np.uint16))
-    return t.numpy()
+        return ("bf16", t.view(torch.int16).numpy().view(np.uint16).copy())
+    return t.numpy().copy()
 
 
 # ---------------------------------------------------------------------------
@@ -435,12 +437,17 @@ def sync_gradients(tg, trees: List[Dict[str, Any]],
 
 
 def train_steps(tg, cfg, run, mesh_cfg, leaves: List[Any],
-                batches: List[Dict[str, np.ndarray]]) -> Dict[str, Any]:
-    """Training steps at ``mesh_cfg`` (data = world) on the CPU from a
-    whole state (``leaves``: a ``TrainState``'s leaves in JAX's order, see
+                batches: List[Dict[str, np.ndarray]],
+                want: tuple = ()) -> Dict[str, Any]:
+    """Training steps at ``mesh_cfg`` (any data x model mesh of world
+    ranks; ``tg`` None at 1 x 1) on the CPU from a whole (logical) state
+    (``leaves``: a ``TrainState``'s leaves in JAX's order, see
     ``to_tensor``), one step per global batch of ``batches``: each step's
     metrics, step 0's synced gradients (whole leaves, in order) and the
-    compressed collectives' wire counts per step."""
+    compressed collectives' wire counts per step (by kind too).  ``want``
+    may add "hidden": step 0's final-normed hidden state before the step,
+    gathered over model (the data rank's batch slice, the whole
+    sequence); "state": the whole state after step 0 (``full_state``)."""
     from repro_torch.core import tree
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch import mesh as mesh_mod
@@ -450,33 +457,62 @@ def train_steps(tg, cfg, run, mesh_cfg, leaves: List[Any],
     from repro_torch.train import train_step as TS
 
     mesh = mesh_mod.make_mesh(mesh_cfg, tg)
-    table = lm.lm_table(cfg, data=mesh.data, run=run)
+    table = lm.lm_table(cfg, tp=mesh.model, data=mesh.data, run=run)
     state = TS.shard_state(tree.unflatten(
         state_like(table), [to_tensor(a) for a in leaves]), table, mesh)
     step_fn = TS.make_train_step(cfg, run, mesh, table,
                                  total_steps=len(batches))
-    dims = lm.lm_fsdp_dims(table)
     res: Dict[str, Any] = dict(metrics=[], wire=[])
-    for i, b in enumerate(batches):
-        batch = shard_batch({k: to_tensor(v) for k, v in b.items()},
-                            mesh.data_rank, mesh.data)
-        if i == 0:
-            params = tree.map_(lambda x: x.detach().requires_grad_(),
-                               state.params)
-            loss = lm.train_loss(cfg, run, params, batch, mesh, dims)
-            grads = tree.unflatten(params, torch.autograd.grad(
-                loss, tree.leaves(params)))
-            grads = opt_mod.sync_grads(grads, table, mesh, run)
-            grads = tree.map_(lambda g, d: g if d.fsdp_dim is None else
-                              cl.all_gather(g, mesh.group, d.fsdp_dim),
-                              grads, table)
-            res["grads"] = [to_numpy(g) for g in tree.leaves(grads)]
-        cl.wire.reset()
-        state, metrics = step_fn(state, batch)
-        res["metrics"].append({k: float(v) for k, v in metrics.items()})
-        res["wire"].append({k: v for k, v in cl.wire.__dict__.items()
-                            if k != "keep"})
+    synced = []
+    plain_sync = opt_mod.sync_grads
+
+    def keep_sync(*a, **kw):
+        out = plain_sync(*a, **kw)
+        synced.append(out)
+        return out
+    opt_mod.sync_grads = keep_sync
+    try:
+        for i, b in enumerate(batches):
+            batch = shard_batch({k: to_tensor(v) for k, v in b.items()},
+                                mesh.data_rank, mesh.data)
+            if i == 0 and "hidden" in want:
+                with torch.no_grad():
+                    h = lm.train_forward(cfg, run, state.params,
+                                         batch["tokens"], mesh,
+                                         lm.lm_fsdp_dims(table))
+                res["hidden"] = to_numpy(cl.all_gather(
+                    h, mesh.axis_group(("model",)), 1))
+            cl.wire.reset()
+            state, metrics = step_fn(state, batch)
+            res["metrics"].append({k: float(v) for k, v in metrics.items()})
+            res["wire"].append(cl.wire.snapshot())
+            if i == 0:
+                res["grads"] = [to_numpy(g) for g in tree.leaves(
+                    TS.full_tree(synced[0], table, mesh))]
+                if "state" in want:
+                    res["state"] = [to_numpy(x) for x in tree.leaves(
+                        TS.full_state(state, table, mesh))]
+    finally:
+        opt_mod.sync_grads = plain_sync
+    for w in res["wire"]:
+        w.pop("keep", None)
     return res
+
+
+def xent(tg, cfg, run, x, head, labels) -> Dict[str, Any]:
+    """``models.lm.chunked_xent`` of this rank's shards (its contiguous
+    sequence shard of ``x`` (B, S, D), its vocab shard of ``head`` (D,
+    Vp); bf16 pairs) with the whole ``labels`` (B, S): the rank's loss sum
+    and its gradient with respect to both shards."""
+    from repro_torch.models import lm
+
+    n, r = cl.world(tg), cl.rank(tg)
+    xs = to_tensor(x).chunk(n, dim=1)[r].clone().requires_grad_()
+    hs = to_tensor(head).chunk(n, dim=1)[r].clone().requires_grad_()
+    loss = lm.chunked_xent(cfg, run, xs, hs, to_tensor(labels), tg)
+    loss.backward()
+    return dict(loss=float(loss.detach()), gx=to_numpy(xs.grad),
+                ghead=to_numpy(hs.grad))
 
 
 def fsdp_gather(tg, trees: List[Dict[str, Any]], codec) -> Dict[str, Any]:

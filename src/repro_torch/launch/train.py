@@ -1,23 +1,31 @@
-"""End-to-end trainer (ports ``repro/launch/train.py``): FSDP over data
-ranks with LEXI-compressed weight gathers and gradient sync,
-checkpoint/restart fault tolerance, straggler monitoring.
+"""End-to-end trainer (ports ``repro/launch/train.py``): a data x model
+mesh (FSDP over data ranks, tensor and sequence parallelism over model
+ranks) with LEXI-compressed weight and activation gathers and gradient
+sync, checkpoint/restart fault tolerance, straggler monitoring.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-1.8b \\
         --reduced --mesh 2x1 --device cpu --steps 8 --batch 4 --seq 32 \\
         --ckpt-dir /tmp/ckpt --ckpt-every 4 [--simulate-failure 6]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-1.8b \\
+        --reduced --mesh 1x2 --device cpu --steps 8 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-1.8b \\
         --no-reduced --mesh 2x1 --steps 3 --batch 4 --seq 512
 
 ``--mesh DxM`` runs D x M ranks, one process each (``launch.mesh.spawn``)
 joined over ``--dist-backend``: gloo (the CPU, or several ranks sharing
 one card: NCCL refuses two ranks on one device) or nccl (one card a
-rank); the default is gloo where ranks share a device, else nccl.  Only
-M = 1 is ported (the dense family, the megatron strategy).  It runs on
-the card unless given ``--device cpu``.  Every rank runs the same loop
-in lockstep and restarts with the others after a failure; rank 0 prints
-and writes the checkpoints (the whole state, gathered from the ranks).
-``--reduced`` (the default) trains ``make_reduced(cfg)``, ``--no-reduced``
-the published width.  Weights are a seeded random init.
+rank); the default is gloo where ranks share a device, else nccl.  Rank
+r is (data rank, model rank) = divmod(r, M).  The dense family trains
+under the megatron tp strategy; the fsdp strategy is reached through
+``RunConfig(tp_strategy="fsdp")`` and ``train_loop`` only, as the
+reference's CLI has no flag for it.  It runs on the card unless given
+``--device cpu``.  Every rank runs the same loop in lockstep and
+restarts with the others after a failure; rank 0 prints and writes the
+checkpoints (the whole logical state, gathered from the ranks), which
+restore at the same M only: the padded vocabulary depends on it.
+``--reduced`` (the default) trains ``make_reduced(cfg, tp=M)``,
+``--no-reduced`` the published width.  Weights are a seeded random init,
+the same model at every M (``train_step.init_state``'s ``base``).
 """
 
 from __future__ import annotations
@@ -52,10 +60,25 @@ def state_like(table) -> TS.TrainState:
         torch.empty((), device="meta"), shapes, shapes, shapes))
 
 
+def restore_state(ckpt_dir: str, table, mesh, dev) -> TS.TrainState:
+    """The latest checkpoint under ``ckpt_dir`` cut to this rank's shards
+    on ``dev``; a checkpoint written at another model size M does not fit
+    ``table`` (its padded vocabulary and heads depend on M) and raises."""
+    try:
+        whole = ckpt_mod.restore(ckpt_dir, state_like(table))
+    except ValueError as e:
+        raise ValueError(
+            f"{ckpt_dir}: the checkpoint does not fit the mesh's table "
+            f"({e}); a checkpoint restores at the model size (tp) it was "
+            f"written at, here {mesh.model}: the padded vocabulary "
+            f"({table['embed'].shape[0]} rows here) depends on it") from e
+    return tree.map_(lambda x: x.to(dev), TS.shard_state(whole, table, mesh))
+
+
 def _save(ckpt_dir: str, step: int, state, table, mesh, log) -> None:
     """Every rank gathers the whole state; rank 0 writes it."""
     whole = TS.full_state(state, table, mesh)
-    if mesh.data_rank == 0:
+    if mesh.group is None or mesh.group.rank == 0:
         path = ckpt_mod.save(ckpt_dir, step, whole)
         sz = ckpt_mod.stored_size(ckpt_dir, step)
         log(f"[ckpt] step {step} -> {path} "
@@ -76,18 +99,18 @@ def train_loop(cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
     and ``history``: each step's loss, grad_norm, lr, clip_scale and ms."""
     mesh = mesh_mod.make_mesh(mesh_cfg, tg)
     dev = resolve_device(device if tg is None else tg.device)
-    table = lm.lm_table(cfg, data=mesh_cfg.data, run=run)
+    table = lm.lm_table(cfg, tp=mesh_cfg.model, data=mesh_cfg.data,
+                        run=run)
     step_fn = TS.make_train_step(cfg, run, mesh, table, total_steps=steps)
     data = data_mod.for_config(cfg, shape, seed=run.seed)
 
     start = 0
-    state = TS.init_state(table, seed=run.seed, device=dev, mesh=mesh)
+    state = TS.init_state(table, seed=run.seed, device=dev, mesh=mesh,
+                          base=lm.lm_table(cfg))
     if resume and ckpt_dir and (ckpt_mod.latest_step(ckpt_dir) is not None):
         start = ckpt_mod.latest_step(ckpt_dir)
         del state
-        whole = ckpt_mod.restore(ckpt_dir, state_like(table))
-        state = tree.map_(lambda x: x.to(dev),
-                          TS.shard_state(whole, table, mesh))
+        state = restore_state(ckpt_dir, table, mesh, dev)
         log(f"[train] resumed from step {start}")
 
     mon = fault.StragglerMonitor(
@@ -130,7 +153,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL, e.g. 2x1")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL, e.g. 2x1 or 1x2")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--codec", default="full",
@@ -159,8 +183,6 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     if d * m == 1:
         return _run(None, cfg, shape, mesh_cfg, run, args)
-    if m > 1:                              # before spawning anything
-        mesh_mod.make_mesh(mesh_cfg)
     backend = args.dist_backend or (
         "nccl" if dev.type == "cuda"
         and torch.cuda.device_count() >= d * m else "gloo")

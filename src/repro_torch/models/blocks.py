@@ -25,8 +25,15 @@ memory and reduce-scatters its partial (``repro/models/blocks.py:
 161-176``).  Decode activations are replicated (B, 1, D) and the
 partials are psum'd in bf16.
 
-Training (FSDP over the data ranks, model = 1): ``gather_fsdp`` gathers
-a layer's sharded weights before its forward, LEXI-packed on the wire.
+Training: ``gather_fsdp`` gathers a layer's sharded weights before its
+forward, LEXI-packed on the wire, over the data ranks (the megatron
+strategy) or over ("data", "model") (the fsdp strategy, whose blocks
+then run with ``tg`` None: no model-axis collective).  The prefill
+path's gathers (``collectives.lexi_all_gather``) and reduce-scatters
+(``collectives.psum_scatter``) are differentiable, so ``block_forward``
+with ``tg`` trains: sequence parallelism, the gathers' backward a raw
+reduce-scatter and the reduce-scatters' a raw all-gather
+(``repro/models/blocks.py:136-191``).
 
 At tp = 1 the port drops the collectives.  The reference's gather still
 round-trips activations through ``fixed.compress``/``decompress`` there,
@@ -88,21 +95,23 @@ def block_table(cfg: ModelConfig, tp: int = 1, cross: bool = False) -> Dict:
     return t
 
 
-# Mesh axes parameter shards live on (and are gathered over); the fsdp
-# strategy, which adds "model", is not ported (ROADMAP queue 1, item 4).
-FSDP_AXES = ("data",)
+def fsdp_axes(run: RunConfig):
+    """Mesh axes parameter shards live on (and are gathered over)."""
+    return ("data", "model") if run.tp_strategy == "fsdp" else ("data",)
 
 
 def gather_fsdp(params, dims, run: RunConfig, mesh, in_scan: bool = True):
-    """All-gather the FSDP-sharded leaves of ``params`` over the data
-    ranks of ``mesh`` (a ``launch.mesh.Mesh``), differentiably: with
-    ``codec.weights`` on, a bf16 leaf goes through ``lexi_all_gather``
+    """All-gather the FSDP-sharded leaves of ``params`` over the ranks of
+    ``mesh`` (a ``launch.mesh.Mesh``) on ``fsdp_axes(run)``,
+    differentiably: with ``codec.weights`` on, a bf16 leaf goes through
+    ``lexi_all_gather``
     (LEXI-packed on the wire when ``codec.enabled``; the reference's
     gather is plain otherwise, as ``CodecConfig.weights_only()`` has it),
     every other leaf through a plain gather; the backward of either is a
-    raw reduce-scatter of the cotangent.  ``dims`` indexes the stacked
+    raw reduce-scatter of the cotangent; the bytes are labelled ``fsdp``
+    in ``collectives.wire.kinds``.  ``dims`` indexes the stacked
     table, so a layer's leaf (``in_scan``) gathers one dim lower."""
-    tg = mesh.axis_group(FSDP_AXES)
+    tg = mesh.axis_group(fsdp_axes(run))
     plain = dataclasses.replace(run.codec, enabled=False)
 
     def one(w, d):
@@ -113,7 +122,7 @@ def gather_fsdp(params, dims, run: RunConfig, mesh, in_scan: bool = True):
         ax = d - 1 if in_scan else d
         codec = run.codec if run.codec.weights and \
             w.dtype == torch.bfloat16 else plain
-        return cl.lexi_all_gather(w, tg, codec, gather_axis=ax)
+        return cl.lexi_all_gather(w, tg, codec, gather_axis=ax, kind="fsdp")
 
     return one(params, dims)
 
@@ -122,9 +131,10 @@ def _gather(h: torch.Tensor, run: RunConfig, tg, groups: int = 1,
             kind: str = "all_gather") -> torch.Tensor:
     """A prefill mixer's or FFN's entry: the sequence-sharded normed
     activations gathered, LEXI-compressed on the wire (each of ``groups``
-    groups of sequences on its own; ``kind`` labels the bytes)."""
-    return cl.compressed_all_gather(h, tg, run.codec, gather_axis=1,
-                                    groups=groups, kind=kind)
+    groups of sequences on its own; ``kind`` labels the bytes);
+    differentiable."""
+    return cl.lexi_all_gather(h, tg, run.codec, gather_axis=1,
+                              groups=groups, kind=kind)
 
 
 def _reduce(y: torch.Tensor, tg, prefill: bool) -> torch.Tensor:

@@ -13,13 +13,19 @@ are reduce-scattered over the sequence in prefill (the trunk's
 sequence-sharded layout) or summed in decode; logits stay vocab-sharded
 (``serve.engine.greedy_token`` reduces them).
 
-Training (model = 1; the megatron strategy): ``lm_table(..., data=D,
-run=run)`` FSDP-shards the table over D data ranks, ``train_forward`` is
-the train path of ``lm_forward`` (each layer's weights gathered, LEXI-
-packed, then its block, both under activation checkpointing) and
-``train_loss`` the rank's share of the global mean next-token loss
-(``chunked_xent``).  Not ported: the fsdp strategy's seq <-> batch
-all_to_alls and training at model > 1.
+Training on a data x model mesh (``launch.mesh.Mesh``): ``lm_table(cfg,
+tp=M, data=D, run=run)`` is the reference's table -- under the megatron
+strategy the tp table FSDP-sharded over the D data ranks; under the fsdp
+strategy the blocks built at tp = 1 and sharded over ("data", "model")
+(("model",) at D = 1), the embedding and the head vocab-sharded over
+model.  ``train_forward`` is the train path of ``lm_forward`` (each
+layer's weights gathered, LEXI-packed, then its block, both under
+activation checkpointing): at M > 1 the rank's sequence shard goes
+through the blocks' tp path (megatron), or a raw all-to-all moves the
+batch from sequence- to batch-sharded and back around blocks that run
+locally (fsdp).  ``train_loss`` is the rank's share of the global mean
+next-token loss (``chunked_xent``: vocab-sharded, and at M > 1 tp = 1's
+function, not the reference's; ROADMAP.md section 3, item 9).
 """
 
 from __future__ import annotations
@@ -31,44 +37,60 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import collectives as cl
 from . import attention, blocks, layers
-from .params import PDef, apply_fsdp, fsdp_dims, stack
+from .params import PDef, apply_fsdp, fsdp_dims, stack, strip_model_specs
 
 
 def lm_table(cfg: ModelConfig, tp: int = 1, data: int = 1,
              run: Optional[RunConfig] = None) -> Dict:
     """The parameter table at ``tp`` model ranks; with ``run`` (training)
-    its leaves FSDP-sharded over ``data`` ranks when ``run.fsdp``."""
+    on a ``data`` x ``tp`` mesh: under ``run.tp_strategy`` "megatron" its
+    leaves FSDP-sharded over ``data`` ranks when ``run.fsdp``; under
+    "fsdp" the blocks built at tp = 1 (their "model" specs stripped) and
+    sharded over ("data", "model") (("model",) at data = 1), the
+    embedding and the head kept vocab-sharded over model
+    (``repro/models/lm.py:33-128``)."""
     vp = cfg.padded_vocab(tp)
     d = cfg.d_model
+    fsdp_mode = run is not None and run.tp_strategy == "fsdp"
+    tp_blocks = 1 if fsdp_mode else tp
     t: Dict = {
         "embed": PDef((vp, d), "normal:0.02", spec=("model", None)),
         "final_norm": PDef((d,), "ones"),
     }
     if cfg.encdec:
-        t["enc_blocks"] = stack(blocks.block_table(cfg, tp), cfg.n_layers)
+        t["enc_blocks"] = stack(blocks.block_table(cfg, tp_blocks),
+                                cfg.n_layers)
         t["enc_norm"] = PDef((d,), "ones")
-    t["blocks"] = stack(blocks.block_table(cfg, tp, cross=cfg.encdec),
-                        cfg.n_layers)
+    t["blocks"] = stack(blocks.block_table(cfg, tp_blocks,
+                                           cross=cfg.encdec), cfg.n_layers)
     if not cfg.tie_embeddings:
         t["lm_head"] = PDef((d, vp), "normal:0.02", spec=(None, "model"))
-    if run is not None and run.tp_strategy == "fsdp":
-        raise NotImplementedError(
-            f"{cfg.name}: the fsdp tp_strategy waits for its slice "
-            "(ROADMAP.md, queue 1, item 4)")
-    if run is not None and run.fsdp and data > 1:
+    if fsdp_mode:
+        for key in ("blocks", "enc_blocks"):
+            if key in t:
+                t[key] = strip_model_specs(t[key])
+        t = apply_fsdp_tree(t, data * tp, run, ("data", "model")
+                            if data > 1 else ("model",))
+    elif run is not None and run.fsdp and data > 1:
         t = apply_fsdp_tree(t, data, run)
     return t
 
 
-def apply_fsdp_tree(t: Dict, data: int, run: RunConfig) -> Dict:
-    """FSDP over ``data`` ranks: the stacked blocks never on their layer
-    dim, the embedding and the head on their largest free dim."""
+def apply_fsdp_tree(t: Dict, n: int, run: RunConfig,
+                    axes=("data",)) -> Dict:
+    """FSDP over the ``n`` ranks of mesh ``axes``: the stacked blocks
+    never on their layer dim; under the megatron strategy the embedding
+    and the head too, on their largest free dim (the fsdp strategy keeps
+    them vocab-sharded only)."""
     out = dict(t)
-    out["blocks"] = apply_fsdp(t["blocks"], data, run.fsdp_min_size,
-                               skip_dim0=True)
-    for key in ("embed", "lm_head"):
+    for key in ("blocks", "enc_blocks"):
         if key in out:
-            out[key] = apply_fsdp(out[key], data, run.fsdp_min_size)
+            out[key] = apply_fsdp(out[key], n, run.fsdp_min_size,
+                                  skip_dim0=True, axes=axes)
+    if run.tp_strategy != "fsdp":
+        for key in ("embed", "lm_head"):
+            if key in out:
+                out[key] = apply_fsdp(out[key], n, run.fsdp_min_size)
     return out
 
 
@@ -238,7 +260,7 @@ def lm_forward(cfg: ModelConfig, run: RunConfig, params,
 
 
 # ---------------------------------------------------------------------------
-# training (model = 1)
+# training
 # ---------------------------------------------------------------------------
 
 def gathered_embed(params, dims, run: RunConfig, mesh) -> torch.Tensor:
@@ -260,14 +282,35 @@ def gathered_head(cfg: ModelConfig, params, dims, run: RunConfig,
 
 
 def chunked_xent(cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
-                 head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Cross entropy in sequence chunks of ``run.loss_chunk``: x (B,S,D)
-    bf16, head (D, Vp), labels (B,S) -> the f32 SUM of the token losses.
-    Padded vocab columns are masked to NEG_INF; the max shift carries no
-    gradient (``detach``, the reference's ``stop_gradient``)."""
+                 head: torch.Tensor, labels: torch.Tensor,
+                 tg=None) -> torch.Tensor:
+    """Vocab-sharded cross entropy in sequence chunks of ``run.loss_chunk``:
+    x (B, S/tp, D) bf16 (the rank's sequence shard), head (D, Vp/tp) (its
+    vocab shard), labels (B, S) (the whole sequence) -> the f32 SUM of
+    the token losses of the rank's own S/tp positions.  Padded vocab
+    columns are masked to NEG_INF at the rank's offset; the max shift
+    carries no gradient (``detach``, the reference's ``stop_gradient``).
+
+    At tp > 1 (Megatron's vocab-parallel cross entropy) x is gathered
+    over the group (``lexi_all_gather``, its bytes labelled ``loss``), the
+    rank's logits cover all S positions of its vocab shard, the max is a
+    ``pmax`` and the exp-sums and target logits a ``psum`` (differentiable:
+    its backward psums the cotangents), so every rank holds each token's
+    whole log-sum-exp; each rank then sums only its own positions (the
+    others masked to 0, so every chunk's psum is in every rank's backward
+    too), and the sum over ranks counts every token once: tp = 1's
+    function.  The
+    reference's ``chunked_xent`` (``repro/models/lm.py:167-204``) psums
+    each rank's partials of its own positions with the other ranks'
+    partials of theirs, mixing tokens (ROADMAP.md section 3, item 9)."""
+    tp, me = cl.world(tg), cl.rank(tg)
+    if tp > 1:
+        x = cl.lexi_all_gather(x, tg, run.codec, gather_axis=1, kind="loss")
     b, s, _ = x.shape
     v = head.shape[1]
-    col_ok = torch.arange(v, device=x.device) < cfg.vocab_size
+    off = me * v
+    col_ok = off + torch.arange(v, device=x.device) < cfg.vocab_size
+    lo, hi = me * (s // tp), (me + 1) * (s // tp)
     c = min(run.loss_chunk, s)
     if s % c:
         raise ValueError(f"sequence {s} is not a multiple of the loss "
@@ -277,11 +320,21 @@ def chunked_xent(cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
         logits = layers.softcap(layers.matmul_f32(x[:, c0:c0 + c], head),
                                 cfg.final_softcap)
         logits = torch.where(col_ok, logits, layers.NEG_INF)
-        mx = logits.detach().max(-1).values
+        mx = cl.pmax(logits.detach().max(-1).values, tg)
         se = torch.exp(logits - mx[..., None]).sum(-1)
-        idx = labels[:, c0:c0 + c].to(torch.int64).clamp(0, v - 1)
-        tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
-        total = total + (torch.log(se) + mx - tgt).sum()
+        idx = labels[:, c0:c0 + c].to(torch.int64) - off
+        ok = (idx >= 0) & (idx < v)
+        tgt = torch.gather(logits, -1, idx.clamp(0, v - 1)[..., None])[..., 0]
+        tgt = torch.where(ok, tgt, 0.0)
+        if tp > 1:
+            se, tgt = cl.psum(torch.stack([se, tgt]), tg).unbind(0)
+        loss = torch.log(se) + mx - tgt
+        if tp > 1:
+            # every chunk stays in every rank's graph (masked, not
+            # skipped), so every rank runs each chunk's psum backward
+            pos = torch.arange(c0, c0 + c, device=x.device)
+            loss = torch.where((pos >= lo) & (pos < hi), loss, 0.0)
+        total = total + loss.sum()
     return total
 
 
@@ -299,24 +352,41 @@ def unbind_layers(stacked, n_layers: int) -> list:
 
 def train_forward(cfg: ModelConfig, run: RunConfig, params,
                   tokens: torch.Tensor, mesh, dims: Dict) -> torch.Tensor:
-    """The train path of ``lm_forward`` at model = 1: tokens (B, S) ->
-    the final-normed hidden state (B, S, D).  Each layer gathers its
-    FSDP-sharded weights (``blocks.gather_fsdp``) and runs its block;
-    with ``run.remat`` both run under ``torch.utils.checkpoint`` (the
+    """The train path of ``lm_forward``: tokens (B, S) (every model rank
+    of a data index the same) -> the final-normed hidden state of the
+    rank's sequence shard (B, S/tp, D).  Each layer gathers its
+    FSDP-sharded weights (``blocks.gather_fsdp``) and runs its block; with
+    ``run.remat`` both run under ``torch.utils.checkpoint`` (the
     reference's ``jax.checkpoint`` of its scan body), so the backward
-    gathers each layer's weights again."""
+    gathers each layer's weights again.  At tp > 1 the embedding is
+    reduce-scattered over the sequence; under the megatron strategy the
+    shard goes through the blocks' tp path, under fsdp a raw all-to-all
+    moves (B, S/tp, D) to (B/tp, S, D), the blocks run locally, and a
+    second moves it back (``repro/models/lm.py:277-350``)."""
     import torch.utils.checkpoint as ckpt
 
-    s = tokens.shape[1]
+    b, s = tokens.shape
+    tg = mesh.axis_group(("model",))
+    tp = cl.world(tg)
+    if s % tp:
+        raise ValueError(f"sequence {s} does not split over model {tp}")
+    fsdp_mode = run.tp_strategy == "fsdp" and tp > 1
+    if fsdp_mode and b % tp:
+        raise ValueError(f"tp_strategy=fsdp needs the per-data-rank batch "
+                         f"{b} divisible by model={tp}")
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     spec = attention.base_attn_spec(cfg)
     wins = attention.layer_windows(cfg)
-    x = embed_tokens(cfg, gathered_embed(params, dims, run, mesh), tokens)
+    x = embed_tokens(cfg, gathered_embed(params, dims, run, mesh), tokens,
+                     tg, scatter=True)
+    if fsdp_mode:
+        x = cl.all_to_all(x, tg, split_axis=0, concat_axis=1)
+    btg = None if fsdp_mode else tg
 
     def body(p_layer, xb, win):
         p = blocks.gather_fsdp(p_layer, dims["blocks"], run, mesh)
         return blocks.block_forward(cfg, run, p, xb, positions, spec,
-                                    window=win)[0]
+                                    window=win, tg=btg)[0]
 
     for i, p_layer in enumerate(unbind_layers(params["blocks"],
                                               cfg.n_layers)):
@@ -325,14 +395,17 @@ def train_forward(cfg: ModelConfig, run: RunConfig, params,
             x = ckpt.checkpoint(body, p_layer, x, win, use_reentrant=False)
         else:
             x = body(p_layer, x, win)
+    if fsdp_mode:
+        x = cl.all_to_all(x, tg, split_axis=1, concat_axis=0)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def train_loss(cfg: ModelConfig, run: RunConfig, params, batch: Dict,
                mesh, dims: Dict) -> torch.Tensor:
-    """This data rank's share of the global mean next-token loss: its
-    token-loss sum over the GLOBAL token count.  No collective reduces
-    the loss inside autograd (the reference's rule: the caller sums the
+    """This rank's share of the global mean next-token loss: the token-loss
+    sum of its data rank's batch slice and its own sequence shard over
+    the GLOBAL token count (B * S * data).  No collective reduces the
+    loss value inside autograd (the reference's rule: the caller sums the
     ranks' values outside it); the sharded leaves' gradients come from
     the gathers' reduce-scatters, the replicated ones are summed by
     ``train.optimizer.sync_grads``."""
@@ -340,5 +413,6 @@ def train_loss(cfg: ModelConfig, run: RunConfig, params, batch: Dict,
     x = train_forward(cfg, run, params, tokens, mesh, dims)
     head = gathered_head(cfg, params, dims, run, mesh)
     b, s = tokens.shape
-    return chunked_xent(cfg, run, x, head, labels) / (
+    return chunked_xent(cfg, run, x, head, labels,
+                        mesh.axis_group(("model",))) / (
         b * s * mesh.size(("data",)))

@@ -8,8 +8,9 @@ bridged tree and the reference compare leaf for leaf.  A leaf's ``spec``
 names the mesh axis that shards each dim, as the reference's
 PartitionSpecs do: "model" (tensor parallelism; ``shard_params`` cuts a
 whole tree into rank ``ti``'s local tensors) and, in a training table,
-"data" on the dim that ``apply_fsdp`` picks for FSDP (``fsdp_dim``;
-``shard_data`` cuts a whole tree into data rank ``di``'s shards).
+"data" on the dim that ``apply_fsdp`` picks for FSDP (``fsdp_dim``), or
+the axis tuple ("data", "model") under the fsdp tp_strategy
+(``shard_data`` cuts a whole tree into mesh rank (di, mi)'s shards).
 """
 
 from __future__ import annotations
@@ -29,10 +30,10 @@ class PDef:
     shape: Tuple[int, ...]
     init: str = "normal"              # normal | zeros | ones | normal:<std>
     dtype: torch.dtype = torch.bfloat16
-    # the mesh axis ("model" or "data") sharding each dim, else None;
-    # () = replicated
-    spec: Tuple[Optional[str], ...] = ()
-    fsdp_dim: Optional[int] = None    # the "data" dim, set by apply_fsdp
+    # the mesh axis ("model" or "data") or axes (("data", "model"), data
+    # major) sharding each dim, else None; () = replicated
+    spec: Tuple[Any, ...] = ()
+    fsdp_dim: Optional[int] = None    # the FSDP dim, set by apply_fsdp
 
 
 Table = Dict[str, Any]   # nested dict with PDef leaves
@@ -56,34 +57,51 @@ def spec_of(d: PDef) -> Tuple[Optional[str], ...]:
     return d.spec if d.spec else (None,) * len(d.shape)
 
 
+def entry_axes(sp) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, an axis, or a tuple)."""
+    if sp is None:
+        return ()
+    return tuple(sp) if isinstance(sp, tuple) else (sp,)
+
+
 def spec_axes(d: PDef) -> Tuple[str, ...]:
     """The mesh axes that shard ``d`` (the reference's ``_spec_axes``)."""
-    return tuple(sp for sp in spec_of(d) if sp is not None)
+    return tuple(a for sp in spec_of(d) for a in entry_axes(sp))
 
 
-def apply_fsdp(table: Table, data_size: int, min_size: int,
-               skip_dim0: bool = False) -> Table:
+def apply_fsdp(table: Table, n: int, min_size: int,
+               skip_dim0: bool = False, axes: Tuple[str, ...] = ("data",)
+               ) -> Table:
     """Shard the largest eligible replicated dim of every leaf of at least
-    ``min_size`` elements over "data" (ties: the first such dim); a leaf
-    with no replicated dim that ``data_size`` divides stays as it is.
-    ``skip_dim0``: never the leading (layer) dim of a stacked table (the
-    reference's ``lm._fsdp_skip_scan_dim``)."""
+    ``min_size`` elements over the ``n`` ranks of mesh ``axes`` (ties:
+    the first such dim); a leaf with no replicated dim that ``n`` divides
+    stays as it is.  ``skip_dim0``: never the leading (layer) dim of a
+    stacked table (the reference's ``lm._fsdp_skip_scan_dim``).  The
+    spec entry is the axis, or the axis tuple where there are several."""
+    entry = axes[0] if len(axes) == 1 else tuple(axes)
 
     def one(d: PDef) -> PDef:
         if math.prod(d.shape) < min_size:
             return d
         spec = spec_of(d)
         cands = [(dim, s) for dim, (s, sp) in enumerate(zip(d.shape, spec))
-                 if sp is None and s % data_size == 0 and s > 1
+                 if sp is None and s % n == 0 and s > 1
                  and not (skip_dim0 and dim == 0)]
         if not cands:
             return d
         dim = max(cands, key=lambda c: c[1])[0]
         return dataclasses.replace(
-            d, spec=tuple("data" if i == dim else sp
+            d, spec=tuple(entry if i == dim else sp
                           for i, sp in enumerate(spec)), fsdp_dim=dim)
 
     return tmap(one, table)
+
+
+def strip_model_specs(table: Table) -> Table:
+    """The table with every "model" spec entry replaced by None (the fsdp
+    tp_strategy's blocks: built at tp = 1, sharded by ``apply_fsdp``)."""
+    return tmap(lambda d: dataclasses.replace(d, spec=tuple(
+        None if sp == "model" else sp for sp in d.spec)), table)
 
 
 def fsdp_dims(table: Table) -> Any:
@@ -91,16 +109,26 @@ def fsdp_dims(table: Table) -> Any:
     return tmap(lambda d: d.fsdp_dim, table)
 
 
-def shard_data(params: Any, table: Table, data: int, di: int) -> Any:
-    """Data rank ``di``'s shards of a whole tree: each leaf with an FSDP
-    dim cut there into ``data`` contiguous chunks, chunk ``di`` kept (a
-    copy); the others as they are (replicated)."""
+def shard_data(params: Any, table: Table, sizes: Dict[str, int],
+               index: Dict[str, int]) -> Any:
+    """Mesh rank ``index``'s shards of a whole tree (``sizes`` and
+    ``index``: each mesh axis's size and this rank's index on it): each
+    leaf cut along every sharded dim into as many contiguous chunks as
+    its axes have ranks, the rank's chunk kept (an axis tuple counts
+    data major, as the reference's mesh orders it); a replicated leaf
+    as it is."""
     if isinstance(table, PDef):
         t = params if isinstance(params, torch.Tensor) else _to_tensor(params)
-        if table.fsdp_dim is None or data == 1:
-            return t
-        return torch.chunk(t, data, dim=table.fsdp_dim)[di].clone()
-    return {k: shard_data(params[k], v, data, di) for k, v in table.items()}
+        cut = False
+        for dim, sp in enumerate(spec_of(table)):
+            n, i = 1, 0
+            for a in entry_axes(sp):
+                n, i = n * sizes[a], i * sizes[a] + index[a]
+            if n > 1:
+                t, cut = torch.chunk(t, n, dim=dim)[i], True
+        return t.clone() if cut else t
+    return {k: shard_data(params[k], v, sizes, index)
+            for k, v in table.items()}
 
 
 def shard_dim(d: PDef) -> Optional[int]:
@@ -126,13 +154,7 @@ def shard_params(params: Any, table: Table, tp: int, ti: int) -> Any:
     chunks, chunk ``ti`` kept (a copy); replicated leaves as they are.
     The padded query heads of the reference's ``row`` kv mode come with
     the tree, as the reference initialised them."""
-    if isinstance(table, PDef):
-        t = params if isinstance(params, torch.Tensor) else _to_tensor(params)
-        i = shard_dim(table)
-        if i is None or tp == 1:
-            return t
-        return torch.chunk(t, tp, dim=i)[ti].clone()
-    return {k: shard_params(params[k], v, tp, ti) for k, v in table.items()}
+    return shard_data(params, table, {"model": tp}, {"model": ti})
 
 
 def init_params(table: Table, generator: torch.Generator,

@@ -47,8 +47,10 @@ def init_opt_state(params: Any) -> OptState:
 def sync_grads(grads: Any, table: Any, mesh, run: RunConfig) -> Any:
     """Sum each leaf over the mesh axes its spec does NOT shard: the
     sharded dims were reduced by the gathers' backward reduce-scatters,
-    the replicated leaves still hold per-rank partials.  The all-gather
-    half of each sum is LEXI-compressed when ``codec.grads`` is on."""
+    the replicated leaves still hold per-rank partials (at model > 1 the
+    norms' partials of the rank's sequence shard or batch slice).  The
+    all-gather half of each sum is LEXI-compressed when ``codec.grads``
+    is on (its bytes labelled ``grads``)."""
 
     def one(g, d):
         covered = set(spec_axes(d))
@@ -57,7 +59,7 @@ def sync_grads(grads: Any, table: Any, mesh, run: RunConfig) -> Any:
             return g
         tg = mesh.axis_group(axes)
         if run.codec.enabled and run.codec.grads:
-            return cl.compressed_psum(g, tg, run.codec)
+            return cl.compressed_psum(g, tg, run.codec, kind="grads")
         return cl.psum(g, tg)
 
     return tree.map_(one, grads, table)

@@ -8,8 +8,9 @@ the sharded leaves' gradients), the replicated leaves' gradients summed
 over the ranks (``optimizer.sync_grads``), then AdamW on the rank's
 shards.  The reported loss is the ranks' shares summed outside autograd.
 
-Scope: the dense family (qwen*, codeqwen, gemma2) at model = 1 with the
-megatron strategy; ``check_train`` refuses the rest.
+Scope: the dense family (qwen*, codeqwen, gemma2) on a data x model mesh
+(pod = 1) under both tp strategies, megatron and fsdp; ``check_train``
+refuses the rest.
 """
 
 from __future__ import annotations
@@ -33,11 +34,13 @@ class TrainState(NamedTuple):
 def check_train(cfg: ModelConfig, mesh, run: RunConfig) -> None:
     """Raise for what this slice's trainer does not cover, naming its
     ROADMAP.md item."""
-    where = "waits for its slice (ROADMAP.md, queue 1, item 4)"
-    if mesh.model > 1:
-        raise NotImplementedError(f"training at model = {mesh.model} {where}")
-    if run.tp_strategy == "fsdp":
-        raise NotImplementedError(f"the fsdp tp_strategy {where}")
+    if mesh.pod > 1:
+        raise NotImplementedError(
+            f"training at pod = {mesh.pod} waits for its slice (ROADMAP.md, "
+            "queue 1, item 4)")
+    if run.tp_strategy not in ("megatron", "fsdp"):
+        raise ValueError(f"unknown tp_strategy {run.tp_strategy!r}")
+    where = "waits for its slice (ROADMAP.md, queue 1, item 4.2)"
     for what, on in (("MoE", cfg.moe is not None),
                      ("SSM and hybrid", cfg.ssm is not None
                       or cfg.n_heads == 0),
@@ -66,7 +69,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh, table,
         grads = tree.unflatten(params, torch.autograd.grad(
             local_loss, tree.leaves(params)))
         del params
-        # the global mean loss: every rank's share summed once
+        # the global mean loss: every rank's share summed once, over
+        # every mesh axis
         loss = cl.psum(local_loss.detach(), loss_group)
         grads = opt_mod.sync_grads(grads, table, mesh, run)
         new_params, new_opt, metrics = opt_mod.adamw_update(
@@ -76,36 +80,63 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh, table,
     return train_step
 
 
-def init_state(table, seed: int = 0, device="cpu", mesh=None) -> TrainState:
+def init_state(table, seed: int = 0, device="cpu", mesh=None,
+               base=None) -> TrainState:
     """Seeded random params (``params.init_params`` of the whole table on
     ``device``, so every rank draws the same numbers) cut to this rank's
-    shards, and a fresh optimizer state."""
+    shards, and a fresh optimizer state.  ``base`` (the model's tp = 1
+    table, ``lm.lm_table(cfg)``): the draw is ``base``'s, each leaf
+    zero-padded at the end of every dim to ``table``'s shape (the padded
+    vocabulary rows and query heads, as ``params.pad_for_tp`` pads), so
+    a seed is the same model at every model size."""
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
-    params = PM.init_params(table, gen, device=device)
+    params = PM.init_params(table if base is None else base, gen,
+                            device=device)
+    if base is not None:
+        params = tree.map_(_pad_to, params, table)
     if mesh is not None:
-        params = PM.shard_data(params, table, mesh.data, mesh.data_rank)
+        params = PM.shard_data(params, table, mesh.shape, mesh.index)
     return TrainState(params, opt_mod.init_opt_state(params))
 
 
+def _pad_to(x: torch.Tensor, d) -> torch.Tensor:
+    """``x`` zero-padded at the end of each dim to ``d.shape``."""
+    if tuple(x.shape) == tuple(d.shape):
+        return x
+    out = x.new_zeros(d.shape)
+    out[tuple(slice(0, n) for n in x.shape)] = x
+    return out
+
+
 def shard_state(state: TrainState, table, mesh) -> TrainState:
-    """A whole (logical) state cut to this rank's shards: params, master,
-    m and v alike."""
-    cut = lambda t: PM.shard_data(t, table, mesh.data, mesh.data_rank)
+    """A whole (logical) state cut to this rank's shards on both mesh
+    axes: params, master, m and v alike."""
+    cut = lambda t: PM.shard_data(t, table, mesh.shape, mesh.index)
     o = state.opt
     return TrainState(cut(state.params), o._replace(
         master=cut(o.master), m=cut(o.m), v=cut(o.v)))
 
 
-def full_state(state: TrainState, table, mesh) -> TrainState:
-    """The whole (logical) state from every rank's shards (a plain
-    all-gather along each sharded leaf's FSDP dim); every rank calls this
-    together."""
-    tg = mesh.axis_group(("data",))
+def full_tree(t, table, mesh):
+    """The whole (logical) leaves of a tree of this rank's shards: each
+    sharded dim gathered (a plain all-gather) over its spec entry's mesh
+    axes, a tuple over the world in its data-major order; every rank
+    calls this together."""
+    def whole(x, d):
+        for dim, sp in enumerate(PM.spec_of(d)):
+            tg = mesh.axis_group(PM.entry_axes(sp))
+            if tg is not None:
+                x = cl.all_gather(x, tg, dim)
+        return x
+    return tree.map_(whole, t, table)
 
-    def whole(t):
-        return tree.map_(lambda x, d: x if d.fsdp_dim is None
-                         else cl.all_gather(x, tg, d.fsdp_dim), t, table)
+
+def full_state(state: TrainState, table, mesh) -> TrainState:
+    """The whole (logical) state from every rank's shards, the
+    model-sharded leaves gathered too, so a checkpoint holds the logical
+    arrays, as the reference's does; every rank calls this together."""
     o = state.opt
+    whole = lambda t: full_tree(t, table, mesh)
     return TrainState(whole(state.params), o._replace(
         master=whole(o.master), m=whole(o.m), v=whole(o.v)))
 

@@ -347,10 +347,11 @@ def test_train_scope_raises():
             TS.check_train(get_config(arch), mesh, run)
     cfg = make_reduced(get_config("qwen1.5-1.8b"))
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        TS.check_train(cfg, Mesh(1, 2, None), run)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        lm.lm_table(cfg, run=RunConfig(tp_strategy="fsdp"))
+        TS.check_train(cfg, Mesh(1, 2, None, pod=2), run)
+    with pytest.raises(ValueError, match="tp_strategy"):
+        TS.check_train(cfg, Mesh(1, 2, None),
+                       RunConfig(tp_strategy="pipeline"))
     from repro_torch.configs.base import MeshConfig
     from repro_torch.launch.mesh import make_mesh
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        make_mesh(MeshConfig(data=1, model=2, pod=1))
+        make_mesh(MeshConfig(data=1, model=2, pod=2))
